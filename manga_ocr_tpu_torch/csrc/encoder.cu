@@ -1,0 +1,292 @@
+// Encoder kernels: the pieces of the int8 attention layer (kernel A) and the
+// int8 MLP block (kernel B) of the ViT encoder.
+//
+// Replaces (Pallas, TPU):
+//   A  manga_ocr_tpu/ops/flash_attention.py  fused_attn_layer -> _attn_layer_kernel
+//      -> _attn_core: x + O(SDPA(LN1(x))) with W8A8 q/k/v/o projections;
+//   B  manga_ocr_tpu/ops/fused_mlp.py  fused_mlp_block -> _kernel_int8:
+//      x + fc2(GELU(fc1(LN2(x)))) with W8A8 fc1/fc2.
+//
+// The TPU kernels keep a whole batch block and every weight in VMEM and run
+// one kernel per layer half.  Here each layer half is a short chain of
+// kernels that share three building blocks:
+//
+//   ln_quant_rows  one block per row: optional LN (f32 stats) then per-row
+//                  int8 quantization.  The row max spans the whole row, so
+//                  B's second quantization (over 3072 GELU outputs) runs
+//                  after fc1 has written its f32 output.  Bound: bytes
+//                  (reads 2-4 B, writes 1 B per element).
+//   int8_gemm      int8 x int8 -> int32 on the tensor cores
+//                  (mma.sync m16n8k32), 128x128x64 tiles in shared memory,
+//                  fused f32 epilogue  y = (acc * sx[m]) * sw[n] + b[n]
+//                  then: bf16 out | sigmoid-GELU f32 out | bf16 out + bf16
+//                  residual.  The int32 sums are exact, so only epilogue
+//                  rounding can differ from the plain version.  Bound: at
+//                  B=256 (M = 50432) the products are large; this simple
+//                  single-stage tile loop is bound by its own load latency
+//                  well below the int8 tensor-core peak.  Pipelined loads
+//                  (cp.async / TMA) and wgmma are the next steps.
+//   attention      one block per (batch row, head): K and V of that head in
+//                  shared memory, one warp per query row, f32 scores of bf16
+//                  products scaled by 1/sqrt(dh), keys >= valid_len masked,
+//                  softmax exp(s - max) * (1/sum), p rounded to bf16, PV in
+//                  f32.  Bound: exp and shared-memory reads; S=197 fits a
+//                  head's K/V (51 KB) whole, so no online softmax is needed.
+//
+// Not carried over from the TPU kernel: the batch-group blocking against
+// VMEM, the 197 -> 200 sequence pad (the port runs S = 197 unpadded; the
+// valid_len mask is kept for padded callers).
+#include "common.cuh"
+
+using namespace mocr;
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// LN + per-row int8 quantization
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void ln_quant_rows_kernel(const T* __restrict__ x, const float* __restrict__ ln_scale,
+                                     const float* __restrict__ ln_bias, int do_ln, float eps,
+                                     int8_t* __restrict__ q, float* __restrict__ sx, int K) {
+  extern __shared__ float row[];
+  __shared__ float red[32];
+  const long base = (long)blockIdx.x * K;
+  for (int i = threadIdx.x; i < K; i += blockDim.x) row[i] = to_f32(x[base + i]);
+  __syncthreads();
+  if (do_ln) block_layer_norm(row, row, K, ln_scale, ln_bias, eps, red);
+  float m = 0.0f;
+  for (int i = threadIdx.x; i < K; i += blockDim.x) m = fmaxf(m, fabsf(row[i]));
+  const float amax = fmaxf(block_max(m, red), 1e-8f);
+  const float inv = 127.0f / amax;
+  for (int i = threadIdx.x; i < K; i += blockDim.x)
+    q[base + i] = (int8_t)__float2int_rn(__fmul_rn(row[i], inv));
+  if (threadIdx.x == 0) sx[blockIdx.x] = __fmul_rn(amax, kInv127);
+}
+
+// ---------------------------------------------------------------------------
+// int8 GEMM: out[M, N] = epilogue(A[M, K] . B_t[N, K]^T)
+// ---------------------------------------------------------------------------
+
+constexpr int BM = 128, BN = 128, BK = 64, LDS = BK + 16;  // 80-byte smem rows
+constexpr int GEMM_THREADS = 256;
+
+enum Epilogue { kBf16 = 0, kGeluF32 = 1, kResidualBf16 = 2 };
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__global__ void __launch_bounds__(GEMM_THREADS)
+int8_gemm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ Bt,
+                 const float* __restrict__ sx, const float* __restrict__ sw,
+                 const float* __restrict__ bias, const __nv_bfloat16* __restrict__ res,
+                 void* __restrict__ out, int M, int N, int K, int mode) {
+  __shared__ __align__(16) int8_t As[BM * LDS];
+  __shared__ __align__(16) int8_t Bs[BN * LDS];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int warp_m = warp >> 2, warp_n = warp & 3;  // 2 x 4 warps: 64 x 32 each
+  const int g = lane >> 2, tq = lane & 3;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+
+  int acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
+
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    // 128 rows x 64 bytes per operand = 512 16-byte chunks; 2 per thread
+#pragma unroll
+    for (int it = 0; it < 2; ++it) {
+      const int c = tid + it * GEMM_THREADS;
+      const int row = c >> 2, col = (c & 3) * 16;
+      int4 va = make_int4(0, 0, 0, 0), vb = make_int4(0, 0, 0, 0);
+      if (m0 + row < M) va = *reinterpret_cast<const int4*>(A + (long)(m0 + row) * K + k0 + col);
+      if (n0 + row < N) vb = *reinterpret_cast<const int4*>(Bt + (long)(n0 + row) * K + k0 + col);
+      *reinterpret_cast<int4*>(As + row * LDS + col) = va;
+      *reinterpret_cast<int4*>(Bs + row * LDS + col) = vb;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kb = 0; kb < BK; kb += 32) {
+      uint32_t af[4][4], bfr[4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = warp_m * 64 + i * 16 + g;
+        af[i][0] = *reinterpret_cast<const uint32_t*>(As + r * LDS + kb + tq * 4);
+        af[i][1] = *reinterpret_cast<const uint32_t*>(As + (r + 8) * LDS + kb + tq * 4);
+        af[i][2] = *reinterpret_cast<const uint32_t*>(As + r * LDS + kb + 16 + tq * 4);
+        af[i][3] = *reinterpret_cast<const uint32_t*>(As + (r + 8) * LDS + kb + 16 + tq * 4);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = warp_n * 32 + j * 8 + g;
+        bfr[j][0] = *reinterpret_cast<const uint32_t*>(Bs + n * LDS + kb + tq * 4);
+        bfr[j][1] = *reinterpret_cast<const uint32_t*>(Bs + n * LDS + kb + 16 + tq * 4);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], af[i], bfr[j]);
+    }
+    __syncthreads();
+  }
+
+  // epilogue: c0/c1 at (row g, cols 2tq, 2tq+1), c2/c3 at row g + 8
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = m0 + warp_m * 64 + i * 16 + g + half * 8;
+      if (m >= M) continue;
+      const float sxm = sx[m];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + warp_n * 32 + j * 8 + tq * 2;
+        if (n >= N) continue;
+        float y0 = __fadd_rn(__fmul_rn(__fmul_rn((float)acc[i][j][half * 2], sxm), sw[n]), bias[n]);
+        float y1 = __fadd_rn(__fmul_rn(__fmul_rn((float)acc[i][j][half * 2 + 1], sxm), sw[n + 1]),
+                             bias[n + 1]);
+        const long o = (long)m * N + n;
+        if (mode == kGeluF32) {
+          *reinterpret_cast<float2*>(static_cast<float*>(out) + o) =
+              make_float2(gelu_sigmoid(y0), gelu_sigmoid(y1));
+        } else {
+          if (mode == kResidualBf16) {
+            const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(res + o);
+            y0 = __fadd_rn(__bfloat162float(r.x), bf16_round(y0));
+            y1 = __fadd_rn(__bfloat162float(r.y), bf16_round(y1));
+          }
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + o) =
+              __floats2bfloat162_rn(y0, y1);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Attention core: ctx[b, i, h*dh:(h+1)*dh] = softmax(q k^T * scale) v
+// ---------------------------------------------------------------------------
+
+constexpr int ATTN_THREADS = 256, ATTN_WARPS = ATTN_THREADS / 32, DH_MAX = 128;
+
+__global__ void __launch_bounds__(ATTN_THREADS)
+attention_kernel(const __nv_bfloat16* __restrict__ qkv, float* __restrict__ ctx, int S, int H,
+                 int dh, int valid_len, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int D = H * dh, ldk = dh + 2;  // +2 halves: conflict-free K row reads
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* Vs = Ks + S * ldk;
+  float* qs = reinterpret_cast<float*>(Vs + S * dh);  // [warps][dh]
+  float* ps = qs + ATTN_WARPS * dh;                   // [warps][S]
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long row0 = (long)b * S;
+  const int half_dh = dh / 2;
+
+  for (int idx = threadIdx.x; idx < S * half_dh; idx += ATTN_THREADS) {
+    const int j = idx / half_dh, c = idx % half_dh;
+    const __nv_bfloat16* src = qkv + (row0 + j) * 3 * D + h * dh + 2 * c;
+    *reinterpret_cast<__nv_bfloat162*>(Ks + j * ldk + 2 * c) =
+        *reinterpret_cast<const __nv_bfloat162*>(src + D);
+    *reinterpret_cast<__nv_bfloat162*>(Vs + j * dh + 2 * c) =
+        *reinterpret_cast<const __nv_bfloat162*>(src + 2 * D);
+  }
+  __syncthreads();
+
+  float* q = qs + warp * dh;
+  float* p = ps + warp * S;
+  for (int i = warp; i < S; i += ATTN_WARPS) {
+    for (int d = lane; d < dh; d += 32) q[d] = __bfloat162float(qkv[(row0 + i) * 3 * D + h * dh + d]);
+    __syncwarp();
+    float mx = -INFINITY;
+    for (int j = lane; j < S; j += 32) {
+      const __nv_bfloat162* kr = reinterpret_cast<const __nv_bfloat162*>(Ks + j * ldk);
+      float s = 0.0f;  // bf16 x bf16 products are exact in f32
+      for (int c = 0; c < half_dh; ++c) {
+        const float2 kv = __bfloat1622float2(kr[c]);
+        s += q[2 * c] * kv.x;
+        s += q[2 * c + 1] * kv.y;
+      }
+      s = j < valid_len ? __fmul_rn(s, scale) : kNegInf;
+      p[j] = s;
+      mx = fmaxf(mx, s);
+    }
+    mx = warp_max(mx);
+    float sum = 0.0f;
+    for (int j = lane; j < S; j += 32) {
+      const float e = expf(p[j] - mx);
+      p[j] = e;
+      sum += e;
+    }
+    const float inv = 1.0f / warp_sum(sum);
+    for (int j = lane; j < S; j += 32) p[j] = bf16_round(__fmul_rn(p[j], inv));
+    __syncwarp();
+    for (int d = lane; d < dh; d += 32) {
+      float acc = 0.0f;
+      for (int j = 0; j < S; ++j) acc += p[j] * __bfloat162float(Vs[j * dh + d]);
+      ctx[(row0 + i) * D + h * dh + d] = acc;
+    }
+    __syncwarp();
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+int mocr_ln_quant_rows(const void* x, int x_is_bf16, const void* ln_scale, const void* ln_bias,
+                       int do_ln, float eps, void* q_out, void* sx_out, int M, int K,
+                       void* stream) {
+  const size_t smem = (size_t)K * sizeof(float);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_is_bf16) {
+    ln_quant_rows_kernel<__nv_bfloat16><<<M, 256, smem, st>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(ln_scale),
+        static_cast<const float*>(ln_bias), do_ln, eps, static_cast<int8_t*>(q_out),
+        static_cast<float*>(sx_out), K);
+  } else {
+    ln_quant_rows_kernel<float><<<M, 256, smem, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(ln_scale),
+        static_cast<const float*>(ln_bias), do_ln, eps, static_cast<int8_t*>(q_out),
+        static_cast<float*>(sx_out), K);
+  }
+  return (int)cudaGetLastError();
+}
+
+int mocr_int8_gemm(const void* a, const void* b_t, const void* sx, const void* sw,
+                   const void* bias, const void* residual, void* out, int M, int N, int K,
+                   int mode, void* stream) {
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  int8_gemm_kernel<<<grid, GEMM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(a), static_cast<const int8_t*>(b_t),
+      static_cast<const float*>(sx), static_cast<const float*>(sw),
+      static_cast<const float*>(bias), static_cast<const __nv_bfloat16*>(residual), out, M, N, K,
+      mode);
+  return (int)cudaGetLastError();
+}
+
+int mocr_attention(const void* qkv, void* ctx, int B, int S, int H, int dh, int valid_len,
+                   float scale, void* stream) {
+  if (dh > DH_MAX || dh % 2) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)S * (dh + 2) * 2 + (size_t)S * dh * 2 +
+                      (size_t)ATTN_WARPS * dh * 4 + (size_t)ATTN_WARPS * S * 4;
+  cudaError_t err =
+      cudaFuncSetAttribute(attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  attention_kernel<<<B * H, ATTN_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(qkv), static_cast<float*>(ctx), S, H, dh, valid_len,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,125 @@
+"""Thin launchers for the C entry points of ``csrc/`` (CUDA tensors only).
+
+Each launcher checks device, dtype, shape and contiguity, allocates its
+outputs with ``torch.empty``, launches on PyTorch's current stream and
+raises if the launch reported a CUDA error.  The public kernel wrappers
+(``ops.fused_mlp``, ``ops.flash_attention``, ``ops.decode_loop``) chain them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from manga_ocr_tpu_torch.kernels import build
+
+GEMM_BF16, GEMM_GELU_F32, GEMM_RESIDUAL_BF16 = 0, 1, 2
+
+
+def _expect(t: torch.Tensor, dtype: torch.dtype, shape: tuple, name: str) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def ln_quant_rows(
+    x: torch.Tensor, ln: tuple[torch.Tensor, torch.Tensor] | None = None, eps: float = 1e-12
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """[M, K] bf16 or f32 -> (int8 [M, K], f32 [M]): optional LN, then
+    ``kernel_utils.quant_rows``."""
+    m, k = x.shape
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"ln_quant_rows: expected bf16 or f32, got {x.dtype}")
+    _expect(x, x.dtype, (m, k), "ln_quant_rows x")
+    if ln is not None:
+        for t, name in zip(ln, ("ln scale", "ln bias")):
+            _expect(t, torch.float32, (k,), name)
+    q = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    sx = torch.empty((m,), dtype=torch.float32, device=x.device)
+    lib = build.load()
+    err = lib.mocr_ln_quant_rows(
+        x.data_ptr(), int(x.dtype == torch.bfloat16),
+        ln[0].data_ptr() if ln is not None else None,
+        ln[1].data_ptr() if ln is not None else None,
+        int(ln is not None), float(eps), q.data_ptr(), sx.data_ptr(), m, k,
+        build.stream_ptr(x.device),
+    )
+    build.check(err, "ln_quant_rows")
+    return q, sx
+
+
+def int8_gemm(
+    a: torch.Tensor,
+    b_t: torch.Tensor,
+    sx: torch.Tensor,
+    sw: torch.Tensor,
+    bias: torch.Tensor,
+    mode: int,
+    residual: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """``epilogue((a[M, K] . b_t[N, K]^T) * sx[m] * sw[n] + bias[n])`` with
+    ``mode`` one of GEMM_BF16 (bf16 out), GEMM_GELU_F32 (sigmoid GELU, f32
+    out), GEMM_RESIDUAL_BF16 (bf16 out plus the bf16 ``residual``)."""
+    m, k = a.shape
+    n = b_t.shape[0]
+    if k % 64 or n % 2:
+        raise ValueError(f"int8_gemm: needs K % 64 == 0 and even N, got K={k} N={n}")
+    _expect(a, torch.int8, (m, k), "int8_gemm a")
+    _expect(b_t, torch.int8, (n, k), "int8_gemm b_t")
+    _expect(sx, torch.float32, (m,), "int8_gemm sx")
+    _expect(sw, torch.float32, (n,), "int8_gemm sw")
+    _expect(bias, torch.float32, (n,), "int8_gemm bias")
+    if mode == GEMM_RESIDUAL_BF16:
+        _expect(residual, torch.bfloat16, (m, n), "int8_gemm residual")
+    elif mode not in (GEMM_BF16, GEMM_GELU_F32):
+        raise ValueError(f"int8_gemm: unknown mode {mode}")
+    out_dtype = torch.float32 if mode == GEMM_GELU_F32 else torch.bfloat16
+    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    lib = build.load()
+    err = lib.mocr_int8_gemm(
+        a.data_ptr(), b_t.data_ptr(), sx.data_ptr(), sw.data_ptr(), bias.data_ptr(),
+        residual.data_ptr() if residual is not None else None, out.data_ptr(),
+        m, n, k, mode, build.stream_ptr(a.device),
+    )
+    build.check(err, "int8_gemm")
+    return out
+
+
+def attention(
+    qkv: torch.Tensor, batch: int, seq: int, heads: int, valid_len: int, scale: float
+) -> torch.Tensor:
+    """qkv [B*S, 3D] bf16 (q | k | v) -> ctx [B*S, D] f32."""
+    d = qkv.shape[1] // 3
+    dh = d // heads
+    if dh * heads != d or dh % 2 or dh > 128:
+        raise ValueError(f"attention: head dim {dh} unsupported (even, <= 128)")
+    _expect(qkv, torch.bfloat16, (batch * seq, 3 * d), "attention qkv")
+    ctx = torch.empty((batch * seq, d), dtype=torch.float32, device=qkv.device)
+    lib = build.load()
+    err = lib.mocr_attention(
+        qkv.data_ptr(), ctx.data_ptr(), batch, seq, heads, dh, int(valid_len),
+        float(scale), build.stream_ptr(qkv.device),
+    )
+    build.check(err, "attention")
+    return ctx
+
+
+def decode_loop(
+    ptrs: list[int], ints: list[int], scale: float, eps: float,
+    tokens: torch.Tensor, lengths: torch.Tensor,
+) -> None:
+    """Launch the whole-decode kernel on pointers the caller validated."""
+    lib = build.load()
+    c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    c_ints = (ctypes.c_int * len(ints))(*ints)
+    err = lib.mocr_decode_loop(
+        c_ptrs, len(ptrs), c_ints, len(ints), float(scale), float(eps),
+        tokens.data_ptr(), lengths.data_ptr(), build.stream_ptr(tokens.device),
+    )
+    build.check(err, "greedy_decode_loop")
