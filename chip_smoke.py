@@ -1,17 +1,24 @@
-"""Smoke test of the PyTorch + CUDA serving path on one NVIDIA GPU.
+"""Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
 Run from the repository root:  python3 chip_smoke.py
 
 1. Requires CUDA; prints the card's name and power limit (nvidia-smi).
-2. Builds the kernels of manga_ocr_tpu_torch/csrc with nvcc (sm_90a).
+2. Builds the kernels of manga_ocr_tpu_torch/csrc with nvcc (sm_90a), one
+   nvcc per source, all started together.
 3. Holds each kernel against its plain PyTorch version on the card at the
-   serving shapes (MangaOCRConfig.base(), batch 32 and 256, S=197, D=768),
-   with CUDA-event times of both.
+   shapes its path gives it (MangaOCRConfig.base(), batch 32 and 256,
+   S=197, D=768), with CUDA-event times of both: A, B, C on int8 params;
+   D (three forms), E and F on bf16 params.
 4. Drives TorchMangaOcrEngine at full width (random weights from a numpy
-   seed) through ocr_page on crops from tests/fixtures/eval and through the
-   HTTP server; checks the launch counters, the server's texts against the
-   engine's, and the kernel path's texts against the plain path's; prints
-   the engine's crops/s.
+   seed) through ocr_page on crops from tests/fixtures/eval:
+   - int8 serving (kernels A, B, C), also through the HTTP server;
+   - unquantized serving (quantize_int8=False: kernels E, D, C);
+   checking the launch counters of every kernel, the encoder output and the
+   decode tokens against the plain path's, and printing crops/s on one
+   256-crop page.  Then the step-by-step greedy decode (head_kernel and
+   step_mlp_kernel "fused": kernels F and D) at B=32 over 299 steps, its
+   tokens scored by the plain step decode; and one page through the exact
+   reference path (serving_kernels=False), which must launch no kernel.
 5. Prints one JSON line of kernel results, then the device line
    {"ok": true, "device": {...}} last.  Any failed check exits non-zero
    before the device line.
@@ -58,6 +65,9 @@ DECODE_GAP_REL = 2.0**-6
 # plain decoder then runs on the plain encoder output.
 ENC_STACK_MAX_REL = 2.0**-4
 ENGINE_GAP_REL = 2.0**-5
+# Kernel F returns ids only: an id passes when the plain head's logit there
+# is within this share of the top logit (bf16 near-ties, as for C).
+HEAD_GAP_REL = 2.0**-6
 # Weight std of the random model: the HF-like init.  (With std 0.1 the
 # random network is chaotic: two plain versions that differ only in f32
 # summation order, on the card and on the host, disagree by up to 19% of the
@@ -134,21 +144,99 @@ def check_encoder_kernels(params, cfg, results: dict) -> None:
             ),
         }
         for name, (kern, plain) in cases.items():
-            got, want = kern(), plain()
-            torch.cuda.synchronize()
-            if got.shape != want.shape or not torch.isfinite(got.float()).all():
-                fail(f"{name} B={batch}: shape {tuple(got.shape)} or non-finite output")
-            err = (got.float() - want.float()).abs()
-            max_abs, mean_abs = float(err.max()), float(err.mean())
-            top = float(want.float().abs().max())
-            ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
-            log(f"{name} B={batch}: max_abs_err={max_abs} mean_abs_err={mean_abs} "
-                f"max_abs_out={top} ms={ms} plain_ms={plain_ms}")
-            if max_abs > ENC_MAX_REL * top or mean_abs > ENC_MEAN_REL * top:
-                fail(f"{name} B={batch}: error {max_abs}/{mean_abs} over "
-                     f"{ENC_MAX_REL * top}/{ENC_MEAN_REL * top}")
-            results[name] = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-                             "batch": batch}
+            hold(name, f"B={batch}", kern, plain, results, name)
+
+
+def hold(name: str, label: str, kern, plain, results: dict, key=None) -> None:
+    """One kernel against its plain version on the same inputs: shape,
+    finiteness, max and mean error relative to the largest output, and
+    CUDA-event times of both.  Records the result under ``key``."""
+    import torch
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.isfinite(got.float()).all():
+        fail(f"{name} {label}: shape {tuple(got.shape)} or non-finite output")
+    err = (got.float() - want.float()).abs()
+    max_abs, mean_abs = float(err.max()), float(err.mean())
+    top = float(want.float().abs().max())
+    ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
+    log(f"{name} {label}: max_abs_err={max_abs} mean_abs_err={mean_abs} "
+        f"max_abs_out={top} ms={ms} plain_ms={plain_ms}")
+    if max_abs > ENC_MAX_REL * top or mean_abs > ENC_MEAN_REL * top:
+        fail(f"{name} {label}: error {max_abs}/{mean_abs} over "
+             f"{ENC_MAX_REL * top}/{ENC_MEAN_REL * top}")
+    if key is not None:
+        results[key] = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+
+
+def check_bf16_kernels(params, cfg, results: dict) -> None:
+    """Kernels D (encoder pre-LN on [B*197, 768]; the step forms pre_ln=False
+    and post_ln on [B, 768]), E and F against their plain versions at B=32
+    and 256, on bf16 params."""
+    import torch
+
+    from manga_ocr_tpu_torch.ops import flash_attention as fa
+    from manga_ocr_tpu_torch.ops import fused_head as fh
+    from manga_ocr_tpu_torch.ops import fused_mlp as fm
+
+    ecfg, dcfg = cfg.encoder, cfg.decoder
+    enc, dl = params["encoder"]["layers"], params["decoder"]["layers"]
+    e_w = (enc["mlp"]["fc1"]["kernel"][0], enc["mlp"]["fc1"]["bias"][0],
+           enc["mlp"]["fc2"]["kernel"][0], enc["mlp"]["fc2"]["bias"][0])
+    e_ln = (enc["ln2"]["scale"][0], enc["ln2"]["bias"][0])
+    d_w = (dl["mlp"]["fc1"]["kernel"][0], dl["mlp"]["fc1"]["bias"][0],
+           dl["mlp"]["fc2"]["kernel"][0], dl["mlp"]["fc2"]["bias"][0])
+    d_ln = (dl["mlp_ln"]["scale"][0], dl["mlp_ln"]["bias"][0])
+    t, p = params["decoder"]["head"]["transform"], params["decoder"]["head"]["proj"]
+    head_w = (t["dense"]["kernel"], t["dense"]["bias"], t["ln"]["scale"], t["ln"]["bias"],
+              p["kernel"], p["bias"])
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    s, d = ecfg.seq_len, ecfg.hidden_size
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    for batch in (32, 256):
+        x = randn(batch, s, d)
+        kw = dict(eps=ecfg.layer_norm_eps, gelu_mode=ecfg.gelu_mode)
+        hold("fused_mlp_block_bf16", f"encoder pre-LN B={batch}",
+             lambda: fm.fused_mlp_block_bf16(x, *e_ln, *e_w, **kw),
+             lambda: fm.fused_mlp_block_bf16_reference(x, *e_ln, *e_w, **kw),
+             results, "fused_mlp_block_bf16")
+        rows = randn(batch, d)
+        for label, ln_kw in (("pre_ln=False", dict(pre_ln=False)),
+                             ("post_ln", dict(pre_ln=False, post_ln=True))):
+            hold("fused_mlp_block_bf16", f"step {label} B={batch}",
+                 lambda: fm.fused_mlp_block_bf16(rows, *d_ln, *d_w, **ln_kw),
+                 lambda: fm.fused_mlp_block_bf16_reference(rows, *d_ln, *d_w, **ln_kw),
+                 results)
+        q, k, v = randn(batch, s, d), randn(batch, s, d), randn(batch, s, d)
+        hold("attention_packed", f"B={batch}",
+             lambda: fa.attention_packed(q, k, v, ecfg.num_heads),
+             lambda: fa.attention_packed_reference(q, k, v, ecfg.num_heads),
+             results, "attention_packed")
+
+        h = randn(batch, dcfg.hidden_size)
+        ids = fh.fused_greedy_head(h, *head_w, eps=dcfg.layer_norm_eps)
+        logits = fh.head_logits_reference(h, *head_w, eps=dcfg.layer_norm_eps)
+        torch.cuda.synchronize()
+        if ids.shape != (batch,) or int(((ids < 0) | (ids >= dcfg.vocab_size)).sum()):
+            fail(f"fused_greedy_head B={batch}: bad ids")
+        top = logits.amax(-1)
+        gap = top - logits.gather(1, ids.long()[:, None])[:, 0]
+        rel = float((gap / top.abs()).max())
+        same = float((ids.long() == logits.argmax(-1)).float().mean())
+        ms = cuda_ms(lambda: fh.fused_greedy_head(h, *head_w, eps=dcfg.layer_norm_eps))
+        plain_ms = cuda_ms(lambda: fh.fused_greedy_head_reference(h, *head_w,
+                                                                  eps=dcfg.layer_norm_eps))
+        log(f"fused_greedy_head B={batch}: max gap {float(gap.max())} (rel {rel}), ids equal "
+            f"to the plain argmax {same}; ms={ms} plain_ms={plain_ms}")
+        if rel > HEAD_GAP_REL:
+            fail(f"fused_greedy_head B={batch}: an id {rel} below the top logit "
+                 f"(bound {HEAD_GAP_REL})")
+        results["fused_greedy_head"] = {"max_abs_err": float(gap.max()), "ms": ms,
+                                        "plain_ms": plain_ms}
 
 
 def live_gap_stats(gaps, top, lengths) -> dict:
@@ -258,50 +346,59 @@ def load_crops() -> list:
     return [np.asarray(Image.open(p).convert("RGB"))[..., ::-1].copy() for p in paths]
 
 
-def run_engine(results: dict) -> dict:
-    import torch
-    from PIL import Image
-
-    from manga_ocr_tpu.models.config import MangaOCRConfig
-    from manga_ocr_tpu.models.tokenizer import CharTokenizer
-    from manga_ocr_tpu_torch import serve as srv
-    from manga_ocr_tpu_torch.engine import TorchMangaOcrEngine
-    from manga_ocr_tpu_torch.models.params import init_params
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper of the port, by name; each counts its launches."""
     from manga_ocr_tpu_torch.ops.decode_loop import greedy_decode_loop
-    from manga_ocr_tpu_torch.ops.flash_attention import fused_attn_layer
-    from manga_ocr_tpu_torch.ops.fused_mlp import fused_mlp_block
+    from manga_ocr_tpu_torch.ops.flash_attention import attention_packed, fused_attn_layer
+    from manga_ocr_tpu_torch.ops.fused_head import fused_greedy_head
+    from manga_ocr_tpu_torch.ops.fused_mlp import fused_mlp_block, fused_mlp_block_bf16
 
-    cfg = MangaOCRConfig.base()
-    t0 = time.time()
-    params = init_params(cfg, SEED, "cpu", std=WEIGHT_STD)
-    engine = TorchMangaOcrEngine(params, cfg, CharTokenizer.synthetic(), device="cuda")
-    log(f"engine built in {time.time() - t0:.1f} s")
-    crops = load_crops()
-    engine.ocr_page(crops[:2])  # first call: library load, allocator growth
+    return {w.__name__: w for w in (fused_attn_layer, fused_mlp_block, greedy_decode_loop,
+                                    fused_mlp_block_bf16, attention_packed, fused_greedy_head)}
 
-    wrappers = (fused_attn_layer, fused_mlp_block, greedy_decode_loop)
-    for w in wrappers:
+
+def counted(fn):
+    """Run ``fn`` with every launch count set to 0 just before; return its
+    result and the counts read just after."""
+    import torch
+
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
         w.launches = 0
-    texts = engine.ocr_page(crops)
-    counts = {w.__name__: w.launches for w in wrappers}
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: w.launches for name, w in wrappers.items()}
+
+
+def drive_page(engine, crops, label: str, per_dispatch: dict, results: dict) -> list:
+    """One ocr_page over the fixture crops: launch counts must be
+    ``per_dispatch`` x dispatches (0 for every other kernel), the texts well
+    formed and input-dependent; then the kernel path against the plain
+    path."""
     from manga_ocr_tpu.parallel import batching
 
+    texts, counts = counted(lambda: engine.ocr_page(crops))
     n_dispatch = len(batching.prep_page_gray(crops, 1))
-    log(f"ocr_page over {len(crops)} crops in {n_dispatch} dispatches: launches {counts}")
-    want = {"fused_attn_layer": 12 * n_dispatch, "fused_mlp_block": 12 * n_dispatch,
-            "greedy_decode_loop": n_dispatch}
+    log(f"{label}: ocr_page over {len(crops)} crops in {n_dispatch} dispatches: "
+        f"launches {counts}")
+    want = {name: per_dispatch.get(name, 0) * n_dispatch for name in counts}
     if counts != want:
-        fail(f"launch counts {counts}, expected {want}")
-    for name, n in counts.items():
-        results[name]["launches"] = n
+        fail(f"{label}: launch counts {counts}, expected {want}")
+    for name in per_dispatch:
+        results[name]["launches"] = counts[name]
     if len(texts) != len(crops) or not all(isinstance(t, str) for t in texts):
-        fail("ocr_page returned malformed texts")
+        fail(f"{label}: ocr_page returned malformed texts")
     if len(set(texts)) < 2:
-        fail("every crop decoded to the same text: outputs do not depend on the input")
-    log(f"texts: {texts}")
-    check_page_tokens(engine, crops)
+        fail(f"{label}: every crop decoded to the same text: outputs do not depend on the input")
+    log(f"{label} texts: {texts}")
+    return texts
 
-    # throughput: one 256-crop page (the fixtures cycled), after a warm page
+
+def page_rate(engine, crops, label: str) -> float:
+    """crops/s of ocr_page on one 256-crop page (the fixtures cycled), after a
+    warm page."""
+    import torch
+
     page = [crops[i % len(crops)] for i in range(256)]
     engine.ocr_page(page)
     torch.cuda.synchronize()
@@ -310,9 +407,45 @@ def run_engine(results: dict) -> dict:
     for _ in range(reps):
         engine.ocr_page(page)
     rate = reps * len(page) / (time.perf_counter() - t0)
-    log(f"engine ocr_page 256 crops: {rate} crops/s on {card_line()}")
+    log(f"{label} ocr_page 256 crops: {rate} crops/s on {card_line()}")
+    return rate
 
-    # the HTTP server
+
+def stage_split(engine, crops, label: str) -> None:
+    """CUDA-event times of the largest dispatch of a 256-crop page, split
+    into preprocess, encoder, and cross-K/V + decode."""
+    import torch
+
+    from manga_ocr_tpu.parallel import batching
+    from manga_ocr_tpu_torch.models import model as mdl
+    from manga_ocr_tpu_torch.ops import preprocess as pp
+
+    page = [crops[i % len(crops)] for i in range(256)]
+    b = max(batching.prep_page_gray(page, pp.ORIENT_VERTICAL), key=lambda b: b.crops.shape[0])
+    crops_d = torch.from_numpy(b.crops).cuda()
+    sizes = torch.from_numpy(b.sizes).cuda()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    with torch.inference_mode():
+        for _ in range(2):  # the second run is timed
+            ev[0].record()
+            px = pp.model_preprocess(crops_d, sizes, engine.cfg.encoder.image_size).to(engine.dtype)
+            ev[1].record()
+            enc = mdl.encode(engine.params, px, engine.cfg)
+            ev[2].record()
+            out = mdl.greedy_decode(engine.params, enc, engine.cfg, engine.max_length)
+            ev[3].record()
+            torch.cuda.synchronize()
+    ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    log(f"{label} dispatch B={b.crops.shape[0]} ({b.valid} crops, bucket {b.bucket_hw}): "
+        f"preprocess {ms[0]} ms, encoder {ms[1]} ms, cross-K/V + decode {ms[2]} ms "
+        f"(mean length {float(out.lengths.float().mean())})")
+
+
+def check_server(engine, crops) -> None:
+    from PIL import Image
+
+    from manga_ocr_tpu_torch import serve as srv
+
     httpd = srv.serve(engine, port=0)
     try:
         url = f"http://127.0.0.1:{httpd.server_address[1]}"
@@ -343,7 +476,152 @@ def run_engine(results: dict) -> dict:
     log(f"server /ocr {single} /ocr_batch {batch}")
     if single != direct[:3] or batch != direct:
         fail(f"server texts differ from the engine's: {single} {batch} vs {direct}")
-    return {"crops_per_s": rate}
+
+
+def step_gaps(params, enc, cfg, tokens, lengths) -> dict:
+    """Teacher forcing for the step-by-step decode: the plain step decode
+    (every kernel's plain version, logits from the reference head) fed the
+    kernel run's tokens; at each emitted position, its top logit minus its
+    logit for the kernel's token."""
+    import torch
+
+    from manga_ocr_tpu_torch.models import decoder as dec
+
+    dcfg = cfg.decoder
+    b, steps = tokens.shape[0], tokens.shape[1] - 1
+    cross = dec.precompute_cross_kv(params["decoder"], enc, dcfg)
+    cache = dec.init_cache(dcfg, b, steps + 1, enc.dtype, enc.device)
+    gaps = torch.zeros((b, steps), device=enc.device)
+    top = torch.ones_like(gaps)
+    n = int(lengths.max()) - 1
+    for t in range(n):
+        lg, cache = dec.decode_step(params["decoder"], tokens[:, t], t, cache, cross, dcfg,
+                                    use_kernels=False)
+        top[:, t] = lg.amax(-1)
+        gaps[:, t] = top[:, t] - lg.gather(1, tokens[:, t + 1].long()[:, None])[:, 0]
+    return live_gap_stats(gaps, top, lengths)
+
+
+def run_step_decode(engine, crops, results: dict) -> None:
+    """Path 2: the step-by-step greedy decode with kernels F (head) and D
+    (step MLP, pre_ln=False) at full width, B=32, max length 300, on the
+    unquantized engine's params and encoder output for 32 fixture crops."""
+    import dataclasses
+
+    import torch
+
+    from manga_ocr_tpu.parallel import batching
+    from manga_ocr_tpu_torch.models import model as mdl
+    from manga_ocr_tpu_torch.ops import preprocess as pp
+
+    cfg = engine.cfg
+    cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
+        cfg.decoder, step_kernel="xla", head_kernel="fused", step_mlp_kernel="fused",
+        cross_kv_int8=True, head_phased=False,
+    ))
+    chunk, max_len = 8, cfg.max_length
+    page = [crops[i % len(crops)] for i in range(32)]
+    with torch.inference_mode():
+        px = torch.cat([
+            pp.model_preprocess(torch.from_numpy(b.crops).cuda(), torch.from_numpy(b.sizes).cuda(),
+                                cfg.encoder.image_size)[: b.valid]
+            for b in batching.prep_page_gray(page, pp.ORIENT_VERTICAL)
+        ]).to(engine.dtype)
+        enc = mdl.encode(engine.params, px, cfg)
+        t0 = time.perf_counter()
+        out, counts = counted(lambda: mdl.greedy_decode(engine.params, enc, cfg, max_len, chunk))
+        secs = time.perf_counter() - t0
+        tok, lens = out.tokens, out.lengths
+        if tok.shape != (32, max_len) or int(tok[:, 0].ne(cfg.decoder.bos_token_id).sum()):
+            fail("step decode: bad token matrix")
+        # steps the loop ran: whole chunks until every row has emitted EOS
+        n_chunks = -(-(max_len - 1) // chunk)
+        eos = tok[:, 1:] == cfg.decoder.eos_token_id
+        if bool(eos.any(1).all()):
+            last = int(eos.float().argmax(1).max())
+            n_chunks = min(n_chunks, last // chunk + 1)
+        steps = n_chunks * chunk
+        layers = cfg.decoder.num_layers
+        log(f"step decode B=32: {steps} steps in {secs:.3f} s, launches {counts}, mean length "
+            f"{float(lens.float().mean())}")
+        want = {name: 0 for name in counts}
+        want.update(fused_greedy_head=steps, fused_mlp_block_bf16=layers * steps)
+        if counts != want:
+            fail(f"step decode: launch counts {counts}, expected {want}")
+        results["fused_greedy_head"]["launches"] = counts["fused_greedy_head"]
+        stats = step_gaps(engine.params, enc, cfg, tok, lens)
+        plain = mdl.greedy_decode(engine.params, enc, cfg, max_len, chunk, use_kernels=False)
+        same = float(((plain.tokens == tok).all(1) & (plain.lengths == lens)).float().mean())
+        log(f"step decode B=32: kernel tokens teacher-forced by the plain step decode {stats}; "
+            f"free-running rows identical to the plain decode {same}")
+        if stats["max_rel_gap"] > ENGINE_GAP_REL:
+            fail(f"step decode: a token {stats['max_rel_gap']} below the plain model's maximum "
+                 f"(bound {ENGINE_GAP_REL})")
+
+
+def run_reference_engine(params, crops) -> None:
+    """The exact reference path (serving_kernels=False) on the card: one
+    page, well-formed texts, and no kernel launched."""
+    from manga_ocr_tpu.models.config import MangaOCRConfig
+    from manga_ocr_tpu.models.tokenizer import CharTokenizer
+    from manga_ocr_tpu_torch.engine import TorchMangaOcrEngine
+
+    engine = TorchMangaOcrEngine(params, MangaOCRConfig.base(), CharTokenizer.synthetic(),
+                                 device="cuda", serving_kernels=False)
+    t0 = time.perf_counter()
+    texts, counts = counted(lambda: engine.ocr_page(crops))
+    log(f"reference path: ocr_page over {len(crops)} crops in {time.perf_counter() - t0:.2f} s, "
+        f"launches {counts}; texts {texts}")
+    if any(counts.values()):
+        fail(f"reference path launched kernels: {counts}")
+    if len(texts) != len(crops) or not all(isinstance(t, str) for t in texts):
+        fail("reference path: ocr_page returned malformed texts")
+    if len(set(texts)) < 2:
+        fail("reference path: every crop decoded to the same text")
+
+
+def run_engines(results: dict) -> dict:
+    from manga_ocr_tpu.models.config import MangaOCRConfig
+    from manga_ocr_tpu.models.tokenizer import CharTokenizer
+    from manga_ocr_tpu_torch.engine import TorchMangaOcrEngine
+    from manga_ocr_tpu_torch.models.params import init_params
+
+    cfg = MangaOCRConfig.base()
+    crops = load_crops()
+    params = init_params(cfg, SEED, "cpu", std=WEIGHT_STD)
+    rates = {}
+
+    # -- int8 serving: kernels A, B, C; the HTTP server ------------------------
+    t0 = time.time()
+    engine = TorchMangaOcrEngine(params, cfg, CharTokenizer.synthetic(), device="cuda")
+    log(f"int8 engine built in {time.time() - t0:.1f} s")
+    engine.ocr_page(crops[:2])  # first call: library load, allocator growth
+    drive_page(engine, crops, "int8 engine",
+               {"fused_attn_layer": 12, "fused_mlp_block": 12, "greedy_decode_loop": 1}, results)
+    check_page_tokens(engine, crops)
+    rates["int8"] = page_rate(engine, crops, "int8 engine")
+    stage_split(engine, crops, "int8 engine")
+    check_server(engine, crops)
+    del engine
+
+    # -- unquantized serving: kernels E, D, C -----------------------------------
+    engine = TorchMangaOcrEngine(params, cfg, CharTokenizer.synthetic(), device="cuda",
+                                 quantize_int8=False)
+    engine.ocr_page(crops[:2])
+    drive_page(engine, crops, "bf16 engine",
+               {"attention_packed": 12, "fused_mlp_block_bf16": 12, "greedy_decode_loop": 1},
+               results)
+    check_page_tokens(engine, crops)
+    rates["bf16"] = page_rate(engine, crops, "bf16 engine")
+    stage_split(engine, crops, "bf16 engine")
+
+    # -- the step-by-step decode: kernels F, D ------------------------------------
+    run_step_decode(engine, crops, results)
+    del engine
+
+    # -- the exact reference path: no kernel --------------------------------------
+    run_reference_engine(params, crops)
+    return rates
 
 
 def main() -> int:
@@ -382,27 +660,35 @@ def main() -> int:
                                    torch.bfloat16),
         "decoder": mdl.cast_params(raw["decoder"], torch.bfloat16),
     }
-    del raw
     results: dict = {}
     check_encoder_kernels(params, cfg, results)
     check_decode_kernel(params, cfg, results)
     del params
+    check_bf16_kernels(mdl.cast_params(raw, torch.bfloat16),
+                       with_serving_kernels(MangaOCRConfig.base(), quantized=False), results)
+    del raw
     torch.cuda.empty_cache()
-    engine = run_engine(results)
+    rates = run_engines(results)
 
     src = {"fused_attn_layer": ("manga_ocr_tpu_torch/csrc/encoder.cu",
                                 "manga_ocr_tpu/ops/flash_attention.py:617"),
            "fused_mlp_block": ("manga_ocr_tpu_torch/csrc/encoder.cu",
                                "manga_ocr_tpu/ops/fused_mlp.py:165"),
            "greedy_decode_loop": ("manga_ocr_tpu_torch/csrc/decode_loop.cu",
-                                  "manga_ocr_tpu/ops/decode_loop.py:579")}
+                                  "manga_ocr_tpu/ops/decode_loop.py:579"),
+           "fused_mlp_block_bf16": ("manga_ocr_tpu_torch/csrc/mlp_bf16.cu",
+                                    "manga_ocr_tpu/ops/fused_mlp.py:188"),
+           "attention_packed": ("manga_ocr_tpu_torch/csrc/encoder.cu",
+                                "manga_ocr_tpu/ops/flash_attention.py:197"),
+           "fused_greedy_head": ("manga_ocr_tpu_torch/csrc/fused_head.cu",
+                                 "manga_ocr_tpu/ops/fused_head.py:109")}
     kernels = [
         {"name": name, "route": "cuda", "source": src[name][0], "replaces": src[name][1],
          "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"]}
         for name, r in results.items()
     ]
-    log(f"engine crops_per_s={engine['crops_per_s']}")
+    log(f"engine crops_per_s int8={rates['int8']} bf16={rates['bf16']}")
     log(json.dumps({"kernels": kernels}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

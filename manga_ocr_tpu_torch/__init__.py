@@ -1,13 +1,15 @@
-"""manga_ocr_tpu_torch — the batched manga-ocr serving path in PyTorch + CUDA.
+"""manga_ocr_tpu_torch — the batched manga-ocr engine in PyTorch + CUDA.
 
 A second package beside ``manga_ocr_tpu`` (the JAX reference).  Its layout
 mirrors the JAX package so each module's counterpart is easy to find:
 
 - ``ops/``     — plain-tensor numerics (``kernel_utils``, ``quant``,
-                 ``common``, ``image``, ``preprocess``) and the three kernel
-                 wrappers of the serving path: ``flash_attention``
-                 (encoder attention layer), ``fused_mlp`` (encoder MLP block)
-                 and ``decode_loop`` (the whole greedy decode).
+                 ``common``, ``image``, ``preprocess``) and the kernel
+                 wrappers: ``flash_attention`` (the int8 encoder attention
+                 layer and the packed attention), ``fused_mlp`` (the int8
+                 and bf16 MLP blocks), ``decode_loop`` (the whole greedy
+                 decode) and ``fused_head`` (the greedy LM head of the
+                 step-by-step decode).
 - ``csrc/``    — the hand-written CUDA C++ kernels for Hopper (sm_90a),
                  built on first use by ``kernels/build.py``.
 - ``models/``  — encoder, decoder, the full model, int8 quantization and the

@@ -40,15 +40,15 @@
 //     EOS; the optional ``stops`` force done at t + 2 >= stops[b].
 #include <algorithm>
 
-#include "common.cuh"
+#include "rows.cuh"
 
 using namespace mocr;
 
 namespace {
 
 constexpr int MAX_LAYERS = 4;
-constexpr int DEC_THREADS = 512;
-constexpr int DEC_WARPS = DEC_THREADS / 32;
+constexpr int DEC_THREADS = ROW_THREADS;
+constexpr int DEC_WARPS = ROW_WARPS;
 
 typedef __nv_bfloat16 bf16;
 
@@ -81,97 +81,6 @@ struct DecodeParams {
   int B, D, H, I, V, L, S, steps, bos, eos, pad;
   float scale, eps;
 };
-
-// out[r][n] = sum_k in[r][k] * W[k][n] + bias[n] for r < R.  ``in`` holds
-// bf16-valued floats (rounded by the caller); W is [K, N] row-major bf16.
-template <int R>
-__device__ void gemv(const float* in, int ld_in, const bf16* __restrict__ W,
-                     const float* __restrict__ bias, int K, int N, float* out, int ld_out) {
-  const int half_n = N / 2;
-  const __nv_bfloat162* W2 = reinterpret_cast<const __nv_bfloat162*>(W);
-  for (int p = threadIdx.x; p < half_n; p += blockDim.x) {
-    float acc[R][2];
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[r][0] = acc[r][1] = 0.0f;
-#pragma unroll 16  // 16 independent loads in flight per thread
-    for (int k = 0; k < K; ++k) {
-      const float2 w = __bfloat1622float2(W2[(long)k * half_n + p]);
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float a = in[r * ld_in + k];
-        acc[r][0] += a * w.x;  // bf16 x bf16 products are exact in f32
-        acc[r][1] += a * w.y;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      out[r * ld_out + 2 * p] = acc[r][0] + bias[2 * p];
-      out[r * ld_out + 2 * p + 1] = acc[r][1] + bias[2 * p + 1];
-    }
-  }
-  __syncthreads();
-}
-
-// The head's vocab matmul fused with the argmax: best[r] = first argmax_n of
-// (in[r] . W[:, n] + bias[n]).
-template <int R>
-__device__ void gemv_argmax(const float* in, int ld_in, const bf16* __restrict__ W,
-                            const float* __restrict__ bias, int K, int N, int* best,
-                            float* red_v, int* red_i) {
-  const int half_n = N / 2;
-  const __nv_bfloat162* W2 = reinterpret_cast<const __nv_bfloat162*>(W);
-  float bv[R];
-  int bi[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) { bv[r] = -INFINITY; bi[r] = 0x7fffffff; }
-  for (int p = threadIdx.x; p < half_n; p += blockDim.x) {
-    float acc[R][2];
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[r][0] = acc[r][1] = 0.0f;
-#pragma unroll 16  // 16 independent loads in flight per thread
-    for (int k = 0; k < K; ++k) {
-      const float2 w = __bfloat1622float2(W2[(long)k * half_n + p]);
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float a = in[r * ld_in + k];
-        acc[r][0] += a * w.x;
-        acc[r][1] += a * w.y;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      // columns visited in increasing order: strict > keeps the first max
-      const float v0 = acc[r][0] + bias[2 * p], v1 = acc[r][1] + bias[2 * p + 1];
-      if (v0 > bv[r]) { bv[r] = v0; bi[r] = 2 * p; }
-      if (v1 > bv[r]) { bv[r] = v1; bi[r] = 2 * p + 1; }
-    }
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    float v = bv[r];
-    int i = bi[r];
-    for (int o = 16; o > 0; o >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, v, o);
-      const int oi = __shfl_xor_sync(0xffffffffu, i, o);
-      if (ov > v || (ov == v && oi < i)) { v = ov; i = oi; }
-    }
-    if (lane == 0) { red_v[r * DEC_WARPS + warp] = v; red_i[r * DEC_WARPS + warp] = i; }
-  }
-  __syncthreads();
-  if (threadIdx.x < R) {
-    const int r = threadIdx.x;
-    float v = red_v[r * DEC_WARPS];
-    int i = red_i[r * DEC_WARPS];
-    for (int w = 1; w < DEC_WARPS; ++w) {
-      const float ov = red_v[r * DEC_WARPS + w];
-      const int oi = red_i[r * DEC_WARPS + w];
-      if (ov > v || (ov == v && oi < i)) { v = ov; i = oi; }
-    }
-    best[r] = i;
-  }
-  __syncthreads();
-}
 
 // ctx[d] = sum_j softmax_j(q_h . K[j, h] * scale) V[j, d] for one row, over
 // keys j < n_keys; K/V rows have stride D.  q (f32) is rounded to bf16 in
@@ -259,6 +168,7 @@ decode_loop_kernel(DecodeParams p, int big_n, int ld_scores, int* __restrict__ t
   __shared__ float red_v[R * DEC_WARPS];
   __shared__ int red_i[R * DEC_WARPS];
   __shared__ int prev[R], done[R], lens[R], best[R];
+  __shared__ float best_v[R];
   const int D = p.D;
   float* xs = sm;                  // [R][D]  residual stream (bf16 values)
   float* big = xs + R * D;         // [R][big_n]  q|k|v, MLP hidden, head hidden
@@ -346,18 +256,8 @@ decode_loop_kernel(DecodeParams p, int big_n, int ld_scores, int* __restrict__ t
     }
 
     // -- head: transform, erf GELU, LN, vocab matmul + first-max argmax -------
-    gemv<R>(xs, D, p.twt, p.tbt, D, D, big, big_n);
-    for (int idx = threadIdx.x; idx < R * D; idx += blockDim.x) {
-      float* v = big + (idx / D) * big_n + idx % D;
-      *v = gelu_erf(*v);
-    }
-    __syncthreads();
-    for (int r = 0; r < nrows; ++r) {
-      block_layer_norm(big + r * big_n, ctx + r * D, D, p.hlns, p.hlnb, p.eps, red);
-      for (int d = threadIdx.x; d < D; d += blockDim.x) ctx[r * D + d] = bf16_round(ctx[r * D + d]);
-      __syncthreads();
-    }
-    gemv_argmax<R>(ctx, D, p.wp, p.bp, D, p.V, best, red_v, red_i);
+    head_hidden<R>(xs, D, nrows, p.twt, p.tbt, p.hlns, p.hlnb, D, p.eps, big, big_n, ctx, D, red);
+    gemv_argmax<R>(ctx, D, p.wp, p.V, p.bp, D, 0, p.V, best, best_v, red_v, red_i);
 
     // -- bookkeeping -------------------------------------------------------
     if (threadIdx.x < nrows) {

@@ -1,11 +1,15 @@
-// Encoder kernels: the pieces of the int8 attention layer (kernel A) and the
-// int8 MLP block (kernel B) of the ViT encoder.
+// Encoder kernels: the pieces of the int8 attention layer (kernel A), the
+// int8 MLP block (kernel B) and the packed attention (kernel E) of the ViT
+// encoder.
 //
 // Replaces (Pallas, TPU):
 //   A  manga_ocr_tpu/ops/flash_attention.py  fused_attn_layer -> _attn_layer_kernel
 //      -> _attn_core: x + O(SDPA(LN1(x))) with W8A8 q/k/v/o projections;
 //   B  manga_ocr_tpu/ops/fused_mlp.py  fused_mlp_block -> _kernel_int8:
-//      x + fc2(GELU(fc1(LN2(x)))) with W8A8 fc1/fc2.
+//      x + fc2(GELU(fc1(LN2(x)))) with W8A8 fc1/fc2;
+//   E  manga_ocr_tpu/ops/flash_attention.py  attention_packed -> _packed_kernel:
+//      SDPA alone on q/k/v [B, S, H*dh] straight from the bf16 projections
+//      (the unquantized serving encoder), softmax by division, bf16 out.
 //
 // The TPU kernels keep a whole batch block and every weight in VMEM and run
 // one kernel per layer half.  Here each layer half is a short chain of
@@ -29,13 +33,15 @@
 //   attention      one block per (batch row, head): K and V of that head in
 //                  shared memory, one warp per query row, f32 scores of bf16
 //                  products scaled by 1/sqrt(dh), keys >= valid_len masked,
-//                  softmax exp(s - max) * (1/sum), p rounded to bf16, PV in
-//                  f32.  Bound: exp and shared-memory reads; S=197 fits a
-//                  head's K/V (51 KB) whole, so no online softmax is needed.
+//                  softmax exp(s - max) * (1/sum) for A and exp(s - max) /
+//                  sum for E, p rounded to bf16, PV in f32 (A keeps the f32
+//                  context, E casts it to bf16).  Bound: exp and
+//                  shared-memory reads; S=197 fits a head's K/V (51 KB)
+//                  whole, so no online softmax is needed.
 //
-// Not carried over from the TPU kernel: the batch-group blocking against
-// VMEM, the 197 -> 200 sequence pad (the port runs S = 197 unpadded; the
-// valid_len mask is kept for padded callers).
+// Not carried over from the TPU kernels: the batch-group blocking against
+// VMEM, A's 197 -> 200 and E's 197 -> 256 sequence pads (the port runs
+// S = 197 unpadded; the valid_len mask is kept for padded callers).
 #include "common.cuh"
 
 using namespace mocr;
@@ -174,14 +180,24 @@ int8_gemm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ Bt,
 }
 
 // ---------------------------------------------------------------------------
-// Attention core: ctx[b, i, h*dh:(h+1)*dh] = softmax(q k^T * scale) v
+// Attention core: out[b, i, h*dh:(h+1)*dh] = softmax(q k^T * scale) v
 // ---------------------------------------------------------------------------
 
 constexpr int ATTN_THREADS = 256, ATTN_WARPS = ATTN_THREADS / 32, DH_MAX = 128;
 
+__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// One block per (batch row, head).  q/k/v rows have stride ``ld_in``
+// (kernel A reads the packed q|k|v GEMM output with ld_in = 3D, kernel E
+// three [B, S, D] tensors with ld_in = D).  The softmax normalises with a
+// reciprocal multiply (A's _attn_core) or a division (E's _packed_kernel);
+// the output is f32 (A, which row-quantizes it next) or bf16 (E).
+template <bool kDivide, typename OutT>
 __global__ void __launch_bounds__(ATTN_THREADS)
-attention_kernel(const __nv_bfloat16* __restrict__ qkv, float* __restrict__ ctx, int S, int H,
-                 int dh, int valid_len, float scale) {
+attention_kernel(const __nv_bfloat16* __restrict__ qg, const __nv_bfloat16* __restrict__ kg,
+                 const __nv_bfloat16* __restrict__ vg, int ld_in, OutT* __restrict__ out,
+                 int S, int H, int dh, int valid_len, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int D = H * dh, ldk = dh + 2;  // +2 halves: conflict-free K row reads
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -195,18 +211,18 @@ attention_kernel(const __nv_bfloat16* __restrict__ qkv, float* __restrict__ ctx,
 
   for (int idx = threadIdx.x; idx < S * half_dh; idx += ATTN_THREADS) {
     const int j = idx / half_dh, c = idx % half_dh;
-    const __nv_bfloat16* src = qkv + (row0 + j) * 3 * D + h * dh + 2 * c;
+    const long off = (row0 + j) * ld_in + h * dh + 2 * c;
     *reinterpret_cast<__nv_bfloat162*>(Ks + j * ldk + 2 * c) =
-        *reinterpret_cast<const __nv_bfloat162*>(src + D);
+        *reinterpret_cast<const __nv_bfloat162*>(kg + off);
     *reinterpret_cast<__nv_bfloat162*>(Vs + j * dh + 2 * c) =
-        *reinterpret_cast<const __nv_bfloat162*>(src + 2 * D);
+        *reinterpret_cast<const __nv_bfloat162*>(vg + off);
   }
   __syncthreads();
 
   float* q = qs + warp * dh;
   float* p = ps + warp * S;
   for (int i = warp; i < S; i += ATTN_WARPS) {
-    for (int d = lane; d < dh; d += 32) q[d] = __bfloat162float(qkv[(row0 + i) * 3 * D + h * dh + d]);
+    for (int d = lane; d < dh; d += 32) q[d] = __bfloat162float(qg[(row0 + i) * ld_in + h * dh + d]);
     __syncwarp();
     float mx = -INFINITY;
     for (int j = lane; j < S; j += 32) {
@@ -228,16 +244,34 @@ attention_kernel(const __nv_bfloat16* __restrict__ qkv, float* __restrict__ ctx,
       p[j] = e;
       sum += e;
     }
-    const float inv = 1.0f / warp_sum(sum);
-    for (int j = lane; j < S; j += 32) p[j] = bf16_round(__fmul_rn(p[j], inv));
+    sum = warp_sum(sum);
+    const float inv = 1.0f / sum;
+    for (int j = lane; j < S; j += 32)
+      p[j] = bf16_round(kDivide ? __fdiv_rn(p[j], sum) : __fmul_rn(p[j], inv));
     __syncwarp();
     for (int d = lane; d < dh; d += 32) {
       float acc = 0.0f;
       for (int j = 0; j < S; ++j) acc += p[j] * __bfloat162float(Vs[j * dh + d]);
-      ctx[(row0 + i) * D + h * dh + d] = acc;
+      store_out(out + (row0 + i) * D + h * dh + d, acc);
     }
     __syncwarp();
   }
+}
+
+template <bool kDivide, typename OutT>
+int launch_attention(const void* q, const void* k, const void* v, int ld_in, void* out, int B,
+                     int S, int H, int dh, int valid_len, float scale, cudaStream_t stream) {
+  if (dh > DH_MAX || dh % 2) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)S * (dh + 2) * 2 + (size_t)S * dh * 2 +
+                      (size_t)ATTN_WARPS * dh * 4 + (size_t)ATTN_WARPS * S * 4;
+  cudaError_t err = cudaFuncSetAttribute(attention_kernel<kDivide, OutT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  attention_kernel<kDivide, OutT><<<B * H, ATTN_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), ld_in, static_cast<OutT*>(out), S, H, dh, valid_len,
+      scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -277,16 +311,16 @@ int mocr_int8_gemm(const void* a, const void* b_t, const void* sx, const void* s
 
 int mocr_attention(const void* qkv, void* ctx, int B, int S, int H, int dh, int valid_len,
                    float scale, void* stream) {
-  if (dh > DH_MAX || dh % 2) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)S * (dh + 2) * 2 + (size_t)S * dh * 2 +
-                      (size_t)ATTN_WARPS * dh * 4 + (size_t)ATTN_WARPS * S * 4;
-  cudaError_t err =
-      cudaFuncSetAttribute(attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  attention_kernel<<<B * H, ATTN_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<float*>(ctx), S, H, dh, valid_len,
-      scale);
-  return (int)cudaGetLastError();
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(qkv);
+  const int D = H * dh;
+  return launch_attention<false, float>(q, q + D, q + 2 * D, 3 * D, ctx, B, S, H, dh, valid_len,
+                                        scale, static_cast<cudaStream_t>(stream));
+}
+
+int mocr_attention_packed(const void* q, const void* k, const void* v, void* out, int B, int S,
+                          int H, int dh, int valid_len, float scale, void* stream) {
+  return launch_attention<true, __nv_bfloat16>(q, k, v, H * dh, out, B, S, H, dh, valid_len,
+                                               scale, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

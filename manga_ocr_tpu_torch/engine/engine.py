@@ -8,10 +8,15 @@ decode -> a [lengths | tokens] int32 matrix back to the host -> tokenizer);
 ``perform_ocr(cv_bgr_image, settings)`` keeps the reference's single-crop
 contract with ``"[ERROR: ...]"`` sentinels.
 
+The three single-device configurations of the JAX engine: int8 serving
+(the default: kernels A, B and C), unquantized serving
+(``quantize_int8=False``: kernels E, D and C) and the exact reference path
+(``serving_kernels=False``: reference attention and MLP, the step-by-step
+decode with the reference head).
+
 Not ported (each raises or is absent, see ROADMAP.md): the packed and fused
 multi-bucket wire formats, meshes, the AOT executable store,
-``ocr_page_dual`` (needs ``ocr_preprocess``), unquantized serving, and CUDA
-graph capture.
+``ocr_page_dual`` (needs ``ocr_preprocess``), and CUDA graph capture.
 """
 
 from __future__ import annotations
@@ -72,9 +77,14 @@ class TorchMangaOcrEngine:
     (``models.params.params_from_jax`` / ``init_params``), on any device —
     they are moved to ``device``.  ``device`` is explicit: ``"cuda"`` raises
     when CUDA is unavailable instead of running on the CPU.
-    ``serving_kernels`` / ``quantize_int8`` default on; only that
-    configuration (int8 encoder, kernels A, B and C) is ported, so turning
-    either off raises ``NotImplementedError``."""
+
+    ``serving_kernels`` (default on) selects the serving configuration
+    (``config.with_serving_kernels``); ``quantize_int8`` (default: as
+    ``serving_kernels``) picks its int8 form (encoder quantized, kernels A,
+    B, C) or its unquantized form (bf16 params, kernels E, D, C).
+    ``serving_kernels=False`` runs ``cfg`` as given on params cast to
+    ``dtype``: with ``MangaOCRConfig.base()`` that is the exact reference
+    path."""
 
     def __init__(
         self,
@@ -90,24 +100,28 @@ class TorchMangaOcrEngine:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("TorchMangaOcrEngine: device='cuda' but CUDA is unavailable")
-        if serving_kernels is False or quantize_int8 is False:
-            raise NotImplementedError(
-                "TorchMangaOcrEngine: only the int8 serving configuration is ported "
-                "(serving_kernels=True, quantize_int8=True)"
-            )
-        self.cfg = with_serving_kernels(cfg, quantized=True)
+        if serving_kernels is None:
+            serving_kernels = True
+        if quantize_int8 is None:
+            quantize_int8 = serving_kernels
+        if serving_kernels:
+            cfg = with_serving_kernels(cfg, quantized=bool(quantize_int8))
+        self.cfg = cfg
         self.tokenizer = tokenizer
         self.max_length = max_length or cfg.max_length
         self.dtype = dtype
         params = _params_to(params, self.device)
-        # quantize from the original (pre-cast) weights, as the JAX engine
-        # does; the decoder stays unquantized in the compute dtype
-        self.params = {
-            "encoder": _cast_quantized(
-                quantize_encoder(params["encoder"], quantize_attn_proj=True), dtype
-            ),
-            "decoder": mdl.cast_params(params["decoder"], dtype),
-        }
+        if serving_kernels and quantize_int8:
+            # quantize from the original (pre-cast) weights, as the JAX
+            # engine does; the decoder stays unquantized in the compute dtype
+            self.params = {
+                "encoder": _cast_quantized(
+                    quantize_encoder(params["encoder"], quantize_attn_proj=True), dtype
+                ),
+                "decoder": mdl.cast_params(params["decoder"], dtype),
+            }
+        else:
+            self.params = mdl.cast_params(params, dtype)
         self._lock = threading.Lock()
         self._warmed: set = set()  # (bucket_hw, padded_batch) pairs run once
 

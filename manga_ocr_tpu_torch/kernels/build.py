@@ -1,8 +1,8 @@
 """Build and load the CUDA kernels of ``manga_ocr_tpu_torch/csrc``.
 
-All ``csrc/*.cu`` files compile with ``nvcc`` for Hopper (``sm_90a``) into
-ONE shared library with a plain C interface, loaded with ``ctypes``.  The
-library lands in ``build/manga_ocr_tpu_torch/`` beside the package and is
+Each ``csrc/*.cu`` file compiles with its own ``nvcc`` for Hopper
+(``sm_90a``), all started together, and the objects link into ONE shared
+library with a plain C interface, loaded with ``ctypes``.  The library lands in ``build/manga_ocr_tpu_torch/`` beside the package and is
 keyed by a hash of the sources and flags, so an edited source is rebuilt and
 a stale library is never loaded.  Headers come only from this repository and
 the CUDA toolkit; nothing is downloaded.
@@ -28,7 +28,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "manga_ocr_tpu_torc
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -45,6 +45,15 @@ _SIGNATURES = {
     "mocr_attention": (_P, _P, _I, _I, _I, _I, _I, _F, _P),
     # ptrs, n_ptrs, ints, n_ints, scale, eps, tokens, lengths, stream
     "mocr_decode_loop": (ctypes.POINTER(_P), _I, ctypes.POINTER(_I), _I, _F, _F, _P, _P, _P),
+    # x, ln_scale, ln_bias, eps, y, M, K, stream
+    "mocr_ln_rows_bf16": (_P, _P, _P, _F, _P, _I, _I, _P),
+    # a, b, bias, residual, out, M, N, K, mode, stream
+    "mocr_bf16_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # q, k, v, out, B, S, H, dh, valid_len, scale, stream
+    "mocr_attention_packed": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    # x, wt, bt, lns, lnb, wp, bp, B, D, V, n_split, rows_per_block, eps,
+    # part_v, part_i, ids, stream
+    "mocr_fused_head": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P),
 }
 
 _lock = threading.Lock()
@@ -83,17 +92,36 @@ def build(verbose: bool = False) -> str:
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    # build to a private name, then rename: a concurrent build never loads a
-    # half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-I", CSRC_DIR, "-o", tmp, *_sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    last_build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{last_build_log}")
-    os.replace(tmp, path)
+    nvcc = _nvcc()
+    # objects and the library are built under private names, then the
+    # library is renamed: a concurrent build never loads a half-written one
+    work = tempfile.mkdtemp(dir=BUILD_DIR)
+    try:
+        procs = []
+        for src in _sources():
+            obj = os.path.join(work, os.path.basename(src) + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, *extra, "-I", CSRC_DIR, "-c", "-o", obj, src]
+            procs.append((obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for obj, proc in procs:
+            out, _ = proc.communicate()
+            logs.append(out)
+            if proc.returncode != 0:
+                failed.append(os.path.basename(obj))
+        last_build_log = "".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n{last_build_log}")
+        tmp = os.path.join(work, "lib.so")
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", tmp,
+               *(obj for obj, _ in procs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        last_build_log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{last_build_log}")
+        os.replace(tmp, path)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return path
 
 

@@ -3,7 +3,8 @@
 Each launcher checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on PyTorch's current stream and
 raises if the launch reported a CUDA error.  The public kernel wrappers
-(``ops.fused_mlp``, ``ops.flash_attention``, ``ops.decode_loop``) chain them.
+(``ops.fused_mlp``, ``ops.flash_attention``, ``ops.decode_loop``,
+``ops.fused_head``) chain them.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ import torch
 
 from manga_ocr_tpu_torch.kernels import build
 
-GEMM_BF16, GEMM_GELU_F32, GEMM_RESIDUAL_BF16 = 0, 1, 2
+GEMM_BF16, GEMM_GELU_F32, GEMM_RESIDUAL_BF16 = 0, 1, 2  # int8_gemm epilogues
+BF16_GELU_ERF, BF16_GELU_SIGMOID, BF16_RESIDUAL = 0, 1, 2  # bf16_gemm epilogues
 
 
 def _expect(t: torch.Tensor, dtype: torch.dtype, shape: tuple, name: str) -> None:
@@ -26,6 +28,12 @@ def _expect(t: torch.Tensor, dtype: torch.dtype, shape: tuple, name: str) -> Non
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _expect_aligned(t: torch.Tensor, name: str) -> None:
+    """The kernels read these with 16-byte vector loads."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: expected a 16-byte aligned tensor")
 
 
 def ln_quant_rows(
@@ -123,3 +131,111 @@ def decode_loop(
         tokens.data_ptr(), lengths.data_ptr(), build.stream_ptr(tokens.device),
     )
     build.check(err, "greedy_decode_loop")
+
+
+def ln_rows_bf16(
+    x: torch.Tensor, ln: tuple[torch.Tensor, torch.Tensor], eps: float
+) -> torch.Tensor:
+    """[M, K] bf16 -> bf16 ``ln32(x)`` (f32 statistics, one rounding)."""
+    m, k = x.shape
+    _expect(x, torch.bfloat16, (m, k), "ln_rows_bf16 x")
+    for t, name in zip(ln, ("ln scale", "ln bias")):
+        _expect(t, torch.float32, (k,), name)
+    y = torch.empty_like(x)
+    lib = build.load()
+    err = lib.mocr_ln_rows_bf16(
+        x.data_ptr(), ln[0].data_ptr(), ln[1].data_ptr(), float(eps), y.data_ptr(), m, k,
+        build.stream_ptr(x.device),
+    )
+    build.check(err, "ln_rows_bf16")
+    return y
+
+
+def bf16_gemm(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    bias: torch.Tensor,
+    mode: int,
+    residual: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """``epilogue(a[M, K] . b[K, N] + bias[N])`` in bf16 with f32
+    accumulation; ``mode`` one of BF16_GELU_ERF, BF16_GELU_SIGMOID (the GELU
+    in f32, then bf16) or BF16_RESIDUAL (bf16, then plus the bf16
+    ``residual``)."""
+    m, k = a.shape
+    n = b.shape[1]
+    if k % 32 or n % 8:
+        raise ValueError(f"bf16_gemm: needs K % 32 == 0 and N % 8 == 0, got K={k} N={n}")
+    _expect(a, torch.bfloat16, (m, k), "bf16_gemm a")
+    _expect(b, torch.bfloat16, (k, n), "bf16_gemm b")
+    _expect(bias, torch.float32, (n,), "bf16_gemm bias")
+    _expect_aligned(a, "bf16_gemm a")
+    _expect_aligned(b, "bf16_gemm b")
+    if mode == BF16_RESIDUAL:
+        _expect(residual, torch.bfloat16, (m, n), "bf16_gemm residual")
+    elif mode not in (BF16_GELU_ERF, BF16_GELU_SIGMOID):
+        raise ValueError(f"bf16_gemm: unknown mode {mode}")
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
+    lib = build.load()
+    err = lib.mocr_bf16_gemm(
+        a.data_ptr(), b.data_ptr(), bias.data_ptr(),
+        residual.data_ptr() if residual is not None else None, out.data_ptr(),
+        m, n, k, mode, build.stream_ptr(a.device),
+    )
+    build.check(err, "bf16_gemm")
+    return out
+
+
+def attention_packed(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, valid_len: int, scale: float
+) -> torch.Tensor:
+    """q/k/v [B, S, D] bf16 -> [B, S, D] bf16 context."""
+    b, s, d = q.shape
+    dh = d // heads
+    if dh * heads != d or dh % 2 or dh > 128:
+        raise ValueError(f"attention_packed: head dim {dh} unsupported (even, <= 128)")
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        _expect(t, torch.bfloat16, (b, s, d), f"attention_packed {name}")
+    out = torch.empty_like(q)
+    lib = build.load()
+    err = lib.mocr_attention_packed(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, heads, dh,
+        int(valid_len), float(scale), build.stream_ptr(q.device),
+    )
+    build.check(err, "attention_packed")
+    return out
+
+
+def fused_head(
+    x: torch.Tensor,
+    wt: torch.Tensor,
+    bt: torch.Tensor,
+    lns: torch.Tensor,
+    lnb: torch.Tensor,
+    wp: torch.Tensor,
+    bp: torch.Tensor,
+    eps: float,
+    n_split: int,
+    rows_per_block: int,
+) -> torch.Tensor:
+    """x [B, D] bf16 -> first-argmax ids [B] int32 of the greedy head."""
+    b, d = x.shape
+    v = wp.shape[1]
+    if d % 2 or v % (2 * n_split):
+        raise ValueError(f"fused_head: unsupported D={d}, V={v}, n_split={n_split}")
+    _expect(x, torch.bfloat16, (b, d), "fused_head x")
+    _expect(wt, torch.bfloat16, (d, d), "fused_head wt")
+    _expect(wp, torch.bfloat16, (d, v), "fused_head wp")
+    for t, name, n in ((bt, "bt", d), (lns, "ln scale", d), (lnb, "ln bias", d), (bp, "bp", v)):
+        _expect(t, torch.float32, (n,), f"fused_head {name}")
+    part_v = torch.empty((b, n_split), dtype=torch.float32, device=x.device)
+    part_i = torch.empty((b, n_split), dtype=torch.int32, device=x.device)
+    ids = torch.empty((b,), dtype=torch.int32, device=x.device)
+    lib = build.load()
+    err = lib.mocr_fused_head(
+        x.data_ptr(), wt.data_ptr(), bt.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
+        wp.data_ptr(), bp.data_ptr(), b, d, v, n_split, rows_per_block, float(eps),
+        part_v.data_ptr(), part_i.data_ptr(), ids.data_ptr(), build.stream_ptr(x.device),
+    )
+    build.check(err, "fused_head")
+    return ids

@@ -1,6 +1,13 @@
-"""The full model on the serving path (counterpart of
-``manga_ocr_tpu/models/model.py``): encoder -> cross-K/V precompute -> the
-whole greedy decode (kernel C)."""
+"""The full model (counterpart of ``manga_ocr_tpu/models/model.py``):
+encoder -> cross-K/V precompute -> greedy decode.
+
+``greedy_decode`` dispatches on ``cfg.decoder.step_kernel`` as the JAX
+function does: ``"fused_loop"`` runs the whole decode as kernel C over the
+packed bf16 slabs; ``"xla"`` runs the chunked step-by-step loop over
+``decoder.decode_step_greedy``, checking for early exit only between chunks
+of ``chunk_size`` steps.  ``"fused_layer"`` and ``fuse_cross_kv`` are not
+ported and raise.
+"""
 
 from __future__ import annotations
 
@@ -25,32 +32,86 @@ def encode(
     return vit.encode(params["encoder"], pixel_values, cfg.encoder, use_kernels=use_kernels)
 
 
+def greedy_decode(
+    params: dict,
+    enc_out: torch.Tensor,
+    cfg: MangaOCRConfig,
+    max_length: int | None = None,
+    chunk_size: int = 8,
+    stop_lengths: torch.Tensor | None = None,
+    use_kernels: bool = True,
+) -> GreedyResult:
+    """Greedy decode of a batch of encoder outputs [B, S, D], in their dtype.
+
+    The step-by-step form decodes whole chunks of ``chunk_size`` tokens and
+    tests for "every row done" only between chunks, as the JAX loop does
+    (its while-loop condition costs a host sync); rows write PAD after EOS
+    and stop counting.  The cache holds ``1 + n_chunks * chunk_size``
+    positions, so the last chunk may run past ``max_length - 1``; the result
+    is sliced to ``max_length`` and the lengths clamped.
+
+    ``stop_lengths`` ([B] int32) is the benchmark instrument: rows behave as
+    if EOS fired at that length.  ``use_kernels=False`` runs the kernels'
+    plain versions on any device."""
+    dcfg = cfg.decoder
+    max_len = max_length or cfg.max_length
+    b, dtype, dev = enc_out.shape[0], enc_out.dtype, enc_out.device
+    if dcfg.step_kernel == "fused_loop":
+        cross = dec.precompute_cross_kv_packed(params["decoder"], enc_out, dcfg, int8=False)
+        loop = greedy_decode_loop if use_kernels else greedy_decode_loop_reference
+        tokens, lengths = loop(
+            params["decoder"], cross, dcfg, steps=max_len - 1, dtype=dtype,
+            stop_lengths=stop_lengths,
+        )
+        return GreedyResult(tokens[:, :max_len], torch.clamp(lengths, max=max_len))
+    if dcfg.step_kernel != "xla":
+        raise NotImplementedError(f"greedy_decode: step_kernel={dcfg.step_kernel!r} is not ported")
+
+    n_chunks = -(-(max_len - 1) // chunk_size)
+    padded_len = 1 + n_chunks * chunk_size
+    cross = dec.precompute_cross_kv(params["decoder"], enc_out, dcfg)
+    cache = dec.init_cache(dcfg, b, padded_len, dtype, dev)
+    tokens = torch.full((b, padded_len), dcfg.pad_token_id, dtype=torch.int32, device=dev)
+    tokens[:, 0] = dcfg.bos_token_id
+    last = torch.full((b,), dcfg.bos_token_id, dtype=torch.int32, device=dev)
+    done = torch.zeros((b,), dtype=torch.bool, device=dev)
+    lengths = torch.ones((b,), dtype=torch.int32, device=dev)
+    stops = None if stop_lengths is None else torch.as_tensor(stop_lengths, device=dev)
+    pad = torch.full_like(last, dcfg.pad_token_id)
+    step = 0
+    while step < max_len - 1 and not bool(done.all()):
+        for _ in range(chunk_size):
+            nxt, cache = dec.decode_step_greedy(
+                params["decoder"], last, step, cache, cross, dcfg, use_kernels
+            )
+            nxt = torch.where(done, pad, nxt)
+            newly = nxt == dcfg.eos_token_id
+            if stops is not None:
+                newly = newly | (step + 2 >= stops)
+            tokens[:, step + 1] = nxt
+            lengths += (~done).to(torch.int32)
+            last = nxt
+            done = done | newly
+            step += 1
+    return GreedyResult(tokens[:, :max_len], torch.clamp(lengths, max=max_len))
+
+
 def ocr_forward(
     params: dict,
     pixel_values: torch.Tensor,
     cfg: MangaOCRConfig,
     max_length: int | None = None,
+    chunk_size: int = 8,
     stop_lengths: torch.Tensor | None = None,
     use_kernels: bool = True,
 ) -> GreedyResult:
     """pixels [B, H, W, C] (normalized) -> greedy token ids, in the dtype of
     ``pixel_values``.  ``use_kernels=False`` runs the plain versions of the
-    three kernels on any device."""
-    dcfg = cfg.decoder
-    if dcfg.step_kernel != "fused_loop" or dcfg.fuse_cross_kv:
-        raise NotImplementedError(
-            "ocr_forward: only the serving decode (step_kernel='fused_loop', "
-            "fuse_cross_kv off) is ported"
-        )
-    max_len = max_length or cfg.max_length
+    kernels on any device."""
+    if cfg.decoder.step_kernel == "fused_loop" and cfg.decoder.fuse_cross_kv:
+        raise NotImplementedError("ocr_forward: fuse_cross_kv is not ported")
     enc_out = encode(params, pixel_values, cfg, use_kernels)
-    cross = dec.precompute_cross_kv_packed(params["decoder"], enc_out, dcfg, int8=False)
-    loop = greedy_decode_loop if use_kernels else greedy_decode_loop_reference
-    tokens, lengths = loop(
-        params["decoder"], cross, dcfg, steps=max_len - 1, dtype=enc_out.dtype,
-        stop_lengths=stop_lengths,
-    )
-    return GreedyResult(tokens[:, :max_len], torch.clamp(lengths, max=max_len))
+    return greedy_decode(params, enc_out, cfg, max_length, chunk_size, stop_lengths, use_kernels)
 
 
 def cast_params(params, dtype):

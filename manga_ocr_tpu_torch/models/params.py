@@ -33,6 +33,13 @@ def params_from_jax(tree, device) -> dict:
     return _to_tensor(tree, device)
 
 
+def layer_params(tree, l: int):
+    """Layer ``l`` of a stacked [L, ...] parameter tree."""
+    if isinstance(tree, dict):
+        return {k: layer_params(v, l) for k, v in tree.items()}
+    return tree[l]
+
+
 def _encoder_numpy(cfg: EncoderConfig, rng: np.random.Generator, std: float) -> dict:
     d, i, l, p = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers, cfg.patch_size
 

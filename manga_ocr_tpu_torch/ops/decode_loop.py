@@ -193,7 +193,7 @@ def teacher_forced_gaps(
     return gaps, top
 
 
-def _rows_per_block(batch: int, device) -> int:
+def rows_per_block(batch: int, device) -> int:
     """The fewest rows per block whose grid runs in one wave of co-resident
     blocks: the kernel's time grows about linearly with the rows a block
     owns (measured on the H100: 326, 548, 836 ms for 1, 2, 4 rows at B=32),
@@ -241,7 +241,7 @@ def greedy_decode_loop(
     for t, name in ((cross.k, "cross k"), (cross.v, "cross v")):
         if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != dev:
             raise ValueError(f"greedy_decode_loop: {name} must be contiguous bf16 on {dev}")
-    rows = _rows_per_block(batch, dev)
+    rows = rows_per_block(batch, dev)
     big_n = max(3 * d, inter, d)
     smem = (rows * (2 * d + big_n) + heads * max(steps, s_len)) * 4
     if smem > _SMEM_LIMIT:

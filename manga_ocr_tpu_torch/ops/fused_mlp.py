@@ -1,12 +1,24 @@
-"""Encoder MLP block, int8 (kernel B): x + fc2(GELU(fc1(LN(x)))).
+"""MLP block: [LN ->] fc1 -> GELU -> fc2 -> + x [-> LN].
 
-Counterpart of ``manga_ocr_tpu/ops/fused_mlp.py`` ``fused_mlp_block`` on its
-int8 path (``_kernel_int8``).  On CUDA tensors it runs the hand-written
-kernels of ``csrc/encoder.cu``: LN + row quantization -> int8 fc1 with a
-dequant + bias + sigmoid-GELU epilogue -> row quantization of the f32 GELU
-output -> int8 fc2 with a dequant + bias + residual epilogue.  On CPU
-tensors it runs ``fused_mlp_block_reference``, the same math in plain
-PyTorch.
+Counterpart of ``manga_ocr_tpu/ops/fused_mlp.py`` ``fused_mlp_block``, which
+takes either weight form:
+
+- int8 (kernel B, ``_kernel_int8``; weights as ``(w_q, scale)``): the
+  serving encoder's pre-LN block.  On CUDA tensors it runs the kernels of
+  ``csrc/encoder.cu``: LN + row quantization -> int8 fc1 with a dequant +
+  bias + sigmoid-GELU epilogue -> row quantization of the f32 GELU output ->
+  int8 fc2 with a dequant + bias + residual epilogue.
+- bf16 (kernel D, ``_kernel_bf16``; weights as plain [K, N] matrices): the
+  unquantized encoder's pre-LN block and the step decoder's ``pre_ln=False``
+  block, with an optional post-LN.  On CUDA tensors it runs the kernels of
+  ``csrc/mlp_bf16.cu``: an LN row pass (pre- or post-LN) and two bf16
+  tensor-core GEMMs whose epilogues add the f32 bias, apply the f32 GELU
+  and round to bf16 (fc1), or round to bf16 and add the bf16 residual
+  (fc2).
+
+On CPU tensors each form runs its plain version, the same math in plain
+PyTorch.  ``fused_mlp_block.launches`` counts kernel B's launches and
+``fused_mlp_block_bf16.launches`` kernel D's.
 """
 
 from __future__ import annotations
@@ -15,6 +27,8 @@ import torch
 
 from manga_ocr_tpu_torch.kernels import launch
 from manga_ocr_tpu_torch.ops.kernel_utils import gelu_fn, int8_matmul, ln32, quant_rows
+
+_GELU_MODES = {"erf": launch.BF16_GELU_ERF, "sigmoid": launch.BF16_GELU_SIGMOID}
 
 
 def fused_mlp_block_reference(
@@ -28,7 +42,8 @@ def fused_mlp_block_reference(
     eps: float = 1e-12,
     gelu_mode: str = "erf",
 ) -> torch.Tensor:
-    """Plain version: the JAX ``_kernel_int8`` chain on [..., D] rows."""
+    """Plain version of kernel B: the JAX ``_kernel_int8`` chain on [..., D]
+    rows (pre-LN)."""
     (w1q, s1), (w2q, s2) = w1, w2
     shape = x.shape
     xf = x.reshape(-1, shape[-1])
@@ -40,29 +55,114 @@ def fused_mlp_block_reference(
     return (xf + o.to(x.dtype)).reshape(shape)
 
 
+def fused_mlp_block_bf16_reference(
+    x: torch.Tensor,
+    ln_scale: torch.Tensor,
+    ln_bias: torch.Tensor,
+    w1: torch.Tensor,
+    b1: torch.Tensor,
+    w2: torch.Tensor,
+    b2: torch.Tensor,
+    eps: float = 1e-12,
+    gelu_mode: str = "erf",
+    pre_ln: bool = True,
+    post_ln: bool = False,
+) -> torch.Tensor:
+    """Plain version of kernel D: the JAX ``_kernel_bf16`` chain on [..., D]
+    rows, rounding to ``x.dtype`` where it does."""
+    if pre_ln and post_ln:
+        raise ValueError("fused_mlp_block: pre_ln and post_ln are exclusive")
+    dt = x.dtype
+    shape = x.shape
+    xf = x.reshape(-1, shape[-1])
+    h = ln32(xf, ln_scale, ln_bias, eps).to(dt) if pre_ln else xf
+    h = h.float() @ w1.to(dt).float() + b1.float()
+    h = gelu_fn(gelu_mode)(h).to(dt)
+    o = h.float() @ w2.to(dt).float() + b2.float()
+    r = xf + o.to(dt)
+    if post_ln:
+        r = ln32(r, ln_scale, ln_bias, eps).to(dt)
+    return r.reshape(shape)
+
+
+def fused_mlp_block_bf16(
+    x: torch.Tensor,  # [B, S, D] or [M, D]
+    ln_scale: torch.Tensor,
+    ln_bias: torch.Tensor,
+    w1: torch.Tensor,  # [D, I]
+    b1: torch.Tensor,
+    w2: torch.Tensor,  # [I, D]
+    b2: torch.Tensor,
+    eps: float = 1e-12,
+    gelu_mode: str = "erf",
+    pre_ln: bool = True,
+    post_ln: bool = False,
+) -> torch.Tensor:
+    """Kernel D: one bf16 [LN ->] MLP -> residual [-> LN] block.  CPU
+    tensors take the plain version; CUDA tensors launch the kernels or
+    raise."""
+    if x.device.type == "cpu":
+        return fused_mlp_block_bf16_reference(
+            x, ln_scale, ln_bias, w1, b1, w2, b2, eps, gelu_mode, pre_ln, post_ln
+        )
+    if pre_ln and post_ln:
+        raise ValueError("fused_mlp_block: pre_ln and post_ln are exclusive")
+    if gelu_mode not in _GELU_MODES:
+        raise ValueError(f"fused_mlp_block: the CUDA kernel has no gelu_mode {gelu_mode!r}")
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"fused_mlp_block: the CUDA kernel takes bf16, got {x.dtype}")
+    shape = x.shape
+    xf = x.reshape(-1, shape[-1]).contiguous()
+    ln = (ln_scale.float().contiguous(), ln_bias.float().contiguous())
+    h = launch.ln_rows_bf16(xf, ln, eps) if pre_ln else xf
+    h = launch.bf16_gemm(
+        h, w1.to(torch.bfloat16).contiguous(), b1.float().contiguous(), _GELU_MODES[gelu_mode]
+    )
+    out = launch.bf16_gemm(
+        h, w2.to(torch.bfloat16).contiguous(), b2.float().contiguous(), launch.BF16_RESIDUAL,
+        residual=xf,
+    )
+    if post_ln:
+        out = launch.ln_rows_bf16(out, ln, eps)
+    fused_mlp_block_bf16.launches += 1
+    return out.reshape(shape)
+
+
+fused_mlp_block_bf16.launches = 0  # launches of the CUDA kernels (CPU calls do not count)
+
+
 def fused_mlp_block(
     x: torch.Tensor,  # [B, S, D] or [M, D]
     ln_scale: torch.Tensor,
     ln_bias: torch.Tensor,
-    w1: tuple[torch.Tensor, torch.Tensor],  # (int8 [D, I], f32 scales [I])
+    w1,  # (int8 [D, I], f32 scales [I]) or a bf16 [D, I] kernel
     b1: torch.Tensor,
-    w2: tuple[torch.Tensor, torch.Tensor],  # (int8 [I, D], f32 scales [D])
+    w2,  # (int8 [I, D], f32 scales [D]) or a bf16 [I, D] kernel
     b2: torch.Tensor,
     eps: float = 1e-12,
     gelu_mode: str = "erf",
+    pre_ln: bool = True,
+    post_ln: bool = False,
 ) -> torch.Tensor:
-    """One int8 pre-LN MLP block with its residual.  CPU tensors take the
-    plain version; CUDA tensors launch the kernels or raise."""
-    if not isinstance(w1, tuple) or not isinstance(w2, tuple):
+    """One [LN ->] MLP -> residual [-> LN] block in either weight form, as
+    the JAX function.  Weights as plain tensors go to kernel D
+    (``fused_mlp_block_bf16``); ``(w_q, scale)`` tuples to kernel B, whose
+    ``pre_ln=False`` and ``post_ln`` forms (the int8 decoder's) are not
+    ported and raise.  CPU tensors take the plain versions; CUDA tensors
+    launch the kernels or raise."""
+    if not isinstance(w1, tuple):
+        return fused_mlp_block_bf16(
+            x, ln_scale, ln_bias, w1, b1, w2, b2, eps, gelu_mode, pre_ln, post_ln
+        )
+    if not pre_ln or post_ln:
         raise NotImplementedError(
-            "fused_mlp_block: only the int8 form (weights as (w_q, scale)) is "
-            "ported; the bf16 form is a later kernel"
+            "fused_mlp_block: the int8 form is ported as the pre-LN encoder block only"
         )
     if x.device.type == "cpu":
         return fused_mlp_block_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, eps, gelu_mode)
     if gelu_mode != "sigmoid":
         raise NotImplementedError(
-            "fused_mlp_block: the CUDA kernel implements the serving sigmoid GELU only"
+            "fused_mlp_block: the int8 CUDA kernel implements the serving sigmoid GELU only"
         )
     if x.dtype != torch.bfloat16:
         raise ValueError(f"fused_mlp_block: the CUDA kernel takes bf16, got {x.dtype}")
@@ -85,4 +185,4 @@ def fused_mlp_block(
     return out.reshape(shape)
 
 
-fused_mlp_block.launches = 0  # launches of the CUDA kernels (CPU calls do not count)
+fused_mlp_block.launches = 0  # kernel B's CUDA launches (CPU calls do not count)

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from manga_ocr_tpu_torch.ops.kernel_utils import int8_matmul
+
 
 def quantize_weight_per_col(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """[..., K, N] float -> (int8 [..., K, N], f32 scales [..., N]); leading
@@ -23,3 +25,24 @@ def quantize_weight_per_col(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor
     scale = amax.clamp_min(1e-8) / 127.0
     w_q = torch.clamp(torch.round(w / scale[..., None, :]), -127, 127).to(torch.int8)
     return w_q, scale
+
+
+def dense_int8(
+    x: torch.Tensor,  # [..., K] bf16/f32
+    w_q: torch.Tensor,  # [K, N] int8
+    w_scale: torch.Tensor,  # [N] f32
+    bias: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Dynamic-activation int8 matmul with f32 dequantization, as the JAX
+    ``dense_int8``: a reciprocal multiply and no clip for the values, but
+    ``sx = amax / 127`` (a division, where ``kernel_utils.quant_rows``
+    multiplies by 1/127)."""
+    shape = x.shape
+    x32 = x.float().reshape(-1, shape[-1])
+    amax = x32.abs().amax(-1, keepdim=True).clamp_min(1e-8)
+    sx = amax / 127.0
+    x_q = torch.round(x32 * (127.0 / amax)).to(torch.int8)
+    y = int8_matmul(x_q, w_q).float() * sx * w_scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype).reshape(*shape[:-1], w_q.shape[1])

@@ -55,20 +55,25 @@ def serve(
 def build_engine(args):
     """A ``TorchMangaOcrEngine`` from command-line arguments: random weights
     from ``--seed`` at ``MangaOCRConfig.base()`` width (no checkpoint loader
-    is ported yet) and the synthetic tokenizer."""
+    is ported yet), the synthetic tokenizer, ``--dtype`` and
+    ``--serving-kernels`` as in the JAX server (``auto`` leaves the choice
+    to the engine; ``off`` is the exact reference path)."""
     from manga_ocr_tpu.models.config import MangaOCRConfig
     from manga_ocr_tpu.models.tokenizer import CharTokenizer
     from manga_ocr_tpu_torch.engine import TorchMangaOcrEngine
     from manga_ocr_tpu_torch.models.params import init_params
 
     cfg = MangaOCRConfig.base()
+    flag = args.serving_kernels
     return TorchMangaOcrEngine(
         init_params(cfg, args.seed, "cpu"), cfg, CharTokenizer.synthetic(),
         max_length=args.max_length, device=args.device,
+        dtype=torch.float32 if args.dtype == "float32" else torch.bfloat16,
+        serving_kernels=None if flag == "auto" else flag == "on",
     )
 
 
-def main(argv=None) -> int:
+def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--host", default="127.0.0.1")
@@ -76,7 +81,20 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=0, help="seed of the random weights")
     p.add_argument("--max-length", type=int, default=300)
     p.add_argument("--window-ms", type=float, default=10.0)
-    args = p.parse_args(argv)
+    p.add_argument(
+        "--dtype", default="bfloat16", choices=("bfloat16", "float32"),
+        help="compute dtype (the CUDA kernels take bfloat16)",
+    )
+    p.add_argument(
+        "--serving-kernels", default="auto", choices=("auto", "on", "off"),
+        help="int8 serving kernels: auto (engine default), on, or off (exact "
+        "reference math)",
+    )
+    return p
+
+
+def main(argv=None) -> int:
+    args = parser().parse_args(argv)
     engine = build_engine(args)
     engine.warmup()
     httpd = serve(engine, args.port, args.window_ms, host=args.host)

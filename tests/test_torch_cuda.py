@@ -8,11 +8,13 @@ decision is made inside the fixture, never at import).  Run on the card:
 (``--noconftest``: tests/conftest.py sets up JAX, which the card's machine
 does not need and may not have.)
 
-Shapes are small but satisfy the kernels' constraints (K % 64 == 0, even
-N, head dims multiples of 8).  Tolerances: see chip_smoke.py — the int8
+Shapes are small but satisfy the kernels' constraints (int8 GEMM K % 64 ==
+0 and even N, bf16 GEMM K % 32 == 0 and N % 8 == 0, head dims multiples of
+8, vocab a multiple of 512).  Tolerances: see chip_smoke.py — the int8
 products are exact, so encoder outputs differ by at most a few bf16 ulps of
 the largest output; decode tokens are scored by the plain version fed the
-kernel's tokens (teacher forcing).
+kernel's tokens (teacher forcing); a head id passes when the plain logit
+there is within 2^-6 of the top logit.
 """
 
 import os
@@ -29,6 +31,7 @@ pytestmark = pytest.mark.cuda
 
 ENC_MAX_REL = 2.0**-5
 DECODE_GAP_REL = 2.0**-6
+HEAD_GAP_REL = 2.0**-6
 
 
 @pytest.fixture(scope="module")
@@ -81,6 +84,73 @@ def test_mlp_block_kernel_matches_plain(device):
     assert err <= ENC_MAX_REL * float(want.float().abs().max())
 
 
+def _within(got, want):
+    err = float((got.float() - want.float()).abs().max())
+    return err <= ENC_MAX_REL * float(want.float().abs().max())
+
+
+@pytest.mark.parametrize("form", ["pre_ln", "no_ln", "post_ln"])
+def test_bf16_mlp_block_kernel_matches_plain(device, form):
+    from manga_ocr_tpu_torch.ops import fused_mlp as fm
+
+    rng = np.random.default_rng(5)
+    d, inter = 128, 256
+    w1 = torch.from_numpy(rng.normal(size=(d, inter)) * 0.05).to(device, torch.bfloat16)
+    w2 = torch.from_numpy(rng.normal(size=(inter, d)) * 0.05).to(device, torch.bfloat16)
+    b1 = torch.from_numpy(0.1 * rng.normal(size=(inter,))).float().to(device)
+    b2 = torch.from_numpy(0.1 * rng.normal(size=(d,))).float().to(device)
+    ln = (torch.from_numpy(1 + 0.1 * rng.normal(size=(d,))).float().to(device),
+          torch.from_numpy(0.1 * rng.normal(size=(d,))).float().to(device))
+    kw = {"pre_ln": dict(pre_ln=True), "no_ln": dict(pre_ln=False),
+          "post_ln": dict(pre_ln=False, post_ln=True)}[form]
+    for rows in (70, 5):  # partial row tiles
+        x = torch.from_numpy(rng.normal(size=(rows, d))).to(device, torch.bfloat16)
+        for gelu_mode in ("erf", "sigmoid"):
+            before = fm.fused_mlp_block_bf16.launches
+            got = fm.fused_mlp_block(x, *ln, w1, b1, w2, b2, gelu_mode=gelu_mode, **kw)
+            want = fm.fused_mlp_block_bf16_reference(x, *ln, w1, b1, w2, b2,
+                                                     gelu_mode=gelu_mode, **kw)
+            assert fm.fused_mlp_block_bf16.launches == before + 1
+            assert _within(got, want)
+
+
+def test_packed_attention_kernel_matches_plain(device):
+    from manga_ocr_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.from_numpy(rng.normal(size=(3, 37, 128))).to(device, torch.bfloat16)
+               for _ in range(3))
+    for valid in (37, 30):
+        before = fa.attention_packed.launches
+        got = fa.attention_packed(q, k, v, 2, valid_len=valid)
+        want = fa.attention_packed_reference(q, k, v, 2, valid_len=valid)
+        assert fa.attention_packed.launches == before + 1
+        assert got.dtype == torch.bfloat16 and _within(got, want)
+
+
+@pytest.mark.parametrize("batch", [3, 40])
+def test_greedy_head_kernel_ids_are_top_under_plain_logits(device, batch):
+    from manga_ocr_tpu_torch.ops import fused_head as fh
+
+    rng = np.random.default_rng(7)
+    d, vocab = 64, 1024
+
+    def t(*shape, scale=1.0, shift=0.0, dtype=torch.float32):
+        return torch.from_numpy(shift + scale * rng.normal(size=shape)).to(device, dtype)
+
+    args = (t(batch, d, dtype=torch.bfloat16), t(d, d, scale=0.2, dtype=torch.bfloat16),
+            t(d, scale=0.1), t(d, scale=0.1, shift=1.0), t(d, scale=0.1),
+            t(d, vocab, scale=0.2, dtype=torch.bfloat16), t(vocab, scale=0.1))
+    before = fh.fused_greedy_head.launches
+    ids = fh.fused_greedy_head(*args)
+    assert fh.fused_greedy_head.launches == before + 1
+    assert ids.dtype == torch.int32 and ids.shape == (batch,)
+    logits = fh.head_logits_reference(*args)
+    top = logits.amax(-1)
+    gap = top - logits.gather(1, ids.long()[:, None])[:, 0]
+    assert float((gap / top.abs()).max()) <= HEAD_GAP_REL
+
+
 def test_kernel_wrappers_reject_what_they_do_not_take(device):
     from manga_ocr_tpu_torch.kernels import launch
 
@@ -108,6 +178,28 @@ def test_decode_loop_kernel_tokens_are_greedy_under_plain_model(device):
         assert float((gaps[live] / top[live].abs()).max()) <= DECODE_GAP_REL
         if stops is not None:
             assert bool((lengths <= stops).all())
+
+
+def test_unquantized_engine_runs_through_e_d_and_c(device):
+    from manga_ocr_tpu_torch.engine import TorchMangaOcrEngine
+    from manga_ocr_tpu_torch.models.params import init_params
+    from manga_ocr_tpu_torch.ops.decode_loop import greedy_decode_loop
+    from manga_ocr_tpu_torch.ops.flash_attention import attention_packed, fused_attn_layer
+    from manga_ocr_tpu_torch.ops.fused_mlp import fused_mlp_block, fused_mlp_block_bf16
+
+    cfg = MangaOCRConfig.tiny()
+    engine = TorchMangaOcrEngine(init_params(cfg, 0, "cpu"), cfg, CharTokenizer.synthetic(),
+                                 max_length=10, device=device, quantize_int8=False)
+    wrappers = (attention_packed, fused_mlp_block_bf16, greedy_decode_loop, fused_attn_layer,
+                fused_mlp_block)
+    before = [w.launches for w in wrappers]
+    crops = [np.random.default_rng(i).integers(0, 256, (40, 60, 3), dtype=np.uint8)
+             for i in range(3)]
+    texts = engine.ocr_page(crops)
+    after = [w.launches for w in wrappers]
+    assert len(texts) == 3 and all(isinstance(t, str) for t in texts)
+    layers = cfg.encoder.num_layers
+    assert [a - b for a, b in zip(after, before)] == [layers, layers, 1, 0, 0]
 
 
 def test_engine_runs_through_all_three_kernels(device):

@@ -1,8 +1,10 @@
 """The whole slice: ``TorchMangaOcrEngine(device="cpu", dtype=float32)``
 against ``TpuMangaOcrEngine(dtype=float32)`` on the same numpy-made weights
-and the same crops.  JAX's CPU engine turns on the serving kernels and int8
-by itself, so the strings must be IDENTICAL.  Weights use std 0.1 so the
-texts differ from crop to crop (and some rows end at EOS)."""
+and the same crops, in the three single-device configurations: int8
+serving (JAX's CPU engine turns it on by itself), unquantized serving
+(``quantize_int8=False``) and the exact reference path
+(``serving_kernels=False``).  The strings must be IDENTICAL.  Weights use
+std 0.1 so the texts differ from crop to crop (and some rows end at EOS)."""
 
 import glob
 import os
@@ -110,11 +112,31 @@ def test_cuda_device_raises_without_cuda(monkeypatch):
         TorchMangaOcrEngine({}, cfg, CharTokenizer.synthetic(), device="cuda")
 
 
-@pytest.mark.parametrize("kw", [{"serving_kernels": False}, {"quantize_int8": False}])
-def test_unported_configurations_raise(kw):
+@pytest.mark.parametrize(
+    "kw", [{"quantize_int8": False}, {"serving_kernels": False}],
+    ids=["unquantized_serving", "reference_path"],
+)
+def test_other_configurations_identical_to_jax_engine(kw, page):
     cfg = MangaOCRConfig.tiny()
-    with pytest.raises(NotImplementedError):
-        TorchMangaOcrEngine({}, cfg, CharTokenizer.synthetic(), device="cpu", **kw)
+    np_params = init_params_numpy(cfg, 0, std=0.1)
+    tok = CharTokenizer.synthetic()
+    jax_engine = TpuMangaOcrEngine(np_params, cfg, tok, max_length=MAX_LEN, dtype=jnp.float32,
+                                   **kw)
+    torch_engine = TorchMangaOcrEngine(
+        params_from_jax(np_params, "cpu"), cfg, tok, max_length=MAX_LEN,
+        dtype=torch.float32, device="cpu", **kw,
+    )
+    assert torch_engine.cfg == jax_engine.cfg
+    assert all(v.dtype != torch.int8 for v in _leaves(torch_engine.params))
+    got = torch_engine.ocr_page(page)
+    assert got == jax_engine.ocr_page(page)
+    assert len(set(got)) > 3
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
 
 
 def test_dual_pass_not_ported(engines, page):

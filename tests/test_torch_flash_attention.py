@@ -1,8 +1,10 @@
 """Kernel A's plain version against the JAX ``fused_attn_layer`` (interpret
 mode on the CPU) with int8-quantized tiny projections, in float32, with
-``valid_len`` < S so the key mask is exercised.  Tolerance 1e-5: the int8
-products are exact in both; f32 sums (LN statistics, softmax, PV) run in
-another order."""
+``valid_len`` < S so the key mask is exercised; kernel E's plain version
+against the JAX ``attention_packed`` (which pads S to 128 and masks the
+padded keys) and ``mha_packed``.  Tolerance 1e-5: the int8 products are
+exact in both; f32 sums (LN statistics, softmax, PV) run in another
+order."""
 
 import numpy as np
 import pytest
@@ -10,7 +12,9 @@ import torch
 
 import jax.numpy as jnp
 
+from manga_ocr_tpu.ops.flash_attention import attention_packed as jax_packed
 from manga_ocr_tpu.ops.flash_attention import fused_attn_layer as jax_attn
+from manga_ocr_tpu.ops.flash_attention import mha_packed as jax_mha_packed
 from manga_ocr_tpu.ops.quant import quantize_weight_per_col
 from manga_ocr_tpu_torch.ops import flash_attention as ta
 
@@ -83,3 +87,50 @@ def test_unquantized_projections_are_not_ported():
     bf = {n: {"kernel": d["w_q"].float(), "bias": d["bias"]} for n, d in p.items()}
     with pytest.raises(NotImplementedError):
         ta.fused_attn_layer(x, bf, lns, lnb, HEADS)
+
+
+def _qkv(seed=3, b=2, s=5, d=64):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(b, s, d)).astype(np.float32) for _ in range(3)]
+
+
+def test_packed_plain_version_matches_jax_kernel():
+    q, k, v = _qkv()
+    want = np.asarray(jax_packed(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), HEADS))
+    got = ta.attention_packed_reference(torch.tensor(q), torch.tensor(k), torch.tensor(v), HEADS)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
+
+
+def test_packed_valid_len_masks_keys_like_a_shorter_sequence():
+    """Keys at or past valid_len weigh nothing: every query row equals the
+    JAX kernel run on the first valid_len keys (rows past valid_len query
+    the same keys), and the masked keys' values cannot reach the output."""
+    q, k, v = _qkv(4, s=7)
+    n = 4
+    tq, tk, tv = (torch.tensor(a) for a in (q, k, v))
+    got = ta.attention_packed(tq, tk, tv, HEADS, valid_len=n)
+    want = np.asarray(jax_packed(jnp.asarray(q[:, :n]), jnp.asarray(k[:, :n]),
+                                 jnp.asarray(v[:, :n]), HEADS))
+    np.testing.assert_allclose(got[:, :n].numpy(), want, atol=TOL, rtol=TOL)
+    tk2, tv2 = tk.clone(), tv.clone()
+    tk2[:, n:], tv2[:, n:] = 50.0, -50.0
+    torch.testing.assert_close(ta.attention_packed(tq, tk2, tv2, HEADS, valid_len=n), got,
+                               atol=0, rtol=0)
+
+
+def test_mha_packed_matches_jax():
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(2, 5, 64)).astype(np.float32)
+    p = {n: {"kernel": (rng.normal(size=(64, 64)) * 0.2).astype(np.float32),
+             "bias": (0.1 * rng.normal(size=(64,))).astype(np.float32)} for n in "qkvo"}
+    jp = {n: {k: jnp.asarray(a) for k, a in d.items()} for n, d in p.items()}
+    tp = {n: {k: torch.tensor(a) for k, a in d.items()} for n, d in p.items()}
+    want = np.asarray(jax_mha_packed(jnp.asarray(x), jnp.asarray(x), jp, HEADS))
+    tx = torch.tensor(x)
+    before = ta.attention_packed.launches
+    got = ta.mha_packed(tx, tx, tp, HEADS)
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
+    torch.testing.assert_close(ta.mha_packed(tx, tx, tp, HEADS, use_kernels=False), got,
+                               atol=0, rtol=0)
+    assert ta.attention_packed.launches == before

@@ -1,6 +1,8 @@
 """The port's numerics helpers against the JAX package's: LN statistics,
-per-row int8 quantization (half-even ties), the GELUs and the weight
-quantizer.  int8 values must match exactly, floats to <= 1e-6."""
+per-row int8 quantization (half-even ties), the GELUs, the weight
+quantizer, ``dense_int8`` and the reference attention ops.  int8 values
+must match exactly, floats to <= 1e-6 (1e-5 where a matmul sums in
+another order)."""
 
 import numpy as np
 import pytest
@@ -9,9 +11,11 @@ import torch
 import jax.numpy as jnp
 
 from manga_ocr_tpu.models import quantize as jq
+from manga_ocr_tpu.ops import common as jc
 from manga_ocr_tpu.ops import kernel_utils as jk
 from manga_ocr_tpu.ops import quant as jquant
 from manga_ocr_tpu_torch.models import quantize as tq
+from manga_ocr_tpu_torch.ops import common as tc
 from manga_ocr_tpu_torch.ops import kernel_utils as tk
 from manga_ocr_tpu_torch.ops import quant as tquant
 
@@ -56,6 +60,50 @@ def test_elementwise_matches_jax(name):
     want = np.asarray(getattr(jk, name)(jx))
     got = getattr(tk, name)(tx).numpy()
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+def test_exact_gelu_matches_jax():
+    x = np.linspace(-8, 8, 4001, dtype=np.float32)
+    jx, tx = _both(x)
+    np.testing.assert_allclose(tc.gelu(tx).numpy(), np.asarray(jc.gelu(jx)), atol=ATOL, rtol=0)
+
+
+def test_dense_int8_matches_jax():
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(2, 5, 64)).astype(np.float32)
+    w_q, scale = jquant.quantize_weight_per_col(jnp.asarray(rng.normal(size=(64, 48)) * 0.1,
+                                                            jnp.float32))
+    bias = (0.1 * rng.normal(size=(48,))).astype(np.float32)
+    want = np.asarray(jquant.dense_int8(jnp.asarray(x), w_q, scale, jnp.asarray(bias)))
+    got = tquant.dense_int8(torch.tensor(x), torch.tensor(np.asarray(w_q)),
+                            torch.tensor(np.asarray(scale)), torch.tensor(bias))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("masked", [False, True], ids=["full", "causal"])
+def test_reference_mha_matches_jax(int8, masked):
+    """``mha`` (split/merge heads, f32 softmax by division, probabilities in
+    the compute dtype before PV) over float or int8 ``dense_any`` params."""
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(2, 6, 64)).astype(np.float32)
+    p = {n: {"kernel": (rng.normal(size=(64, 64)) * 0.2).astype(np.float32),
+             "bias": (0.1 * rng.normal(size=(64,))).astype(np.float32)} for n in "qkvo"}
+    jp = {n: {k: jnp.asarray(a) for k, a in d.items()} for n, d in p.items()}
+    if int8:
+        jp = {n: dict(zip(("w_q", "scale"), jquant.quantize_weight_per_col(d["kernel"])),
+                      bias=d["bias"]) for n, d in jp.items()}
+    tp = {n: {k: torch.tensor(np.asarray(a)) for k, a in d.items()} for n, d in jp.items()}
+    mask = np.tril(np.ones((6, 6), bool))[None, None] if masked else None
+    want = np.asarray(jc.mha(jnp.asarray(x), jnp.asarray(x), jp, 4,
+                             mask=None if mask is None else jnp.asarray(mask)))
+    tx = torch.tensor(x)
+    got = tc.mha(tx, tx, tp, 4, mask=None if mask is None else torch.tensor(mask))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    heads = tc.split_heads(tx, 4)
+    assert heads.shape == (2, 4, 6, 16)
+    torch.testing.assert_close(tc.merge_heads(heads), tx, atol=0, rtol=0)
 
 
 def test_gelu_fn_dispatch():

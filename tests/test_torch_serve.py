@@ -88,6 +88,24 @@ def test_stats_and_unknown_routes(server):
     assert e.value.code == 404
 
 
+@pytest.mark.parametrize(
+    "flags, attn, dtype",
+    [([], "fused_layer", torch.bfloat16), (["--serving-kernels", "on"], "fused_layer", torch.bfloat16),
+     (["--serving-kernels", "off", "--dtype", "float32"], "xla", torch.float32)],
+    ids=["auto", "on", "off_f32"],
+)
+def test_build_engine_honours_flags(monkeypatch, flags, attn, dtype):
+    """``--serving-kernels`` and ``--dtype`` reach the engine (the base
+    config is swapped for the tiny one to keep the test small)."""
+    monkeypatch.setattr(MangaOCRConfig, "base", staticmethod(MangaOCRConfig.tiny))
+    args = srv.parser().parse_args(["--device", "cpu", "--max-length", "6", *flags])
+    engine = srv.build_engine(args)
+    assert engine.cfg.encoder.attn_kernel == attn
+    assert engine.dtype == dtype and engine.max_length == 6
+    assert engine.params["decoder"]["tok_embed"].dtype == dtype
+    assert engine.cfg.decoder.step_kernel == ("xla" if attn == "xla" else "fused_loop")
+
+
 def test_port_never_imports_jax():
     """Import every module of the port and run the tiny engine and server
     with ``jax`` blocked by an import hook."""
