@@ -8,7 +8,13 @@ Run from the repository root:  python3 chip_smoke.py
 3. Holds each kernel against its plain PyTorch version on the card at the
    shapes its path gives it (MangaOCRConfig.base(), batch 32 and 256,
    S=197, D=768), with CUDA-event times of both: A, B, C on int8 params;
-   D (three forms), E and F on bf16 params.
+   D (three forms), E and F on bf16 params; the decode-step kernels J
+   (steps 0, 150 and 303 of a 305-row cache, and the cache row it writes),
+   K and B's post-LN step form on a quantize_decoder decoder (and, at batch
+   32, on the bf16 decoder).  Each kernel's bound (the least time the card
+   could take: bytes over the memory rate or operations over the peak rate
+   of their type, the larger) is computed from the same shapes, and E is
+   also timed as one scaled_dot_product_attention call.
 4. Drives TorchMangaOcrEngine at full width (random weights from a numpy
    seed) through ocr_page on crops from tests/fixtures/eval:
    - int8 serving (kernels A, B, C), also through the HTTP server;
@@ -19,6 +25,13 @@ Run from the repository root:  python3 chip_smoke.py
    step_mlp_kernel "fused": kernels F and D) at B=32 over 299 steps, its
    tokens scored by the plain step decode; and one page through the exact
    reference path (serving_kernels=False), which must launch no kernel.
+   Last, the fused whole-layer step decode (step_kernel "fused_layer",
+   head_kernel "fused") through ocr_forward on 32 crops: kernels A and B
+   in the encoder, then per step J, K and B's step form per layer and F;
+   its launch counts checked exactly and its tokens scored by the plain
+   fused_layer step decode on the plain encoder output; its cross-K/V +
+   decode time at batch 32 and 256 beside kernel C's on the same encoder
+   output.
 5. Prints one JSON line of kernel results, then the device line
    {"ok": true, "device": {...}} last.  Any failed check exits non-zero
    before the device line.
@@ -75,6 +88,10 @@ HEAD_GAP_REL = 2.0**-6
 # from noise; at 0.02 they agree to 0.25%.)
 WEIGHT_STD = 0.02
 SEED = 0
+# Published peaks of one H100 SXM (dense): the memory rate and the tensor
+# core rates by input type; the bounds below are computed against them.
+H100_BYTES_PER_S = 3.35e12
+H100_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12}
 
 
 def fail(msg: str) -> None:
@@ -131,43 +148,123 @@ def check_encoder_kernels(params, cfg, results: dict) -> None:
     for batch in (32, 256):
         x = torch.randn((batch, s, ecfg.hidden_size), generator=gen, device="cuda").to(torch.bfloat16)
         kw = dict(eps=ecfg.layer_norm_eps, valid_len=s)
+        d = ecfg.hidden_size
         cases = {
             "fused_attn_layer": (
                 lambda: fa.fused_attn_layer(x, attn, *ln1, ecfg.num_heads, **kw),
                 lambda: fa.fused_attn_layer_reference(x, attn, *ln1, ecfg.num_heads, **kw),
+                cost_attn_layer(batch, s, d),
             ),
             "fused_mlp_block": (
                 lambda: fm.fused_mlp_block(x, *ln2, *mlp_w, eps=ecfg.layer_norm_eps,
                                            gelu_mode=ecfg.gelu_mode),
                 lambda: fm.fused_mlp_block_reference(x, *ln2, *mlp_w, eps=ecfg.layer_norm_eps,
                                                      gelu_mode=ecfg.gelu_mode),
+                cost_mlp_int8(batch * s, d, ecfg.intermediate_size),
             ),
         }
-        for name, (kern, plain) in cases.items():
-            hold(name, f"B={batch}", kern, plain, results, name)
+        for name, (kern, plain, cost) in cases.items():
+            results[name] = hold(name, f"B={batch}", kern, plain, cost)
 
 
-def hold(name: str, label: str, kern, plain, results: dict, key=None) -> None:
-    """One kernel against its plain version on the same inputs: shape,
-    finiteness, max and mean error relative to the largest output, and
-    CUDA-event times of both.  Records the result under ``key``."""
+def bound(nbytes: float, ops: dict) -> tuple[float, str]:
+    """The least time in ms the card could take for work that moves
+    ``nbytes`` (each input read once, each output written once) and does
+    ``ops`` operations by input type: the larger of the two times, and which
+    one sets it."""
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = sum(n / H100_OPS_PER_S[kind] for kind, n in ops.items())
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# Bytes and operations of each kernel's work at the shapes it is called
+# with (multiply-adds count 2; bf16 inputs at the bf16 rate, int8 at int8).
+def cost_attn_layer(b, s, d):  # A: LN + 4 int8 projections + SDPA + residual
+    m = b * s
+    return 2 * m * d * 2 + 4 * d * d, {"int8": 4 * 2 * m * d * d, "bf16": 2 * 2 * b * s * s * d}
+
+
+def cost_mlp_int8(m, d, inter):  # B: two int8 GEMMs over m rows
+    return 2 * m * d * 2 + 2 * d * inter, {"int8": 2 * 2 * m * d * inter}
+
+
+def cost_mlp_bf16(m, d, inter):  # D
+    return 2 * m * d * 2 + 2 * d * inter * 2, {"bf16": 2 * 2 * m * d * inter}
+
+
+def cost_attention_packed(b, s, d):  # E: q, k, v in, context out
+    return 4 * b * s * d * 2, {"bf16": 2 * 2 * b * s * s * d}
+
+
+def cost_head(b, d, v):  # F: transform + vocab GEMV, ids out
+    return b * d * 2 + (d * d + d * v) * 2 + b * 4, {"bf16": 2 * b * (d * d + d * v)}
+
+
+def cost_self_step(b, d, step, int8_w):  # J at ``step``: the live cache rows
+    w_bytes = 4 * d * d * (1 if int8_w else 2)
+    proj = {"int8" if int8_w else "bf16": 2 * b * 4 * d * d}
+    attn = 2 * 2 * b * (step + 1) * d
+    return (2 * b * d * 2 + 2 * (step + 1) * b * d * 2 + w_bytes,
+            {**proj, "bf16": proj.get("bf16", 0) + attn})
+
+
+def cost_cross_step(b, s, d, int8_w, int8_kv):  # K: the slabs once
+    kv = 2 * b * s * d * (1 if int8_kv else 2) + ((b * s + b * d) * 4 if int8_kv else 0)
+    proj = {"int8" if int8_w else "bf16": 2 * b * 2 * d * d}
+    attn = 2 * 2 * b * s * d
+    return (2 * b * d * 2 + kv + 2 * d * d * (1 if int8_w else 2),
+            {**proj, "bf16": proj.get("bf16", 0) + attn})
+
+
+def cost_decode_loop(cfg, lengths, s):  # C: the row-steps this run's rows needed
+    d, inter, v, n_l = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, cfg.num_layers
+    b = lengths.shape[0]
+    n = lengths.long() - 1  # steps each row ran to its EOS (or the last step)
+    row_steps = int(n.sum())
+    key_reads = int((n * (n + 1) // 2).sum())  # self-attention keys over all row-steps
+    per_step = 2 * (n_l * (6 * d * d + 2 * d * inter) + d * d + d * v) + n_l * 2 * 2 * s * d
+    ops = row_steps * per_step + n_l * 2 * 2 * key_reads * d
+    w_bytes = (n_l * (6 * d * d + 2 * d * inter) + d * d + d * v) * 2
+    nbytes = 2 * n_l * b * s * d * 2 + w_bytes + b * (int(lengths.max()) + 1) * 4
+    return nbytes, {"bf16": ops}
+
+
+def compare(name: str, label: str, got, want) -> tuple[float, float]:
+    """Shape, finiteness, and the max and mean error relative to the
+    largest output; fails past the tolerances."""
     import torch
 
-    got, want = kern(), plain()
-    torch.cuda.synchronize()
     if got.shape != want.shape or not torch.isfinite(got.float()).all():
         fail(f"{name} {label}: shape {tuple(got.shape)} or non-finite output")
     err = (got.float() - want.float()).abs()
     max_abs, mean_abs = float(err.max()), float(err.mean())
     top = float(want.float().abs().max())
-    ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
-    log(f"{name} {label}: max_abs_err={max_abs} mean_abs_err={mean_abs} "
-        f"max_abs_out={top} ms={ms} plain_ms={plain_ms}")
     if max_abs > ENC_MAX_REL * top or mean_abs > ENC_MEAN_REL * top:
         fail(f"{name} {label}: error {max_abs}/{mean_abs} over "
              f"{ENC_MAX_REL * top}/{ENC_MEAN_REL * top}")
-    if key is not None:
-        results[key] = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+    return max_abs, mean_abs
+
+
+def hold(name: str, label: str, kern, plain, cost, library=None) -> dict:
+    """One kernel against its plain version on the same inputs: shape,
+    finiteness, max and mean error relative to the largest output, and
+    CUDA-event times of both (and of ``library``, one PyTorch call that
+    computes the same function, where there is one).  Returns the record of
+    the kernels line, with the bound computed from ``cost``."""
+    import torch
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    max_abs, mean_abs = compare(name, label, got, want)
+    top = float(want.float().abs().max())
+    ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
+    library_ms = cuda_ms(library) if library is not None else None
+    bound_ms, bound_by = bound(*cost)
+    log(f"{name} {label}: max_abs_err={max_abs} mean_abs_err={mean_abs} "
+        f"max_abs_out={top} ms={ms} plain_ms={plain_ms} library_ms={library_ms} "
+        f"bound_ms={bound_ms} ({bound_by})")
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
 
 
 def check_bf16_kernels(params, cfg, results: dict) -> None:
@@ -175,6 +272,7 @@ def check_bf16_kernels(params, cfg, results: dict) -> None:
     and post_ln on [B, 768]), E and F against their plain versions at B=32
     and 256, on bf16 params."""
     import torch
+    import torch.nn.functional as F
 
     from manga_ocr_tpu_torch.ops import flash_attention as fa
     from manga_ocr_tpu_torch.ops import fused_head as fh
@@ -197,25 +295,38 @@ def check_bf16_kernels(params, cfg, results: dict) -> None:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
 
+    inter = ecfg.intermediate_size
+    heads, dh = ecfg.num_heads, ecfg.head_dim
     for batch in (32, 256):
         x = randn(batch, s, d)
         kw = dict(eps=ecfg.layer_norm_eps, gelu_mode=ecfg.gelu_mode)
-        hold("fused_mlp_block_bf16", f"encoder pre-LN B={batch}",
-             lambda: fm.fused_mlp_block_bf16(x, *e_ln, *e_w, **kw),
-             lambda: fm.fused_mlp_block_bf16_reference(x, *e_ln, *e_w, **kw),
-             results, "fused_mlp_block_bf16")
+        results["fused_mlp_block_bf16"] = hold(
+            "fused_mlp_block_bf16", f"encoder pre-LN B={batch}",
+            lambda: fm.fused_mlp_block_bf16(x, *e_ln, *e_w, **kw),
+            lambda: fm.fused_mlp_block_bf16_reference(x, *e_ln, *e_w, **kw),
+            cost_mlp_bf16(batch * s, d, inter))
         rows = randn(batch, d)
         for label, ln_kw in (("pre_ln=False", dict(pre_ln=False)),
                              ("post_ln", dict(pre_ln=False, post_ln=True))):
             hold("fused_mlp_block_bf16", f"step {label} B={batch}",
                  lambda: fm.fused_mlp_block_bf16(rows, *d_ln, *d_w, **ln_kw),
                  lambda: fm.fused_mlp_block_bf16_reference(rows, *d_ln, *d_w, **ln_kw),
-                 results)
+                 cost_mlp_bf16(batch, d, inter))
         q, k, v = randn(batch, s, d), randn(batch, s, d), randn(batch, s, d)
-        hold("attention_packed", f"B={batch}",
-             lambda: fa.attention_packed(q, k, v, ecfg.num_heads),
-             lambda: fa.attention_packed_reference(q, k, v, ecfg.num_heads),
-             results, "attention_packed")
+        # the library yardstick: one scaled_dot_product_attention call on
+        # the same q/k/v (head views, no copy) with the valid_len key mask
+        key_mask = (torch.arange(s, device="cuda") < s)[None, :]  # keys < valid_len = S
+
+        def heads_view(t):
+            return t.view(batch, s, heads, dh).transpose(1, 2)
+
+        results["attention_packed"] = hold(
+            "attention_packed", f"B={batch}",
+            lambda: fa.attention_packed(q, k, v, heads),
+            lambda: fa.attention_packed_reference(q, k, v, heads),
+            cost_attention_packed(batch, s, d),
+            library=lambda: F.scaled_dot_product_attention(
+                heads_view(q), heads_view(k), heads_view(v), attn_mask=key_mask))
 
         h = randn(batch, dcfg.hidden_size)
         ids = fh.fused_greedy_head(h, *head_w, eps=dcfg.layer_norm_eps)
@@ -235,8 +346,90 @@ def check_bf16_kernels(params, cfg, results: dict) -> None:
         if rel > HEAD_GAP_REL:
             fail(f"fused_greedy_head B={batch}: an id {rel} below the top logit "
                  f"(bound {HEAD_GAP_REL})")
+        bound_ms, bound_by = bound(*cost_head(batch, dcfg.hidden_size, dcfg.vocab_size))
+        log(f"fused_greedy_head B={batch}: bound_ms={bound_ms} ({bound_by})")
         results["fused_greedy_head"] = {"max_abs_err": float(gap.max()), "ms": ms,
-                                        "plain_ms": plain_ms}
+                                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                        "bound_by": bound_by, "library_ms": None}
+
+
+def check_step_kernels(params, params_bf16, cfg, results: dict) -> None:
+    """Kernels J, K and B's post-LN step form against their plain versions
+    at batch 32 and 256 on the int8 decoder (quantize_decoder) with int8
+    cross-K/V, and at batch 32 also on the bf16 decoder with bf16 slabs.
+    J at steps 0, 150 and 303 of the 305-row cache of a 299-step decode in
+    chunks of 8 (rows past ``step`` hold noise, which must weigh nothing),
+    with the cache row it writes held against the plain version's."""
+    import torch
+
+    from manga_ocr_tpu_torch.models import decoder as dec
+    from manga_ocr_tpu_torch.ops import common
+    from manga_ocr_tpu_torch.ops import decode_layer as dl
+    from manga_ocr_tpu_torch.ops import fused_mlp as fm
+
+    dcfg = cfg.decoder
+    d, heads, eps, inter = dcfg.hidden_size, dcfg.num_heads, dcfg.layer_norm_eps, \
+        dcfg.intermediate_size
+    s_enc = cfg.encoder.seq_len
+    t_len = 1 + -(-(cfg.max_length - 1) // 8) * 8
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    one, zero = torch.ones(d, device="cuda"), torch.zeros(d, device="cuda")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    for batch in (32, 256):
+        enc = torch.randn((batch, s_enc, d), generator=gen, device="cuda")
+        enc = common.layer_norm(enc, one, zero, 1e-12).to(torch.bfloat16)
+        forms = (("int8", params), ("bf16", params_bf16)) if batch == 32 else (("int8", params),)
+        for form, p in forms:
+            int8 = form == "int8"
+            tag = f"{form} B={batch}"
+            w = dec.prepare_fused_layer(p["decoder"], dcfg, torch.bfloat16)[0]
+            ck, cv = randn(t_len, batch, d), randn(t_len, batch, d)
+            pck, pcv = ck.clone(), cv.clone()
+            recs = []
+            for step in (0, 150, t_len - 2):
+                x = randn(batch, d)
+                recs.append(hold(
+                    "fused_self_attn_step", f"{tag} step={step}",
+                    lambda: dl.fused_self_attn_step(x, w["self"], w["self_ln"], ck, cv, step,
+                                                    heads, eps)[0],
+                    lambda: dl.fused_self_attn_step_reference(x, w["self"], w["self_ln"], pck,
+                                                              pcv, step, heads, eps)[0],
+                    cost_self_step(batch, d, step, int8)))
+                row_err = [compare("fused_self_attn_step", f"{tag} cache {n} row {step}", a[step],
+                                   b[step])[0] for n, a, b in (("k", ck, pck), ("v", cv, pcv))]
+                log(f"fused_self_attn_step {tag} step={step}: written cache rows k/v max_abs_err "
+                    f"{row_err}")
+            j = {key: sum(r[key] for r in recs) / len(recs)
+                 for key in ("ms", "plain_ms", "bound_ms")}  # mean over the three steps
+            j.update(max_abs_err=max(r["max_abs_err"] for r in recs),
+                     bound_by=recs[-1]["bound_by"], library_ms=None)
+            log(f"fused_self_attn_step {tag}: mean over steps 0, 150, {t_len - 2}: {j}")
+
+            cross = dec.precompute_cross_kv_packed(p["decoder"], enc, dcfg, int8=int8)
+            ks, vs = (cross.k_scale[0], cross.v_scale[0]) if int8 else (None, None)
+            x = randn(batch, d)
+            k = hold("fused_cross_attn_step", tag,
+                     lambda: dl.fused_cross_attn_step(x, w["cross"], w["cross_ln"], cross.k[0],
+                                                      cross.v[0], ks, vs, heads, eps, s_enc),
+                     lambda: dl.fused_cross_attn_step_reference(
+                         x, w["cross"], w["cross_ln"], cross.k[0], cross.v[0], ks, vs, heads,
+                         eps, s_enc),
+                     cost_cross_step(batch, s_enc, d, int8, int8))
+
+            rows = randn(batch, d)
+            args = (rows, w["mlp_ln"]["scale"], w["mlp_ln"]["bias"], w["w1"], w["b1"], w["w2"],
+                    w["b2"])
+            plain = fm.fused_mlp_block_reference if int8 else fm.fused_mlp_block_bf16_reference
+            kw = dict(eps=eps, pre_ln=False, post_ln=True)
+            mlp = hold("fused_mlp_block", f"step form (post-LN) {tag}",
+                       lambda: fm.fused_mlp_block(*args, **kw), lambda: plain(*args, **kw),
+                       (cost_mlp_int8 if int8 else cost_mlp_bf16)(batch, d, inter))
+            if int8:
+                results["fused_self_attn_step"], results["fused_cross_attn_step"] = j, k
+                results["fused_mlp_block[step]"] = mlp
 
 
 def live_gap_stats(gaps, top, lengths) -> dict:
@@ -266,7 +459,7 @@ def check_decode_kernel(params, cfg, results: dict) -> None:
     for batch in (32, 256):
         enc = torch.randn((batch, cfg.encoder.seq_len, d), generator=gen, device="cuda")
         enc = common.layer_norm(enc, one, zero, 1e-12).to(torch.bfloat16)
-        cross = dec.precompute_cross_kv_packed(params["decoder"], enc, dcfg)
+        cross = dec.precompute_cross_kv_packed(params["decoder"], enc, dcfg, int8=False)
         run = lambda: dl.greedy_decode_loop(params["decoder"], cross, dcfg, steps)
         plain = lambda: dl.greedy_decode_loop_reference(params["decoder"], cross, dcfg, steps)
         (tok, lens), (ptok, plens) = run(), plain()
@@ -280,15 +473,18 @@ def check_decode_kernel(params, cfg, results: dict) -> None:
         first_div = sorted(int((a != b).nonzero()[0]) for a, b in zip(tok, ptok) if (a != b).any())
         stats = live_gap_stats(*dl.teacher_forced_gaps(params["decoder"], cross, dcfg, tok), lens)
         ms, plain_ms = cuda_ms(run, reps=2), cuda_ms(plain, reps=1)
+        bound_ms, bound_by = bound(*cost_decode_loop(dcfg, lens, cfg.encoder.seq_len))
         log(f"greedy_decode_loop B={batch}: teacher-forced {stats}; free-running: identical "
             f"rows {share}, rows identical for {DECODE_PREFIX} steps {prefix}, first "
             f"divergence steps {first_div[:40]}; mean length {float(lens.float().mean())}; "
-            f"ms={ms} plain_ms={plain_ms}")
+            f"ms={ms} plain_ms={plain_ms} bound_ms={bound_ms} ({bound_by})")
         if stats["max_rel_gap"] > DECODE_GAP_REL:
             fail(f"greedy_decode_loop B={batch}: a token {stats['max_rel_gap']} below the "
                  f"plain model's maximum (bound {DECODE_GAP_REL})")
         results["greedy_decode_loop"] = {"max_abs_err": stats["max_gap"], "ms": ms,
-                                         "plain_ms": plain_ms, "batch": batch}
+                                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                         "bound_by": bound_by, "library_ms": None,
+                                         "batch": batch}
 
 
 def check_page_tokens(engine, crops) -> None:
@@ -297,7 +493,7 @@ def check_page_tokens(engine, crops) -> None:
     plain decoder on the plain encoder output (teacher-forced gaps)."""
     import torch
 
-    from manga_ocr_tpu.parallel import batching
+    from manga_ocr_tpu_torch.parallel import batching
     from manga_ocr_tpu_torch.models import decoder as dec
     from manga_ocr_tpu_torch.models import model as mdl
     from manga_ocr_tpu_torch.ops import decode_loop as dl
@@ -316,7 +512,7 @@ def check_page_tokens(engine, crops) -> None:
             plain = mdl.ocr_forward(engine.params, px, engine.cfg, engine.max_length,
                                     use_kernels=False)
             cross = dec.precompute_cross_kv_packed(engine.params["decoder"], enc_p,
-                                                   engine.cfg.decoder)
+                                                   engine.cfg.decoder, int8=False)
             stats = live_gap_stats(
                 *dl.teacher_forced_gaps(engine.params["decoder"], cross, engine.cfg.decoder,
                                         out.tokens[:, : out.lengths.max()].contiguous()),
@@ -348,13 +544,15 @@ def load_crops() -> list:
 
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port, by name; each counts its launches."""
+    from manga_ocr_tpu_torch.ops.decode_layer import fused_cross_attn_step, fused_self_attn_step
     from manga_ocr_tpu_torch.ops.decode_loop import greedy_decode_loop
     from manga_ocr_tpu_torch.ops.flash_attention import attention_packed, fused_attn_layer
     from manga_ocr_tpu_torch.ops.fused_head import fused_greedy_head
     from manga_ocr_tpu_torch.ops.fused_mlp import fused_mlp_block, fused_mlp_block_bf16
 
     return {w.__name__: w for w in (fused_attn_layer, fused_mlp_block, greedy_decode_loop,
-                                    fused_mlp_block_bf16, attention_packed, fused_greedy_head)}
+                                    fused_mlp_block_bf16, attention_packed, fused_greedy_head,
+                                    fused_self_attn_step, fused_cross_attn_step)}
 
 
 def counted(fn):
@@ -375,7 +573,7 @@ def drive_page(engine, crops, label: str, per_dispatch: dict, results: dict) -> 
     ``per_dispatch`` x dispatches (0 for every other kernel), the texts well
     formed and input-dependent; then the kernel path against the plain
     path."""
-    from manga_ocr_tpu.parallel import batching
+    from manga_ocr_tpu_torch.parallel import batching
 
     texts, counts = counted(lambda: engine.ocr_page(crops))
     n_dispatch = len(batching.prep_page_gray(crops, 1))
@@ -416,7 +614,7 @@ def stage_split(engine, crops, label: str) -> None:
     into preprocess, encoder, and cross-K/V + decode."""
     import torch
 
-    from manga_ocr_tpu.parallel import batching
+    from manga_ocr_tpu_torch.parallel import batching
     from manga_ocr_tpu_torch.models import model as mdl
     from manga_ocr_tpu_torch.ops import preprocess as pp
 
@@ -489,14 +687,19 @@ def step_gaps(params, enc, cfg, tokens, lengths) -> dict:
 
     dcfg = cfg.decoder
     b, steps = tokens.shape[0], tokens.shape[1] - 1
-    cross = dec.precompute_cross_kv(params["decoder"], enc, dcfg)
+    prepared = None
+    if dcfg.step_kernel == "fused_layer":
+        cross = dec.precompute_cross_kv_packed(params["decoder"], enc, dcfg)
+        prepared = dec.prepare_fused_layer(params["decoder"], dcfg, enc.dtype)
+    else:
+        cross = dec.precompute_cross_kv(params["decoder"], enc, dcfg)
     cache = dec.init_cache(dcfg, b, steps + 1, enc.dtype, enc.device)
     gaps = torch.zeros((b, steps), device=enc.device)
     top = torch.ones_like(gaps)
     n = int(lengths.max()) - 1
     for t in range(n):
         lg, cache = dec.decode_step(params["decoder"], tokens[:, t], t, cache, cross, dcfg,
-                                    use_kernels=False)
+                                    use_kernels=False, prepared=prepared)
         top[:, t] = lg.amax(-1)
         gaps[:, t] = top[:, t] - lg.gather(1, tokens[:, t + 1].long()[:, None])[:, 0]
     return live_gap_stats(gaps, top, lengths)
@@ -510,7 +713,7 @@ def run_step_decode(engine, crops, results: dict) -> None:
 
     import torch
 
-    from manga_ocr_tpu.parallel import batching
+    from manga_ocr_tpu_torch.parallel import batching
     from manga_ocr_tpu_torch.models import model as mdl
     from manga_ocr_tpu_torch.ops import preprocess as pp
 
@@ -559,11 +762,102 @@ def run_step_decode(engine, crops, results: dict) -> None:
                  f"(bound {ENGINE_GAP_REL})")
 
 
+def run_fused_layer_slice(params, crops, results: dict) -> None:
+    """Path 4: the fused whole-layer step decode at full width, through
+    ``ocr_forward`` on 32 fixture crops, 299 steps in chunks of 8:
+    MangaOCRConfig.serving() with step_kernel "fused_layer" and head_kernel
+    "fused", the encoder from quantize_encoder(quantize_attn_proj=True) and
+    the decoder from quantize_decoder, cast to bf16 (int8 weights and f32
+    scales kept).  Launch counts exact (A and B per encoder layer; per step
+    J, K and B per decoder layer and F); the tokens scored by the plain
+    fused_layer step decode on the plain encoder output; then the cross-K/V
+    + decode time at batch 32 and 256 beside kernel C's on the same encoder
+    output (a record, not a check)."""
+    import dataclasses
+
+    import torch
+
+    from manga_ocr_tpu_torch.engine.engine import _cast_quantized, _params_to
+    from manga_ocr_tpu_torch.models import model as mdl
+    from manga_ocr_tpu_torch.models.config import MangaOCRConfig
+    from manga_ocr_tpu_torch.models.quantize import quantize_decoder, quantize_encoder
+    from manga_ocr_tpu_torch.ops import preprocess as pp
+    from manga_ocr_tpu_torch.parallel import batching
+
+    serving = MangaOCRConfig.serving()
+    cfg = dataclasses.replace(serving, decoder=dataclasses.replace(
+        serving.decoder, step_kernel="fused_layer", head_kernel="fused"))
+    raw = _params_to(params, "cuda")
+    qparams = {
+        "encoder": _cast_quantized(quantize_encoder(raw["encoder"], quantize_attn_proj=True),
+                                   torch.bfloat16),
+        "decoder": _cast_quantized(quantize_decoder(raw["decoder"]), torch.bfloat16),
+    }
+    chunk, max_len = 8, cfg.max_length
+    page = [crops[i % len(crops)] for i in range(32)]
+    with torch.inference_mode():
+        px = torch.cat([
+            pp.model_preprocess(torch.from_numpy(b.crops).cuda(), torch.from_numpy(b.sizes).cuda(),
+                                cfg.encoder.image_size)[: b.valid]
+            for b in batching.prep_page_gray(page, pp.ORIENT_VERTICAL)
+        ]).to(torch.bfloat16)
+        t0 = time.perf_counter()
+        out, counts = counted(lambda: mdl.ocr_forward(qparams, px, cfg, max_len, chunk))
+        secs = time.perf_counter() - t0
+        tok, lens = out.tokens, out.lengths
+        if tok.shape != (32, max_len) or int(tok[:, 0].ne(cfg.decoder.bos_token_id).sum()):
+            fail("fused_layer slice: bad token matrix")
+        n_chunks = -(-(max_len - 1) // chunk)
+        eos = tok[:, 1:] == cfg.decoder.eos_token_id
+        if bool(eos.any(1).all()):
+            n_chunks = min(n_chunks, int(eos.float().argmax(1).max()) // chunk + 1)
+        steps = n_chunks * chunk
+        n_enc, n_dec = cfg.encoder.num_layers, cfg.decoder.num_layers
+        log(f"fused_layer slice B=32: ocr_forward with {steps} decode steps in {secs:.3f} s, "
+            f"launches {counts}, mean length {float(lens.float().mean())}")
+        want = {name: 0 for name in counts}
+        want.update(fused_attn_layer=n_enc, fused_mlp_block=n_enc + n_dec * steps,
+                    fused_self_attn_step=n_dec * steps, fused_cross_attn_step=n_dec * steps,
+                    fused_greedy_head=steps)
+        if counts != want:
+            fail(f"fused_layer slice: launch counts {counts}, expected {want}")
+        for name in ("fused_self_attn_step", "fused_cross_attn_step"):
+            results[name]["launches"] = counts[name]
+        results["fused_mlp_block[step]"]["launches"] = counts["fused_mlp_block"] - n_enc
+
+        enc_k = mdl.encode(qparams, px, cfg)
+        enc_p = mdl.encode(qparams, px, cfg, use_kernels=False)
+        enc_rel = float((enc_k.float() - enc_p.float()).abs().max() / enc_p.float().abs().max())
+        stats = step_gaps(qparams, enc_p, cfg, tok, lens)
+        log(f"fused_layer slice B=32: encoder max rel err {enc_rel}; kernel tokens "
+            f"teacher-forced by the plain fused_layer step decode on the plain encoder "
+            f"output {stats}")
+        if enc_rel > ENC_STACK_MAX_REL or stats["max_rel_gap"] > ENGINE_GAP_REL:
+            fail(f"fused_layer slice: encoder {enc_rel} / gap {stats['max_rel_gap']} over "
+                 f"{ENC_STACK_MAX_REL} / {ENGINE_GAP_REL}")
+
+        c_params = {"encoder": qparams["encoder"],
+                    "decoder": mdl.cast_params(raw["decoder"], torch.bfloat16)}
+        for batch in (32, 256):
+            enc_b = enc_k.repeat(batch // 32, 1, 1)
+            times = {}
+            for label, p, c in (("fused_layer", qparams, cfg), ("kernel C", c_params, serving)):
+                mdl.greedy_decode(p, enc_b, c, max_len, chunk)  # warm
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                res = mdl.greedy_decode(p, enc_b, c, max_len, chunk)
+                ev[1].record()
+                torch.cuda.synchronize()
+                times[label] = (ev[0].elapsed_time(ev[1]), float(res.lengths.float().mean()))
+            log(f"cross-K/V + decode B={batch} (ms, mean length): fused_layer "
+                f"{times['fused_layer']}, kernel C {times['kernel C']} on {card_line()}")
+
+
 def run_reference_engine(params, crops) -> None:
     """The exact reference path (serving_kernels=False) on the card: one
     page, well-formed texts, and no kernel launched."""
-    from manga_ocr_tpu.models.config import MangaOCRConfig
-    from manga_ocr_tpu.models.tokenizer import CharTokenizer
+    from manga_ocr_tpu_torch.models.config import MangaOCRConfig
+    from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
     from manga_ocr_tpu_torch.engine import TorchMangaOcrEngine
 
     engine = TorchMangaOcrEngine(params, MangaOCRConfig.base(), CharTokenizer.synthetic(),
@@ -581,10 +875,12 @@ def run_reference_engine(params, crops) -> None:
 
 
 def run_engines(results: dict) -> dict:
-    from manga_ocr_tpu.models.config import MangaOCRConfig
-    from manga_ocr_tpu.models.tokenizer import CharTokenizer
+    import torch
+
     from manga_ocr_tpu_torch.engine import TorchMangaOcrEngine
+    from manga_ocr_tpu_torch.models.config import MangaOCRConfig
     from manga_ocr_tpu_torch.models.params import init_params
+    from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
 
     cfg = MangaOCRConfig.base()
     crops = load_crops()
@@ -621,6 +917,10 @@ def run_engines(results: dict) -> dict:
 
     # -- the exact reference path: no kernel --------------------------------------
     run_reference_engine(params, crops)
+
+    # -- the fused whole-layer step decode: kernels A, B, J, K, F -----------------
+    torch.cuda.empty_cache()
+    run_fused_layer_slice(params, crops, results)
     return rates
 
 
@@ -639,12 +939,12 @@ def main() -> int:
     card = card_line()
     log(card)
 
-    from manga_ocr_tpu.models.config import MangaOCRConfig, with_serving_kernels
     from manga_ocr_tpu_torch.engine.engine import _cast_quantized
     from manga_ocr_tpu_torch.kernels import build
     from manga_ocr_tpu_torch.models import model as mdl
+    from manga_ocr_tpu_torch.models.config import MangaOCRConfig, with_serving_kernels
     from manga_ocr_tpu_torch.models.params import init_params
-    from manga_ocr_tpu_torch.models.quantize import quantize_encoder
+    from manga_ocr_tpu_torch.models.quantize import quantize_decoder, quantize_encoder
 
     t0 = time.time()
     build.load(verbose=True)
@@ -666,6 +966,9 @@ def main() -> int:
     del params
     check_bf16_kernels(mdl.cast_params(raw, torch.bfloat16),
                        with_serving_kernels(MangaOCRConfig.base(), quantized=False), results)
+    check_step_kernels({"decoder": _cast_quantized(quantize_decoder(raw["decoder"]),
+                                                   torch.bfloat16)},
+                       {"decoder": mdl.cast_params(raw["decoder"], torch.bfloat16)}, cfg, results)
     del raw
     torch.cuda.empty_cache()
     rates = run_engines(results)
@@ -681,11 +984,17 @@ def main() -> int:
            "attention_packed": ("manga_ocr_tpu_torch/csrc/encoder.cu",
                                 "manga_ocr_tpu/ops/flash_attention.py:197"),
            "fused_greedy_head": ("manga_ocr_tpu_torch/csrc/fused_head.cu",
-                                 "manga_ocr_tpu/ops/fused_head.py:109")}
+                                 "manga_ocr_tpu/ops/fused_head.py:109"),
+           "fused_self_attn_step": ("manga_ocr_tpu_torch/csrc/decode_layer.cu",
+                                    "manga_ocr_tpu/ops/decode_layer.py:201"),
+           "fused_cross_attn_step": ("manga_ocr_tpu_torch/csrc/decode_layer.cu",
+                                     "manga_ocr_tpu/ops/decode_layer.py:336"),
+           "fused_mlp_block[step]": ("manga_ocr_tpu_torch/csrc/encoder.cu",
+                                     "manga_ocr_tpu/ops/fused_mlp.py:165")}
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         {"name": name, "route": "cuda", "source": src[name][0], "replaces": src[name][1],
-         "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-         "plain_ms": r["plain_ms"]}
+         **{k: r[k] for k in keys}}
         for name, r in results.items()
     ]
     log(f"engine crops_per_s int8={rates['int8']} bf16={rates['bf16']}")

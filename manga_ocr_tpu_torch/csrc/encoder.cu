@@ -24,7 +24,9 @@
 //                  (mma.sync m16n8k32), 128x128x64 tiles in shared memory,
 //                  fused f32 epilogue  y = (acc * sx[m]) * sw[n] + b[n]
 //                  then: bf16 out | sigmoid-GELU f32 out | bf16 out + bf16
-//                  residual.  The int32 sums are exact, so only epilogue
+//                  residual | f32 out | erf-GELU f32 out (the last two for
+//                  the decode step's projections and kernel B's step form,
+//                  csrc/decode_layer.cu).  The int32 sums are exact, so only epilogue
 //                  rounding can differ from the plain version.  Bound: at
 //                  B=256 (M = 50432) the products are large; this simple
 //                  single-stage tile loop is bound by its own load latency
@@ -78,7 +80,7 @@ __global__ void ln_quant_rows_kernel(const T* __restrict__ x, const float* __res
 constexpr int BM = 128, BN = 128, BK = 64, LDS = BK + 16;  // 80-byte smem rows
 constexpr int GEMM_THREADS = 256;
 
-enum Epilogue { kBf16 = 0, kGeluF32 = 1, kResidualBf16 = 2 };
+enum Epilogue { kBf16 = 0, kGeluF32 = 1, kResidualBf16 = 2, kF32 = 3, kGeluErfF32 = 4 };
 
 __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
   asm volatile(
@@ -165,6 +167,11 @@ int8_gemm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ Bt,
         if (mode == kGeluF32) {
           *reinterpret_cast<float2*>(static_cast<float*>(out) + o) =
               make_float2(gelu_sigmoid(y0), gelu_sigmoid(y1));
+        } else if (mode == kF32) {
+          *reinterpret_cast<float2*>(static_cast<float*>(out) + o) = make_float2(y0, y1);
+        } else if (mode == kGeluErfF32) {
+          *reinterpret_cast<float2*>(static_cast<float*>(out) + o) =
+              make_float2(gelu_erf(y0), gelu_erf(y1));
         } else {
           if (mode == kResidualBf16) {
             const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(res + o);
@@ -300,6 +307,7 @@ int mocr_ln_quant_rows(const void* x, int x_is_bf16, const void* ln_scale, const
 int mocr_int8_gemm(const void* a, const void* b_t, const void* sx, const void* sw,
                    const void* bias, const void* residual, void* out, int M, int N, int K,
                    int mode, void* stream) {
+  if (K % BK || N % 2 || mode < kBf16 || mode > kGeluErfF32) return (int)cudaErrorInvalidValue;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   int8_gemm_kernel<<<grid, GEMM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(a), static_cast<const int8_t*>(b_t),

@@ -27,12 +27,13 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from manga_ocr_tpu.models.config import MangaOCRConfig, with_serving_kernels
-from manga_ocr_tpu.models.tokenizer import CharTokenizer
-from manga_ocr_tpu.parallel import batching
 from manga_ocr_tpu_torch.models import model as mdl
+from manga_ocr_tpu_torch.models.config import MangaOCRConfig, with_serving_kernels
 from manga_ocr_tpu_torch.models.quantize import quantize_encoder
+from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
 from manga_ocr_tpu_torch.ops import preprocess as pp
+from manga_ocr_tpu_torch.parallel import batching
+from manga_ocr_tpu_torch.utils.metrics import COMPILE_EVENTS
 
 
 def _stage_fn(timer):
@@ -248,8 +249,6 @@ class TorchMangaOcrEngine:
             if key in self._warmed:
                 return
             self._warmed.add(key)
-        from manga_ocr_tpu.utils.metrics import COMPILE_EVENTS
-
         COMPILE_EVENTS.add("unplanned_compile")
         COMPILE_EVENTS.add(f"unplanned:{bucket_hw[0]}x{bucket_hw[1]}@{batch}")
 

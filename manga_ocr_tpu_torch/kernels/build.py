@@ -2,7 +2,8 @@
 
 Each ``csrc/*.cu`` file compiles with its own ``nvcc`` for Hopper
 (``sm_90a``), all started together, and the objects link into ONE shared
-library with a plain C interface, loaded with ``ctypes``.  The library lands in ``build/manga_ocr_tpu_torch/`` beside the package and is
+library with a plain C interface, loaded with ``ctypes``.  The library
+lands in ``build/manga_ocr_tpu_torch/`` beside the package and is
 keyed by a hash of the sources and flags, so an edited source is rebuilt and
 a stale library is never loaded.  Headers come only from this repository and
 the CUDA toolkit; nothing is downloaded.
@@ -54,6 +55,11 @@ _SIGNATURES = {
     # x, wt, bt, lns, lnb, wp, bp, B, D, V, n_split, rows_per_block, eps,
     # part_v, part_i, ids, stream
     "mocr_fused_head": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P),
+    # qkv, cache_k, cache_v, ctx, ctx_bf16, B, T, H, dh, step, scale, stream
+    "mocr_self_attn_step": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    # q, k, v, k_scale, v_scale, kv_int8, ctx, ctx_bf16, B, S, H, dh, s_valid,
+    # scale, stream
+    "mocr_cross_attn_step": (_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 _lock = threading.Lock()

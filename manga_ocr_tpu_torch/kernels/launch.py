@@ -4,7 +4,7 @@ Each launcher checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on PyTorch's current stream and
 raises if the launch reported a CUDA error.  The public kernel wrappers
 (``ops.fused_mlp``, ``ops.flash_attention``, ``ops.decode_loop``,
-``ops.fused_head``) chain them.
+``ops.fused_head``, ``ops.decode_layer``) chain them.
 """
 
 from __future__ import annotations
@@ -15,8 +15,11 @@ import torch
 
 from manga_ocr_tpu_torch.kernels import build
 
-GEMM_BF16, GEMM_GELU_F32, GEMM_RESIDUAL_BF16 = 0, 1, 2  # int8_gemm epilogues
-BF16_GELU_ERF, BF16_GELU_SIGMOID, BF16_RESIDUAL = 0, 1, 2  # bf16_gemm epilogues
+# int8_gemm epilogues
+GEMM_BF16, GEMM_GELU_F32, GEMM_RESIDUAL_BF16, GEMM_F32, GEMM_GELU_ERF_F32 = 0, 1, 2, 3, 4
+_GEMM_F32_OUT = (GEMM_GELU_F32, GEMM_F32, GEMM_GELU_ERF_F32)
+# bf16_gemm epilogues
+BF16_GELU_ERF, BF16_GELU_SIGMOID, BF16_RESIDUAL, BF16_F32 = 0, 1, 2, 3
 
 
 def _expect(t: torch.Tensor, dtype: torch.dtype, shape: tuple, name: str) -> None:
@@ -73,7 +76,8 @@ def int8_gemm(
 ) -> torch.Tensor:
     """``epilogue((a[M, K] . b_t[N, K]^T) * sx[m] * sw[n] + bias[n])`` with
     ``mode`` one of GEMM_BF16 (bf16 out), GEMM_GELU_F32 (sigmoid GELU, f32
-    out), GEMM_RESIDUAL_BF16 (bf16 out plus the bf16 ``residual``)."""
+    out), GEMM_RESIDUAL_BF16 (bf16 out plus the bf16 ``residual``), GEMM_F32
+    (f32 out), GEMM_GELU_ERF_F32 (erf-polynomial GELU, f32 out)."""
     m, k = a.shape
     n = b_t.shape[0]
     if k % 64 or n % 2:
@@ -85,9 +89,9 @@ def int8_gemm(
     _expect(bias, torch.float32, (n,), "int8_gemm bias")
     if mode == GEMM_RESIDUAL_BF16:
         _expect(residual, torch.bfloat16, (m, n), "int8_gemm residual")
-    elif mode not in (GEMM_BF16, GEMM_GELU_F32):
+    elif mode != GEMM_BF16 and mode not in _GEMM_F32_OUT:
         raise ValueError(f"int8_gemm: unknown mode {mode}")
-    out_dtype = torch.float32 if mode == GEMM_GELU_F32 else torch.bfloat16
+    out_dtype = torch.float32 if mode in _GEMM_F32_OUT else torch.bfloat16
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     lib = build.load()
     err = lib.mocr_int8_gemm(
@@ -160,8 +164,8 @@ def bf16_gemm(
 ) -> torch.Tensor:
     """``epilogue(a[M, K] . b[K, N] + bias[N])`` in bf16 with f32
     accumulation; ``mode`` one of BF16_GELU_ERF, BF16_GELU_SIGMOID (the GELU
-    in f32, then bf16) or BF16_RESIDUAL (bf16, then plus the bf16
-    ``residual``)."""
+    in f32, then bf16), BF16_RESIDUAL (bf16, then plus the bf16
+    ``residual``) or BF16_F32 (f32 out)."""
     m, k = a.shape
     n = b.shape[1]
     if k % 32 or n % 8:
@@ -173,9 +177,10 @@ def bf16_gemm(
     _expect_aligned(b, "bf16_gemm b")
     if mode == BF16_RESIDUAL:
         _expect(residual, torch.bfloat16, (m, n), "bf16_gemm residual")
-    elif mode not in (BF16_GELU_ERF, BF16_GELU_SIGMOID):
+    elif mode not in (BF16_GELU_ERF, BF16_GELU_SIGMOID, BF16_F32):
         raise ValueError(f"bf16_gemm: unknown mode {mode}")
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
+    out_dtype = torch.float32 if mode == BF16_F32 else torch.bfloat16
+    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     lib = build.load()
     err = lib.mocr_bf16_gemm(
         a.data_ptr(), b.data_ptr(), bias.data_ptr(),
@@ -239,3 +244,76 @@ def fused_head(
     )
     build.check(err, "fused_head")
     return ids
+
+
+def self_attn_step(
+    qkv: torch.Tensor,
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    heads: int,
+    step: int,
+    scale: float,
+    ctx_dtype: torch.dtype,
+) -> torch.Tensor:
+    """qkv [B, 3D] f32 (q | k | v) -> ctx [B, D] in ``ctx_dtype`` (f32 or
+    bf16); writes k and v (rounded to bf16) into row ``step`` of the bf16
+    caches [T, B, D] in place."""
+    t_len, b, d = cache_k.shape
+    dh = d // heads
+    if dh * heads != d or not 0 <= step < t_len:
+        raise ValueError(f"self_attn_step: D={d}, heads={heads}, step={step}, T={t_len}")
+    _expect(qkv, torch.float32, (b, 3 * d), "self_attn_step qkv")
+    _expect(cache_k, torch.bfloat16, (t_len, b, d), "self_attn_step cache_k")
+    _expect(cache_v, torch.bfloat16, (t_len, b, d), "self_attn_step cache_v")
+    if ctx_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"self_attn_step: ctx dtype {ctx_dtype}")
+    ctx = torch.empty((b, d), dtype=ctx_dtype, device=qkv.device)
+    lib = build.load()
+    err = lib.mocr_self_attn_step(
+        qkv.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), ctx.data_ptr(),
+        int(ctx_dtype == torch.bfloat16), b, t_len, heads, dh, int(step), float(scale),
+        build.stream_ptr(qkv.device),
+    )
+    build.check(err, "self_attn_step")
+    return ctx
+
+
+def cross_attn_step(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    k_scale: torch.Tensor | None,
+    v_scale: torch.Tensor | None,
+    heads: int,
+    s_valid: int,
+    scale: float,
+    ctx_dtype: torch.dtype,
+) -> torch.Tensor:
+    """q [B, D] f32 against K/V [B, S, D] (int8 with k_scale [B, S] and
+    v_scale [B, D] f32, or bf16 without scales) -> ctx [B, D] in
+    ``ctx_dtype`` (f32 or bf16)."""
+    b, s, d = k.shape
+    dh = d // heads
+    if dh * heads != d:
+        raise ValueError(f"cross_attn_step: D={d}, heads={heads}")
+    _expect(q, torch.float32, (b, d), "cross_attn_step q")
+    int8 = k.dtype == torch.int8
+    for t, name in ((k, "k"), (v, "v")):
+        _expect(t, torch.int8 if int8 else torch.bfloat16, (b, s, d), f"cross_attn_step {name}")
+    if int8:
+        _expect(k_scale, torch.float32, (b, s), "cross_attn_step k_scale")
+        _expect(v_scale, torch.float32, (b, d), "cross_attn_step v_scale")
+    elif k_scale is not None or v_scale is not None:
+        raise ValueError("cross_attn_step: scales come with int8 K/V only")
+    if ctx_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"cross_attn_step: ctx dtype {ctx_dtype}")
+    ctx = torch.empty((b, d), dtype=ctx_dtype, device=q.device)
+    lib = build.load()
+    err = lib.mocr_cross_attn_step(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        k_scale.data_ptr() if int8 else None, v_scale.data_ptr() if int8 else None, int(int8),
+        ctx.data_ptr(), int(ctx_dtype == torch.bfloat16), b, s, heads, dh, int(s_valid),
+        float(scale), build.stream_ptr(q.device),
+    )
+    build.check(err, "cross_attn_step")
+    return ctx

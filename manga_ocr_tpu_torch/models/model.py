@@ -3,10 +3,12 @@ encoder -> cross-K/V precompute -> greedy decode.
 
 ``greedy_decode`` dispatches on ``cfg.decoder.step_kernel`` as the JAX
 function does: ``"fused_loop"`` runs the whole decode as kernel C over the
-packed bf16 slabs; ``"xla"`` runs the chunked step-by-step loop over
-``decoder.decode_step_greedy``, checking for early exit only between chunks
-of ``chunk_size`` steps.  ``"fused_layer"`` and ``fuse_cross_kv`` are not
-ported and raise.
+packed bf16 slabs; ``"xla"`` and ``"fused_layer"`` run the chunked
+step-by-step loop over ``decoder.decode_step_greedy``, checking for early
+exit only between chunks of ``chunk_size`` steps (``"fused_layer"`` over
+packed cross-K/V, int8 when ``cfg.decoder.cross_kv_int8``, the packed cache
+and the weights of kernels J, K and B prepared once).  ``fuse_cross_kv`` is
+not ported and raises.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import NamedTuple
 
 import torch
 
-from manga_ocr_tpu.models.config import MangaOCRConfig
+from manga_ocr_tpu_torch.models.config import MangaOCRConfig
 from manga_ocr_tpu_torch.models import decoder as dec
 from manga_ocr_tpu_torch.models import vit
 from manga_ocr_tpu_torch.ops.decode_loop import greedy_decode_loop, greedy_decode_loop_reference
@@ -64,12 +66,17 @@ def greedy_decode(
             stop_lengths=stop_lengths,
         )
         return GreedyResult(tokens[:, :max_len], torch.clamp(lengths, max=max_len))
-    if dcfg.step_kernel != "xla":
+    if dcfg.step_kernel not in ("xla", "fused_layer"):
         raise NotImplementedError(f"greedy_decode: step_kernel={dcfg.step_kernel!r} is not ported")
 
     n_chunks = -(-(max_len - 1) // chunk_size)
     padded_len = 1 + n_chunks * chunk_size
-    cross = dec.precompute_cross_kv(params["decoder"], enc_out, dcfg)
+    prepared = None
+    if dcfg.step_kernel == "fused_layer":
+        cross = dec.precompute_cross_kv_packed(params["decoder"], enc_out, dcfg)
+        prepared = dec.prepare_fused_layer(params["decoder"], dcfg, dtype)
+    else:
+        cross = dec.precompute_cross_kv(params["decoder"], enc_out, dcfg)
     cache = dec.init_cache(dcfg, b, padded_len, dtype, dev)
     tokens = torch.full((b, padded_len), dcfg.pad_token_id, dtype=torch.int32, device=dev)
     tokens[:, 0] = dcfg.bos_token_id
@@ -82,7 +89,7 @@ def greedy_decode(
     while step < max_len - 1 and not bool(done.all()):
         for _ in range(chunk_size):
             nxt, cache = dec.decode_step_greedy(
-                params["decoder"], last, step, cache, cross, dcfg, use_kernels
+                params["decoder"], last, step, cache, cross, dcfg, use_kernels, prepared
             )
             nxt = torch.where(done, pad, nxt)
             newly = nxt == dcfg.eos_token_id

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from manga_ocr_tpu.models.config import DecoderConfig, EncoderConfig, MangaOCRConfig
+from manga_ocr_tpu_torch.models.config import DecoderConfig, EncoderConfig, MangaOCRConfig
 
 
 def _to_tensor(a, device) -> torch.Tensor:

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from manga_ocr_tpu.models.config import EncoderConfig
+from manga_ocr_tpu_torch.models.config import EncoderConfig
 from manga_ocr_tpu_torch.models.params import layer_params
 from manga_ocr_tpu_torch.ops.common import dense, dense_any, gelu, layer_norm, mha
 from manga_ocr_tpu_torch.ops.flash_attention import (

@@ -72,11 +72,15 @@ def _common_weights(params: dict, steps: int, dt) -> dict:
     }
 
 
-def _check_serving_form(params_decoder: dict, options: dict) -> None:
+def _check_serving_form(params_decoder: dict, cross, options: dict) -> None:
     """Raise for the JAX kernel's forms that are not ported.  ``head_phased``
-    is accepted either way: both head forms keep the first maximum."""
+    is accepted either way: both head forms keep the first maximum.  The
+    kernel reads float slabs, as the JAX one does: int8 slabs (with scales)
+    raise."""
     if "w_q" in params_decoder["layers"]["self_attn"]["q"]:
         raise NotImplementedError("greedy_decode_loop: an int8 decoder is not ported")
+    if cross.k_scale is not None:
+        raise NotImplementedError("greedy_decode_loop: int8 cross-K/V slabs are not ported")
     for name, value in options.items():
         if name == "head_phased" or (name == "chains" and value in (None, 1)):
             continue
@@ -219,7 +223,7 @@ def greedy_decode_loop(
     version; CUDA tensors launch the kernel or raise.  The JAX kernel's
     int8-decoder, ``fuse_kv``, ``chains > 1`` and ``ablate`` forms raise
     ``NotImplementedError``."""
-    _check_serving_form(params_decoder, options)
+    _check_serving_form(params_decoder, cross, options)
     if cross.k.device.type == "cpu":
         return greedy_decode_loop_reference(
             params_decoder, cross, cfg, steps, dtype, stop_lengths

@@ -3,11 +3,16 @@
 Counterpart of ``manga_ocr_tpu/ops/fused_mlp.py`` ``fused_mlp_block``, which
 takes either weight form:
 
-- int8 (kernel B, ``_kernel_int8``; weights as ``(w_q, scale)``): the
-  serving encoder's pre-LN block.  On CUDA tensors it runs the kernels of
-  ``csrc/encoder.cu``: LN + row quantization -> int8 fc1 with a dequant +
-  bias + sigmoid-GELU epilogue -> row quantization of the f32 GELU output ->
-  int8 fc2 with a dequant + bias + residual epilogue.
+- int8 (kernel B, ``_kernel_int8``; weights as ``(w_q, scale)`` or
+  ``Int8Weight``): the serving encoder's pre-LN block with the sigmoid GELU,
+  and the int8 decoder's step form LN(x + MLP(x)) (``pre_ln=False``,
+  ``post_ln=True``, erf GELU).  On CUDA tensors it runs the kernels of
+  ``csrc/encoder.cu``: [LN +] row quantization -> int8 fc1 with a dequant +
+  bias + GELU epilogue (f32 out) -> row quantization of the GELU output ->
+  int8 fc2 with a dequant + bias + residual epilogue [-> ``ln_rows_bf16``,
+  ``csrc/mlp_bf16.cu``, for the post-LN].  The int8 GEMM reads its weights
+  as [N, K]: ``int8_weight`` makes that copy once, and a plain
+  ``(w_q, scale)`` tuple is transposed on every call.
 - bf16 (kernel D, ``_kernel_bf16``; weights as plain [K, N] matrices): the
   unquantized encoder's pre-LN block and the step decoder's ``pre_ln=False``
   block, with an optional post-LN.  On CUDA tensors it runs the kernels of
@@ -23,36 +28,61 @@ PyTorch.  ``fused_mlp_block.launches`` counts kernel B's launches and
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from manga_ocr_tpu_torch.kernels import launch
 from manga_ocr_tpu_torch.ops.kernel_utils import gelu_fn, int8_matmul, ln32, quant_rows
 
 _GELU_MODES = {"erf": launch.BF16_GELU_ERF, "sigmoid": launch.BF16_GELU_SIGMOID}
+_INT8_GELU_MODES = {"erf": launch.GEMM_GELU_ERF_F32, "sigmoid": launch.GEMM_GELU_F32}
+
+
+class Int8Weight(NamedTuple):
+    """An int8 dense as the JAX function takes it, ``(w_q [K, N], scale
+    [N])``, with the [N, K] copy the CUDA int8 GEMM reads (``int8_weight``
+    makes it once)."""
+
+    w_q: torch.Tensor
+    scale: torch.Tensor
+    w_t: torch.Tensor
+
+
+def int8_weight(w_q: torch.Tensor, scale: torch.Tensor) -> Int8Weight:
+    return Int8Weight(w_q, scale.float().contiguous(), w_q.t().contiguous())
 
 
 def fused_mlp_block_reference(
     x: torch.Tensor,
     ln_scale: torch.Tensor,
     ln_bias: torch.Tensor,
-    w1: tuple[torch.Tensor, torch.Tensor],
+    w1,  # (int8 [D, I], f32 scales [I]) or Int8Weight
     b1: torch.Tensor,
-    w2: tuple[torch.Tensor, torch.Tensor],
+    w2,  # (int8 [I, D], f32 scales [D]) or Int8Weight
     b2: torch.Tensor,
     eps: float = 1e-12,
     gelu_mode: str = "erf",
+    pre_ln: bool = True,
+    post_ln: bool = False,
 ) -> torch.Tensor:
     """Plain version of kernel B: the JAX ``_kernel_int8`` chain on [..., D]
-    rows (pre-LN)."""
-    (w1q, s1), (w2q, s2) = w1, w2
+    rows, [LN ->] MLP -> + x [-> LN]."""
+    if pre_ln and post_ln:
+        raise ValueError("fused_mlp_block: pre_ln and post_ln are exclusive")
+    (w1q, s1), (w2q, s2) = w1[:2], w2[:2]
     shape = x.shape
     xf = x.reshape(-1, shape[-1])
-    hq, sx = quant_rows(ln32(xf, ln_scale, ln_bias, eps))
+    h32 = ln32(xf, ln_scale, ln_bias, eps) if pre_ln else xf.float()
+    hq, sx = quant_rows(h32)
     h = int8_matmul(hq, w1q).float() * sx * s1.float() + b1.float()
     h = gelu_fn(gelu_mode)(h)
     hq2, sx2 = quant_rows(h)
     o = int8_matmul(hq2, w2q).float() * sx2 * s2.float() + b2.float()
-    return (xf + o.to(x.dtype)).reshape(shape)
+    r = xf + o.to(x.dtype)
+    if post_ln:
+        r = ln32(r, ln_scale, ln_bias, eps).to(x.dtype)
+    return r.reshape(shape)
 
 
 def fused_mlp_block_bf16_reference(
@@ -135,9 +165,9 @@ def fused_mlp_block(
     x: torch.Tensor,  # [B, S, D] or [M, D]
     ln_scale: torch.Tensor,
     ln_bias: torch.Tensor,
-    w1,  # (int8 [D, I], f32 scales [I]) or a bf16 [D, I] kernel
+    w1,  # (int8 [D, I], f32 scales [I]), Int8Weight, or a bf16 [D, I] kernel
     b1: torch.Tensor,
-    w2,  # (int8 [I, D], f32 scales [D]) or a bf16 [I, D] kernel
+    w2,  # (int8 [I, D], f32 scales [D]), Int8Weight, or a bf16 [I, D] kernel
     b2: torch.Tensor,
     eps: float = 1e-12,
     gelu_mode: str = "erf",
@@ -146,41 +176,36 @@ def fused_mlp_block(
 ) -> torch.Tensor:
     """One [LN ->] MLP -> residual [-> LN] block in either weight form, as
     the JAX function.  Weights as plain tensors go to kernel D
-    (``fused_mlp_block_bf16``); ``(w_q, scale)`` tuples to kernel B, whose
-    ``pre_ln=False`` and ``post_ln`` forms (the int8 decoder's) are not
-    ported and raise.  CPU tensors take the plain versions; CUDA tensors
-    launch the kernels or raise."""
+    (``fused_mlp_block_bf16``); ``(w_q, scale)`` tuples or ``Int8Weight`` to
+    kernel B.  CPU tensors take the plain versions; CUDA tensors launch the
+    kernels or raise."""
     if not isinstance(w1, tuple):
         return fused_mlp_block_bf16(
             x, ln_scale, ln_bias, w1, b1, w2, b2, eps, gelu_mode, pre_ln, post_ln
         )
-    if not pre_ln or post_ln:
-        raise NotImplementedError(
-            "fused_mlp_block: the int8 form is ported as the pre-LN encoder block only"
-        )
     if x.device.type == "cpu":
-        return fused_mlp_block_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, eps, gelu_mode)
-    if gelu_mode != "sigmoid":
-        raise NotImplementedError(
-            "fused_mlp_block: the int8 CUDA kernel implements the serving sigmoid GELU only"
+        return fused_mlp_block_reference(
+            x, ln_scale, ln_bias, w1, b1, w2, b2, eps, gelu_mode, pre_ln, post_ln
         )
+    if pre_ln and post_ln:
+        raise ValueError("fused_mlp_block: pre_ln and post_ln are exclusive")
+    if gelu_mode not in _INT8_GELU_MODES:
+        raise ValueError(f"fused_mlp_block: the CUDA kernel has no gelu_mode {gelu_mode!r}")
     if x.dtype != torch.bfloat16:
         raise ValueError(f"fused_mlp_block: the CUDA kernel takes bf16, got {x.dtype}")
-    (w1q, s1), (w2q, s2) = w1, w2
+    w1 = w1 if isinstance(w1, Int8Weight) else int8_weight(*w1)
+    w2 = w2 if isinstance(w2, Int8Weight) else int8_weight(*w2)
     shape = x.shape
     xf = x.reshape(-1, shape[-1]).contiguous()
-    hq, sx = launch.ln_quant_rows(
-        xf, (ln_scale.float().contiguous(), ln_bias.float().contiguous()), eps
-    )
-    h = launch.int8_gemm(
-        hq, w1q.t().contiguous(), sx, s1.float().contiguous(), b1.float().contiguous(),
-        launch.GEMM_GELU_F32,
-    )
+    ln = (ln_scale.float().contiguous(), ln_bias.float().contiguous())
+    hq, sx = launch.ln_quant_rows(xf, ln if pre_ln else None, eps)
+    h = launch.int8_gemm(hq, w1.w_t, sx, w1.scale, b1.float().contiguous(),
+                         _INT8_GELU_MODES[gelu_mode])
     hq2, sx2 = launch.ln_quant_rows(h)
-    out = launch.int8_gemm(
-        hq2, w2q.t().contiguous(), sx2, s2.float().contiguous(), b2.float().contiguous(),
-        launch.GEMM_RESIDUAL_BF16, residual=xf,
-    )
+    out = launch.int8_gemm(hq2, w2.w_t, sx2, w2.scale, b2.float().contiguous(),
+                           launch.GEMM_RESIDUAL_BF16, residual=xf)
+    if post_ln:
+        out = launch.ln_rows_bf16(out, ln, eps)
     fused_mlp_block.launches += 1
     return out.reshape(shape)
 

@@ -10,7 +10,8 @@ does not need and may not have.)
 
 Shapes are small but satisfy the kernels' constraints (int8 GEMM K % 64 ==
 0 and even N, bf16 GEMM K % 32 == 0 and N % 8 == 0, head dims multiples of
-8, vocab a multiple of 512).  Tolerances: see chip_smoke.py — the int8
+8, vocab a multiple of 512; the decode-step kernels J and K also at dh 96).
+Tolerances: see chip_smoke.py — the int8
 products are exact, so encoder outputs differ by at most a few bf16 ulps of
 the largest output; decode tokens are scored by the plain version fed the
 kernel's tokens (teacher forcing); a head id passes when the plain logit
@@ -24,8 +25,8 @@ import numpy as np
 import pytest
 import torch
 
-from manga_ocr_tpu.models.config import MangaOCRConfig
-from manga_ocr_tpu.models.tokenizer import CharTokenizer
+from manga_ocr_tpu_torch.models.config import MangaOCRConfig
+from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
 
 pytestmark = pytest.mark.cuda
 
@@ -220,3 +221,123 @@ def test_engine_runs_through_all_three_kernels(device):
     assert len(texts) == 3 and all(isinstance(t, str) for t in texts)
     layers = cfg.encoder.num_layers
     assert [a - b for a, b in zip(after, before)] == [layers, layers, 1]
+
+
+def _step_dense(rng, k, n, device, int8):
+    if int8:
+        return _quantized_dense(rng, k, n, device)
+    return {"kernel": torch.from_numpy(rng.normal(size=(k, n)) * 0.05).to(device, torch.bfloat16),
+            "bias": torch.from_numpy(0.1 * rng.normal(size=(n,))).float().to(device)}
+
+
+def _step_ln(rng, d, device):
+    return {"scale": torch.from_numpy(1 + 0.1 * rng.normal(size=(d,))).float().to(device),
+            "bias": torch.from_numpy(0.1 * rng.normal(size=(d,))).float().to(device)}
+
+
+@pytest.mark.parametrize("heads", [2, 4], ids=["dh96", "dh48"])
+@pytest.mark.parametrize("int8_w", [True, False], ids=["int8_w", "bf16_w"])
+def test_self_attn_step_kernel_matches_plain(device, int8_w, heads):
+    """Kernel J at steps 0, 5 and T-1 of a cache whose later rows hold
+    noise (they must weigh nothing); the written row against the plain
+    version's."""
+    from manga_ocr_tpu_torch.ops import decode_layer as dl
+
+    rng = np.random.default_rng(8)
+    d, t_len, b = 192, 12, 5
+    w = dl.prepare_self_attn({n: _step_dense(rng, d, d, device, int8_w) for n in "qkvo"},
+                             torch.bfloat16)
+    ln = _step_ln(rng, d, device)
+    ck = torch.from_numpy(rng.normal(size=(t_len, b, d))).to(device, torch.bfloat16)
+    cv = torch.from_numpy(rng.normal(size=(t_len, b, d))).to(device, torch.bfloat16)
+    pck, pcv = ck.clone(), cv.clone()
+    for step in (0, 5, t_len - 1):
+        x = torch.from_numpy(rng.normal(size=(b, d))).to(device, torch.bfloat16)
+        before = dl.fused_self_attn_step.launches
+        got, _, _ = dl.fused_self_attn_step(x, w, ln, ck, cv, step, heads, 1e-12)
+        want, _, _ = dl.fused_self_attn_step_reference(x, w, ln, pck, pcv, step, heads, 1e-12)
+        assert dl.fused_self_attn_step.launches == before + 1
+        assert got.dtype == torch.bfloat16 and _within(got, want)
+        assert _within(ck[step], pck[step]) and _within(cv[step], pcv[step])
+
+
+@pytest.mark.parametrize("s_valid", [37, 30])
+@pytest.mark.parametrize("int8_kv", [True, False], ids=["int8_kv", "bf16_kv"])
+@pytest.mark.parametrize("int8_w", [True, False], ids=["int8_w", "bf16_w"])
+def test_cross_attn_step_kernel_matches_plain(device, int8_w, int8_kv, s_valid):
+    from manga_ocr_tpu_torch.ops import decode_layer as dl
+
+    rng = np.random.default_rng(9)
+    d, heads, s_len, b = 192, 2, 37, 5
+    w = dl.prepare_cross_attn({n: _step_dense(rng, d, d, device, int8_w) for n in "qo"},
+                              torch.bfloat16)
+    ln = _step_ln(rng, d, device)
+    if int8_kv:
+        k, v = (torch.from_numpy(rng.integers(-127, 128, size=(b, s_len, d))).to(device, torch.int8)
+                for _ in range(2))
+        ks = torch.from_numpy(rng.uniform(0.005, 0.02, size=(b, s_len))).float().to(device)
+        vs = torch.from_numpy(rng.uniform(0.005, 0.02, size=(b, d))).float().to(device)
+    else:
+        k, v = (torch.from_numpy(rng.normal(size=(b, s_len, d))).to(device, torch.bfloat16)
+                for _ in range(2))
+        ks = vs = None
+    x = torch.from_numpy(rng.normal(size=(b, d))).to(device, torch.bfloat16)
+    before = dl.fused_cross_attn_step.launches
+    got = dl.fused_cross_attn_step(x, w, ln, k, v, ks, vs, heads, 1e-12, s_valid)
+    want = dl.fused_cross_attn_step_reference(x, w, ln, k, v, ks, vs, heads, 1e-12, s_valid)
+    assert dl.fused_cross_attn_step.launches == before + 1
+    assert got.dtype == torch.bfloat16 and _within(got, want)
+
+
+@pytest.mark.parametrize("rows", [5, 70])
+def test_mlp_step_form_kernel_matches_plain(device, rows):
+    """Kernel B's int8 decoder form: LN(x + MLP(x)) with the erf GELU, with
+    prepared weights and with plain (w_q, scale) tuples."""
+    from manga_ocr_tpu_torch.ops import fused_mlp as fm
+
+    rng = np.random.default_rng(10)
+    d, inter = 192, 384
+    fc1, fc2 = _quantized_dense(rng, d, inter, device), _quantized_dense(rng, inter, d, device)
+    ln = _step_ln(rng, d, device)
+    x = torch.from_numpy(rng.normal(size=(rows, d))).to(device, torch.bfloat16)
+    kw = dict(pre_ln=False, post_ln=True, gelu_mode="erf")
+    for w1, w2 in (((fc1["w_q"], fc1["scale"]), (fc2["w_q"], fc2["scale"])),
+                   (fm.int8_weight(fc1["w_q"], fc1["scale"]),
+                    fm.int8_weight(fc2["w_q"], fc2["scale"]))):
+        args = (x, ln["scale"], ln["bias"], w1, fc1["bias"], w2, fc2["bias"])
+        before = fm.fused_mlp_block.launches
+        got = fm.fused_mlp_block(*args, **kw)
+        want = fm.fused_mlp_block_reference(*args, **kw)
+        assert fm.fused_mlp_block.launches == before + 1
+        assert got.dtype == torch.bfloat16 and _within(got, want)
+
+
+def test_fused_layer_decode_runs_through_j_k_b_and_f(device):
+    """The fused whole-layer step decode on a tiny int8 decoder: per step J
+    and K once a layer, B once a layer, F once."""
+    import dataclasses
+
+    from manga_ocr_tpu_torch.engine.engine import _cast_quantized
+    from manga_ocr_tpu_torch.models import model as mdl
+    from manga_ocr_tpu_torch.models.params import init_params
+    from manga_ocr_tpu_torch.models.quantize import quantize_decoder
+    from manga_ocr_tpu_torch.ops import decode_layer as dl
+    from manga_ocr_tpu_torch.ops import fused_head as fh
+    from manga_ocr_tpu_torch.ops import fused_mlp as fm
+
+    cfg = MangaOCRConfig.tiny(vocab_size=1024)
+    cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
+        cfg.decoder, step_kernel="fused_layer", head_kernel="fused", cross_kv_int8=True))
+    raw = init_params(cfg, 0, device)
+    params = {"decoder": _cast_quantized(quantize_decoder(raw["decoder"]), torch.bfloat16)}
+    enc = torch.randn((3, cfg.encoder.seq_len, 64), device=device).to(torch.bfloat16)
+    wrappers = (dl.fused_self_attn_step, dl.fused_cross_attn_step, fm.fused_mlp_block,
+                fh.fused_greedy_head)
+    before = [w.launches for w in wrappers]
+    out = mdl.greedy_decode(params, enc, cfg, max_length=9, chunk_size=4)
+    eos = out.tokens[:, 1:] == cfg.decoder.eos_token_id
+    steps = 4 if bool(eos[:, :4].any(1).all()) else 8  # the loop stops after a chunk
+    layers = cfg.decoder.num_layers
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [
+        layers * steps, layers * steps, layers * steps, steps]
+    assert out.tokens.shape == (3, 9) and bool((out.tokens[:, 0] == cfg.decoder.bos_token_id).all())

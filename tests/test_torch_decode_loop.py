@@ -16,11 +16,14 @@ from manga_ocr_tpu.ops.decode_loop import greedy_decode_loop as jax_loop
 from manga_ocr_tpu_torch.models import decoder as tdec
 from manga_ocr_tpu_torch.models.params import init_params_numpy, params_from_jax
 from manga_ocr_tpu_torch.ops import decode_loop as tl
+from port_config import port_config
 
 STEPS = 11
 
 
 def _setup(std, seed=0, batch=4):
+    """The JAX config (``_both`` hands the port its own), the decoder's
+    numpy weights and an encoder output."""
     cfg = MangaOCRConfig.tiny()
     np_params = init_params_numpy(cfg, seed, std=std)
     enc = np.random.default_rng(seed + 7).normal(size=(batch, cfg.encoder.seq_len, 64))
@@ -32,10 +35,10 @@ def _both(cfg, np_dec, enc, stops=None):
     jt, jl = jax_loop(np_dec, jcross, cfg.decoder, steps=STEPS, dtype=jnp.float32,
                       head_phased=True,
                       stop_lengths=None if stops is None else jnp.asarray(stops, jnp.int32))
-    tdp = params_from_jax(np_dec, "cpu")
-    tcross = tdec.precompute_cross_kv_packed(tdp, torch.from_numpy(enc), cfg.decoder)
+    tdp, tcfg = params_from_jax(np_dec, "cpu"), port_config(cfg).decoder
+    tcross = tdec.precompute_cross_kv_packed(tdp, torch.from_numpy(enc), tcfg)
     tt, tln = tl.greedy_decode_loop(
-        tdp, tcross, cfg.decoder, STEPS, dtype=torch.float32,
+        tdp, tcross, tcfg, STEPS, dtype=torch.float32,
         stop_lengths=None if stops is None else torch.tensor(stops, dtype=torch.int32),
     )
     return (np.asarray(jt), np.asarray(jl)), (tt.numpy(), tln.numpy())
@@ -78,7 +81,7 @@ def test_cross_kv_precompute_matches_jax():
     cfg, np_dec, enc = _setup(0.1, seed=3)
     want = jdec.precompute_cross_kv_packed(np_dec, jnp.asarray(enc), cfg.decoder, int8=False)
     got = tdec.precompute_cross_kv_packed(params_from_jax(np_dec, "cpu"), torch.from_numpy(enc),
-                                          cfg.decoder)
+                                          port_config(cfg).decoder)
     np.testing.assert_allclose(got.k.numpy(), np.asarray(want.k), atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(got.v.numpy(), np.asarray(want.v), atol=1e-5, rtol=1e-5)
 
@@ -87,23 +90,24 @@ def test_embed_matches_jax():
     cfg, np_dec, _ = _setup(0.1, seed=4)
     toks = np.array([[2, 5, 7], [3, 0, 9]], np.int32)
     want = jdec.embed(np_dec, jnp.asarray(toks), 4, cfg.decoder)
-    got = tdec.embed(params_from_jax(np_dec, "cpu"), torch.from_numpy(toks), 4, cfg.decoder)
+    got = tdec.embed(params_from_jax(np_dec, "cpu"), torch.from_numpy(toks), 4,
+                     port_config(cfg).decoder)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=0)
 
 
 def test_teacher_forced_gaps_are_zero_on_own_tokens_in_bf16():
     cfg, np_dec, enc = _setup(0.1, seed=5)
-    tdp = params_from_jax(np_dec, "cpu")
-    cross = tdec.precompute_cross_kv_packed(tdp, torch.from_numpy(enc).bfloat16(), cfg.decoder)
-    tokens, lengths = tl.greedy_decode_loop(tdp, cross, cfg.decoder, STEPS)
-    gaps, top = tl.teacher_forced_gaps(tdp, cross, cfg.decoder, tokens)
+    tdp, tcfg = params_from_jax(np_dec, "cpu"), port_config(cfg).decoder
+    cross = tdec.precompute_cross_kv_packed(tdp, torch.from_numpy(enc).bfloat16(), tcfg)
+    tokens, lengths = tl.greedy_decode_loop(tdp, cross, tcfg, STEPS)
+    gaps, top = tl.teacher_forced_gaps(tdp, cross, tcfg, tokens)
     assert gaps.shape == top.shape == (4, STEPS)
     live = torch.arange(STEPS)[None, :] + 1 < lengths[:, None]
     assert float(gaps[live].abs().max()) == 0.0
     # a token that is not the argmax shows a positive gap
     forced = tokens.clone()
     forced[:, 1] = (forced[:, 1] + 1) % cfg.decoder.vocab_size
-    gaps2, _ = tl.teacher_forced_gaps(tdp, cross, cfg.decoder, forced)
+    gaps2, _ = tl.teacher_forced_gaps(tdp, cross, tcfg, forced)
     assert bool((gaps2[:, 0] > 0).all())
 
 
@@ -113,28 +117,31 @@ def test_teacher_forced_gaps_are_zero_on_own_tokens_in_bf16():
 def test_unported_forms_raise(option):
     cfg, np_dec, enc = _setup(0.02)
     tdp = params_from_jax(np_dec, "cpu")
-    cross = tdec.precompute_cross_kv_packed(tdp, torch.from_numpy(enc), cfg.decoder)
+    cross = tdec.precompute_cross_kv_packed(tdp, torch.from_numpy(enc), port_config(cfg).decoder)
     with pytest.raises(NotImplementedError):
-        tl.greedy_decode_loop(tdp, cross, cfg.decoder, STEPS, **option)
+        tl.greedy_decode_loop(tdp, cross, port_config(cfg).decoder, STEPS, **option)
 
 
 def test_int8_forms_raise():
+    """Kernel C's int8-decoder form is not ported, and C reads float slabs
+    (as the JAX kernel does): int8 slabs raise."""
     cfg, np_dec, enc = _setup(0.02)
-    tdp = params_from_jax(np_dec, "cpu")
-    cross = tdec.precompute_cross_kv_packed(tdp, torch.from_numpy(enc), cfg.decoder)
+    tdp, tcfg = params_from_jax(np_dec, "cpu"), port_config(cfg).decoder
+    cross = tdec.precompute_cross_kv_packed(tdp, torch.from_numpy(enc), tcfg)
     q = dict(tdp)
     q["layers"] = dict(tdp["layers"])
     q["layers"]["self_attn"] = dict(tdp["layers"]["self_attn"], q={"w_q": None})
     with pytest.raises(NotImplementedError):
-        tl.greedy_decode_loop(q, cross, cfg.decoder, STEPS)
+        tl.greedy_decode_loop(q, cross, tcfg, STEPS)
+    int8_cross = tdec.precompute_cross_kv_packed(tdp, torch.from_numpy(enc), tcfg, int8=True)
     with pytest.raises(NotImplementedError):
-        tdec.precompute_cross_kv_packed(tdp, torch.from_numpy(enc), cfg.decoder, int8=True)
+        tl.greedy_decode_loop(tdp, int8_cross, tcfg, STEPS)
 
 
 def test_wrapper_counts_no_cpu_launches():
     cfg, np_dec, enc = _setup(0.02)
     tdp = params_from_jax(np_dec, "cpu")
-    cross = tdec.precompute_cross_kv_packed(tdp, torch.from_numpy(enc), cfg.decoder)
+    cross = tdec.precompute_cross_kv_packed(tdp, torch.from_numpy(enc), port_config(cfg).decoder)
     before = tl.greedy_decode_loop.launches
-    tl.greedy_decode_loop(tdp, cross, cfg.decoder, 3)
+    tl.greedy_decode_loop(tdp, cross, port_config(cfg).decoder, 3)
     assert tl.greedy_decode_loop.launches == before

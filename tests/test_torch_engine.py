@@ -18,9 +18,11 @@ import jax.numpy as jnp
 from manga_ocr_tpu.engine import TpuMangaOcrEngine
 from manga_ocr_tpu.models.config import MangaOCRConfig
 from manga_ocr_tpu.models.tokenizer import CharTokenizer
-from manga_ocr_tpu.parallel import batching
 from manga_ocr_tpu_torch.engine import TorchMangaOcrEngine
 from manga_ocr_tpu_torch.models.params import init_params_numpy, params_from_jax
+from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer as PortTokenizer
+from manga_ocr_tpu_torch.parallel import batching
+from port_config import port_config
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures", "eval")
 MAX_LEN = 12
@@ -44,8 +46,8 @@ def engines():
     tok = CharTokenizer.synthetic()
     jax_engine = TpuMangaOcrEngine(np_params, cfg, tok, max_length=MAX_LEN, dtype=jnp.float32)
     torch_engine = TorchMangaOcrEngine(
-        params_from_jax(np_params, "cpu"), cfg, tok, max_length=MAX_LEN,
-        dtype=torch.float32, device="cpu",
+        params_from_jax(np_params, "cpu"), port_config(cfg), PortTokenizer.synthetic(),
+        max_length=MAX_LEN, dtype=torch.float32, device="cpu",
     )
     return jax_engine, torch_engine
 
@@ -107,9 +109,9 @@ def test_warm_set_and_warmup(engines):
 
 def test_cuda_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    cfg = MangaOCRConfig.tiny()
+    cfg = port_config(MangaOCRConfig.tiny())
     with pytest.raises(RuntimeError, match="CUDA"):
-        TorchMangaOcrEngine({}, cfg, CharTokenizer.synthetic(), device="cuda")
+        TorchMangaOcrEngine({}, cfg, PortTokenizer.synthetic(), device="cuda")
 
 
 @pytest.mark.parametrize(
@@ -123,10 +125,10 @@ def test_other_configurations_identical_to_jax_engine(kw, page):
     jax_engine = TpuMangaOcrEngine(np_params, cfg, tok, max_length=MAX_LEN, dtype=jnp.float32,
                                    **kw)
     torch_engine = TorchMangaOcrEngine(
-        params_from_jax(np_params, "cpu"), cfg, tok, max_length=MAX_LEN,
-        dtype=torch.float32, device="cpu", **kw,
+        params_from_jax(np_params, "cpu"), port_config(cfg), PortTokenizer.synthetic(),
+        max_length=MAX_LEN, dtype=torch.float32, device="cpu", **kw,
     )
-    assert torch_engine.cfg == jax_engine.cfg
+    assert torch_engine.cfg == port_config(jax_engine.cfg)
     assert all(v.dtype != torch.int8 for v in _leaves(torch_engine.params))
     got = torch_engine.ocr_page(page)
     assert got == jax_engine.ocr_page(page)

@@ -110,8 +110,13 @@ def test_bf16_form_rows_are_independent():
 
 
 def test_int8_decoder_forms_and_bad_ln_flags_raise():
+    """The int8 decoder's step form (pre_ln off, post_ln on) runs as its
+    plain version on the CPU (held against JAX in test_torch_decode_layer);
+    pre_ln with post_ln raises in both weight forms."""
     int8 = [_t(a) for a in _inputs()]
-    with pytest.raises(NotImplementedError):
-        tm.fused_mlp_block(*int8, pre_ln=False, post_ln=True)
-    with pytest.raises(ValueError):
-        tm.fused_mlp_block(*[_t(a) for a in _float_inputs()], pre_ln=True, post_ln=True)
+    got = tm.fused_mlp_block(*int8, pre_ln=False, post_ln=True)
+    want = tm.fused_mlp_block_reference(*int8, pre_ln=False, post_ln=True)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    for args in (int8, [_t(a) for a in _float_inputs()]):
+        with pytest.raises(ValueError):
+            tm.fused_mlp_block(*args, pre_ln=True, post_ln=True)

@@ -16,11 +16,11 @@ import numpy as np
 import pytest
 import torch
 
-from manga_ocr_tpu.models.config import MangaOCRConfig
-from manga_ocr_tpu.models.tokenizer import CharTokenizer
 from manga_ocr_tpu_torch import serve as srv
 from manga_ocr_tpu_torch.engine import TorchMangaOcrEngine
+from manga_ocr_tpu_torch.models.config import MangaOCRConfig
 from manga_ocr_tpu_torch.models.params import init_params
+from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -123,11 +123,11 @@ def test_port_never_imports_jax():
         import manga_ocr_tpu_torch
         for m in pkgutil.walk_packages(manga_ocr_tpu_torch.__path__, "manga_ocr_tpu_torch."):
             importlib.import_module(m.name)
-        from manga_ocr_tpu.models.config import MangaOCRConfig
-        from manga_ocr_tpu.models.tokenizer import CharTokenizer
         from manga_ocr_tpu_torch import serve as srv
         from manga_ocr_tpu_torch.engine import TorchMangaOcrEngine
+        from manga_ocr_tpu_torch.models.config import MangaOCRConfig
         from manga_ocr_tpu_torch.models.params import init_params
+        from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
 
         cfg = MangaOCRConfig.tiny()
         eng = TorchMangaOcrEngine(init_params(cfg, 0, "cpu"), cfg, CharTokenizer.synthetic(),

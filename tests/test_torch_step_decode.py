@@ -5,7 +5,8 @@ IDENTICAL, for the head ``xla``/``fused`` (kernel F) x step MLP
 ``xla``/``fused`` (kernel D, ``pre_ln=False``) x bf16/int8 cross K/V, with
 ``stop_lengths``, and with a ``max_length`` that is not a multiple of
 ``chunk_size`` (the last chunk runs past it, and past the position table).
-The JAX kernels run in interpret mode on the CPU."""
+The JAX kernels run in interpret mode on the CPU; the port gets its own
+config with the same fields."""
 
 import dataclasses
 import functools
@@ -24,6 +25,7 @@ from manga_ocr_tpu_torch.models import decoder as tdec
 from manga_ocr_tpu_torch.models import model as tmdl
 from manga_ocr_tpu_torch.models.params import init_params_numpy, params_from_jax
 from manga_ocr_tpu_torch.ops import fused_head, fused_mlp
+from port_config import port_config
 
 BATCH = 4
 
@@ -49,7 +51,8 @@ def _both(cfg, np_params, enc, max_length=None, chunk_size=8, stops=None):
     want = fn(np_params, jnp.asarray(enc),
               stop_lengths=None if stops is None else jnp.asarray(stops, jnp.int32))
     got = tmdl.greedy_decode(
-        params_from_jax(np_params, "cpu"), torch.from_numpy(enc), cfg, max_length, chunk_size,
+        params_from_jax(np_params, "cpu"), torch.from_numpy(enc), port_config(cfg), max_length,
+        chunk_size,
         stop_lengths=None if stops is None else torch.tensor(stops, dtype=torch.int32),
     )
     return (np.asarray(want.tokens), np.asarray(want.lengths)), (got.tokens.numpy(),
@@ -112,7 +115,7 @@ def test_precompute_cross_kv_matches_jax(int8):
     np_params, enc = _setup(cfg, seed=4)
     want = jdec.precompute_cross_kv(np_params["decoder"], jnp.asarray(enc), cfg.decoder)
     got = tdec.precompute_cross_kv(params_from_jax(np_params["decoder"], "cpu"),
-                                   torch.from_numpy(enc), cfg.decoder)
+                                   torch.from_numpy(enc), port_config(cfg).decoder)
     for g, w in zip(got, want):
         assert (g is None) == (w is None)
         if g is not None:
@@ -124,17 +127,17 @@ def test_precompute_cross_kv_matches_jax(int8):
 def test_decode_step_logits_match_jax():
     cfg = _cfg()
     np_params, enc = _setup(cfg, seed=5)
-    dcfg = cfg.decoder
+    dcfg, tdcfg = cfg.decoder, port_config(cfg).decoder
     jcross = jdec.precompute_cross_kv(np_params["decoder"], jnp.asarray(enc), dcfg)
     jcache = jdec.init_cache(dcfg, BATCH, 6, jnp.float32)
     tp = params_from_jax(np_params["decoder"], "cpu")
-    tcross = tdec.precompute_cross_kv(tp, torch.from_numpy(enc), dcfg)
-    tcache = tdec.init_cache(dcfg, BATCH, 6, torch.float32, "cpu")
+    tcross = tdec.precompute_cross_kv(tp, torch.from_numpy(enc), tdcfg)
+    tcache = tdec.init_cache(tdcfg, BATCH, 6, torch.float32, "cpu")
     tok = np.array([2, 7, 9, 11], np.int32)
     for step in range(3):
         jl, jcache = jdec.decode_step(np_params["decoder"], jnp.asarray(tok), jnp.int32(step),
                                       jcache, jcross, dcfg)
-        tl, tcache = tdec.decode_step(tp, torch.from_numpy(tok), step, tcache, tcross, dcfg)
+        tl, tcache = tdec.decode_step(tp, torch.from_numpy(tok), step, tcache, tcross, tdcfg)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4, rtol=1e-5)
         tok = np.asarray(jl).argmax(-1).astype(np.int32)
 
@@ -143,19 +146,16 @@ def test_step_decode_counts_no_cpu_launches():
     cfg = _cfg("fused", "fused")
     np_params, enc = _setup(cfg, seed=6)
     before = (fused_head.fused_greedy_head.launches, fused_mlp.fused_mlp_block_bf16.launches)
-    tmdl.greedy_decode(params_from_jax(np_params, "cpu"), torch.from_numpy(enc), cfg, 6)
+    tmdl.greedy_decode(params_from_jax(np_params, "cpu"), torch.from_numpy(enc), port_config(cfg),
+                       6)
     assert (fused_head.fused_greedy_head.launches,
             fused_mlp.fused_mlp_block_bf16.launches) == before
 
 
 def test_unported_decoders_raise():
-    cfg = _cfg()
+    cfg = port_config(_cfg())
     np_params, enc = _setup(cfg)
     tp = params_from_jax(np_params, "cpu")
-    layer = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder,
-                                                                 step_kernel="fused_layer"))
-    with pytest.raises(NotImplementedError):
-        tmdl.greedy_decode(tp, torch.from_numpy(enc), layer)
     fused = dataclasses.replace(cfg, decoder=dataclasses.replace(
         cfg.decoder, step_kernel="fused_loop", fuse_cross_kv=True))
     with pytest.raises(NotImplementedError):
