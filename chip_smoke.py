@@ -1,6 +1,8 @@
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
 Run from the repository root:  python3 chip_smoke.py
+(``python3 chip_smoke.py --stack-floor`` prints only the plain encoder
+stack's own noise floor, which sets ENC_STACK_MEAN_REL.)
 
 1. Requires CUDA; prints the card's name and power limit (nvidia-smi).
 2. Builds the kernels of manga_ocr_tpu_torch/csrc with nvcc (sm_90a), one
@@ -32,9 +34,22 @@ Run from the repository root:  python3 chip_smoke.py
    fused_layer step decode on the plain encoder output; its cross-K/V +
    decode time at batch 32 and 256 beside kernel C's on the same encoder
    output.
-5. Prints one JSON line of kernel results, then the device line
-   {"ok": true, "device": {...}} last.  Any failed check exits non-zero
-   before the device line.
+5. The encoder's kernel variants at full width: A's bf16 form, G (also
+   timed as one scaled_dot_product_attention call), H (int8 and bf16) and
+   I (int8 and bf16: one and two layers at the per-kernel bounds, twelve
+   at stack_lpc 12 and 5) held against their plain versions at B=256, H's
+   and I's bf16 form also timed as one torch.nn.TransformerEncoder call;
+   then each encoder configuration through ocr_forward on 32
+   crops with kernel C as the decode (serving() on bf16 params: A's bf16
+   form and D; fused_layer on MLP-only int8 params: A's bf16 form and B;
+   merged_layer int8 and bf16: H; stacked int8 and bf16 at lpc 12 and 5:
+   I; encode(fused_attention=True): G and D), launch counts exact, the
+   encoder output against the plain encoder's, the tokens scored by
+   teacher forcing; and one page through the engine with
+   serving_kernels=False on a merged_layer bf16 config (H and C).
+6. Prints its total seconds, one JSON line of kernel results, then the
+   device line {"ok": true, "device": {...}} last.  Any failed check exits
+   non-zero before the device line.
 """
 
 from __future__ import annotations
@@ -50,6 +65,7 @@ import time
 import urllib.request
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T0 = time.time()
 
 # Tolerances of the kernel checks (kernel vs plain version, same inputs, on
 # the card).  The int8 products are exact in both; what differs is the f32
@@ -78,6 +94,20 @@ DECODE_GAP_REL = 2.0**-6
 # plain decoder then runs on the plain encoder output.
 ENC_STACK_MAX_REL = 2.0**-4
 ENGINE_GAP_REL = 2.0**-5
+# The mean difference compounds too: twelve random-weight layers amplify a
+# last-bit difference of their inputs into a mean difference of a few 1e-3
+# of the largest output.  ``python3 chip_smoke.py --stack-floor`` prints that
+# floor (the plain stack's own response to a one-ulp change of 1% of its
+# inputs, and the difference between two plain stacks that differ only in
+# dividing or multiplying by the reciprocal in the softmax; PERF.md records
+# it); the kernels' 12-layer differences are held to 2^-7 of the largest
+# output, about twice it.  Slices of one and two layers are held to the
+# per-kernel bounds above.
+ENC_STACK_MEAN_REL = 2.0**-7
+# A library yardstick must compute the kernel's function: its output's
+# change of x (the blocks' own contribution, which a wrongly loaded weight
+# changes wholesale) must agree with the plain version's to this share.
+LIBRARY_SAME_REL = 2.0**-1
 # Kernel F returns ids only: an id passes when the plain head's logit there
 # is within this share of the top logit (bf16 near-ties, as for C).
 HEAD_GAP_REL = 2.0**-6
@@ -129,20 +159,22 @@ def cuda_ms(fn, reps: int = 5) -> float:
 
 
 def check_encoder_kernels(params, cfg, results: dict) -> None:
-    """Kernels A and B against their plain versions at B=32 and 256."""
+    """Kernels A and B against their plain versions at B=32 and 256, on the
+    prepared weights the encoder passes them."""
     import torch
 
     from manga_ocr_tpu_torch.ops import flash_attention as fa
     from manga_ocr_tpu_torch.ops import fused_mlp as fm
+    from manga_ocr_tpu_torch.ops.encoder_weights import layer_view, prepare_layers
 
     enc = params["encoder"]["layers"]
     ecfg = cfg.encoder
     attn = {k: {n: t[0] for n, t in v.items()} for k, v in enc["attn"].items()}
-    fc1, fc2 = enc["mlp"]["fc1"], enc["mlp"]["fc2"]
+    # the weights as the encoder reads them: prepared once per params
+    lw = layer_view(prepare_layers(enc, torch.bfloat16), 0)
     ln1 = (enc["ln1"]["scale"][0], enc["ln1"]["bias"][0])
     ln2 = (enc["ln2"]["scale"][0], enc["ln2"]["bias"][0])
-    mlp_w = ((fc1["w_q"][0], fc1["scale"][0]), fc1["bias"][0],
-             (fc2["w_q"][0], fc2["scale"][0]), fc2["bias"][0])
+    mlp_w = (lw.fc1.w, enc["mlp"]["fc1"]["bias"][0], lw.fc2.w, enc["mlp"]["fc2"]["bias"][0])
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     s = ecfg.seq_len
     for batch in (32, 256):
@@ -151,7 +183,8 @@ def check_encoder_kernels(params, cfg, results: dict) -> None:
         d = ecfg.hidden_size
         cases = {
             "fused_attn_layer": (
-                lambda: fa.fused_attn_layer(x, attn, *ln1, ecfg.num_heads, **kw),
+                lambda: fa.fused_attn_layer(x, attn, *ln1, ecfg.num_heads,
+                                            prepared=(lw.qkv, lw.o), **kw),
                 lambda: fa.fused_attn_layer_reference(x, attn, *ln1, ecfg.num_heads, **kw),
                 cost_attn_layer(batch, s, d),
             ),
@@ -182,6 +215,20 @@ def bound(nbytes: float, ops: dict) -> tuple[float, str]:
 def cost_attn_layer(b, s, d):  # A: LN + 4 int8 projections + SDPA + residual
     m = b * s
     return 2 * m * d * 2 + 4 * d * d, {"int8": 4 * 2 * m * d * d, "bf16": 2 * 2 * b * s * s * d}
+
+
+def cost_attn_layer_bf16(b, s, d):  # A's bf16 form: LN + 4 bf16 projections + SDPA
+    m = b * s
+    return 2 * m * d * 2 + 4 * d * d * 2, {"bf16": 4 * 2 * m * d * d + 2 * 2 * b * s * s * d}
+
+
+def cost_layers(b, s, d, inter, int8, n_layers=1):  # H (one layer), I (n): x in, x out once
+    m = b * s
+    w_bytes = (4 * d * d + 2 * d * inter) * (1 if int8 else 2)
+    proj = 2 * m * (4 * d * d + 2 * d * inter)
+    ops = {"int8": proj, "bf16": 2 * 2 * b * s * s * d} if int8 else \
+        {"bf16": proj + 2 * 2 * b * s * s * d}
+    return 2 * m * d * 2 + n_layers * w_bytes, {k: n_layers * v for k, v in ops.items()}
 
 
 def cost_mlp_int8(m, d, inter):  # B: two int8 GEMMs over m rows
@@ -229,7 +276,8 @@ def cost_decode_loop(cfg, lengths, s):  # C: the row-steps this run's rows neede
     return nbytes, {"bf16": ops}
 
 
-def compare(name: str, label: str, got, want) -> tuple[float, float]:
+def compare(name: str, label: str, got, want, max_rel: float = ENC_MAX_REL,
+            mean_rel: float = ENC_MEAN_REL) -> tuple[float, float]:
     """Shape, finiteness, and the max and mean error relative to the
     largest output; fails past the tolerances."""
     import torch
@@ -239,13 +287,14 @@ def compare(name: str, label: str, got, want) -> tuple[float, float]:
     err = (got.float() - want.float()).abs()
     max_abs, mean_abs = float(err.max()), float(err.mean())
     top = float(want.float().abs().max())
-    if max_abs > ENC_MAX_REL * top or mean_abs > ENC_MEAN_REL * top:
+    if max_abs > max_rel * top or mean_abs > mean_rel * top:
         fail(f"{name} {label}: error {max_abs}/{mean_abs} over "
-             f"{ENC_MAX_REL * top}/{ENC_MEAN_REL * top}")
+             f"{max_rel * top}/{mean_rel * top}")
     return max_abs, mean_abs
 
 
-def hold(name: str, label: str, kern, plain, cost, library=None) -> dict:
+def hold(name: str, label: str, kern, plain, cost, library=None,
+         tolerance: tuple[float, float] = (ENC_MAX_REL, ENC_MEAN_REL)) -> dict:
     """One kernel against its plain version on the same inputs: shape,
     finiteness, max and mean error relative to the largest output, and
     CUDA-event times of both (and of ``library``, one PyTorch call that
@@ -255,7 +304,7 @@ def hold(name: str, label: str, kern, plain, cost, library=None) -> dict:
 
     got, want = kern(), plain()
     torch.cuda.synchronize()
-    max_abs, mean_abs = compare(name, label, got, want)
+    max_abs, mean_abs = compare(name, label, got, want, *tolerance)
     top = float(want.float().abs().max())
     ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
     library_ms = cuda_ms(library) if library is not None else None
@@ -546,13 +595,20 @@ def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port, by name; each counts its launches."""
     from manga_ocr_tpu_torch.ops.decode_layer import fused_cross_attn_step, fused_self_attn_step
     from manga_ocr_tpu_torch.ops.decode_loop import greedy_decode_loop
-    from manga_ocr_tpu_torch.ops.flash_attention import attention_packed, fused_attn_layer
+    from manga_ocr_tpu_torch.ops.encoder_stack import encoder_stack
+    from manga_ocr_tpu_torch.ops.flash_attention import (
+        attention_packed,
+        fused_attention,
+        fused_attn_layer,
+        fused_encoder_layer,
+    )
     from manga_ocr_tpu_torch.ops.fused_head import fused_greedy_head
     from manga_ocr_tpu_torch.ops.fused_mlp import fused_mlp_block, fused_mlp_block_bf16
 
     return {w.__name__: w for w in (fused_attn_layer, fused_mlp_block, greedy_decode_loop,
                                     fused_mlp_block_bf16, attention_packed, fused_greedy_head,
-                                    fused_self_attn_step, fused_cross_attn_step)}
+                                    fused_self_attn_step, fused_cross_attn_step, fused_attention,
+                                    fused_encoder_layer, encoder_stack)}
 
 
 def counted(fn):
@@ -568,11 +624,12 @@ def counted(fn):
     return out, {name: w.launches for name, w in wrappers.items()}
 
 
-def drive_page(engine, crops, label: str, per_dispatch: dict, results: dict) -> list:
+def drive_page(engine, crops, label: str, per_dispatch: dict, results: dict,
+               record: dict | None = None) -> list:
     """One ocr_page over the fixture crops: launch counts must be
     ``per_dispatch`` x dispatches (0 for every other kernel), the texts well
-    formed and input-dependent; then the kernel path against the plain
-    path."""
+    formed and input-dependent.  Each wrapper's count goes to its record in
+    ``results`` (under the name ``record`` maps it to, if any)."""
     from manga_ocr_tpu_torch.parallel import batching
 
     texts, counts = counted(lambda: engine.ocr_page(crops))
@@ -583,7 +640,7 @@ def drive_page(engine, crops, label: str, per_dispatch: dict, results: dict) -> 
     if counts != want:
         fail(f"{label}: launch counts {counts}, expected {want}")
     for name in per_dispatch:
-        results[name]["launches"] = counts[name]
+        results[(record or {}).get(name, name)]["launches"] = counts[name]
     if len(texts) != len(crops) or not all(isinstance(t, str) for t in texts):
         fail(f"{label}: ocr_page returned malformed texts")
     if len(set(texts)) < 2:
@@ -853,6 +910,334 @@ def run_fused_layer_slice(params, crops, results: dict) -> None:
                 f"{times['fused_layer']}, kernel C {times['kernel C']} on {card_line()}")
 
 
+def check_encoder_variants(raw, results: dict) -> None:
+    """A's bf16 form, G, H (int8, bf16) and I (int8, bf16; lpc 12 and 5)
+    against their plain versions at B=256, full width.  The int8 forms take
+    the serving GELU (sigmoid), the bf16 forms the exact one (erf), as the
+    serving configurations pair them.  I is held to the per-kernel bounds
+    on its first one and two layers, and to the twelve-layer bounds on the
+    whole stack: the layers compound the per-layer differences."""
+    import torch
+    import torch.nn.functional as F
+
+    from manga_ocr_tpu_torch.engine.engine import _cast_quantized
+    from manga_ocr_tpu_torch.kernels import launch
+    from manga_ocr_tpu_torch.models import model as mdl
+    from manga_ocr_tpu_torch.models.config import MangaOCRConfig
+    from manga_ocr_tpu_torch.models.params import layer_params
+    from manga_ocr_tpu_torch.models.quantize import quantize_encoder
+    from manga_ocr_tpu_torch.ops import encoder_stack as es
+    from manga_ocr_tpu_torch.ops import flash_attention as fa
+    from manga_ocr_tpu_torch.ops.encoder_weights import layer_view, prepare_layers
+
+    ecfg = MangaOCRConfig.base().encoder
+    b, s, d, heads, dh = 256, ecfg.seq_len, ecfg.hidden_size, ecfg.num_heads, ecfg.head_dim
+    inter, eps, n_l = ecfg.intermediate_size, ecfg.layer_norm_eps, ecfg.num_layers
+    forms = {
+        "int8": (_cast_quantized(quantize_encoder(raw["encoder"], quantize_attn_proj=True),
+                                 torch.bfloat16)["layers"], "sigmoid"),
+        "bf16": (mdl.cast_params(raw["encoder"], torch.bfloat16)["layers"], "erf"),
+    }
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    x = randn(b, s, d)
+    layers, _ = forms["bf16"]
+    lp, lw = layer_params(layers, 0), layer_view(prepare_layers(layers, torch.bfloat16), 0)
+    ln1 = (lp["ln1"]["scale"], lp["ln1"]["bias"])
+    results["fused_attn_layer[bf16]"] = hold(
+        "fused_attn_layer[bf16]", f"B={b}",
+        lambda: fa.fused_attn_layer(x, lp["attn"], *ln1, heads, eps, valid_len=s,
+                                    prepared=(lw.qkv, lw.o)),
+        lambda: fa.fused_attn_layer_reference(x, lp["attn"], *ln1, heads, eps, valid_len=s),
+        cost_attn_layer_bf16(b, s, d))
+
+    q, k, v = randn(b, heads, s, dh), randn(b, heads, s, dh), randn(b, heads, s, dh)
+    results["fused_attention"] = hold(
+        "fused_attention", f"B={b}", lambda: fa.fused_attention(q, k, v),
+        lambda: fa.fused_attention_reference(q, k, v), cost_attention_packed(b, s, d),
+        library=lambda: F.scaled_dot_product_attention(q, k, v))
+    del q, k, v
+
+    for form, (layers, gelu) in forms.items():
+        lp = layer_params(layers, 0)
+        lw = layer_view(prepare_layers(layers, torch.bfloat16), 0)
+        scratch = launch.encoder_scratch(b * s, d, inter, form == "int8", "cuda")
+        lib_h = lib_i = None
+        if form == "bf16":  # erf GELU: TransformerEncoder's "gelu"
+            lib_h, lib_i = (library_encoder(layers, n, heads, eps, x) for n in (1, n_l))
+        results[f"fused_encoder_layer[{form}]"] = hold(
+            f"fused_encoder_layer[{form}]", f"gelu={gelu} B={b}",
+            lambda: fa.fused_encoder_layer(x, lp, heads, eps, gelu, lw, scratch),
+            lambda: fa.fused_encoder_layer_reference(x, lp, heads, eps, gelu),
+            cost_layers(b, s, d, inter, form == "int8"), library=lib_h)
+        del scratch
+        # I's own entry at the per-kernel bounds: one layer, and two layers
+        # as two calls (per-call weight offsets) and as one (per-layer
+        # offsets inside the slab)
+        for n, lpc in ((1, 1), (2, 1), (2, 2)):
+            head = first_layers(layers, n)
+            hold(f"encoder_stack[{form}]", f"{n} layer(s) lpc={lpc} gelu={gelu} B={b}",
+                 lambda: es.encoder_stack(x, head, heads, eps, lpc, gelu),
+                 lambda: es.encoder_stack_reference(x, head, heads, eps, lpc, gelu),
+                 cost_layers(b, s, d, inter, form == "int8", n))
+        for lpc in (12, 5):
+            rec = hold(
+                f"encoder_stack[{form}]", f"lpc={lpc} gelu={gelu} B={b}",
+                lambda: es.encoder_stack(x, layers, heads, eps, lpc, gelu),
+                lambda: es.encoder_stack_reference(x, layers, heads, eps, lpc, gelu),
+                cost_layers(b, s, d, inter, form == "int8", n_l),
+                library=lib_i, tolerance=(ENC_STACK_MAX_REL, ENC_STACK_MEAN_REL))
+            if lpc == 12:
+                results[f"encoder_stack[{form}]"] = rec
+        del lib_h, lib_i
+        torch.cuda.empty_cache()
+
+
+def first_layers(layers: dict, n: int) -> dict:
+    """The first ``n`` layers of a stacked [L, ...] tree (views)."""
+    return {k: first_layers(v, n) if isinstance(v, dict) else v[:n] for k, v in layers.items()}
+
+
+def library_encoder(layers: dict, n: int, heads: int, eps: float, x):
+    """The library yardstick of H's and I's bf16 form (erf GELU): the first
+    ``n`` layers of the bf16 tree loaded into torch.nn.TransformerEncoder
+    (pre-LN, exact GELU, eval mode, no grad: PyTorch's fused encoder-layer
+    op), as one call on ``x``.  It is checked to compute the plain
+    version's function and then only timed; the port never calls it."""
+    import torch
+
+    from manga_ocr_tpu_torch.ops import encoder_stack as es
+
+    enc = torch_encoder(layers, n, heads, eps, x.device, x.dtype)
+    with torch.inference_mode():
+        got = enc(x)
+        want = es.encoder_stack_reference(x, first_layers(layers, n), heads, eps, n, "erf")
+    step = (want.float() - x.float()).abs().max()
+    rel = float(((got.float() - want.float()).abs().max() / step))
+    log(f"library TransformerEncoder ({n} layer(s)): max_abs_err against the plain version "
+        f"{float((got.float() - want.float()).abs().max())}, {rel} of the largest change of x")
+    if not rel <= LIBRARY_SAME_REL:
+        fail(f"the TransformerEncoder yardstick of {n} layer(s) computes another function "
+             f"({rel} of the largest change of x)")
+    del got, want
+
+    def run():
+        with torch.inference_mode():
+            return enc(x)
+    return run
+
+
+def torch_encoder(layers: dict, n: int, heads: int, eps: float, device, dtype):
+    """torch.nn.TransformerEncoder holding the first ``n`` layers of a float
+    stacked tree: pre-LN, exact GELU, eval mode, no grad."""
+    import torch
+
+    from manga_ocr_tpu_torch.models.params import layer_params
+
+    d, inter = layers["mlp"]["fc1"]["kernel"].shape[-2:]
+    layer = torch.nn.TransformerEncoderLayer(
+        d, heads, inter, dropout=0.0, activation="gelu", layer_norm_eps=eps, batch_first=True,
+        norm_first=True, device=device, dtype=dtype)
+    enc = torch.nn.TransformerEncoder(layer, n, enable_nested_tensor=False)
+    with torch.no_grad():
+        for l, mod in enumerate(enc.layers):
+            p = layer_params(layers, l)
+            a, m = p["attn"], p["mlp"]
+            mod.self_attn.in_proj_weight.copy_(torch.cat([a[k]["kernel"].T for k in "qkv"]))
+            mod.self_attn.in_proj_bias.copy_(torch.cat([a[k]["bias"] for k in "qkv"]))
+            for dst, src in ((mod.self_attn.out_proj, a["o"]), (mod.linear1, m["fc1"]),
+                             (mod.linear2, m["fc2"])):
+                dst.weight.copy_(src["kernel"].T)
+                dst.bias.copy_(src["bias"])
+            for dst, src in ((mod.norm1, p["ln1"]), (mod.norm2, p["ln2"])):
+                dst.weight.copy_(src["scale"])
+                dst.bias.copy_(src["bias"])
+    return enc.eval().requires_grad_(False)
+
+
+def stack_floor() -> None:
+    """``--stack-floor``: what the plain 12-layer stack itself does with
+    last-bit differences, at B=256 on the smoke test's weights, for both
+    forms: its output on x against its output on x with 1% of the elements
+    moved by one bf16 ulp, and against twelve plain H blocks (the same
+    math, the softmax multiplying by the reciprocal of its sum).  Plain
+    versions only; no kernel is built."""
+    import torch
+
+    from manga_ocr_tpu_torch.engine.engine import _cast_quantized
+    from manga_ocr_tpu_torch.models import model as mdl
+    from manga_ocr_tpu_torch.models.config import MangaOCRConfig
+    from manga_ocr_tpu_torch.models.params import init_params, layer_params
+    from manga_ocr_tpu_torch.models.quantize import quantize_encoder
+    from manga_ocr_tpu_torch.ops import encoder_stack as es
+    from manga_ocr_tpu_torch.ops import flash_attention as fa
+
+    cfg = MangaOCRConfig.base()
+    ecfg = cfg.encoder
+    raw = init_params(cfg, SEED, "cuda", std=WEIGHT_STD)
+    forms = {
+        "int8": (_cast_quantized(quantize_encoder(raw["encoder"], quantize_attn_proj=True),
+                                 torch.bfloat16)["layers"], "sigmoid"),
+        "bf16": (mdl.cast_params(raw["encoder"], torch.bfloat16)["layers"], "erf"),
+    }
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    x = torch.randn((256, ecfg.seq_len, ecfg.hidden_size), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    heads, eps = ecfg.num_heads, ecfg.layer_norm_eps
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    moved = x.clone().view(-1)
+    idx = torch.randint(0, moved.numel(), (moved.numel() // 100,), generator=gen, device="cuda")
+    moved[idx] = (moved[idx].float() * (1 + 2.0**-8)).to(torch.bfloat16)
+    for form, (layers, gelu) in forms.items():
+        want = es.encoder_stack_reference(x, layers, heads, eps, 12, gelu)
+        top = float(want.float().abs().max())
+        h = x
+        for l in range(layers["ln1"]["scale"].shape[0]):
+            h = fa.fused_encoder_layer_reference(h, layer_params(layers, l), heads, eps, gelu)
+        for label, other in (("one-ulp input change", moved.view_as(x)),
+                             ("reciprocal softmax", None)):
+            got = h if other is None else es.encoder_stack_reference(other, layers, heads, eps,
+                                                                     12, gelu)
+            err = (got.float() - want.float()).abs()
+            log(f"encoder_stack[{form}] plain-version floor, {label}: max_abs={float(err.max())} "
+                f"mean_abs={float(err.mean())} max_abs_out={top} (mean/top "
+                f"{float(err.mean()) / top})")
+
+
+def run_encoder_configs(params, crops, results: dict) -> None:
+    """Each encoder configuration of this slice at full width on 32 fixture
+    crops, with kernel C as the decode (max length 300): through
+    ocr_forward, or for G through encode(fused_attention=True) and
+    greedy_decode (the JAX package reaches G only through encode).  Launch
+    counts exact; the encoder output against the plain encoder's; the
+    tokens scored by the plain decode on the plain encoder output (teacher
+    forcing)."""
+    import dataclasses
+
+    import torch
+
+    from manga_ocr_tpu_torch.engine.engine import _cast_quantized, _params_to
+    from manga_ocr_tpu_torch.models import decoder as dec
+    from manga_ocr_tpu_torch.models import model as mdl
+    from manga_ocr_tpu_torch.models import vit
+    from manga_ocr_tpu_torch.models.config import MangaOCRConfig
+    from manga_ocr_tpu_torch.models.quantize import quantize_encoder
+    from manga_ocr_tpu_torch.ops import decode_loop as dl
+    from manga_ocr_tpu_torch.ops import preprocess as pp
+    from manga_ocr_tpu_torch.parallel import batching
+
+    raw = _params_to(params, "cuda")
+    bf16 = mdl.cast_params(raw, torch.bfloat16)
+
+    def quantized(attn_proj):
+        return {"encoder": _cast_quantized(quantize_encoder(raw["encoder"], attn_proj),
+                                           torch.bfloat16), "decoder": bf16["decoder"]}
+
+    def enc(cfg, **kw):
+        return dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, **kw))
+
+    serving, serving_bf16 = MangaOCRConfig.serving(), MangaOCRConfig.serving(quantized=False)
+    n_l = serving.encoder.num_layers
+    q8 = quantized(True)
+    # label: (config, params, fused_attention, expected launches, results record)
+    runs = {
+        "serving() on bf16 params": (serving, bf16, None, {"fused_attn_layer": n_l,
+                                     "fused_mlp_block_bf16": n_l}, "fused_attn_layer[bf16]"),
+        "fused_layer on MLP-only int8 params": (serving, quantized(False), None, {
+            "fused_attn_layer": n_l, "fused_mlp_block": n_l}, None),
+        "merged_layer int8": (enc(serving, attn_kernel="merged_layer"), q8, None,
+                              {"fused_encoder_layer": n_l}, "fused_encoder_layer[int8]"),
+        "merged_layer bf16": (enc(serving_bf16, attn_kernel="merged_layer"), bf16, None,
+                              {"fused_encoder_layer": n_l}, "fused_encoder_layer[bf16]"),
+        "stacked int8 lpc=12": (enc(serving, attn_kernel="stacked"), q8, None,
+                                {"encoder_stack": 1}, "encoder_stack[int8]"),
+        "stacked int8 lpc=5": (enc(serving, attn_kernel="stacked", stack_lpc=5), q8, None,
+                               {"encoder_stack": 3}, None),
+        "stacked bf16 lpc=12": (enc(serving_bf16, attn_kernel="stacked"), bf16, None,
+                                {"encoder_stack": 1}, "encoder_stack[bf16]"),
+        "stacked bf16 lpc=5": (enc(serving_bf16, attn_kernel="stacked", stack_lpc=5), bf16, None,
+                               {"encoder_stack": 3}, None),
+        "encode(fused_attention=True)": (enc(serving_bf16, attn_kernel="xla"), bf16, True,
+                                         {"fused_attention": n_l, "fused_mlp_block_bf16": n_l},
+                                         "fused_attention"),
+    }
+    page = [crops[i % len(crops)] for i in range(32)]
+    with torch.inference_mode():
+        px = torch.cat([
+            pp.model_preprocess(torch.from_numpy(b.crops).cuda(), torch.from_numpy(b.sizes).cuda(),
+                                serving.encoder.image_size)[: b.valid]
+            for b in batching.prep_page_gray(page, pp.ORIENT_VERTICAL)
+        ]).to(torch.bfloat16)
+        for label, (cfg, p, fused, per_run, record) in runs.items():
+            def forward(use_kernels=True):
+                if fused:
+                    e = vit.encode(p["encoder"], px, cfg.encoder, use_kernels=use_kernels,
+                                   fused_attention=True)
+                    return mdl.greedy_decode(p, e, cfg, use_kernels=use_kernels)
+                return mdl.ocr_forward(p, px, cfg, use_kernels=use_kernels)
+
+            forward()  # warm: weight preparation, allocator growth
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, counts = counted(forward)
+            secs = time.perf_counter() - t0
+            want = {name: 0 for name in counts}
+            want.update(per_run, greedy_decode_loop=1)
+            if counts != want:
+                fail(f"{label}: launch counts {counts}, expected {want}")
+            if record is not None:
+                name = next(n for n in per_run if record.startswith(n))
+                results[record]["launches"] = counts[name]
+            if out.tokens.shape != (32, cfg.max_length) or \
+                    int(out.tokens[:, 0].ne(cfg.decoder.bos_token_id).sum()):
+                fail(f"{label}: bad token matrix")
+            enc_k = vit.encode(p["encoder"], px, cfg.encoder, fused_attention=fused)
+            enc_p = vit.encode(p["encoder"], px, cfg.encoder, use_kernels=False,
+                               fused_attention=fused)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            vit.encode(p["encoder"], px, cfg.encoder, fused_attention=fused)
+            ev[1].record()
+            torch.cuda.synchronize()
+            enc_rel = float((enc_k.float() - enc_p.float()).abs().max()
+                            / enc_p.float().abs().max())
+            cross = dec.precompute_cross_kv_packed(p["decoder"], enc_p, cfg.decoder, int8=False)
+            stats = live_gap_stats(
+                *dl.teacher_forced_gaps(p["decoder"], cross, cfg.decoder,
+                                        out.tokens[:, : out.lengths.max()].contiguous()),
+                out.lengths)
+            log(f"{label} B=32: ocr_forward {secs:.3f} s (encoder {ev[0].elapsed_time(ev[1])} "
+                f"ms), launches {counts}; encoder max rel err {enc_rel}; kernel tokens "
+                f"teacher-forced by the plain path {stats}")
+            if enc_rel > ENC_STACK_MAX_REL or stats["max_rel_gap"] > ENGINE_GAP_REL:
+                fail(f"{label}: encoder {enc_rel} / gap {stats['max_rel_gap']} over "
+                     f"{ENC_STACK_MAX_REL} / {ENGINE_GAP_REL}")
+
+
+def run_merged_layer_engine(params, crops, results: dict) -> None:
+    """One page through the engine with serving_kernels=False (cfg as
+    given) on a merged_layer bf16 encoder and the whole-loop decode: H once
+    per layer, C once per dispatch."""
+    import dataclasses
+
+    from manga_ocr_tpu_torch.engine import TorchMangaOcrEngine
+    from manga_ocr_tpu_torch.models.config import MangaOCRConfig
+    from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
+
+    cfg = MangaOCRConfig.serving(quantized=False)
+    cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder,
+                                                               attn_kernel="merged_layer"))
+    engine = TorchMangaOcrEngine(params, cfg, CharTokenizer.synthetic(), device="cuda",
+                                 serving_kernels=False)
+    engine.ocr_page(crops[:2])
+    drive_page(engine, crops, "merged_layer engine",
+               {"fused_encoder_layer": cfg.encoder.num_layers, "greedy_decode_loop": 1}, results,
+               record={"fused_encoder_layer": "fused_encoder_layer[bf16]"})
+
+
 def run_reference_engine(params, crops) -> None:
     """The exact reference path (serving_kernels=False) on the card: one
     page, well-formed texts, and no kernel launched."""
@@ -921,6 +1306,11 @@ def run_engines(results: dict) -> dict:
     # -- the fused whole-layer step decode: kernels A, B, J, K, F -----------------
     torch.cuda.empty_cache()
     run_fused_layer_slice(params, crops, results)
+
+    # -- the encoder variants: A's bf16 form, G, H, I; with C ------------------
+    torch.cuda.empty_cache()
+    run_encoder_configs(params, crops, results)
+    run_merged_layer_engine(params, crops, results)
     return rates
 
 
@@ -938,6 +1328,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     log(card)
+    if sys.argv[1:] == ["--stack-floor"]:
+        stack_floor()
+        return 0
+    if sys.argv[1:]:
+        fail(f"unknown arguments {sys.argv[1:]}; usage: chip_smoke.py [--stack-floor]")
 
     from manga_ocr_tpu_torch.engine.engine import _cast_quantized
     from manga_ocr_tpu_torch.kernels import build
@@ -962,6 +1357,7 @@ def main() -> int:
     }
     results: dict = {}
     check_encoder_kernels(params, cfg, results)
+    check_encoder_variants(raw, results)
     check_decode_kernel(params, cfg, results)
     del params
     check_bf16_kernels(mdl.cast_params(raw, torch.bfloat16),
@@ -990,7 +1386,22 @@ def main() -> int:
            "fused_cross_attn_step": ("manga_ocr_tpu_torch/csrc/decode_layer.cu",
                                      "manga_ocr_tpu/ops/decode_layer.py:336"),
            "fused_mlp_block[step]": ("manga_ocr_tpu_torch/csrc/encoder.cu",
-                                     "manga_ocr_tpu/ops/fused_mlp.py:165")}
+                                     "manga_ocr_tpu/ops/fused_mlp.py:165"),
+           "fused_attn_layer[bf16]": ("manga_ocr_tpu_torch/csrc/encoder.cu",
+                                      "manga_ocr_tpu/ops/flash_attention.py:617"),
+           "fused_attention": ("manga_ocr_tpu_torch/csrc/encoder.cu",
+                               "manga_ocr_tpu/ops/flash_attention.py:111"),
+           "fused_encoder_layer[int8]": ("manga_ocr_tpu_torch/csrc/encoder_layer.cu",
+                                         "manga_ocr_tpu/ops/flash_attention.py:770"),
+           "fused_encoder_layer[bf16]": ("manga_ocr_tpu_torch/csrc/encoder_layer.cu",
+                                         "manga_ocr_tpu/ops/flash_attention.py:770"),
+           "encoder_stack[int8]": ("manga_ocr_tpu_torch/csrc/encoder_layer.cu",
+                                   "manga_ocr_tpu/ops/encoder_stack.py:190"),
+           "encoder_stack[bf16]": ("manga_ocr_tpu_torch/csrc/encoder_layer.cu",
+                                   "manga_ocr_tpu/ops/encoder_stack.py:190")}
+    missing = [name for name, r in results.items() if "launches" not in r]
+    if missing:
+        fail(f"no main-path launch count for {missing}")
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         {"name": name, "route": "cuda", "source": src[name][0], "replaces": src[name][1],
@@ -998,6 +1409,7 @@ def main() -> int:
         for name, r in results.items()
     ]
     log(f"engine crops_per_s int8={rates['int8']} bf16={rates['bf16']}")
+    log(f"chip_smoke total {time.time() - T0:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

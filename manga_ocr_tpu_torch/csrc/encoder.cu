@@ -1,19 +1,24 @@
-// Encoder kernels: the pieces of the int8 attention layer (kernel A), the
-// int8 MLP block (kernel B) and the packed attention (kernel E) of the ViT
-// encoder.
+// Encoder kernels: the pieces of the attention layer (kernel A, int8 or
+// bf16 projections), the int8 MLP block (kernel B) and the attention cores
+// of the packed attention (kernel E) and the head-major SDPA (kernel G) of
+// the ViT encoder.
 //
 // Replaces (Pallas, TPU):
 //   A  manga_ocr_tpu/ops/flash_attention.py  fused_attn_layer -> _attn_layer_kernel
-//      -> _attn_core: x + O(SDPA(LN1(x))) with W8A8 q/k/v/o projections;
+//      -> _attn_core: x + O(SDPA(LN1(x))) with W8A8 or bf16 q/k/v/o projections;
 //   B  manga_ocr_tpu/ops/fused_mlp.py  fused_mlp_block -> _kernel_int8:
 //      x + fc2(GELU(fc1(LN2(x)))) with W8A8 fc1/fc2;
 //   E  manga_ocr_tpu/ops/flash_attention.py  attention_packed -> _packed_kernel:
 //      SDPA alone on q/k/v [B, S, H*dh] straight from the bf16 projections
-//      (the unquantized serving encoder), softmax by division, bf16 out.
+//      (the unquantized serving encoder), softmax by division, bf16 out;
+//   G  manga_ocr_tpu/ops/flash_attention.py  fused_attention -> _attn_kernel:
+//      SDPA alone on q/k/v [B, H, S, dh] (encode(fused_attention=True)),
+//      softmax by division, bf16 out.
 //
 // The TPU kernels keep a whole batch block and every weight in VMEM and run
 // one kernel per layer half.  Here each layer half is a short chain of
-// kernels that share three building blocks:
+// kernels that share three building blocks (the whole blocks of kernels H
+// and I chain the same pieces from C++, csrc/encoder_layer.cu):
 //
 //   ln_quant_rows  one block per row: optional LN (f32 stats) then per-row
 //                  int8 quantization.  The row max spans the whole row, so
@@ -23,10 +28,9 @@
 //   int8_gemm      int8 x int8 -> int32 on the tensor cores
 //                  (mma.sync m16n8k32), 128x128x64 tiles in shared memory,
 //                  fused f32 epilogue  y = (acc * sx[m]) * sw[n] + b[n]
-//                  then: bf16 out | sigmoid-GELU f32 out | bf16 out + bf16
-//                  residual | f32 out | erf-GELU f32 out (the last two for
-//                  the decode step's projections and kernel B's step form,
-//                  csrc/decode_layer.cu).  The int32 sums are exact, so only epilogue
+//                  then one of the Int8Epilogue forms of entry.cuh (bf16
+//                  out, a GELU with f32 out, bf16 out + bf16 residual, f32
+//                  out).  The int32 sums are exact, so only epilogue
 //                  rounding can differ from the plain version.  Bound: at
 //                  B=256 (M = 50432) the products are large; this simple
 //                  single-stage tile loop is bound by its own load latency
@@ -35,16 +39,21 @@
 //   attention      one block per (batch row, head): K and V of that head in
 //                  shared memory, one warp per query row, f32 scores of bf16
 //                  products scaled by 1/sqrt(dh), keys >= valid_len masked,
-//                  softmax exp(s - max) * (1/sum) for A and exp(s - max) /
-//                  sum for E, p rounded to bf16, PV in f32 (A keeps the f32
-//                  context, E casts it to bf16).  Bound: exp and
-//                  shared-memory reads; S=197 fits a head's K/V (51 KB)
-//                  whole, so no online softmax is needed.
+//                  softmax exp(s - max) * (1/sum) for A and H (_attn_core)
+//                  and exp(s - max) / sum for E, G and I, p rounded to bf16,
+//                  PV in f32, the context written in f32 (int8 A, which
+//                  row-quantizes it next) or bf16 (bf16 A, E, G).  q, k, v
+//                  and the output are addressed by (batch, head, row)
+//                  strides, so one core reads A's q|k|v GEMM output, E's
+//                  three [B, S, D] tensors and G's [B, H, S, dh] ones.
+//                  Bound: exp and shared-memory reads; S=197 fits a head's
+//                  K/V (51 KB) whole, so no online softmax is needed.
 //
 // Not carried over from the TPU kernels: the batch-group blocking against
-// VMEM, A's 197 -> 200 and E's 197 -> 256 sequence pads (the port runs
-// S = 197 unpadded; the valid_len mask is kept for padded callers).
+// VMEM, A's 197 -> 200 and E's and G's 197 -> 256 sequence pads (the port
+// runs S = 197 unpadded; the valid_len mask is kept for padded callers).
 #include "common.cuh"
+#include "entry.cuh"
 
 using namespace mocr;
 
@@ -79,8 +88,6 @@ __global__ void ln_quant_rows_kernel(const T* __restrict__ x, const float* __res
 
 constexpr int BM = 128, BN = 128, BK = 64, LDS = BK + 16;  // 80-byte smem rows
 constexpr int GEMM_THREADS = 256;
-
-enum Epilogue { kBf16 = 0, kGeluF32 = 1, kResidualBf16 = 2, kF32 = 3, kGeluErfF32 = 4 };
 
 __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
   asm volatile(
@@ -164,16 +171,16 @@ int8_gemm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ Bt,
         float y1 = __fadd_rn(__fmul_rn(__fmul_rn((float)acc[i][j][half * 2 + 1], sxm), sw[n + 1]),
                              bias[n + 1]);
         const long o = (long)m * N + n;
-        if (mode == kGeluF32) {
+        if (mode == kI8GeluSigmoidF32) {
           *reinterpret_cast<float2*>(static_cast<float*>(out) + o) =
               make_float2(gelu_sigmoid(y0), gelu_sigmoid(y1));
-        } else if (mode == kF32) {
+        } else if (mode == kI8F32) {
           *reinterpret_cast<float2*>(static_cast<float*>(out) + o) = make_float2(y0, y1);
-        } else if (mode == kGeluErfF32) {
+        } else if (mode == kI8GeluErfF32) {
           *reinterpret_cast<float2*>(static_cast<float*>(out) + o) =
               make_float2(gelu_erf(y0), gelu_erf(y1));
         } else {
-          if (mode == kResidualBf16) {
+          if (mode == kI8ResidualBf16) {
             const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(res + o);
             y0 = __fadd_rn(__bfloat162float(r.x), bf16_round(y0));
             y1 = __fadd_rn(__bfloat162float(r.y), bf16_round(y1));
@@ -187,38 +194,46 @@ int8_gemm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ Bt,
 }
 
 // ---------------------------------------------------------------------------
-// Attention core: out[b, i, h*dh:(h+1)*dh] = softmax(q k^T * scale) v
+// Attention core: out[b, h, i, :] = softmax(q[b, h, i, :] k[b, h]^T * scale) v[b, h]
 // ---------------------------------------------------------------------------
 
 constexpr int ATTN_THREADS = 256, ATTN_WARPS = ATTN_THREADS / 32, DH_MAX = 128;
 
+// Element strides of a (batch, head, row) addressed tensor; element c of
+// row i of head h of batch item b is at b * b_ + h * h_ + i * s_ + c.
+struct Strides {
+  long long b_, h_, s_;
+};
+
 __device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-// One block per (batch row, head).  q/k/v rows have stride ``ld_in``
-// (kernel A reads the packed q|k|v GEMM output with ld_in = 3D, kernel E
-// three [B, S, D] tensors with ld_in = D).  The softmax normalises with a
-// reciprocal multiply (A's _attn_core) or a division (E's _packed_kernel);
-// the output is f32 (A, which row-quantizes it next) or bf16 (E).
+// One block per (batch row, head).  q, k and v share the input strides
+// ``in`` (kernels A, H and I read the q|k|v GEMM output [B*S, 3D], kernel E
+// three [B, S, D] tensors, kernel G three [B, H, S, dh] ones); the output
+// has its own.  The softmax normalises with a reciprocal multiply (A's and
+// H's _attn_core) or a division (E's _packed_kernel, G's _attn_kernel, I's
+// _one_layer); the output is f32 (int8 A, H and I, which row-quantize it
+// next) or bf16.
 template <bool kDivide, typename OutT>
 __global__ void __launch_bounds__(ATTN_THREADS)
 attention_kernel(const __nv_bfloat16* __restrict__ qg, const __nv_bfloat16* __restrict__ kg,
-                 const __nv_bfloat16* __restrict__ vg, int ld_in, OutT* __restrict__ out,
-                 int S, int H, int dh, int valid_len, float scale) {
+                 const __nv_bfloat16* __restrict__ vg, Strides in, OutT* __restrict__ out,
+                 Strides os, int S, int H, int dh, int valid_len, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int D = H * dh, ldk = dh + 2;  // +2 halves: conflict-free K row reads
+  const int ldk = dh + 2;  // +2 halves: conflict-free K row reads
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* Vs = Ks + S * ldk;
   float* qs = reinterpret_cast<float*>(Vs + S * dh);  // [warps][dh]
   float* ps = qs + ATTN_WARPS * dh;                   // [warps][S]
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long row0 = (long)b * S;
+  const long long in0 = b * in.b_ + h * in.h_, out0 = b * os.b_ + h * os.h_;
   const int half_dh = dh / 2;
 
   for (int idx = threadIdx.x; idx < S * half_dh; idx += ATTN_THREADS) {
     const int j = idx / half_dh, c = idx % half_dh;
-    const long off = (row0 + j) * ld_in + h * dh + 2 * c;
+    const long long off = in0 + j * in.s_ + 2 * c;
     *reinterpret_cast<__nv_bfloat162*>(Ks + j * ldk + 2 * c) =
         *reinterpret_cast<const __nv_bfloat162*>(kg + off);
     *reinterpret_cast<__nv_bfloat162*>(Vs + j * dh + 2 * c) =
@@ -229,7 +244,7 @@ attention_kernel(const __nv_bfloat16* __restrict__ qg, const __nv_bfloat16* __re
   float* q = qs + warp * dh;
   float* p = ps + warp * S;
   for (int i = warp; i < S; i += ATTN_WARPS) {
-    for (int d = lane; d < dh; d += 32) q[d] = __bfloat162float(qg[(row0 + i) * ld_in + h * dh + d]);
+    for (int d = lane; d < dh; d += 32) q[d] = __bfloat162float(qg[in0 + i * in.s_ + d]);
     __syncwarp();
     float mx = -INFINITY;
     for (int j = lane; j < S; j += 32) {
@@ -259,16 +274,16 @@ attention_kernel(const __nv_bfloat16* __restrict__ qg, const __nv_bfloat16* __re
     for (int d = lane; d < dh; d += 32) {
       float acc = 0.0f;
       for (int j = 0; j < S; ++j) acc += p[j] * __bfloat162float(Vs[j * dh + d]);
-      store_out(out + (row0 + i) * D + h * dh + d, acc);
+      store_out(out + out0 + i * os.s_ + d, acc);
     }
     __syncwarp();
   }
 }
 
 template <bool kDivide, typename OutT>
-int launch_attention(const void* q, const void* k, const void* v, int ld_in, void* out, int B,
-                     int S, int H, int dh, int valid_len, float scale, cudaStream_t stream) {
-  if (dh > DH_MAX || dh % 2) return (int)cudaErrorInvalidValue;
+int launch_attention(const void* q, const void* k, const void* v, Strides in, void* out,
+                     Strides os, int B, int S, int H, int dh, int valid_len, float scale,
+                     cudaStream_t stream) {
   const size_t smem = (size_t)S * (dh + 2) * 2 + (size_t)S * dh * 2 +
                       (size_t)ATTN_WARPS * dh * 4 + (size_t)ATTN_WARPS * S * 4;
   cudaError_t err = cudaFuncSetAttribute(attention_kernel<kDivide, OutT>,
@@ -276,7 +291,7 @@ int launch_attention(const void* q, const void* k, const void* v, int ld_in, voi
   if (err != cudaSuccess) return (int)err;
   attention_kernel<kDivide, OutT><<<B * H, ATTN_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), ld_in, static_cast<OutT*>(out), S, H, dh, valid_len,
+      static_cast<const __nv_bfloat16*>(v), in, static_cast<OutT*>(out), os, S, H, dh, valid_len,
       scale);
   return (int)cudaGetLastError();
 }
@@ -307,7 +322,7 @@ int mocr_ln_quant_rows(const void* x, int x_is_bf16, const void* ln_scale, const
 int mocr_int8_gemm(const void* a, const void* b_t, const void* sx, const void* sw,
                    const void* bias, const void* residual, void* out, int M, int N, int K,
                    int mode, void* stream) {
-  if (K % BK || N % 2 || mode < kBf16 || mode > kGeluErfF32) return (int)cudaErrorInvalidValue;
+  if (K % BK || N % 2 || mode < kI8Bf16 || mode > kI8GeluErfF32) return (int)cudaErrorInvalidValue;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   int8_gemm_kernel<<<grid, GEMM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(a), static_cast<const int8_t*>(b_t),
@@ -317,18 +332,23 @@ int mocr_int8_gemm(const void* a, const void* b_t, const void* sx, const void* s
   return (int)cudaGetLastError();
 }
 
-int mocr_attention(const void* qkv, void* ctx, int B, int S, int H, int dh, int valid_len,
+int mocr_attention(const void* q, const void* k, const void* v, long long in_b, long long in_h,
+                   long long in_s, void* out, long long out_b, long long out_h, long long out_s,
+                   int out_bf16, int divide, int B, int S, int H, int dh, int valid_len,
                    float scale, void* stream) {
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(qkv);
-  const int D = H * dh;
-  return launch_attention<false, float>(q, q + D, q + 2 * D, 3 * D, ctx, B, S, H, dh, valid_len,
-                                        scale, static_cast<cudaStream_t>(stream));
-}
-
-int mocr_attention_packed(const void* q, const void* k, const void* v, void* out, int B, int S,
-                          int H, int dh, int valid_len, float scale, void* stream) {
-  return launch_attention<true, __nv_bfloat16>(q, k, v, H * dh, out, B, S, H, dh, valid_len,
-                                               scale, static_cast<cudaStream_t>(stream));
+  // bf16 pairs are read as one 32-bit word: every offset must be even
+  if (dh > DH_MAX || dh % 2 || (in_b | in_h | in_s) % 2) return (int)cudaErrorInvalidValue;
+  const Strides in{in_b, in_h, in_s}, os{out_b, out_h, out_s};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (divide)
+    return out_bf16 ? launch_attention<true, __nv_bfloat16>(q, k, v, in, out, os, B, S, H, dh,
+                                                            valid_len, scale, st)
+                    : launch_attention<true, float>(q, k, v, in, out, os, B, S, H, dh,
+                                                    valid_len, scale, st);
+  return out_bf16 ? launch_attention<false, __nv_bfloat16>(q, k, v, in, out, os, B, S, H, dh,
+                                                           valid_len, scale, st)
+                  : launch_attention<false, float>(q, k, v, in, out, os, B, S, H, dh, valid_len,
+                                                   scale, st);
 }
 
 }  // extern "C"

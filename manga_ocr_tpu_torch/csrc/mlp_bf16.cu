@@ -17,8 +17,11 @@
 //                   fc1: y = acc + b1 (f32), GELU in f32 (the A&S erf
 //                        polynomial or the sigmoid form), cast to bf16;
 //                   fc2: y = acc + b2 (f32), cast to bf16, then + x in bf16;
-//                 and a plain f32-out epilogue y = acc + b for the decode
-//                 step's bf16 projections (csrc/decode_layer.cu).
+//                 a plain f32-out epilogue y = acc + b for the decode
+//                 step's bf16 projections (csrc/decode_layer.cu), and a
+//                 plain bf16-out one, bf16(acc + b), for the bf16 q|k|v
+//                 projection of kernels A, H and I (_attn_core's
+//                 ``(dot + b).astype(x.dtype)``).
 //                 The bf16 [M, 3072] intermediate goes through device
 //                 memory (~310 MB at B=256).  Bound: at B=256 the products
 //                 are large (2 x 50432 x 768 x 3072 multiply-adds); this
@@ -27,6 +30,7 @@
 //                 (cp.async / TMA), wgmma and keeping the intermediate on
 //                 chip are the next steps.
 #include "common.cuh"
+#include "entry.cuh"
 
 using namespace mocr;
 
@@ -51,8 +55,6 @@ constexpr int LDA = BK + 8;   // bf16 per A row in shared memory (80 bytes)
 constexpr int LDB = BN + 8;   // bf16 per B row in shared memory (272 bytes)
 constexpr int GEMM_THREADS = 256;
 
-enum Epilogue { kGeluErf = 0, kGeluSigmoid = 1, kResidual = 2, kF32 = 3 };
-
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
   asm volatile(
@@ -69,7 +71,7 @@ __device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
 }
 
 // out[M, N] = epilogue(A[M, K] . B[K, N] + bias[N]); A and B row-major
-// bf16, K % 32 == 0, N % 8 == 0; out is bf16, or f32 for kF32.
+// bf16, K % 32 == 0, N % 8 == 0; out is bf16, or f32 for kBfF32.
 __global__ void __launch_bounds__(GEMM_THREADS)
 bf16_gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
                  const float* __restrict__ bias, const bf16* __restrict__ res,
@@ -145,17 +147,17 @@ bf16_gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
         float y0 = __fadd_rn(acc[i][j][half * 2], bias[n]);
         float y1 = __fadd_rn(acc[i][j][half * 2 + 1], bias[n + 1]);
         const long o = (long)m * N + n;
-        if (mode == kF32) {
+        if (mode == kBfF32) {
           *reinterpret_cast<float2*>(static_cast<float*>(out) + o) = make_float2(y0, y1);
           continue;
         }
-        if (mode == kGeluErf) {
+        if (mode == kBfGeluErf) {
           y0 = gelu_erf(y0);
           y1 = gelu_erf(y1);
-        } else if (mode == kGeluSigmoid) {
+        } else if (mode == kBfGeluSigmoid) {
           y0 = gelu_sigmoid(y0);
           y1 = gelu_sigmoid(y1);
-        } else {
+        } else if (mode == kBfResidual) {
           const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(res + o);
           y0 = __fadd_rn(__bfloat162float(r.x), bf16_round(y0));
           y1 = __fadd_rn(__bfloat162float(r.y), bf16_round(y1));
@@ -181,7 +183,7 @@ int mocr_ln_rows_bf16(const void* x, const void* ln_scale, const void* ln_bias, 
 
 int mocr_bf16_gemm(const void* a, const void* b, const void* bias, const void* residual,
                    void* out, int M, int N, int K, int mode, void* stream) {
-  if (K % BK || N % 8 || mode < kGeluErf || mode > kF32) return (int)cudaErrorInvalidValue;
+  if (K % BK || N % 8 || mode < kBfGeluErf || mode > kBfBias) return (int)cudaErrorInvalidValue;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   bf16_gemm_kernel<<<grid, GEMM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(a), static_cast<const bf16*>(b), static_cast<const float*>(bias),

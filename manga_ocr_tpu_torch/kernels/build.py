@@ -35,6 +35,8 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
+_PP = ctypes.POINTER(_P)
 # C entry points: (name, argtypes).  Each returns cudaGetLastError() after
 # its launch (0 = cudaSuccess).
 _SIGNATURES = {
@@ -42,16 +44,16 @@ _SIGNATURES = {
     "mocr_ln_quant_rows": (_P, _I, _P, _P, _I, _F, _P, _P, _I, _I, _P),
     # a, b_t, sx, sw, bias, residual, out, M, N, K, mode, stream
     "mocr_int8_gemm": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # qkv, ctx, B, S, H, dh, valid_len, scale, stream
-    "mocr_attention": (_P, _P, _I, _I, _I, _I, _I, _F, _P),
+    # q, k, v, in strides (batch, head, row), out, out strides, out_bf16,
+    # divide, B, S, H, dh, valid_len, scale, stream
+    "mocr_attention": (_P, _P, _P, _L, _L, _L, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I, _I, _F,
+                       _P),
     # ptrs, n_ptrs, ints, n_ints, scale, eps, tokens, lengths, stream
-    "mocr_decode_loop": (ctypes.POINTER(_P), _I, ctypes.POINTER(_I), _I, _F, _F, _P, _P, _P),
+    "mocr_decode_loop": (_PP, _I, ctypes.POINTER(_I), _I, _F, _F, _P, _P, _P),
     # x, ln_scale, ln_bias, eps, y, M, K, stream
     "mocr_ln_rows_bf16": (_P, _P, _P, _F, _P, _I, _I, _P),
     # a, b, bias, residual, out, M, N, K, mode, stream
     "mocr_bf16_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # q, k, v, out, B, S, H, dh, valid_len, scale, stream
-    "mocr_attention_packed": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     # x, wt, bt, lns, lnb, wp, bp, B, D, V, n_split, rows_per_block, eps,
     # part_v, part_i, ids, stream
     "mocr_fused_head": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P),
@@ -60,6 +62,10 @@ _SIGNATURES = {
     # q, k, v, k_scale, v_scale, kv_int8, ctx, ctx_bf16, B, S, H, dh, s_valid,
     # scale, stream
     "mocr_cross_attn_step": (_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    # weights, n_weights, scratch, n_scratch, x, out, n_layers, int8,
+    # gelu_sigmoid, divide, B, S, D, H, I, eps, scale, stream
+    "mocr_encoder_layers": (_PP, _I, _PP, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                            _F, _P),
 }
 
 _lock = threading.Lock()

@@ -3,8 +3,8 @@
 Each launcher checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on PyTorch's current stream and
 raises if the launch reported a CUDA error.  The public kernel wrappers
-(``ops.fused_mlp``, ``ops.flash_attention``, ``ops.decode_loop``,
-``ops.fused_head``, ``ops.decode_layer``) chain them.
+(``ops.fused_mlp``, ``ops.flash_attention``, ``ops.encoder_stack``,
+``ops.decode_loop``, ``ops.fused_head``, ``ops.decode_layer``) chain them.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from manga_ocr_tpu_torch.kernels import build
 GEMM_BF16, GEMM_GELU_F32, GEMM_RESIDUAL_BF16, GEMM_F32, GEMM_GELU_ERF_F32 = 0, 1, 2, 3, 4
 _GEMM_F32_OUT = (GEMM_GELU_F32, GEMM_F32, GEMM_GELU_ERF_F32)
 # bf16_gemm epilogues
-BF16_GELU_ERF, BF16_GELU_SIGMOID, BF16_RESIDUAL, BF16_F32 = 0, 1, 2, 3
+BF16_GELU_ERF, BF16_GELU_SIGMOID, BF16_RESIDUAL, BF16_F32, BF16_BIAS = 0, 1, 2, 3, 4
 
 
 def _expect(t: torch.Tensor, dtype: torch.dtype, shape: tuple, name: str) -> None:
@@ -103,23 +103,42 @@ def int8_gemm(
     return out
 
 
-def attention(
-    qkv: torch.Tensor, batch: int, seq: int, heads: int, valid_len: int, scale: float
+def _attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, in_strides: tuple[int, int, int],
+    out: torch.Tensor, out_strides: tuple[int, int, int], batch: int, seq: int, heads: int,
+    dh: int, valid_len: int, scale: float, divide: bool,
 ) -> torch.Tensor:
-    """qkv [B*S, 3D] bf16 (q | k | v) -> ctx [B*S, D] f32."""
-    d = qkv.shape[1] // 3
-    dh = d // heads
-    if dh * heads != d or dh % 2 or dh > 128:
+    """The attention core on (batch, head, row) element strides; the
+    caller has checked shapes, types and strides."""
+    if dh % 2 or dh > 128:
         raise ValueError(f"attention: head dim {dh} unsupported (even, <= 128)")
-    _expect(qkv, torch.bfloat16, (batch * seq, 3 * d), "attention qkv")
-    ctx = torch.empty((batch * seq, d), dtype=torch.float32, device=qkv.device)
     lib = build.load()
     err = lib.mocr_attention(
-        qkv.data_ptr(), ctx.data_ptr(), batch, seq, heads, dh, int(valid_len),
-        float(scale), build.stream_ptr(qkv.device),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), *in_strides, out.data_ptr(), *out_strides,
+        int(out.dtype == torch.bfloat16), int(divide), batch, seq, heads, dh, int(valid_len),
+        float(scale), build.stream_ptr(q.device),
     )
     build.check(err, "attention")
-    return ctx
+    return out
+
+
+def attention(
+    qkv: torch.Tensor, batch: int, seq: int, heads: int, valid_len: int, scale: float,
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """qkv [B*S, 3D] bf16 (q | k | v) -> ctx [B*S, D] in ``out_dtype`` (f32
+    or bf16); the softmax multiplies by the reciprocal of its sum (kernel
+    A's ``_attn_core``)."""
+    d = qkv.shape[1] // 3
+    dh = d // heads
+    if dh * heads != d:
+        raise ValueError(f"attention: D={d} is not a multiple of {heads} heads")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"attention: output dtype {out_dtype}")
+    _expect(qkv, torch.bfloat16, (batch * seq, 3 * d), "attention qkv")
+    ctx = torch.empty((batch * seq, d), dtype=out_dtype, device=qkv.device)
+    return _attention(qkv, qkv[:, d:], qkv[:, 2 * d:], (seq * 3 * d, dh, 3 * d), ctx,
+                      (seq * d, dh, d), batch, seq, heads, dh, valid_len, scale, divide=False)
 
 
 def decode_loop(
@@ -165,7 +184,7 @@ def bf16_gemm(
     """``epilogue(a[M, K] . b[K, N] + bias[N])`` in bf16 with f32
     accumulation; ``mode`` one of BF16_GELU_ERF, BF16_GELU_SIGMOID (the GELU
     in f32, then bf16), BF16_RESIDUAL (bf16, then plus the bf16
-    ``residual``) or BF16_F32 (f32 out)."""
+    ``residual``), BF16_F32 (f32 out) or BF16_BIAS (bf16 out)."""
     m, k = a.shape
     n = b.shape[1]
     if k % 32 or n % 8:
@@ -177,7 +196,7 @@ def bf16_gemm(
     _expect_aligned(b, "bf16_gemm b")
     if mode == BF16_RESIDUAL:
         _expect(residual, torch.bfloat16, (m, n), "bf16_gemm residual")
-    elif mode not in (BF16_GELU_ERF, BF16_GELU_SIGMOID, BF16_F32):
+    elif mode not in (BF16_GELU_ERF, BF16_GELU_SIGMOID, BF16_F32, BF16_BIAS):
         raise ValueError(f"bf16_gemm: unknown mode {mode}")
     out_dtype = torch.float32 if mode == BF16_F32 else torch.bfloat16
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
@@ -194,20 +213,114 @@ def bf16_gemm(
 def attention_packed(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, valid_len: int, scale: float
 ) -> torch.Tensor:
-    """q/k/v [B, S, D] bf16 -> [B, S, D] bf16 context."""
+    """q/k/v [B, S, D] bf16 -> [B, S, D] bf16 context (softmax by division)."""
     b, s, d = q.shape
     dh = d // heads
-    if dh * heads != d or dh % 2 or dh > 128:
-        raise ValueError(f"attention_packed: head dim {dh} unsupported (even, <= 128)")
+    if dh * heads != d:
+        raise ValueError(f"attention_packed: D={d} is not a multiple of {heads} heads")
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _expect(t, torch.bfloat16, (b, s, d), f"attention_packed {name}")
-    out = torch.empty_like(q)
+    strides = (s * d, dh, d)
+    return _attention(q, k, v, strides, torch.empty_like(q), strides, b, s, heads, dh, valid_len,
+                      scale, divide=True)
+
+
+def attention_heads(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid_len: int, scale: float
+) -> torch.Tensor:
+    """q/k/v [B, H, S, dh] bf16 -> [B, H, S, dh] bf16 (softmax by division)."""
+    b, h, s, dh = q.shape
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        _expect(t, torch.bfloat16, (b, h, s, dh), f"attention_heads {name}")
+    strides = (h * s * dh, s * dh, dh)
+    return _attention(q, k, v, strides, torch.empty_like(q), strides, b, s, h, dh, valid_len,
+                      scale, divide=True)
+
+
+def _scratch_spec(m: int, d: int, inter: int, int8: bool) -> list:
+    """(shape, dtype) of each scratch array of ``csrc/encoder_layer.cu`` at
+    ``m`` rows, in its order: rows, row scales, q|k|v, context, the residual
+    between the halves, the MLP hidden (None: unused by the form)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    if int8:
+        return [((m, inter), torch.int8), ((m,), f32), ((m, 3 * d), bf16), ((m, d), f32),
+                ((m, d), bf16), ((m, inter), f32)]
+    return [((m, d), bf16), None, ((m, 3 * d), bf16), ((m, d), bf16), ((m, d), bf16),
+            ((m, inter), bf16)]
+
+
+def encoder_scratch(
+    m: int, d: int, inter: int, int8: bool, device
+) -> tuple[torch.Tensor | None, ...]:
+    """The scratch of ``encoder_layers`` at ``m`` rows."""
+    return tuple(None if spec is None else torch.empty(spec[0], dtype=spec[1], device=device)
+                 for spec in _scratch_spec(m, d, inter, int8))
+
+
+def _expect_weights(weights: list, lead: tuple, d: int, inter: int, name: str) -> bool:
+    """Check the 16 weight arrays of ``csrc/encoder_layer.cu`` (leading
+    dims ``lead``); returns whether they are the int8 form."""
+    if len(weights) != 16:
+        raise ValueError(f"{name}: expected 16 weight arrays, got {len(weights)}")
+    int8 = weights[0].dtype == torch.int8
+    wdt, f32 = (torch.int8 if int8 else torch.bfloat16), torch.float32
+
+    def mat(k, n):  # the int8 GEMM reads [N, K], the bf16 GEMM [K, N]
+        return (n, k) if int8 else (k, n)
+
+    specs = [(mat(d, 3 * d), wdt), ((3 * d,), f32), ((3 * d,), f32),
+             (mat(d, d), wdt), ((d,), f32), ((d,), f32), ((d,), f32), ((d,), f32),
+             (mat(d, inter), wdt), ((inter,), f32), ((inter,), f32),
+             (mat(inter, d), wdt), ((d,), f32), ((d,), f32), ((d,), f32), ((d,), f32)]
+    for i, (t, (shape, dtype)) in enumerate(zip(weights, specs)):
+        if i in (1, 4, 9, 12) and not int8:  # int8 scales: none in the bf16 form
+            if t is not None:
+                raise ValueError(f"{name}: weight {i}: the bf16 form takes no scales")
+            continue
+        if t is None:
+            raise ValueError(f"{name}: weight {i} is missing")
+        _expect(t, dtype, lead + shape, f"{name} weight {i}")
+    return int8
+
+
+def encoder_layers(
+    x: torch.Tensor, weights: list, first: int, count: int, divide: bool, scratch: tuple,
+    heads: int, eps: float, scale: float, gelu_sigmoid: bool,
+) -> torch.Tensor:
+    """Whole pre-LN blocks [first, first + count) of stacked [L, ...] weights
+    (the 16 arrays of ``ops.encoder_weights.flat_weights``) on x [B, S, D]
+    bf16, in one call, with the ``encoder_scratch`` of B*S rows -> [B, S, D]
+    bf16.  Kernel H is one layer with ``divide=False`` (the softmax
+    multiplies by the reciprocal of its sum), kernel I a slab with
+    ``divide=True``."""
+    b, s, d = x.shape
+    inter = weights[10].shape[-1]
+    n_l = weights[0].shape[0]
+    if not (0 <= first and count >= 1 and first + count <= n_l):
+        raise ValueError(f"encoder_layers: layers [{first}, {first + count}) of {n_l}")
+    if d % heads:
+        raise ValueError(f"encoder_layers: D={d} is not a multiple of {heads} heads")
+    if d % 64 or inter % 64:
+        raise ValueError(f"encoder_layers: needs D and I multiples of 64, got D={d} I={inter}")
+    int8 = _expect_weights(weights, (n_l,), d, inter, "encoder_layers")
+    _expect(x, torch.bfloat16, (b, s, d), "encoder_layers x")
+    specs = _scratch_spec(b * s, d, inter, int8)
+    if len(scratch) != len(specs):
+        raise ValueError(f"encoder_layers: expected {len(specs)} scratch arrays")
+    for i, (t, spec) in enumerate(zip(scratch, specs)):
+        if spec is None:
+            if t is not None:
+                raise ValueError(f"encoder_layers: scratch {i} is unused by this form")
+        else:
+            _expect(t, spec[1], spec[0], f"encoder_layers scratch {i}")
+    c_w = (ctypes.c_void_p * 16)(*(None if t is None else t[first].data_ptr() for t in weights))
+    c_s = (ctypes.c_void_p * 6)(*(None if t is None else t.data_ptr() for t in scratch))
+    out = torch.empty_like(x)
     lib = build.load()
-    err = lib.mocr_attention_packed(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, heads, dh,
-        int(valid_len), float(scale), build.stream_ptr(q.device),
-    )
-    build.check(err, "attention_packed")
+    err = lib.mocr_encoder_layers(c_w, 16, c_s, 6, x.data_ptr(), out.data_ptr(), int(count),
+                                  int(int8), int(gelu_sigmoid), int(divide), b, s, d, heads,
+                                  inter, float(eps), float(scale), build.stream_ptr(x.device))
+    build.check(err, "encoder_layers")
     return out
 
 

@@ -30,31 +30,11 @@ does), masked with -1e30; the softmax divides; p stays f32; then
 
 from __future__ import annotations
 
-from typing import NamedTuple
-
 import torch
 
 from manga_ocr_tpu_torch.kernels import launch
-from manga_ocr_tpu_torch.ops.fused_mlp import Int8Weight, int8_weight
+from manga_ocr_tpu_torch.ops.fused_mlp import Int8Weight, Proj, prepare_proj
 from manga_ocr_tpu_torch.ops.kernel_utils import NEG_INF, int8_matmul, ln32, quant_rows
-
-
-class Proj(NamedTuple):
-    """One projection, prepared: ``w`` an ``Int8Weight`` (int8 W8A8) or a
-    float [K, N] matrix in the compute dtype; ``bias`` f32 [N]."""
-
-    w: Int8Weight | torch.Tensor
-    bias: torch.Tensor
-
-
-def prepare_proj(denses: list[dict], dtype: torch.dtype) -> Proj:
-    """Concatenate dense params (``{"kernel", "bias"}`` or the quantized
-    ``{"w_q", "scale", "bias"}``) along their output columns."""
-    bias = torch.cat([p["bias"].float() for p in denses]).contiguous()
-    if "w_q" in denses[0]:
-        w_q = torch.cat([p["w_q"] for p in denses], dim=1).contiguous()
-        return Proj(int8_weight(w_q, torch.cat([p["scale"].float() for p in denses])), bias)
-    return Proj(torch.cat([p["kernel"].to(dtype) for p in denses], dim=1).contiguous(), bias)
 
 
 def prepare_self_attn(p: dict, dtype: torch.dtype) -> dict:

@@ -1,30 +1,55 @@
-"""Encoder attention: the int8 attention layer (kernel A) and the packed
-SDPA of the unquantized encoder (kernel E).
+"""Encoder attention: the attention layer (kernel A), the whole encoder
+block (kernel H), the packed SDPA (kernel E) and the head-major SDPA
+(kernel G).
 
 Kernel A, x + O(SDPA(LN(x))), is the counterpart of
 ``manga_ocr_tpu/ops/flash_attention.py`` ``fused_attn_layer``
-(``_attn_layer_kernel`` -> ``_attn_core``) in its default form: W8A8 q/k/v/o
-projections (``quant_rows`` activations, per-column weight scales), q/k/v
-cast to the compute dtype, f32 softmax as a reciprocal multiply with keys at
-or past ``valid_len`` masked, probabilities cast to the compute dtype before
-PV, the f32 context row-quantized into the int8 o-projection, and the
-residual added in the compute dtype.
+(``_attn_layer_kernel`` -> ``_attn_core``) in its default form, with either
+projection form: int8 W8A8 q/k/v/o (``quant_rows`` activations, per-column
+weight scales, ``(acc * sx) * scale + bias``) or float (the LN output
+rounded to the compute dtype, ``dot + bias`` in f32).  q/k/v are cast to the
+compute dtype; the softmax is f32, a reciprocal multiply, with keys at or
+past ``valid_len`` masked; probabilities are cast to the compute dtype
+before PV; the f32 context is row-quantized into the int8 o-projection, or
+cast to the compute dtype before the float one; the residual is added in
+the compute dtype.  Of the JAX kernel's variant flags, ``fuse_qkv``,
+``batched_sdpa`` and ``parallel_grid`` schedule the same math (the CUDA path
+always runs q|k|v as one GEMM) and are accepted; ``sdpa_int8`` and
+``sdpa_headpack`` change the numerics, are not ported and raise
+``NotImplementedError``; the pairs JAX refuses raise its ``ValueError``.
 
-On CUDA tensors it runs the kernels of ``csrc/encoder.cu``: LN + row quant
--> one int8 GEMM over the concatenated q|k|v weights (bit-exact: each output
-column's contraction is unchanged) -> the attention core -> row quant of the
-context -> int8 o-projection with the residual in its epilogue.  On CPU
-tensors it runs ``fused_attn_layer_reference``.
+On CUDA tensors A runs the kernels of ``csrc/``: int8, LN + row quant ->
+one int8 GEMM over the concatenated q|k|v weights (bit-exact: each output
+column's contraction is unchanged) -> the attention core -> row quant of
+the context -> int8 o-projection with the residual in its epilogue; bf16,
+``ln_rows_bf16`` -> one bf16 GEMM over q|k|v (bias epilogue, bf16 out) ->
+the attention core (bf16 context) -> bf16 o-projection with the residual
+epilogue.  The weights come prepared (``ops.encoder_weights``) or are
+prepared on the call.  On CPU tensors it runs
+``fused_attn_layer_reference``.
+
+Kernel H, ``fused_encoder_layer`` (counterpart of ``fused_encoder_layer`` ->
+``_enc_layer_kernel``): a whole pre-LN block, A's attention half with every
+key attended (JAX passes ``valid_len = S``), then kernel B's int8 MLP (GELU
+in f32, then ``quant_rows``) or D's bf16 one (GELU, then the cast), the
+GELU of ``gelu_mode``.  Attention and MLP must share the quantization mode.
+On CUDA tensors one C entry point runs the whole block
+(``csrc/encoder_layer.cu``).
 
 Kernel E, ``attention_packed`` (counterpart of ``attention_packed`` ->
 ``_packed_kernel``, and ``mha_packed`` around it): SDPA alone on q/k/v
 [B, S, H*dh] straight from the bf16 projections, f32 logits scaled after
 the product, keys at or past ``valid_len`` masked, softmax as a division,
 probabilities cast to bf16 before PV, the context cast to bf16 per head.
-On CUDA tensors it runs the attention core of ``csrc/encoder.cu`` that A
-uses, with separate q/k/v pointers; on CPU tensors
-``attention_packed_reference``.  The TPU kernel pads S to a multiple of 128
-and masks the padded keys; the port runs S unpadded.
+
+Kernel G, ``fused_attention`` (counterpart of ``fused_attention`` ->
+``_attn_kernel``, and ``mha_fused`` around it): the same SDPA on q/k/v
+[B, H, S, dh] (``vit.encode(fused_attention=True)``), every key attended.
+
+E and G run the attention core of ``csrc/encoder.cu`` that A uses, with
+their own strides; on CPU tensors their plain versions.  The TPU kernels
+pad S to a multiple of 128 and mask the padded keys; the port runs S
+unpadded.
 """
 
 from __future__ import annotations
@@ -32,10 +57,98 @@ from __future__ import annotations
 import torch
 
 from manga_ocr_tpu_torch.kernels import launch
-from manga_ocr_tpu_torch.ops.common import dense
+from manga_ocr_tpu_torch.ops.common import dense, merge_heads, split_heads
+from manga_ocr_tpu_torch.ops.encoder_weights import (
+    LayerWeights,
+    flat_weights,
+    is_int8,
+    prepare_weights,
+)
+from manga_ocr_tpu_torch.ops.fused_mlp import (
+    Proj,
+    fused_mlp_block_bf16_reference,
+    fused_mlp_block_reference,
+    prepare_proj,
+)
 from manga_ocr_tpu_torch.ops.kernel_utils import NEG_INF, int8_matmul, ln32, quant_rows
 
-_VARIANTS = ("fuse_qkv", "batched_sdpa", "sdpa_int8", "sdpa_headpack", "parallel_grid")
+CUDA_GELU_MODES = ("erf", "sigmoid")
+
+
+def check_attn_variants(
+    fuse_qkv: bool = False,
+    batched_sdpa: bool | str = False,
+    sdpa_int8: bool = False,
+    sdpa_headpack: bool = False,
+    parallel_grid: bool = False,
+) -> None:
+    """The JAX ``fused_attn_layer``'s variant flags: its ``ValueError`` for
+    the pairs it refuses; ``NotImplementedError`` for the two that change
+    the numerics; the scheduling-only three pass."""
+    del fuse_qkv, parallel_grid  # scheduling only: the same math
+    if sdpa_int8 and batched_sdpa:
+        raise ValueError(
+            "sdpa_int8 is implemented for the per-(batch, head) SDPA loop "
+            "only; disable batched_sdpa (it would silently run bf16 SDPA)"
+        )
+    if sdpa_headpack and (sdpa_int8 or batched_sdpa):
+        raise ValueError(
+            "sdpa_headpack is exclusive with sdpa_int8/batched_sdpa "
+            "(one SDPA formulation per kernel)"
+        )
+    for name, on in (("sdpa_int8", sdpa_int8), ("sdpa_headpack", sdpa_headpack)):
+        if on:
+            raise NotImplementedError(f"fused_attn_layer: variant {name} is not ported")
+
+
+def _sdpa_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid_len: int, divide: bool,
+    p_dtype: torch.dtype,
+) -> torch.Tensor:
+    """softmax(q k^T / sqrt(dh)) v on f32 [..., S, dh] heads: keys at or past
+    ``valid_len`` masked, the softmax a division (``divide``) or a
+    reciprocal multiply, p rounded to ``p_dtype`` before PV; f32 out."""
+    s, dh = q.shape[-2], q.shape[-1]
+    logits = (q @ k.transpose(-1, -2)) * (1.0 / (dh**0.5))
+    if valid_len < s:
+        keep = torch.arange(s, device=q.device) < valid_len
+        logits = torch.where(keep, logits, torch.full_like(logits, NEG_INF))
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    p = p / p.sum(-1, keepdim=True) if divide else p * (1.0 / p.sum(-1, keepdim=True))
+    return p.to(p_dtype).float() @ v
+
+
+def attn_block_reference(
+    x: torch.Tensor,
+    p: dict,
+    ln_scale: torch.Tensor,
+    ln_bias: torch.Tensor,
+    num_heads: int,
+    eps: float,
+    valid_len: int | None,
+    divide: bool,
+) -> torch.Tensor:
+    """x + Attention(LN(x)) on [B, S, D], int8 or float projections, as
+    ``_attn_core`` (``divide=False``) or the stack's ``_one_layer``
+    (``divide=True``) computes it."""
+    b, s, d = x.shape
+    dt = x.dtype
+    dh = d // num_heads
+    h32 = ln32(x, ln_scale, ln_bias, eps).reshape(b * s, d)
+    int8 = "w_q" in p["q"]
+
+    def proj(w, rows, sx):
+        if int8:
+            return int8_matmul(rows, w["w_q"]).float() * sx * w["scale"].float() + w["bias"].float()
+        return rows.float() @ w["kernel"].to(dt).float() + w["bias"].float()
+
+    hq, sx = quant_rows(h32) if int8 else (h32.to(dt), None)
+    q, k, v = (proj(p[n], hq, sx).to(dt).reshape(b, s, num_heads, dh).transpose(1, 2).float()
+               for n in ("q", "k", "v"))
+    ctx = _sdpa_reference(q, k, v, s if valid_len is None else valid_len, divide, dt)
+    ctx = ctx.transpose(1, 2).reshape(b * s, d)  # f32
+    out = proj(p["o"], *quant_rows(ctx)) if int8 else proj(p["o"], ctx.to(dt), None)
+    return x + out.to(dt).reshape(b, s, d)
 
 
 def fused_attn_layer_reference(
@@ -46,87 +159,125 @@ def fused_attn_layer_reference(
     num_heads: int,
     eps: float = 1e-12,
     valid_len: int | None = None,
+    **variants,
 ) -> torch.Tensor:
-    """Plain version of the default ``_attn_core`` path on [B, S, D]."""
-    b, s, d = x.shape
-    dh = d // num_heads
-    valid_len = s if valid_len is None else valid_len
-    hq, sx = quant_rows(ln32(x, ln_scale, ln_bias, eps).reshape(b * s, d))
-
-    def proj(name):
-        w = p[name]
-        y = int8_matmul(hq, w["w_q"]).float() * sx * w["scale"].float() + w["bias"].float()
-        return y.to(x.dtype).reshape(b, s, num_heads, dh).transpose(1, 2).float()
-
-    q, k, v = proj("q"), proj("k"), proj("v")  # [B, H, S, dh]
-    logits = (q @ k.transpose(-1, -2)) * (1.0 / (dh**0.5))
-    if valid_len < s:
-        keep = torch.arange(s, device=x.device) < valid_len
-        logits = torch.where(keep, logits, torch.full_like(logits, NEG_INF))
-    m = logits.amax(-1, keepdim=True)
-    pr = torch.exp(logits - m)
-    pr = pr * (1.0 / pr.sum(-1, keepdim=True))
-    ctx = pr.to(x.dtype).float() @ v  # [B, H, S, dh] f32
-    ctx = ctx.transpose(1, 2).reshape(b * s, d)
-    cq, csx = quant_rows(ctx)
-    o = p["o"]
-    out = int8_matmul(cq, o["w_q"]).float() * csx * o["scale"].float() + o["bias"].float()
-    return x + out.to(x.dtype).reshape(b, s, d)
+    """Plain version of kernel A (``_attn_core``) on [B, S, D]; the variant
+    flags as ``fused_attn_layer`` takes them."""
+    check_attn_variants(**variants)
+    return attn_block_reference(x, p, ln_scale, ln_bias, num_heads, eps, valid_len, divide=False)
 
 
 def fused_attn_layer(
     x: torch.Tensor,  # [B, S, D]
-    p: dict,  # attention params: q/k/v/o as {"w_q", "scale", "bias"}
+    p: dict,  # attention params: q/k/v/o as {"kernel", "bias"} or {"w_q", "scale", "bias"}
     ln_scale: torch.Tensor,
     ln_bias: torch.Tensor,
     num_heads: int,
     eps: float = 1e-12,
     valid_len: int | None = None,  # keys at or past this index are masked
+    prepared: tuple[Proj, Proj] | None = None,  # (q|k|v, o) of ops.encoder_weights
     **variants,
 ) -> torch.Tensor:
-    """x + Attention(LN(x)).  CPU tensors take the plain version; CUDA
-    tensors launch the kernels or raise.  The JAX kernel's variant flags
+    """Kernel A: x + Attention(LN(x)).  ``variants``: the JAX kernel's flags
     (``fuse_qkv``, ``batched_sdpa``, ``sdpa_int8``, ``sdpa_headpack``,
-    ``parallel_grid``) are not ported and raise when set."""
-    for name, value in variants.items():
-        if name not in _VARIANTS:
-            raise TypeError(f"fused_attn_layer: unexpected argument {name!r}")
-        if value:
-            raise NotImplementedError(f"fused_attn_layer: variant {name} is not ported")
-    if "w_q" not in p["q"]:
-        raise NotImplementedError(
-            "fused_attn_layer: only int8-quantized projections are ported "
-            "(models.quantize.quantize_encoder(quantize_attn_proj=True))"
-        )
+    ``parallel_grid``, see the module docstring).  CPU tensors take the
+    plain version; CUDA tensors launch the kernels or raise."""
+    check_attn_variants(**variants)
     if x.device.type == "cpu":
-        return fused_attn_layer_reference(x, p, ln_scale, ln_bias, num_heads, eps, valid_len)
+        return attn_block_reference(x, p, ln_scale, ln_bias, num_heads, eps, valid_len, False)
     if x.dtype != torch.bfloat16:
         raise ValueError(f"fused_attn_layer: the CUDA kernel takes bf16, got {x.dtype}")
     b, s, d = x.shape
     dh = d // num_heads
+    if prepared is None:
+        prepared = (prepare_proj([p["q"], p["k"], p["v"]], x.dtype), prepare_proj([p["o"]], x.dtype))
+    qkv_w, o_w = prepared
     xf = x.reshape(b * s, d).contiguous()
-    hq, sx = launch.ln_quant_rows(
-        xf, (ln_scale.float().contiguous(), ln_bias.float().contiguous()), eps
-    )
-    names = ("q", "k", "v")
-    wqkv_t = torch.cat([p[n]["w_q"].t() for n in names], 0).contiguous()  # [3D, D]
-    sqkv = torch.cat([p[n]["scale"].float() for n in names]).contiguous()
-    bqkv = torch.cat([p[n]["bias"].float() for n in names]).contiguous()
-    qkv = launch.int8_gemm(hq, wqkv_t, sx, sqkv, bqkv, launch.GEMM_BF16)
-    ctx = launch.attention(
-        qkv, b, s, num_heads, s if valid_len is None else valid_len, 1.0 / (dh**0.5)
-    )
-    cq, csx = launch.ln_quant_rows(ctx)
-    o = p["o"]
-    out = launch.int8_gemm(
-        cq, o["w_q"].t().contiguous(), csx, o["scale"].float().contiguous(),
-        o["bias"].float().contiguous(), launch.GEMM_RESIDUAL_BF16, residual=xf,
-    )
+    ln = (ln_scale.float().contiguous(), ln_bias.float().contiguous())
+    valid = s if valid_len is None else valid_len
+    scale = 1.0 / (dh**0.5)
+    if is_int8(qkv_w):
+        hq, sx = launch.ln_quant_rows(xf, ln, eps)
+        qkv = launch.int8_gemm(hq, qkv_w.w.w_t, sx, qkv_w.w.scale, qkv_w.bias, launch.GEMM_BF16)
+        ctx = launch.attention(qkv, b, s, num_heads, valid, scale)
+        cq, csx = launch.ln_quant_rows(ctx)
+        out = launch.int8_gemm(cq, o_w.w.w_t, csx, o_w.w.scale, o_w.bias,
+                               launch.GEMM_RESIDUAL_BF16, residual=xf)
+    else:
+        h = launch.ln_rows_bf16(xf, ln, eps)
+        qkv = launch.bf16_gemm(h, qkv_w.w, qkv_w.bias, launch.BF16_BIAS)
+        ctx = launch.attention(qkv, b, s, num_heads, valid, scale, out_dtype=torch.bfloat16)
+        out = launch.bf16_gemm(ctx, o_w.w, o_w.bias, launch.BF16_RESIDUAL, residual=xf)
     fused_attn_layer.launches += 1
     return out.reshape(b, s, d)
 
 
 fused_attn_layer.launches = 0  # launches of the CUDA kernels (CPU calls do not count)
+
+
+def layer_is_int8(p: dict, name: str) -> bool:
+    """Whether a layer's params are int8; attention and MLP must agree."""
+    int8 = "w_q" in p["attn"]["q"]
+    if ("w_q" in p["mlp"]["fc1"]) != int8:
+        raise ValueError(f"{name}: attention and MLP must share the quantization mode")
+    return int8
+
+
+def encoder_block_reference(
+    x: torch.Tensor, p: dict, num_heads: int, eps: float, gelu_mode: str, divide: bool
+) -> torch.Tensor:
+    """x += Attn(LN1(x)); x += MLP(LN2(x)) on [B, S, D] with every key
+    attended: H's block (``divide=False``) or I's (``divide=True``)."""
+    x = attn_block_reference(x, p["attn"], p["ln1"]["scale"], p["ln1"]["bias"], num_heads, eps,
+                             None, divide)
+    fc1, fc2 = p["mlp"]["fc1"], p["mlp"]["fc2"]
+    ln = (p["ln2"]["scale"], p["ln2"]["bias"])
+    if "w_q" in fc1:
+        return fused_mlp_block_reference(x, *ln, (fc1["w_q"], fc1["scale"]), fc1["bias"],
+                                         (fc2["w_q"], fc2["scale"]), fc2["bias"], eps, gelu_mode)
+    return fused_mlp_block_bf16_reference(x, *ln, fc1["kernel"], fc1["bias"], fc2["kernel"],
+                                          fc2["bias"], eps, gelu_mode)
+
+
+def fused_encoder_layer_reference(
+    x: torch.Tensor, p: dict, num_heads: int, eps: float = 1e-12, gelu_mode: str = "erf"
+) -> torch.Tensor:
+    """Plain version of kernel H (``_enc_layer_kernel``) on [B, S, D]."""
+    layer_is_int8(p, "fused_encoder_layer")
+    return encoder_block_reference(x, p, num_heads, eps, gelu_mode, divide=False)
+
+
+def fused_encoder_layer(
+    x: torch.Tensor,  # [B, S, D]
+    p: dict,  # layer params: attn{q,k,v,o}, ln1, ln2, mlp{fc1,fc2}
+    num_heads: int,
+    eps: float = 1e-12,
+    gelu_mode: str = "erf",
+    prepared: LayerWeights | None = None,  # this layer's ops.encoder_weights
+    scratch: tuple | None = None,  # launch.encoder_scratch of B*S rows
+) -> torch.Tensor:
+    """Kernel H: one whole pre-LN ViT block.  CPU tensors take the plain
+    version; CUDA tensors launch the kernels or raise.  ``prepared`` and
+    ``scratch`` are made on the call when not given."""
+    int8 = layer_is_int8(p, "fused_encoder_layer")
+    if x.device.type == "cpu":
+        return encoder_block_reference(x, p, num_heads, eps, gelu_mode, divide=False)
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"fused_encoder_layer: the CUDA kernel takes bf16, got {x.dtype}")
+    if gelu_mode not in CUDA_GELU_MODES:
+        raise ValueError(f"fused_encoder_layer: the CUDA kernel has no gelu_mode {gelu_mode!r}")
+    w = prepared if prepared is not None else prepare_weights(p, x.dtype)
+    b, s, d = x.shape
+    if scratch is None:
+        scratch = launch.encoder_scratch(b * s, d, w.fc1.bias.shape[-1], int8, x.device)
+    weights = [None if t is None else t.unsqueeze(0) for t in flat_weights(w)]  # [1, ...]
+    out = launch.encoder_layers(x.contiguous(), weights, 0, 1, False, scratch, num_heads, eps,
+                                1.0 / ((d // num_heads) ** 0.5), gelu_mode == "sigmoid")
+    fused_encoder_layer.launches += 1
+    return out
+
+
+fused_encoder_layer.launches = 0  # kernel H's CUDA launches (CPU calls do not count)
 
 
 def attention_packed_reference(
@@ -135,20 +286,13 @@ def attention_packed_reference(
 ) -> torch.Tensor:
     """Plain version of ``_packed_kernel`` on q/k/v [B, S, H*dh]."""
     b, s, d = q.shape
-    dh = d // num_heads
 
     def heads(t):
-        return t.reshape(b, s, num_heads, dh).transpose(1, 2).float()
+        return split_heads(t, num_heads).float()
 
-    logits = (heads(q) @ heads(k).transpose(-1, -2)) * (1.0 / (dh**0.5))
-    valid_len = s if valid_len is None else valid_len
-    if valid_len < s:
-        keep = torch.arange(s, device=q.device) < valid_len
-        logits = torch.where(keep, logits, torch.full_like(logits, NEG_INF))
-    p = torch.exp(logits - logits.amax(-1, keepdim=True))
-    p = p / p.sum(-1, keepdim=True)
-    ctx = p.to(v.dtype).float() @ heads(v)  # [B, H, S, dh] f32
-    return ctx.transpose(1, 2).reshape(b, s, d).to(q.dtype)
+    ctx = _sdpa_reference(heads(q), heads(k), heads(v), s if valid_len is None else valid_len,
+                          True, v.dtype)  # [B, H, S, dh] f32
+    return merge_heads(ctx).to(q.dtype)
 
 
 def attention_packed(
@@ -189,3 +333,40 @@ def mha_packed(
     v = dense(x_kv, p["v"]["kernel"], p["v"]["bias"])
     attn = attention_packed if use_kernels else attention_packed_reference
     return dense(attn(q, k, v, num_heads), p["o"]["kernel"], p["o"]["bias"])
+
+
+def fused_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``_attn_kernel`` on q/k/v [B, H, S, dh]: every key
+    attended, the softmax a division, p rounded to the input dtype."""
+    ctx = _sdpa_reference(q.float(), k.float(), v.float(), q.shape[-2], True, q.dtype)
+    return ctx.to(q.dtype)
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Kernel G: softmax(q k^T / sqrt(dh)) v on [B, H, S, dh].  CPU tensors
+    take the plain version; CUDA tensors launch the kernel or raise."""
+    if q.device.type == "cpu":
+        return fused_attention_reference(q, k, v)
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"fused_attention: the CUDA kernel takes bf16, got {q.dtype}")
+    s, dh = q.shape[-2], q.shape[-1]
+    out = launch.attention_heads(q.contiguous(), k.contiguous(), v.contiguous(), s,
+                                 1.0 / (dh**0.5))
+    fused_attention.launches += 1
+    return out
+
+
+fused_attention.launches = 0  # launches of the CUDA kernel (CPU calls do not count)
+
+
+def mha_fused(
+    x_q: torch.Tensor, x_kv: torch.Tensor, p: dict, num_heads: int, use_kernels: bool = True
+) -> torch.Tensor:
+    """Multi-head attention through kernel G (or its plain version,
+    ``use_kernels=False``): the q/k/v projections, the heads split out,
+    G, the heads merged, the output projection."""
+    q = split_heads(dense(x_q, p["q"]["kernel"], p["q"]["bias"]), num_heads)
+    k = split_heads(dense(x_kv, p["k"]["kernel"], p["k"]["bias"]), num_heads)
+    v = split_heads(dense(x_kv, p["v"]["kernel"], p["v"]["bias"]), num_heads)
+    attn = fused_attention if use_kernels else fused_attention_reference
+    return dense(merge_heads(attn(q, k, v)), p["o"]["kernel"], p["o"]["bias"])

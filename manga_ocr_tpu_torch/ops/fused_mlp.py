@@ -50,7 +50,29 @@ class Int8Weight(NamedTuple):
 
 
 def int8_weight(w_q: torch.Tensor, scale: torch.Tensor) -> Int8Weight:
-    return Int8Weight(w_q, scale.float().contiguous(), w_q.t().contiguous())
+    """``(w_q [..., K, N], scale [..., N])`` -> ``Int8Weight`` (also for
+    layer-stacked [L, K, N] weights)."""
+    return Int8Weight(w_q, scale.float().contiguous(), w_q.transpose(-1, -2).contiguous())
+
+
+class Proj(NamedTuple):
+    """One projection, prepared: ``w`` an ``Int8Weight`` (int8 W8A8) or a
+    float [K, N] matrix in the compute dtype; ``bias`` f32 [N]."""
+
+    w: Int8Weight | torch.Tensor
+    bias: torch.Tensor
+
+
+def prepare_proj(denses: list[dict], dtype: torch.dtype) -> Proj:
+    """Concatenate dense params (``{"kernel", "bias"}`` or the quantized
+    ``{"w_q", "scale", "bias"}``, [K, N] or layer-stacked [L, K, N]) along
+    their output columns.  Every array of the result is a new tensor."""
+    bias = torch.cat([p["bias"].float() for p in denses], dim=-1).contiguous()
+    if "w_q" in denses[0]:
+        w_q = torch.cat([p["w_q"] for p in denses], dim=-1).contiguous()
+        scale = torch.cat([p["scale"].float() for p in denses], dim=-1)
+        return Proj(int8_weight(w_q, scale), bias)
+    return Proj(torch.cat([p["kernel"].to(dtype) for p in denses], dim=-1).contiguous(), bias)
 
 
 def fused_mlp_block_reference(

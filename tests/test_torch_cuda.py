@@ -10,7 +10,8 @@ does not need and may not have.)
 
 Shapes are small but satisfy the kernels' constraints (int8 GEMM K % 64 ==
 0 and even N, bf16 GEMM K % 32 == 0 and N % 8 == 0, head dims multiples of
-8, vocab a multiple of 512; the decode-step kernels J and K also at dh 96).
+8, vocab a multiple of 512; the decode-step kernels J and K also at dh 96;
+the whole encoder blocks H and I at D 128, I 256, three stacked layers).
 Tolerances: see chip_smoke.py — the int8
 products are exact, so encoder outputs differ by at most a few bf16 ulps of
 the largest output; decode tokens are scored by the plain version fed the
@@ -341,3 +342,124 @@ def test_fused_layer_decode_runs_through_j_k_b_and_f(device):
     assert [w.launches - b for w, b in zip(wrappers, before)] == [
         layers * steps, layers * steps, layers * steps, steps]
     assert out.tokens.shape == (3, 9) and bool((out.tokens[:, 0] == cfg.decoder.bos_token_id).all())
+
+
+def _float_dense(rng, k, n, device):
+    return {"kernel": torch.from_numpy(rng.normal(size=(k, n)) * 0.05).to(device, torch.bfloat16),
+            "bias": torch.from_numpy(0.1 * rng.normal(size=(n,))).float().to(device)}
+
+
+def test_float_attention_layer_kernel_matches_plain(device):
+    """Kernel A's bf16 form, with the weights prepared on the call and
+    prepared once (ops.encoder_weights)."""
+    from manga_ocr_tpu_torch.ops import flash_attention as fa
+    from manga_ocr_tpu_torch.ops.fused_mlp import prepare_proj
+
+    rng = np.random.default_rng(11)
+    d, heads = 128, 2
+    p = {n: _float_dense(rng, d, d, device) for n in "qkvo"}
+    x = torch.from_numpy(rng.normal(size=(3, 37, d))).to(device, torch.bfloat16)
+    ln = (torch.ones(d, device=device), torch.zeros(d, device=device))
+    prepared = (prepare_proj([p["q"], p["k"], p["v"]], torch.bfloat16),
+                prepare_proj([p["o"]], torch.bfloat16))
+    for valid in (37, 30):
+        want = fa.fused_attn_layer_reference(x, p, *ln, heads, valid_len=valid)
+        for prep in (None, prepared):
+            before = fa.fused_attn_layer.launches
+            got = fa.fused_attn_layer(x, p, *ln, heads, valid_len=valid, prepared=prep)
+            assert fa.fused_attn_layer.launches == before + 1
+            assert got.dtype == torch.bfloat16 and _within(got, want)
+
+
+def test_head_major_attention_kernel_matches_plain(device):
+    """Kernel G on [B, H, S, dh], and kernel E unchanged beside it."""
+    from manga_ocr_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(12)
+    q, k, v = (torch.from_numpy(rng.normal(size=(3, 2, 37, 64))).to(device, torch.bfloat16)
+               for _ in range(3))
+    before = fa.fused_attention.launches
+    got = fa.fused_attention(q, k, v)
+    assert fa.fused_attention.launches == before + 1
+    assert got.dtype == torch.bfloat16 and _within(got, fa.fused_attention_reference(q, k, v))
+    # the same heads packed as [B, S, H*dh] through kernel E: the same core
+    packed = [t.transpose(1, 2).reshape(3, 37, 128).contiguous() for t in (q, k, v)]
+    e = fa.attention_packed(*packed, 2)
+    torch.testing.assert_close(e, got.transpose(1, 2).reshape(3, 37, 128), atol=0, rtol=0)
+
+
+def _layer_params(rng, device, int8, layers=None):
+    """One layer's params (D 128, 2 heads, I 256), or ``layers`` stacked
+    [L, ...] layers'; float weights stay f32 (the kernels and the plain
+    versions round them to bf16)."""
+    from manga_ocr_tpu_torch.models.config import EncoderConfig
+    from manga_ocr_tpu_torch.models.params import init_params, layer_params
+    from manga_ocr_tpu_torch.models.quantize import quantize_encoder
+
+    cfg = MangaOCRConfig(encoder=EncoderConfig(hidden_size=128, num_heads=2,
+                                               intermediate_size=256, num_layers=layers or 1))
+    enc = init_params(cfg, int(rng.integers(1 << 30)), device, std=0.05)["encoder"]
+    for ln in ("ln1", "ln2"):
+        for name, shift in (("scale", 1.0), ("bias", 0.0)):
+            t = enc["layers"][ln][name]
+            enc["layers"][ln][name] = shift + 0.1 * torch.randn(t.shape, device=device)
+    if int8:
+        enc = quantize_encoder(enc, quantize_attn_proj=True)
+    return enc["layers"] if layers else layer_params(enc["layers"], 0)
+
+
+@pytest.mark.parametrize("gelu_mode", ["erf", "sigmoid"])
+@pytest.mark.parametrize("int8", [True, False], ids=["int8", "bf16"])
+def test_encoder_layer_kernel_matches_plain(device, int8, gelu_mode):
+    """Kernel H: one C entry point per block, int8 and bf16."""
+    from manga_ocr_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(13)
+    lp = _layer_params(rng, device, int8)
+    x = torch.from_numpy(rng.normal(size=(3, 37, 128))).to(device, torch.bfloat16)
+    before = fa.fused_encoder_layer.launches
+    got = fa.fused_encoder_layer(x, lp, 2, gelu_mode=gelu_mode)
+    assert fa.fused_encoder_layer.launches == before + 1
+    want = fa.fused_encoder_layer_reference(x, lp, 2, gelu_mode=gelu_mode)
+    assert got.dtype == torch.bfloat16 and _within(got, want)
+
+
+@pytest.mark.parametrize("lpc", [1, 2, 3])
+@pytest.mark.parametrize("int8", [True, False], ids=["int8", "bf16"])
+def test_encoder_stack_kernel_matches_plain(device, int8, lpc):
+    """Kernel I over three stacked layers: ceil(3 / lpc) slab calls."""
+    from manga_ocr_tpu_torch.ops import encoder_stack as es
+
+    rng = np.random.default_rng(14)
+    layers = _layer_params(rng, device, int8, layers=3)
+    x = torch.from_numpy(rng.normal(size=(3, 37, 128))).to(device, torch.bfloat16)
+    before = es.encoder_stack.launches
+    got = es.encoder_stack(x, layers, 2, lpc=lpc, gelu_mode="sigmoid")
+    assert es.encoder_stack.launches == before + -(-3 // lpc)
+    want = es.encoder_stack_reference(x, layers, 2, lpc=lpc, gelu_mode="sigmoid")
+    assert got.dtype == torch.bfloat16 and _within(got, want)
+
+
+def test_merged_layer_engine_runs_through_h_and_c(device):
+    """The reference engine (cfg as given) on a merged_layer encoder with
+    the whole-loop decode: H once per layer, C once."""
+    import dataclasses
+
+    from manga_ocr_tpu_torch.engine import TorchMangaOcrEngine
+    from manga_ocr_tpu_torch.models.params import init_params
+    from manga_ocr_tpu_torch.ops.decode_loop import greedy_decode_loop
+    from manga_ocr_tpu_torch.ops.flash_attention import fused_encoder_layer
+
+    cfg = MangaOCRConfig.tiny()
+    cfg = dataclasses.replace(
+        cfg, encoder=dataclasses.replace(cfg.encoder, attn_kernel="merged_layer"),
+        decoder=dataclasses.replace(cfg.decoder, step_kernel="fused_loop"))
+    engine = TorchMangaOcrEngine(init_params(cfg, 0, "cpu"), cfg, CharTokenizer.synthetic(),
+                                 max_length=10, device=device, serving_kernels=False)
+    before = [w.launches for w in (fused_encoder_layer, greedy_decode_loop)]
+    crops = [np.random.default_rng(i).integers(0, 256, (40, 60, 3), dtype=np.uint8)
+             for i in range(3)]
+    texts = engine.ocr_page(crops)
+    after = [w.launches for w in (fused_encoder_layer, greedy_decode_loop)]
+    assert len(texts) == 3 and all(isinstance(t, str) for t in texts)
+    assert [a - b for a, b in zip(after, before)] == [cfg.encoder.num_layers, 1]
