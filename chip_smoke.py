@@ -24,7 +24,7 @@ stack's own noise floor, which sets ENC_STACK_MEAN_REL.)
    checking the launch counters of every kernel, the encoder output and the
    decode tokens against the plain path's, and printing crops/s on one
    256-crop page.  Then the step-by-step greedy decode (head_kernel and
-   step_mlp_kernel "fused": kernels F and D) at B=32 over 299 steps, its
+   step_mlp_kernel "fused": kernels F and D) at B=32 over 100 steps, its
    tokens scored by the plain step decode; and one page through the exact
    reference path (serving_kernels=False), which must launch no kernel.
    Last, the fused whole-layer step decode (step_kernel "fused_layer",
@@ -47,7 +47,19 @@ stack's own noise floor, which sets ENC_STACK_MEAN_REL.)
    encoder output against the plain encoder's, the tokens scored by
    teacher forcing; and one page through the engine with
    serving_kernels=False on a merged_layer bf16 config (H and C).
-6. Prints its total seconds, one JSON line of kernel results, then the
+6. The forms of kernels A and C that complete the port: A's sdpa_int8
+   form held against its plain version at B=256 (and sdpa_headpack shown
+   bit-identical to A's default form); C's int8_w form, its fuse_kv form
+   (bf16 and int8 weights, scored by the unfused plain decoder over the
+   slabs of the final LN, timed beside precompute_cross_kv_packed + the
+   unfused kernel) at B=256, and C's time with each stage ablated.  Then
+   the slice's paths: the int8 engine with attn_sdpa_int8 and
+   fuse_cross_kv through ocr_page (A 12 in the sdpa_int8 form, B 12 and C
+   1 in the fuse_kv form per dispatch, no slab precompute; teacher-forced
+   tokens, crops/s, the stage split), and ocr_forward on 32 crops with
+   quantize_decoder weights, with and without fuse_cross_kv (C's int8_w
+   form; exact counts, teacher-forced tokens).
+7. Prints its total seconds, one JSON line of kernel results, then the
    device line {"ok": true, "device": {...}} last.  Any failed check exits
    non-zero before the device line.
 """
@@ -118,6 +130,7 @@ HEAD_GAP_REL = 2.0**-6
 # from noise; at 0.02 they agree to 0.25%.)
 WEIGHT_STD = 0.02
 SEED = 0
+STEP_DECODE_LEN = 101  # the step-by-step decode path: 100 steps
 # Published peaks of one H100 SXM (dense): the memory rate and the tensor
 # core rates by input type; the bounds below are computed against them.
 H100_BYTES_PER_S = 3.35e12
@@ -143,11 +156,28 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Mean time of ``fn`` over ``reps`` runs, after one warm run."""
+def log_ptxas(build_log: str) -> None:
+    """Each kernel that spills, and each that takes more than 64 registers a
+    thread (kernel C's row choice counts on two 512-thread blocks per SM)."""
+    import re
+
+    name = ""
+    for ln in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+        regs = re.search(r"Used (\d+) registers", ln)
+        if ("spill" in ln and " 0 bytes spill" not in ln) or (regs and int(regs.group(1)) > 64):
+            log(f"ptxas: {name[:90]}: {ln.strip()}")
+
+
+def cuda_ms(fn, reps: int = 5, warm: bool = True) -> float:
+    """Mean time of ``fn`` over ``reps`` runs, after one warm run (skipped
+    with ``warm=False`` where the caller has just run ``fn``)."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -196,8 +226,23 @@ def check_encoder_kernels(params, cfg, results: dict) -> None:
                 cost_mlp_int8(batch * s, d, ecfg.intermediate_size),
             ),
         }
+        if batch == 256:  # A's int8 SDPA form, on the serving path of the slice
+            cases["fused_attn_layer[sdpa_int8]"] = (
+                lambda: fa.fused_attn_layer(x, attn, *ln1, ecfg.num_heads,
+                                            prepared=(lw.qkv, lw.o), sdpa_int8=True, **kw),
+                lambda: fa.fused_attn_layer_reference(x, attn, *ln1, ecfg.num_heads,
+                                                      sdpa_int8=True, **kw),
+                cost_attn_layer(batch, s, d, sdpa_int8=True),
+            )
         for name, (kern, plain, cost) in cases.items():
             results[name] = hold(name, f"B={batch}", kern, plain, cost)
+    # sdpa_headpack is A's default SDPA (JAX's zero blocks add exact zeros)
+    packed = fa.fused_attn_layer(x, attn, *ln1, ecfg.num_heads, prepared=(lw.qkv, lw.o),
+                                 sdpa_headpack=True, **kw)
+    if not torch.equal(packed, fa.fused_attn_layer(x, attn, *ln1, ecfg.num_heads,
+                                                   prepared=(lw.qkv, lw.o), **kw)):
+        fail("fused_attn_layer: sdpa_headpack differs from the default form")
+    log("fused_attn_layer[sdpa_headpack] B=256: bit-identical to the default form")
 
 
 def bound(nbytes: float, ops: dict) -> tuple[float, str]:
@@ -212,9 +257,12 @@ def bound(nbytes: float, ops: dict) -> tuple[float, str]:
 
 # Bytes and operations of each kernel's work at the shapes it is called
 # with (multiply-adds count 2; bf16 inputs at the bf16 rate, int8 at int8).
-def cost_attn_layer(b, s, d):  # A: LN + 4 int8 projections + SDPA + residual
+def cost_attn_layer(b, s, d, sdpa_int8=False):  # A: LN + 4 int8 projections + SDPA + residual
     m = b * s
-    return 2 * m * d * 2 + 4 * d * d, {"int8": 4 * 2 * m * d * d, "bf16": 2 * 2 * b * s * s * d}
+    sdpa = 2 * 2 * b * s * s * d
+    if sdpa_int8:
+        return 2 * m * d * 2 + 4 * d * d, {"int8": 4 * 2 * m * d * d + sdpa}
+    return 2 * m * d * 2 + 4 * d * d, {"int8": 4 * 2 * m * d * d, "bf16": sdpa}
 
 
 def cost_attn_layer_bf16(b, s, d):  # A's bf16 form: LN + 4 bf16 projections + SDPA
@@ -263,17 +311,27 @@ def cost_cross_step(b, s, d, int8_w, int8_kv):  # K: the slabs once
             {**proj, "bf16": proj.get("bf16", 0) + attn})
 
 
-def cost_decode_loop(cfg, lengths, s):  # C: the row-steps this run's rows needed
+def cost_decode_loop(cfg, lengths, s, int8_w=False, fuse_kv=False):
+    """C: the row-steps this run's rows needed.  The layers' projections at
+    the int8 rate under int8_w; the head, the attentions and fuse_kv's
+    prologue (the cross k/v projections of s rows per layer) in bf16.
+    Bytes: the slabs in (or, under fuse_kv, the raw encoder rows and the
+    cross k/v weights), the weights, the tokens out."""
     d, inter, v, n_l = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, cfg.num_layers
     b = lengths.shape[0]
     n = lengths.long() - 1  # steps each row ran to its EOS (or the last step)
     row_steps = int(n.sum())
     key_reads = int((n * (n + 1) // 2).sum())  # self-attention keys over all row-steps
-    per_step = 2 * (n_l * (6 * d * d + 2 * d * inter) + d * d + d * v) + n_l * 2 * 2 * s * d
-    ops = row_steps * per_step + n_l * 2 * 2 * key_reads * d
-    w_bytes = (n_l * (6 * d * d + 2 * d * inter) + d * d + d * v) * 2
-    nbytes = 2 * n_l * b * s * d * 2 + w_bytes + b * (int(lengths.max()) + 1) * 4
-    return nbytes, {"bf16": ops}
+    proj = row_steps * 2 * n_l * (6 * d * d + 2 * d * inter)
+    bf16 = row_steps * (2 * (d * d + d * v) + n_l * 2 * 2 * s * d) + n_l * 2 * 2 * key_reads * d
+    ops = {"int8": proj, "bf16": bf16} if int8_w else {"bf16": proj + bf16}
+    w_bytes = n_l * (6 * d * d + 2 * d * inter) * (1 if int8_w else 2) + (d * d + d * v) * 2
+    if fuse_kv:
+        ops["bf16"] += n_l * 2 * 2 * b * s * d * d
+        src = b * s * d * 2 + n_l * 2 * d * d * 2
+    else:
+        src = 2 * n_l * b * s * d * 2
+    return src + w_bytes + b * (int(lengths.max()) + 1) * 4, ops
 
 
 def compare(name: str, label: str, got, want, max_rel: float = ENC_MAX_REL,
@@ -492,8 +550,41 @@ def live_gap_stats(gaps, top, lengths) -> dict:
             "nonzero_share": float((g > 0).float().mean()), "positions": int(live.sum())}
 
 
+def hold_decode(name: str, label: str, run, plain, dec_params, cross, dcfg, cost) -> dict:
+    """One form of kernel C against its plain version on the same inputs:
+    the kernel's tokens scored by teacher forcing (the plain decoder with
+    ``dec_params`` over the slabs ``cross``, fed the kernel's tokens), the
+    free-running agreement printed, CUDA-event times of both; ``cost`` maps
+    the kernel's lengths to the bound's (bytes, operations)."""
+    import torch
+
+    from manga_ocr_tpu_torch.ops import decode_loop as dl
+
+    (tok, lens), (ptok, plens) = run(), plain()
+    torch.cuda.synchronize()
+    if int(tok[:, 0].ne(dcfg.bos_token_id).sum()) or tok.shape != ptok.shape:
+        fail(f"{name} {label}: bad token matrix")
+    share = float(((tok == ptok).all(1) & (lens == plens)).float().mean())
+    prefix = float((tok[:, : DECODE_PREFIX + 1] == ptok[:, : DECODE_PREFIX + 1])
+                   .all(1).float().mean())
+    first_div = sorted(int((a != b).nonzero()[0]) for a, b in zip(tok, ptok) if (a != b).any())
+    stats = live_gap_stats(*dl.teacher_forced_gaps(dec_params, cross, dcfg, tok), lens)
+    ms, plain_ms = cuda_ms(run, reps=2), cuda_ms(plain, reps=1, warm=False)
+    bound_ms, bound_by = bound(*cost(lens))
+    log(f"{name} {label}: teacher-forced {stats}; free-running: identical "
+        f"rows {share}, rows identical for {DECODE_PREFIX} steps {prefix}, first "
+        f"divergence steps {first_div[:40]}; mean length {float(lens.float().mean())}; "
+        f"ms={ms} plain_ms={plain_ms} bound_ms={bound_ms} ({bound_by})")
+    if stats["max_rel_gap"] > DECODE_GAP_REL:
+        fail(f"{name} {label}: a token {stats['max_rel_gap']} below the plain model's maximum "
+             f"(bound {DECODE_GAP_REL})")
+    return {"max_abs_err": stats["max_gap"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
 def check_decode_kernel(params, cfg, results: dict) -> None:
-    """Kernel C against its plain version at B=32 and 256, steps=299."""
+    """Kernel C (bf16 weights, precomputed slabs) against its plain version
+    at B=32 and 256, steps=299."""
     import torch
 
     from manga_ocr_tpu_torch.models import decoder as dec
@@ -509,31 +600,80 @@ def check_decode_kernel(params, cfg, results: dict) -> None:
         enc = torch.randn((batch, cfg.encoder.seq_len, d), generator=gen, device="cuda")
         enc = common.layer_norm(enc, one, zero, 1e-12).to(torch.bfloat16)
         cross = dec.precompute_cross_kv_packed(params["decoder"], enc, dcfg, int8=False)
-        run = lambda: dl.greedy_decode_loop(params["decoder"], cross, dcfg, steps)
-        plain = lambda: dl.greedy_decode_loop_reference(params["decoder"], cross, dcfg, steps)
-        (tok, lens), (ptok, plens) = run(), plain()
-        torch.cuda.synchronize()
-        if tok.shape != (batch, steps + 1) or int(tok[:, 0].ne(dcfg.bos_token_id).sum()):
-            fail(f"greedy_decode_loop B={batch}: bad token matrix")
-        same_row = (tok == ptok).all(1) & (lens == plens)
-        share = float(same_row.float().mean())
-        prefix = float((tok[:, : DECODE_PREFIX + 1] == ptok[:, : DECODE_PREFIX + 1])
-                       .all(1).float().mean())
-        first_div = sorted(int((a != b).nonzero()[0]) for a, b in zip(tok, ptok) if (a != b).any())
-        stats = live_gap_stats(*dl.teacher_forced_gaps(params["decoder"], cross, dcfg, tok), lens)
-        ms, plain_ms = cuda_ms(run, reps=2), cuda_ms(plain, reps=1)
-        bound_ms, bound_by = bound(*cost_decode_loop(dcfg, lens, cfg.encoder.seq_len))
-        log(f"greedy_decode_loop B={batch}: teacher-forced {stats}; free-running: identical "
-            f"rows {share}, rows identical for {DECODE_PREFIX} steps {prefix}, first "
-            f"divergence steps {first_div[:40]}; mean length {float(lens.float().mean())}; "
-            f"ms={ms} plain_ms={plain_ms} bound_ms={bound_ms} ({bound_by})")
-        if stats["max_rel_gap"] > DECODE_GAP_REL:
-            fail(f"greedy_decode_loop B={batch}: a token {stats['max_rel_gap']} below the "
-                 f"plain model's maximum (bound {DECODE_GAP_REL})")
-        results["greedy_decode_loop"] = {"max_abs_err": stats["max_gap"], "ms": ms,
-                                         "plain_ms": plain_ms, "bound_ms": bound_ms,
-                                         "bound_by": bound_by, "library_ms": None,
-                                         "batch": batch}
+        results["greedy_decode_loop"] = hold_decode(
+            "greedy_decode_loop", f"B={batch}",
+            lambda: dl.greedy_decode_loop(params["decoder"], cross, dcfg, steps),
+            lambda: dl.greedy_decode_loop_reference(params["decoder"], cross, dcfg, steps),
+            params["decoder"], cross, dcfg,
+            lambda lens: cost_decode_loop(dcfg, lens, cfg.encoder.seq_len))
+
+
+def check_decode_forms(raw, cfg, results: dict) -> None:
+    """Kernel C's int8_w and fuse_kv forms (and both together) against
+    their plain versions at B=256, steps=299: fuse_kv on a raw encoder
+    output, scored by the unfused plain decoder over the slabs of its final
+    LN (which is what fuse_kv computes), and timed beside
+    precompute_cross_kv_packed + the unfused kernel on the same input.
+    Then the ablation split: kernel C (bf16, slabs) with each stage skipped,
+    every row running all 299 steps (EOS set past the vocab)."""
+    import dataclasses
+
+    import torch
+
+    from manga_ocr_tpu_torch.engine.engine import _cast_quantized
+    from manga_ocr_tpu_torch.models import decoder as dec
+    from manga_ocr_tpu_torch.models import model as mdl
+    from manga_ocr_tpu_torch.models.quantize import quantize_decoder
+    from manga_ocr_tpu_torch.ops import common
+    from manga_ocr_tpu_torch.ops import decode_loop as dl
+
+    dcfg, s, d = cfg.decoder, cfg.encoder.seq_len, cfg.encoder.hidden_size
+    steps, batch = cfg.max_length - 1, 256
+    decs = {"bf16": mdl.cast_params(raw["decoder"], torch.bfloat16),
+            "int8_w": _cast_quantized(quantize_decoder(raw["decoder"]), torch.bfloat16)}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    enc_raw = (2 * torch.randn((batch, s, d), generator=gen, device="cuda") + 0.5)
+    enc_raw = enc_raw.to(torch.bfloat16)
+    fln = {"scale": 1 + 0.1 * torch.randn(d, generator=gen, device="cuda"),
+           "bias": 0.1 * torch.randn(d, generator=gen, device="cuda")}
+    enc = common.layer_norm(enc_raw, fln["scale"], fln["bias"], dcfg.layer_norm_eps)
+    fuse = dict(enc_raw=enc_raw, s_valid=s, enc_final_ln=fln)
+    for form, p in decs.items():
+        cross = dec.precompute_cross_kv_packed(p, enc, dcfg, int8=False)
+        int8_w = form == "int8_w"
+        if int8_w:
+            results["greedy_decode_loop[int8_w]"] = hold_decode(
+                "greedy_decode_loop[int8_w]", f"B={batch}",
+                lambda: dl.greedy_decode_loop(p, cross, dcfg, steps),
+                lambda: dl.greedy_decode_loop_reference(p, cross, dcfg, steps),
+                p, cross, dcfg, lambda lens: cost_decode_loop(dcfg, lens, s, int8_w=True))
+        rec = hold_decode(
+            "greedy_decode_loop[fuse_kv]", f"{form} weights B={batch}",
+            lambda: dl.greedy_decode_loop(p, None, dcfg, steps, **fuse),
+            lambda: dl.greedy_decode_loop_reference(p, None, dcfg, steps, **fuse),
+            p, cross, dcfg, lambda lens: cost_decode_loop(dcfg, lens, s, int8_w, fuse_kv=True))
+        unfused_ms = cuda_ms(lambda: dl.greedy_decode_loop(
+            p, dec.precompute_cross_kv_packed(
+                p, common.layer_norm(enc_raw, fln["scale"], fln["bias"], dcfg.layer_norm_eps),
+                dcfg, int8=False),
+            dcfg, steps), reps=2)
+        log(f"greedy_decode_loop[fuse_kv] {form} weights B={batch}: {rec['ms']} ms against "
+            f"final LN + precompute_cross_kv_packed + unfused kernel C {unfused_ms} ms")
+        if not int8_w:
+            results["greedy_decode_loop[fuse_kv]"] = rec
+
+    # the ablation split of a step (a record, not a check)
+    full = dataclasses.replace(dcfg, eos_token_id=dcfg.vocab_size)  # never emitted
+    p = decs["bf16"]
+    cross = dec.precompute_cross_kv_packed(p, enc, full, int8=False)
+    times = {}
+    for stage in ("", "self", "cross", "mlp", "head"):
+        times[stage or "none"] = cuda_ms(
+            lambda: dl.greedy_decode_loop(p, cross, full, steps, ablate=stage), reps=1)
+    split = {k: (times["none"] - v) / steps for k, v in times.items() if k != "none"}
+    log(f"greedy_decode_loop ablation B={batch} ({steps} steps, every row live): ms with the "
+        f"stage skipped {times}; per-step ms of each stage (full - ablated) / steps {split}; "
+        f"full per step {times['none'] / steps} on {card_line()}")
 
 
 def check_page_tokens(engine, crops) -> None:
@@ -611,17 +751,32 @@ def kernel_wrappers() -> dict:
                                     fused_encoder_layer, encoder_stack)}
 
 
+# Launch counts by form (``launches_by_form``), read as "wrapper[form]".
+COUNTED_FORMS = {"fused_attn_layer": ("sdpa_int8",), "greedy_decode_loop": ("int8_w", "fuse_kv")}
+
+
 def counted(fn):
-    """Run ``fn`` with every launch count set to 0 just before; return its
-    result and the counts read just after."""
+    """Run ``fn`` with every launch count (and the CUDA calls of
+    precompute_cross_kv_packed, which C's fuse_kv form must not need) set
+    to 0 just before; return its result and the counts read just after,
+    the forms of COUNTED_FORMS as "wrapper[form]"."""
     import torch
+
+    from manga_ocr_tpu_torch.models.decoder import precompute_cross_kv_packed
 
     wrappers = kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
+        for form in getattr(w, "launches_by_form", {}):
+            w.launches_by_form[form] = 0
+    precompute_cross_kv_packed.calls = 0
     out = fn()
     torch.cuda.synchronize()
-    return out, {name: w.launches for name, w in wrappers.items()}
+    counts = {name: w.launches for name, w in wrappers.items()}
+    for name, forms in COUNTED_FORMS.items():
+        counts.update({f"{name}[{f}]": wrappers[name].launches_by_form[f] for f in forms})
+    counts["precompute_cross_kv_packed"] = precompute_cross_kv_packed.calls
+    return out, counts
 
 
 def drive_page(engine, crops, label: str, per_dispatch: dict, results: dict,
@@ -640,7 +795,9 @@ def drive_page(engine, crops, label: str, per_dispatch: dict, results: dict,
     if counts != want:
         fail(f"{label}: launch counts {counts}, expected {want}")
     for name in per_dispatch:
-        results[(record or {}).get(name, name)]["launches"] = counts[name]
+        key = (record or {}).get(name, name)
+        if key in results:  # None or the slab precompute: no kernel record
+            results[key]["launches"] = counts[name]
     if len(texts) != len(crops) or not all(isinstance(t, str) for t in texts):
         fail(f"{label}: ocr_page returned malformed texts")
     if len(set(texts)) < 2:
@@ -668,12 +825,26 @@ def page_rate(engine, crops, label: str) -> float:
 
 def stage_split(engine, crops, label: str) -> None:
     """CUDA-event times of the largest dispatch of a 256-crop page, split
-    into preprocess, encoder, and cross-K/V + decode."""
+    into preprocess, encoder, and cross-K/V + decode (under fuse_cross_kv:
+    the encoder without its final LN, then kernel C's fuse_kv form, which
+    applies it)."""
     import torch
 
+    from manga_ocr_tpu_torch.models import vit
     from manga_ocr_tpu_torch.parallel import batching
     from manga_ocr_tpu_torch.models import model as mdl
+    from manga_ocr_tpu_torch.ops import decode_loop as dl
     from manga_ocr_tpu_torch.ops import preprocess as pp
+
+    cfg, fuse = engine.cfg, engine.cfg.decoder.fuse_cross_kv
+
+    def decode(enc):
+        if fuse:
+            return dl.greedy_decode_loop(
+                engine.params["decoder"], None, cfg.decoder, engine.max_length - 1,
+                enc_raw=enc, s_valid=cfg.encoder.seq_len,
+                enc_final_ln=engine.params["encoder"]["final_ln"])[1]
+        return mdl.greedy_decode(engine.params, enc, cfg, engine.max_length).lengths
 
     page = [crops[i % len(crops)] for i in range(256)]
     b = max(batching.prep_page_gray(page, pp.ORIENT_VERTICAL), key=lambda b: b.crops.shape[0])
@@ -685,15 +856,16 @@ def stage_split(engine, crops, label: str) -> None:
             ev[0].record()
             px = pp.model_preprocess(crops_d, sizes, engine.cfg.encoder.image_size).to(engine.dtype)
             ev[1].record()
-            enc = mdl.encode(engine.params, px, engine.cfg)
+            enc = vit.encode(engine.params["encoder"], px, cfg.encoder, raw_padded=fuse)
             ev[2].record()
-            out = mdl.greedy_decode(engine.params, enc, engine.cfg, engine.max_length)
+            lengths = decode(enc)
             ev[3].record()
             torch.cuda.synchronize()
     ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
     log(f"{label} dispatch B={b.crops.shape[0]} ({b.valid} crops, bucket {b.bucket_hw}): "
-        f"preprocess {ms[0]} ms, encoder {ms[1]} ms, cross-K/V + decode {ms[2]} ms "
-        f"(mean length {float(out.lengths.float().mean())})")
+        f"preprocess {ms[0]} ms, encoder {ms[1]} ms, "
+        f"{'C fuse_kv (final LN, cross-K/V, decode)' if fuse else 'cross-K/V + decode'} "
+        f"{ms[2]} ms (mean length {float(lengths.float().mean())})")
 
 
 def check_server(engine, crops) -> None:
@@ -764,7 +936,7 @@ def step_gaps(params, enc, cfg, tokens, lengths) -> dict:
 
 def run_step_decode(engine, crops, results: dict) -> None:
     """Path 2: the step-by-step greedy decode with kernels F (head) and D
-    (step MLP, pre_ln=False) at full width, B=32, max length 300, on the
+    (step MLP, pre_ln=False) at full width, B=32, max length 101, on the
     unquantized engine's params and encoder output for 32 fixture crops."""
     import dataclasses
 
@@ -779,7 +951,9 @@ def run_step_decode(engine, crops, results: dict) -> None:
         cfg.decoder, step_kernel="xla", head_kernel="fused", step_mlp_kernel="fused",
         cross_kv_int8=True, head_phased=False,
     ))
-    chunk, max_len = 8, cfg.max_length
+    # 100 steps (cut from 299 to keep the script's run time down: every step
+    # launches the same kernels on the same shapes)
+    chunk, max_len = 8, STEP_DECODE_LEN
     page = [crops[i % len(crops)] for i in range(32)]
     with torch.inference_mode():
         px = torch.cat([
@@ -875,7 +1049,7 @@ def run_fused_layer_slice(params, crops, results: dict) -> None:
         want = {name: 0 for name in counts}
         want.update(fused_attn_layer=n_enc, fused_mlp_block=n_enc + n_dec * steps,
                     fused_self_attn_step=n_dec * steps, fused_cross_attn_step=n_dec * steps,
-                    fused_greedy_head=steps)
+                    fused_greedy_head=steps, precompute_cross_kv_packed=1)
         if counts != want:
             fail(f"fused_layer slice: launch counts {counts}, expected {want}")
         for name in ("fused_self_attn_step", "fused_cross_attn_step"):
@@ -1185,7 +1359,7 @@ def run_encoder_configs(params, crops, results: dict) -> None:
             out, counts = counted(forward)
             secs = time.perf_counter() - t0
             want = {name: 0 for name in counts}
-            want.update(per_run, greedy_decode_loop=1)
+            want.update(per_run, greedy_decode_loop=1, precompute_cross_kv_packed=1)
             if counts != want:
                 fail(f"{label}: launch counts {counts}, expected {want}")
             if record is not None:
@@ -1234,8 +1408,107 @@ def run_merged_layer_engine(params, crops, results: dict) -> None:
                                  serving_kernels=False)
     engine.ocr_page(crops[:2])
     drive_page(engine, crops, "merged_layer engine",
-               {"fused_encoder_layer": cfg.encoder.num_layers, "greedy_decode_loop": 1}, results,
+               {"fused_encoder_layer": cfg.encoder.num_layers, "greedy_decode_loop": 1,
+                "precompute_cross_kv_packed": 1}, results,
                record={"fused_encoder_layer": "fused_encoder_layer[bf16]"})
+
+
+def run_slice_engine(params, crops, results: dict) -> float:
+    """Path 1 of this slice: the int8 serving engine with kernel A's int8
+    SDPA (attn_sdpa_int8) and kernel C's fuse_kv form (fuse_cross_kv), on
+    the fixture page.  Per dispatch exactly: A 12 (all in the sdpa_int8
+    form), B 12, C 1 (in the fuse_kv form), and no slab precompute; the
+    tokens scored by teacher forcing; crops/s on the 256-crop page."""
+    import dataclasses
+
+    from manga_ocr_tpu_torch.engine import TorchMangaOcrEngine
+    from manga_ocr_tpu_torch.models.config import MangaOCRConfig
+    from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
+
+    cfg = MangaOCRConfig.base()
+    cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, attn_sdpa_int8=True),
+                              decoder=dataclasses.replace(cfg.decoder, fuse_cross_kv=True))
+    engine = TorchMangaOcrEngine(params, cfg, CharTokenizer.synthetic(), device="cuda")
+    engine.ocr_page(crops[:2])
+    label = "int8 engine, sdpa_int8 + fuse_kv"
+    n_l = cfg.encoder.num_layers
+    drive_page(engine, crops, label,
+               {"fused_attn_layer": n_l, "fused_attn_layer[sdpa_int8]": n_l,
+                "fused_mlp_block": n_l, "greedy_decode_loop": 1, "greedy_decode_loop[fuse_kv]": 1},
+               results, record={"fused_attn_layer": None, "fused_mlp_block": None,
+                                "greedy_decode_loop": None})
+    check_page_tokens(engine, crops)
+    rate = page_rate(engine, crops, label)
+    stage_split(engine, crops, label)
+    return rate
+
+
+def run_int8_decoder_forward(params, crops, results: dict) -> None:
+    """Path 2 of this slice: ocr_forward on 32 fixture crops under
+    MangaOCRConfig.serving() on quantize_encoder(quantize_attn_proj=True) +
+    quantize_decoder params (cast to bf16, int8 weights and f32 scales
+    kept): kernel C in its int8_w form, once over precomputed slabs and
+    once with fuse_cross_kv (int8_w + fuse_kv).  Launch counts exact; the
+    tokens scored by the plain int8 decoder on the plain encoder output."""
+    import dataclasses
+
+    import torch
+
+    from manga_ocr_tpu_torch.engine.engine import _cast_quantized, _params_to
+    from manga_ocr_tpu_torch.models import decoder as dec
+    from manga_ocr_tpu_torch.models import model as mdl
+    from manga_ocr_tpu_torch.models.config import MangaOCRConfig
+    from manga_ocr_tpu_torch.models.quantize import quantize_decoder, quantize_encoder
+    from manga_ocr_tpu_torch.ops import decode_loop as dl
+    from manga_ocr_tpu_torch.ops import preprocess as pp
+    from manga_ocr_tpu_torch.parallel import batching
+
+    raw = _params_to(params, "cuda")
+    qparams = {
+        "encoder": _cast_quantized(quantize_encoder(raw["encoder"], quantize_attn_proj=True),
+                                   torch.bfloat16),
+        "decoder": _cast_quantized(quantize_decoder(raw["decoder"]), torch.bfloat16),
+    }
+    serving = MangaOCRConfig.serving()
+    page = [crops[i % len(crops)] for i in range(32)]
+    int8_w_launches = 0
+    with torch.inference_mode():
+        px = torch.cat([
+            pp.model_preprocess(torch.from_numpy(b.crops).cuda(), torch.from_numpy(b.sizes).cuda(),
+                                serving.encoder.image_size)[: b.valid]
+            for b in batching.prep_page_gray(page, pp.ORIENT_VERTICAL)
+        ]).to(torch.bfloat16)
+        enc_p = mdl.encode(qparams, px, serving, use_kernels=False)
+        cross = dec.precompute_cross_kv_packed(qparams["decoder"], enc_p, serving.decoder, int8=False)
+        for fuse in (False, True):
+            cfg = dataclasses.replace(serving, decoder=dataclasses.replace(
+                serving.decoder, fuse_cross_kv=fuse))
+            label = f"ocr_forward int8 decoder{' + fuse_cross_kv' if fuse else ''} B=32"
+            mdl.ocr_forward(qparams, px, cfg)  # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, counts = counted(lambda: mdl.ocr_forward(qparams, px, cfg))
+            secs = time.perf_counter() - t0
+            n_l = cfg.encoder.num_layers
+            want = {name: 0 for name in counts}
+            want.update({"fused_attn_layer": n_l, "fused_mlp_block": n_l, "greedy_decode_loop": 1,
+                         "greedy_decode_loop[int8_w]": 1, "greedy_decode_loop[fuse_kv]": int(fuse),
+                         "precompute_cross_kv_packed": int(not fuse)})
+            if counts != want:
+                fail(f"{label}: launch counts {counts}, expected {want}")
+            int8_w_launches += counts["greedy_decode_loop[int8_w]"]
+            if out.tokens.shape != (32, cfg.max_length) or \
+                    int(out.tokens[:, 0].ne(cfg.decoder.bos_token_id).sum()):
+                fail(f"{label}: bad token matrix")
+            stats = live_gap_stats(
+                *dl.teacher_forced_gaps(qparams["decoder"], cross, cfg.decoder,
+                                        out.tokens[:, : out.lengths.max()].contiguous()),
+                out.lengths)
+            log(f"{label}: {secs:.3f} s, launches {counts}; kernel tokens teacher-forced by the "
+                f"plain int8 decoder on the plain encoder output {stats}")
+            if stats["max_rel_gap"] > ENGINE_GAP_REL:
+                fail(f"{label}: gap {stats['max_rel_gap']} over {ENGINE_GAP_REL}")
+    results["greedy_decode_loop[int8_w]"]["launches"] = int8_w_launches
 
 
 def run_reference_engine(params, crops) -> None:
@@ -1259,6 +1532,16 @@ def run_reference_engine(params, crops) -> None:
         fail("reference path: every crop decoded to the same text")
 
 
+def phase(label: str) -> None:
+    """The seconds since the last phase mark (where the run's time goes)."""
+    now = time.time()
+    log(f"phase {label}: {now - phase.t:.1f} s")
+    phase.t = now
+
+
+phase.t = T0
+
+
 def run_engines(results: dict) -> dict:
     import torch
 
@@ -1278,39 +1561,53 @@ def run_engines(results: dict) -> dict:
     log(f"int8 engine built in {time.time() - t0:.1f} s")
     engine.ocr_page(crops[:2])  # first call: library load, allocator growth
     drive_page(engine, crops, "int8 engine",
-               {"fused_attn_layer": 12, "fused_mlp_block": 12, "greedy_decode_loop": 1}, results)
+               {"fused_attn_layer": 12, "fused_mlp_block": 12, "greedy_decode_loop": 1,
+                "precompute_cross_kv_packed": 1}, results)
     check_page_tokens(engine, crops)
     rates["int8"] = page_rate(engine, crops, "int8 engine")
     stage_split(engine, crops, "int8 engine")
     check_server(engine, crops)
     del engine
+    phase("int8 engine")
 
     # -- unquantized serving: kernels E, D, C -----------------------------------
     engine = TorchMangaOcrEngine(params, cfg, CharTokenizer.synthetic(), device="cuda",
                                  quantize_int8=False)
     engine.ocr_page(crops[:2])
     drive_page(engine, crops, "bf16 engine",
-               {"attention_packed": 12, "fused_mlp_block_bf16": 12, "greedy_decode_loop": 1},
-               results)
+               {"attention_packed": 12, "fused_mlp_block_bf16": 12, "greedy_decode_loop": 1,
+                "precompute_cross_kv_packed": 1}, results)
     check_page_tokens(engine, crops)
     rates["bf16"] = page_rate(engine, crops, "bf16 engine")
     stage_split(engine, crops, "bf16 engine")
 
+    phase("bf16 engine")
     # -- the step-by-step decode: kernels F, D ------------------------------------
     run_step_decode(engine, crops, results)
     del engine
+    phase("step decode")
 
     # -- the exact reference path: no kernel --------------------------------------
     run_reference_engine(params, crops)
+    phase("reference path")
 
     # -- the fused whole-layer step decode: kernels A, B, J, K, F -----------------
     torch.cuda.empty_cache()
     run_fused_layer_slice(params, crops, results)
+    phase("fused_layer decode")
 
     # -- the encoder variants: A's bf16 form, G, H, I; with C ------------------
     torch.cuda.empty_cache()
     run_encoder_configs(params, crops, results)
     run_merged_layer_engine(params, crops, results)
+    phase("encoder variants")
+
+    # -- this slice: A sdpa_int8 + C fuse_kv (engine); C int8_w (ocr_forward) --
+    torch.cuda.empty_cache()
+    rates["int8 sdpa_int8+fuse_kv"] = run_slice_engine(params, crops, results)
+    phase("sdpa_int8 + fuse_kv engine")
+    run_int8_decoder_forward(params, crops, results)
+    phase("int8 decoder ocr_forward")
     return rates
 
 
@@ -1344,9 +1641,8 @@ def main() -> int:
     t0 = time.time()
     build.load(verbose=True)
     log(f"kernels built in {time.time() - t0:.1f} s")
-    spills = [ln for ln in build.last_build_log.splitlines() if "spill" in ln and " 0 bytes spill" not in ln]
-    for ln in spills:
-        log(f"ptxas: {ln.strip()}")
+    log_ptxas(build.last_build_log)
+    phase("build")
 
     cfg = with_serving_kernels(MangaOCRConfig.base(), quantized=True)
     raw = init_params(cfg, SEED, "cuda", std=WEIGHT_STD)
@@ -1358,7 +1654,11 @@ def main() -> int:
     results: dict = {}
     check_encoder_kernels(params, cfg, results)
     check_encoder_variants(raw, results)
+    phase("encoder kernels")
     check_decode_kernel(params, cfg, results)
+    phase("kernel C")
+    check_decode_forms(raw, cfg, results)
+    phase("kernel C forms and ablation")
     del params
     check_bf16_kernels(mdl.cast_params(raw, torch.bfloat16),
                        with_serving_kernels(MangaOCRConfig.base(), quantized=False), results)
@@ -1367,6 +1667,7 @@ def main() -> int:
                        {"decoder": mdl.cast_params(raw["decoder"], torch.bfloat16)}, cfg, results)
     del raw
     torch.cuda.empty_cache()
+    phase("bf16 and step kernels")
     rates = run_engines(results)
 
     src = {"fused_attn_layer": ("manga_ocr_tpu_torch/csrc/encoder.cu",
@@ -1398,7 +1699,13 @@ def main() -> int:
            "encoder_stack[int8]": ("manga_ocr_tpu_torch/csrc/encoder_layer.cu",
                                    "manga_ocr_tpu/ops/encoder_stack.py:190"),
            "encoder_stack[bf16]": ("manga_ocr_tpu_torch/csrc/encoder_layer.cu",
-                                   "manga_ocr_tpu/ops/encoder_stack.py:190")}
+                                   "manga_ocr_tpu/ops/encoder_stack.py:190"),
+           "greedy_decode_loop[int8_w]": ("manga_ocr_tpu_torch/csrc/decode_loop.cu",
+                                          "manga_ocr_tpu/ops/decode_loop.py:579"),
+           "greedy_decode_loop[fuse_kv]": ("manga_ocr_tpu_torch/csrc/decode_loop.cu",
+                                           "manga_ocr_tpu/ops/decode_loop.py:579"),
+           "fused_attn_layer[sdpa_int8]": ("manga_ocr_tpu_torch/csrc/encoder.cu",
+                                           "manga_ocr_tpu/ops/flash_attention.py:617")}
     missing = [name for name, r in results.items() if "launches" not in r]
     if missing:
         fail(f"no main-path launch count for {missing}")
@@ -1408,7 +1715,7 @@ def main() -> int:
          **{k: r[k] for k in keys}}
         for name, r in results.items()
     ]
-    log(f"engine crops_per_s int8={rates['int8']} bf16={rates['bf16']}")
+    log(f"engine crops_per_s {rates}")
     log(f"chip_smoke total {time.time() - T0:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card_line())

@@ -5,7 +5,8 @@
 //
 // Replaces (Pallas, TPU):
 //   A  manga_ocr_tpu/ops/flash_attention.py  fused_attn_layer -> _attn_layer_kernel
-//      -> _attn_core: x + O(SDPA(LN1(x))) with W8A8 or bf16 q/k/v/o projections;
+//      -> _attn_core: x + O(SDPA(LN1(x))) with W8A8 or bf16 q/k/v/o projections,
+//      the SDPA in its default form or its sdpa_int8 form (attention_int8_kernel);
 //   B  manga_ocr_tpu/ops/fused_mlp.py  fused_mlp_block -> _kernel_int8:
 //      x + fc2(GELU(fc1(LN2(x)))) with W8A8 fc1/fc2;
 //   E  manga_ocr_tpu/ops/flash_attention.py  attention_packed -> _packed_kernel:
@@ -296,9 +297,184 @@ int launch_attention(const void* q, const void* k, const void* v, Strides in, vo
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Kernel A's sdpa_int8 core: QK^T and PV on int8 with dynamic quantization
+// ---------------------------------------------------------------------------
+
+// One block per (batch row, head), as the core above, with every
+// quantization of the head inside the block:
+//   - each key row over dh with quant_rows (k_q [S][dh] int8, sk [S]);
+//   - v per output column over the valid_len real rows only (rows at or past
+//     valid_len count as 0), amax at least 1e-8, v_q = rint(v * (127 / amax)),
+//     v_scale = amax * (1/127); v_q kept TRANSPOSED [dh][S] so __dp4a runs
+//     over four keys at a time in PV;
+//   - per query row (one warp): q over dh with quant_rows, logits =
+//     (acc * (sq * scale)) * sk[j] (exact int32 acc), keys >= valid_len
+//     masked, softmax exp(s - max) * (1/sum) in f32, p row-quantized in f32
+//     (no bf16 cast), ctx = (acc * sp) * v_scale[d] in f32, written f32 (int8
+//     projections: row-quantized next) or bf16 (float projections).
+// Every int32 sum is exact, so against the plain version only the f32
+// softmax (summation order, expf) can move a value across a rounding
+// boundary of p's quantization.  Shared rows of int8 are padded to an odd
+// number of 32-bit words, so the lanes of a warp, reading one word of 32
+// different rows, hit 32 different banks.
+template <typename OutT>
+__global__ void __launch_bounds__(ATTN_THREADS)
+attention_int8_kernel(const __nv_bfloat16* __restrict__ qg, const __nv_bfloat16* __restrict__ kg,
+                      const __nv_bfloat16* __restrict__ vg, Strides in, OutT* __restrict__ out,
+                      Strides os, int S, int H, int dh, int valid_len, float scale) {
+  extern __shared__ __align__(16) int words[];
+  const int ldk = (dh / 4) | 1;         // words per quantized key row
+  const int s4 = (S + 3) / 4;           // words of four keys
+  const int ldv = s4 | 1;               // words per transposed value column
+  int* kq = words;                      // [S][ldk]
+  int* vq = kq + S * ldk;               // [dh][ldv]
+  float* sk = reinterpret_cast<float*>(vq + dh * ldv);  // [S]
+  float* vscl = sk + S;                 // [dh]
+  int* qq = reinterpret_cast<int*>(vscl + dh);          // [warps][dh / 4]
+  float* ps = reinterpret_cast<float*>(qq + ATTN_WARPS * (dh / 4));  // [warps][S]
+  int* pq = reinterpret_cast<int*>(ps + ATTN_WARPS * S);             // [warps][s4]
+  __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(pq + ATTN_WARPS * s4);  // [S][dh]
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long in0 = b * in.b_ + h * in.h_, out0 = b * os.b_ + h * os.h_;
+  const int n_valid = min(valid_len, S);
+
+  // keys: one warp per row, quant_rows over dh (lanes hold d = lane + 32c)
+  for (int j = warp; j < S; j += ATTN_WARPS) {
+    float v[DH_MAX / 32], m = 0.0f;
+#pragma unroll
+    for (int c = 0; c < DH_MAX / 32; ++c) {
+      const int d = lane + 32 * c;
+      v[c] = d < dh ? __bfloat162float(kg[in0 + j * in.s_ + d]) : 0.0f;
+      m = fmaxf(m, fabsf(v[c]));
+    }
+    const float amax = fmaxf(warp_max(m), 1e-8f);
+    const float inv = 127.0f / amax;
+    int8_t* row = reinterpret_cast<int8_t*>(kq + j * ldk);
+#pragma unroll
+    for (int c = 0; c < DH_MAX / 32; ++c) {
+      const int d = lane + 32 * c;
+      if (d < dh) row[d] = (int8_t)__float2int_rn(__fmul_rn(v[c], inv));
+    }
+    if (lane == 0) sk[j] = __fmul_rn(amax, kInv127);
+  }
+  // values: stage the head's rows, then per column its scale and its
+  // transposed int8 column (keys past S, and rows past valid_len, are 0)
+  for (int idx = threadIdx.x; idx < S * (dh / 2); idx += ATTN_THREADS) {
+    const int j = idx / (dh / 2), c = idx % (dh / 2);
+    *reinterpret_cast<__nv_bfloat162*>(vs + j * dh + 2 * c) =
+        *reinterpret_cast<const __nv_bfloat162*>(vg + in0 + j * in.s_ + 2 * c);
+  }
+  __syncthreads();
+  for (int d = threadIdx.x; d < dh; d += ATTN_THREADS) {
+    float m = 0.0f;
+    for (int j = 0; j < n_valid; ++j) m = fmaxf(m, fabsf(__bfloat162float(vs[j * dh + d])));
+    const float amax = fmaxf(m, 1e-8f);
+    const float inv = 127.0f / amax;
+    vscl[d] = __fmul_rn(amax, kInv127);
+    int8_t* col = reinterpret_cast<int8_t*>(vq + d * ldv);
+    for (int j = 0; j < 4 * s4; ++j)
+      col[j] = j < n_valid ? (int8_t)__float2int_rn(__fmul_rn(__bfloat162float(vs[j * dh + d]), inv))
+                           : (int8_t)0;
+  }
+  __syncthreads();
+
+  int* qw = qq + warp * (dh / 4);
+  float* p = ps + warp * S;
+  int* pw = pq + warp * s4;
+  int8_t* qb = reinterpret_cast<int8_t*>(qw);
+  int8_t* pb = reinterpret_cast<int8_t*>(pw);
+  for (int i = warp; i < S; i += ATTN_WARPS) {
+    float v[DH_MAX / 32], m = 0.0f;
+#pragma unroll
+    for (int c = 0; c < DH_MAX / 32; ++c) {
+      const int d = lane + 32 * c;
+      v[c] = d < dh ? __bfloat162float(qg[in0 + i * in.s_ + d]) : 0.0f;
+      m = fmaxf(m, fabsf(v[c]));
+    }
+    const float qmax = fmaxf(warp_max(m), 1e-8f);
+    const float qinv = 127.0f / qmax;
+#pragma unroll
+    for (int c = 0; c < DH_MAX / 32; ++c) {
+      const int d = lane + 32 * c;
+      if (d < dh) qb[d] = (int8_t)__float2int_rn(__fmul_rn(v[c], qinv));
+    }
+    __syncwarp();
+    const float qscale = __fmul_rn(__fmul_rn(qmax, kInv127), scale);
+    float mx = -INFINITY;
+    for (int j = lane; j < S; j += 32) {
+      const int* kr = kq + j * ldk;
+      int acc = 0;
+      for (int c = 0; c < dh / 4; ++c) acc = __dp4a(qw[c], kr[c], acc);
+      const float s = j < valid_len ? __fmul_rn(__fmul_rn((float)acc, qscale), sk[j]) : kNegInf;
+      p[j] = s;
+      mx = fmaxf(mx, s);
+    }
+    mx = warp_max(mx);
+    float sum = 0.0f;
+    for (int j = lane; j < S; j += 32) {
+      const float e = expf(p[j] - mx);
+      p[j] = e;
+      sum += e;
+    }
+    const float inv = 1.0f / warp_sum(sum);
+    float pm = 0.0f;
+    for (int j = lane; j < S; j += 32) {
+      p[j] = __fmul_rn(p[j], inv);
+      pm = fmaxf(pm, p[j]);
+    }
+    const float pmax = fmaxf(warp_max(pm), 1e-8f);
+    const float pinv = 127.0f / pmax;
+    for (int j = lane; j < 4 * s4; j += 32)
+      pb[j] = j < S ? (int8_t)__float2int_rn(__fmul_rn(p[j], pinv)) : (int8_t)0;
+    __syncwarp();
+    const float pscale = __fmul_rn(pmax, kInv127);
+    for (int d = lane; d < dh; d += 32) {
+      const int* vc = vq + d * ldv;
+      int acc = 0;
+      for (int c = 0; c < s4; ++c) acc = __dp4a(pw[c], vc[c], acc);
+      store_out(out + out0 + i * os.s_ + d, __fmul_rn(__fmul_rn((float)acc, pscale), vscl[d]));
+    }
+    __syncwarp();
+  }
+}
+
+template <typename OutT>
+int launch_attention_int8(const void* q, const void* k, const void* v, Strides in, void* out,
+                          Strides os, int B, int S, int H, int dh, int valid_len, float scale,
+                          cudaStream_t stream) {
+  const int s4 = (S + 3) / 4;
+  const size_t smem = ((size_t)S * ((dh / 4) | 1) + (size_t)dh * (s4 | 1) + S + dh +
+                       (size_t)ATTN_WARPS * (dh / 4 + S + s4)) * 4 + (size_t)S * dh * 2;
+  cudaError_t err = cudaFuncSetAttribute(attention_int8_kernel<OutT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  attention_int8_kernel<OutT><<<B * H, ATTN_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), in, static_cast<OutT*>(out), os, S, H, dh, valid_len,
+      scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
+
+// Kernel A's sdpa_int8 core on (batch, head, row) strides; arguments as
+// mocr_attention's (no ``divide``: A's softmax multiplies by the reciprocal).
+int mocr_attention_sdpa_int8(const void* q, const void* k, const void* v, long long in_b,
+                             long long in_h, long long in_s, void* out, long long out_b,
+                             long long out_h, long long out_s, int out_bf16, int B, int S, int H,
+                             int dh, int valid_len, float scale, void* stream) {
+  if (dh > DH_MAX || dh % 4 || (in_b | in_h | in_s) % 2) return (int)cudaErrorInvalidValue;
+  const Strides in{in_b, in_h, in_s}, os{out_b, out_h, out_s};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return out_bf16 ? launch_attention_int8<__nv_bfloat16>(q, k, v, in, out, os, B, S, H, dh,
+                                                         valid_len, scale, st)
+                  : launch_attention_int8<float>(q, k, v, in, out, os, B, S, H, dh, valid_len,
+                                                 scale, st);
+}
 
 int mocr_ln_quant_rows(const void* x, int x_is_bf16, const void* ln_scale, const void* ln_bias,
                        int do_ln, float eps, void* q_out, void* sx_out, int M, int K,

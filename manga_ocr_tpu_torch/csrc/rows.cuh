@@ -7,7 +7,8 @@
 // in device memory (read through L2) and each thread walks one column pair
 // over all of K, so every warp reads 128 contiguous bytes per k.  Products
 // of two bf16 values are exact in f32, so only the f32 summation order can
-// differ from a plain matmul.
+// differ from a plain matmul.  gemv_i8 is the W8A8 form (kernel C's int8
+// decoder): int32 sums are exact, so only its epilogue rounds.
 #pragma once
 
 #include "common.cuh"
@@ -42,6 +43,68 @@ __device__ void gemv(const float* in, int ld_in, const __nv_bfloat16* __restrict
     for (int r = 0; r < R; ++r) {
       out[r * ld_out + 2 * p] = acc[r][0] + bias[2 * p];
       out[r * ld_out + 2 * p + 1] = acc[r][1] + bias[2 * p + 1];
+    }
+  }
+  __syncthreads();
+}
+
+// Per-row int8 quantization of R rows of K f32 values (kernel_utils.quant_rows):
+// amax over the row (at least 1e-8), sx = amax * (1/127), q = rint(h * (127 /
+// amax)), no clip.  q is [R][ld_q] int8, sx [R]; called by the whole block.
+template <int R>
+__device__ void quant_rows_block(const float* in, int ld_in, int K, int8_t* q, int ld_q,
+                                 float* sx, float* red) {
+#pragma unroll 1
+  for (int r = 0; r < R; ++r) {
+    float m = 0.0f;
+    for (int k = threadIdx.x; k < K; k += blockDim.x) m = fmaxf(m, fabsf(in[r * ld_in + k]));
+    const float amax = fmaxf(block_max(m, red), 1e-8f);
+    const float inv = 127.0f / amax;
+    for (int k = threadIdx.x; k < K; k += blockDim.x)
+      q[r * ld_q + k] = (int8_t)__float2int_rn(__fmul_rn(in[r * ld_in + k], inv));
+    if (threadIdx.x == 0) sx[r] = __fmul_rn(amax, kInv127);
+  }
+  __syncthreads();
+}
+
+// The W8A8 form of gemv: out[r][n] = (acc * sx[r]) * sw[n] + bias[n] with
+// acc the exact int32 sum of the int8 rows quant_rows makes of in[r] (f32,
+// NOT rounded to bf16 first) times W.  W is int8 packed [K/4][N][4]: a 32-bit
+// word holds four consecutive k of one column, so each thread's __dp4a runs
+// along K while a warp reads consecutive columns, as the bf16 gemv does.
+// ``qbuf`` is [R][ld_q] int8 shared scratch (ld_q >= K, a multiple of 4) and
+// ``sx`` [R] floats; K % 4 == 0, N even.
+template <int R>
+__device__ void gemv_i8(const float* in, int ld_in, const int8_t* __restrict__ W,
+                        const float* __restrict__ sw, const float* __restrict__ bias, int K,
+                        int N, float* out, int ld_out, int8_t* qbuf, int ld_q, float* sx,
+                        float* red) {
+  quant_rows_block<R>(in, ld_in, K, qbuf, ld_q, sx, red);
+  const int half_n = N / 2, k4 = K / 4, ldq4 = ld_q / 4;
+  const int2* W2 = reinterpret_cast<const int2*>(W);
+  const int* q32 = reinterpret_cast<const int*>(qbuf);
+  for (int p = threadIdx.x; p < half_n; p += blockDim.x) {
+    int acc[R][2];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r][0] = acc[r][1] = 0;
+#pragma unroll 16
+    for (int k = 0; k < k4; ++k) {
+      const int2 w = W2[(long)k * half_n + p];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int a = q32[r * ldq4 + k];
+        acc[r][0] = __dp4a(a, w.x, acc[r][0]);
+        acc[r][1] = __dp4a(a, w.y, acc[r][1]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int n = 2 * p + c;
+        out[r * ld_out + n] =
+            __fadd_rn(__fmul_rn(__fmul_rn((float)acc[r][c], sx[r]), sw[n]), bias[n]);
+      }
     }
   }
   __syncthreads();

@@ -48,6 +48,9 @@ _SIGNATURES = {
     # divide, B, S, H, dh, valid_len, scale, stream
     "mocr_attention": (_P, _P, _P, _L, _L, _L, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I, _I, _F,
                        _P),
+    # as mocr_attention, without divide
+    "mocr_attention_sdpa_int8": (_P, _P, _P, _L, _L, _L, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I,
+                                 _F, _P),
     # ptrs, n_ptrs, ints, n_ints, scale, eps, tokens, lengths, stream
     "mocr_decode_loop": (_PP, _I, ctypes.POINTER(_I), _I, _F, _F, _P, _P, _P),
     # x, ln_scale, ln_bias, eps, y, M, K, stream

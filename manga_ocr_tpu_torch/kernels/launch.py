@@ -106,29 +106,38 @@ def int8_gemm(
 def _attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, in_strides: tuple[int, int, int],
     out: torch.Tensor, out_strides: tuple[int, int, int], batch: int, seq: int, heads: int,
-    dh: int, valid_len: int, scale: float, divide: bool,
+    dh: int, valid_len: int, scale: float, divide: bool, sdpa_int8: bool = False,
 ) -> torch.Tensor:
-    """The attention core on (batch, head, row) element strides; the
-    caller has checked shapes, types and strides."""
-    if dh % 2 or dh > 128:
-        raise ValueError(f"attention: head dim {dh} unsupported (even, <= 128)")
+    """The attention core on (batch, head, row) element strides, or, with
+    ``sdpa_int8``, kernel A's int8 core (the softmax multiplies by the
+    reciprocal); the caller has checked shapes, types and strides."""
+    if dh % 2 or dh > 128 or (sdpa_int8 and (dh % 4 or divide)):
+        raise ValueError(f"attention: head dim {dh} unsupported (even, <= 128; int8: dh % 4 == 0 "
+                         f"and no division)")
     lib = build.load()
-    err = lib.mocr_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), *in_strides, out.data_ptr(), *out_strides,
-        int(out.dtype == torch.bfloat16), int(divide), batch, seq, heads, dh, int(valid_len),
-        float(scale), build.stream_ptr(q.device),
-    )
+    if sdpa_int8:
+        err = lib.mocr_attention_sdpa_int8(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), *in_strides, out.data_ptr(), *out_strides,
+            int(out.dtype == torch.bfloat16), batch, seq, heads, dh, int(valid_len), float(scale),
+            build.stream_ptr(q.device),
+        )
+    else:
+        err = lib.mocr_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), *in_strides, out.data_ptr(), *out_strides,
+            int(out.dtype == torch.bfloat16), int(divide), batch, seq, heads, dh, int(valid_len),
+            float(scale), build.stream_ptr(q.device),
+        )
     build.check(err, "attention")
     return out
 
 
 def attention(
     qkv: torch.Tensor, batch: int, seq: int, heads: int, valid_len: int, scale: float,
-    out_dtype: torch.dtype = torch.float32,
+    out_dtype: torch.dtype = torch.float32, sdpa_int8: bool = False,
 ) -> torch.Tensor:
     """qkv [B*S, 3D] bf16 (q | k | v) -> ctx [B*S, D] in ``out_dtype`` (f32
     or bf16); the softmax multiplies by the reciprocal of its sum (kernel
-    A's ``_attn_core``)."""
+    A's ``_attn_core``); ``sdpa_int8``: its int8 QK^T and PV form."""
     d = qkv.shape[1] // 3
     dh = d // heads
     if dh * heads != d:
@@ -138,7 +147,8 @@ def attention(
     _expect(qkv, torch.bfloat16, (batch * seq, 3 * d), "attention qkv")
     ctx = torch.empty((batch * seq, d), dtype=out_dtype, device=qkv.device)
     return _attention(qkv, qkv[:, d:], qkv[:, 2 * d:], (seq * 3 * d, dh, 3 * d), ctx,
-                      (seq * d, dh, d), batch, seq, heads, dh, valid_len, scale, divide=False)
+                      (seq * d, dh, d), batch, seq, heads, dh, valid_len, scale, divide=False,
+                      sdpa_int8=sdpa_int8)
 
 
 def decode_loop(

@@ -139,9 +139,14 @@ def precompute_cross_kv_packed(
     so per-layer projections equal the JAX package's one wide matmul.
     ``int8`` (default ``cfg.cross_kv_int8``) stores them quantized: K per
     (l, b, s) row over D, V per (l, b, d) channel over S, with the weight
-    quantizer's division, clip and half-to-even rounding."""
+    quantizer's division, clip and half-to-even rounding.  Calls on CUDA
+    tensors are counted (``calls``): kernel C's ``fuse_kv`` form computes
+    its slabs inside its launch, and a run can show that none was made
+    here."""
     if int8 is None:
         int8 = cfg.cross_kv_int8
+    if enc_out.device.type == "cuda":
+        precompute_cross_kv_packed.calls += 1
     ca = params["layers"]["cross_attn"]
     ks, vs = [], []
     for l in range(cfg.num_layers):
@@ -156,6 +161,9 @@ def precompute_cross_kv_packed(
     k_q = torch.clamp(torch.round(k32 / k_scale[..., None]), -127, 127).to(torch.int8)
     v_q = torch.clamp(torch.round(v32 / v_scale[..., None, :]), -127, 127).to(torch.int8)
     return CrossKVPacked(k_q, v_q, k_scale, v_scale)
+
+
+precompute_cross_kv_packed.calls = 0  # calls on CUDA tensors (CPU calls do not count)
 
 
 def prepare_fused_layer(params: dict, cfg: DecoderConfig, dtype) -> list[dict]:

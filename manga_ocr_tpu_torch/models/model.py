@@ -3,12 +3,15 @@ encoder -> cross-K/V precompute -> greedy decode.
 
 ``greedy_decode`` dispatches on ``cfg.decoder.step_kernel`` as the JAX
 function does: ``"fused_loop"`` runs the whole decode as kernel C over the
-packed bf16 slabs; ``"xla"`` and ``"fused_layer"`` run the chunked
-step-by-step loop over ``decoder.decode_step_greedy``, checking for early
-exit only between chunks of ``chunk_size`` steps (``"fused_layer"`` over
-packed cross-K/V, int8 when ``cfg.decoder.cross_kv_int8``, the packed cache
-and the weights of kernels J, K and B prepared once).  ``fuse_cross_kv`` is
-not ported and raises.
+packed slabs in the compute dtype (bf16 or int8 decoder weights);
+``"xla"`` and ``"fused_layer"`` run the chunked step-by-step loop over
+``decoder.decode_step_greedy``, checking for early exit only between chunks
+of ``chunk_size`` steps (``"fused_layer"`` over packed cross-K/V, int8 when
+``cfg.decoder.cross_kv_int8``, the packed cache and the weights of kernels
+J, K and B prepared once).  ``ocr_forward`` under ``"fused_loop"`` with
+``fuse_cross_kv`` hands kernel C the encoder's raw output instead (C's
+``fuse_kv`` form: the final LN and the cross-K/V projections run inside
+its launch, and no slab is precomputed).
 """
 
 from __future__ import annotations
@@ -115,8 +118,19 @@ def ocr_forward(
     """pixels [B, H, W, C] (normalized) -> greedy token ids, in the dtype of
     ``pixel_values``.  ``use_kernels=False`` runs the plain versions of the
     kernels on any device."""
-    if cfg.decoder.step_kernel == "fused_loop" and cfg.decoder.fuse_cross_kv:
-        raise NotImplementedError("ocr_forward: fuse_cross_kv is not ported")
+    dcfg = cfg.decoder
+    if dcfg.step_kernel == "fused_loop" and dcfg.fuse_cross_kv:
+        # kernel C's fuse_kv form, on the encoder output before its final LN
+        enc_raw = vit.encode(params["encoder"], pixel_values, cfg.encoder,
+                             use_kernels=use_kernels, raw_padded=True)
+        max_len = max_length or cfg.max_length
+        loop = greedy_decode_loop if use_kernels else greedy_decode_loop_reference
+        tokens, lengths = loop(
+            params["decoder"], None, dcfg, steps=max_len - 1, dtype=enc_raw.dtype,
+            stop_lengths=stop_lengths, enc_raw=enc_raw, s_valid=cfg.encoder.seq_len,
+            enc_final_ln=params["encoder"]["final_ln"],
+        )
+        return GreedyResult(tokens[:, :max_len], torch.clamp(lengths, max=max_len))
     enc_out = encode(params, pixel_values, cfg, use_kernels)
     return greedy_decode(params, enc_out, cfg, max_length, chunk_size, stop_lengths, use_kernels)
 

@@ -157,12 +157,20 @@ def encode(
     dtype: torch.dtype | None = None,
     use_kernels: bool = True,
     fused_attention: bool | None = None,
+    raw_padded: bool = False,
 ) -> torch.Tensor:
     """[B, H, W, C] normalized pixels -> [B, S, D] hidden states (S = patches
     + CLS).  ``use_kernels=False`` runs the kernels' plain versions on any
     device (for comparisons on the card); on CPU tensors both settings run
     the plain versions.  ``fused_attention``: kernel G for the
-    ``attn_kernel="xla"`` blocks (default ``_default_fused()``)."""
+    ``attn_kernel="xla"`` blocks (default ``_default_fused()``).
+
+    ``raw_padded``: the stack's output BEFORE the final LayerNorm, for the
+    decode's ``fuse_kv`` form (kernel C applies the final LN itself).  The
+    JAX package returns its seq-padded rows there (200 under the int8
+    serving config, the pads row-local garbage that the decode masks); the
+    port never pads, so its raw output has the ``seq_len`` = 197 real rows
+    only."""
     if cfg.attn_kernel not in _ATTN_KERNELS or cfg.mlp_kernel not in _MLP_KERNELS:
         raise NotImplementedError(
             f"encode: attn_kernel={cfg.attn_kernel!r} / mlp_kernel={cfg.mlp_kernel!r} is not "
@@ -191,6 +199,8 @@ def encode(
         for l in range(cfg.num_layers):
             lw = None if prepared is None else layer_view(prepared, l)
             x = encoder_block(x, layer_params(layers, l), cfg, use_kernels, fused, lw, scratch)
+    if raw_padded:
+        return x
     return layer_norm(
         x, params["final_ln"]["scale"], params["final_ln"]["bias"], cfg.layer_norm_eps
     )

@@ -14,9 +14,20 @@ before PV; the f32 context is row-quantized into the int8 o-projection, or
 cast to the compute dtype before the float one; the residual is added in
 the compute dtype.  Of the JAX kernel's variant flags, ``fuse_qkv``,
 ``batched_sdpa`` and ``parallel_grid`` schedule the same math (the CUDA path
-always runs q|k|v as one GEMM) and are accepted; ``sdpa_int8`` and
-``sdpa_headpack`` change the numerics, are not ported and raise
-``NotImplementedError``; the pairs JAX refuses raise its ``ValueError``.
+always runs q|k|v as one GEMM) and are accepted; the pairs JAX refuses
+raise its ``ValueError``.  The two that change the SDPA:
+
+- ``sdpa_int8`` runs QK^T and PV on int8 with dynamic quantization, with
+  either projection form: q and k rows per head with ``quant_rows``,
+  ``logits = (acc * (sq * scale)) * sk[j]``, the masked reciprocal-multiply
+  softmax in f32, p row-quantized in f32 (no cast), v per output column
+  over the ``valid_len`` real rows only (``127 / amax``, amax at least
+  1e-8), ``ctx = (acc * sp) * v_scale``;
+- ``sdpa_headpack`` packs two dh heads into one 2*dh contraction against
+  block-diagonal K and V on the TPU: the zero blocks add exact zeros, so it
+  is the default SDPA in another summation order and runs A's default
+  core.  JAX falls back to the per-head loop on an odd head count without
+  a word; the port raises ``ValueError`` there instead.
 
 On CUDA tensors A runs the kernels of ``csrc/``: int8, LN + row quant ->
 one int8 GEMM over the concatenated q|k|v weights (bit-exact: each output
@@ -24,8 +35,9 @@ column's contraction is unchanged) -> the attention core -> row quant of
 the context -> int8 o-projection with the residual in its epilogue; bf16,
 ``ln_rows_bf16`` -> one bf16 GEMM over q|k|v (bias epilogue, bf16 out) ->
 the attention core (bf16 context) -> bf16 o-projection with the residual
-epilogue.  The weights come prepared (``ops.encoder_weights``) or are
-prepared on the call.  On CPU tensors it runs
+epilogue; ``sdpa_int8`` swaps in the int8 attention core of
+``csrc/encoder.cu``.  The weights come prepared (``ops.encoder_weights``)
+or are prepared on the call.  On CPU tensors it runs
 ``fused_attn_layer_reference``.
 
 Kernel H, ``fused_encoder_layer`` (counterpart of ``fused_encoder_layer`` ->
@@ -76,6 +88,7 @@ CUDA_GELU_MODES = ("erf", "sigmoid")
 
 
 def check_attn_variants(
+    num_heads: int,
     fuse_qkv: bool = False,
     batched_sdpa: bool | str = False,
     sdpa_int8: bool = False,
@@ -83,8 +96,8 @@ def check_attn_variants(
     parallel_grid: bool = False,
 ) -> None:
     """The JAX ``fused_attn_layer``'s variant flags: its ``ValueError`` for
-    the pairs it refuses; ``NotImplementedError`` for the two that change
-    the numerics; the scheduling-only three pass."""
+    the pairs it refuses, and a ``ValueError`` for ``sdpa_headpack`` on an
+    odd head count (where JAX silently runs the per-head loop)."""
     del fuse_qkv, parallel_grid  # scheduling only: the same math
     if sdpa_int8 and batched_sdpa:
         raise ValueError(
@@ -96,9 +109,8 @@ def check_attn_variants(
             "sdpa_headpack is exclusive with sdpa_int8/batched_sdpa "
             "(one SDPA formulation per kernel)"
         )
-    for name, on in (("sdpa_int8", sdpa_int8), ("sdpa_headpack", sdpa_headpack)):
-        if on:
-            raise NotImplementedError(f"fused_attn_layer: variant {name} is not ported")
+    if sdpa_headpack and num_heads % 2:
+        raise ValueError(f"sdpa_headpack packs heads in pairs; {num_heads} heads is odd")
 
 
 def _sdpa_reference(
@@ -118,6 +130,31 @@ def _sdpa_reference(
     return p.to(p_dtype).float() @ v
 
 
+def _sdpa_int8_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid_len: int
+) -> torch.Tensor:
+    """A's ``sdpa_int8`` SDPA on f32 [..., S, dh] heads -> f32 context.  The
+    int8 products are summed in f32, which is exact here: every partial sum
+    is an integer below 2^24 (dh * 127^2 for QK^T, S * 127^2 for PV)."""
+    s, dh = q.shape[-2], q.shape[-1]
+    qq, sq = quant_rows(q)
+    kq, sk = quant_rows(k)
+    acc = qq.float() @ kq.float().transpose(-1, -2)
+    logits = acc * (sq * (1.0 / (dh**0.5))) * sk.transpose(-1, -2)
+    keep = torch.arange(s, device=q.device) < valid_len
+    if valid_len < s:
+        logits = torch.where(keep, logits, torch.full_like(logits, NEG_INF))
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    p = p * (1.0 / p.sum(-1, keepdim=True))
+    pq, sp = quant_rows(p)
+    # v per output column over the real rows only (the pads would coarsen
+    # every real value's step)
+    v = torch.where(keep[:, None], v, torch.zeros_like(v))
+    v_amax = v.abs().amax(-2, keepdim=True).clamp_min(1e-8)
+    v_q = torch.round(v * (127.0 / v_amax))
+    return (pq.float() @ v_q) * sp * (v_amax * (1.0 / 127.0))
+
+
 def attn_block_reference(
     x: torch.Tensor,
     p: dict,
@@ -127,10 +164,11 @@ def attn_block_reference(
     eps: float,
     valid_len: int | None,
     divide: bool,
+    sdpa_int8: bool = False,
 ) -> torch.Tensor:
     """x + Attention(LN(x)) on [B, S, D], int8 or float projections, as
-    ``_attn_core`` (``divide=False``) or the stack's ``_one_layer``
-    (``divide=True``) computes it."""
+    ``_attn_core`` (``divide=False``, the default or the ``sdpa_int8`` SDPA)
+    or the stack's ``_one_layer`` (``divide=True``) computes it."""
     b, s, d = x.shape
     dt = x.dtype
     dh = d // num_heads
@@ -145,7 +183,11 @@ def attn_block_reference(
     hq, sx = quant_rows(h32) if int8 else (h32.to(dt), None)
     q, k, v = (proj(p[n], hq, sx).to(dt).reshape(b, s, num_heads, dh).transpose(1, 2).float()
                for n in ("q", "k", "v"))
-    ctx = _sdpa_reference(q, k, v, s if valid_len is None else valid_len, divide, dt)
+    valid = s if valid_len is None else valid_len
+    if sdpa_int8:
+        ctx = _sdpa_int8_reference(q, k, v, valid)
+    else:
+        ctx = _sdpa_reference(q, k, v, valid, divide, dt)
     ctx = ctx.transpose(1, 2).reshape(b * s, d)  # f32
     out = proj(p["o"], *quant_rows(ctx)) if int8 else proj(p["o"], ctx.to(dt), None)
     return x + out.to(dt).reshape(b, s, d)
@@ -163,8 +205,9 @@ def fused_attn_layer_reference(
 ) -> torch.Tensor:
     """Plain version of kernel A (``_attn_core``) on [B, S, D]; the variant
     flags as ``fused_attn_layer`` takes them."""
-    check_attn_variants(**variants)
-    return attn_block_reference(x, p, ln_scale, ln_bias, num_heads, eps, valid_len, divide=False)
+    check_attn_variants(num_heads, **variants)
+    return attn_block_reference(x, p, ln_scale, ln_bias, num_heads, eps, valid_len, divide=False,
+                                sdpa_int8=bool(variants.get("sdpa_int8")))
 
 
 def fused_attn_layer(
@@ -182,9 +225,11 @@ def fused_attn_layer(
     (``fuse_qkv``, ``batched_sdpa``, ``sdpa_int8``, ``sdpa_headpack``,
     ``parallel_grid``, see the module docstring).  CPU tensors take the
     plain version; CUDA tensors launch the kernels or raise."""
-    check_attn_variants(**variants)
+    check_attn_variants(num_heads, **variants)
+    sdpa_int8 = bool(variants.get("sdpa_int8"))
     if x.device.type == "cpu":
-        return attn_block_reference(x, p, ln_scale, ln_bias, num_heads, eps, valid_len, False)
+        return attn_block_reference(x, p, ln_scale, ln_bias, num_heads, eps, valid_len, False,
+                                    sdpa_int8)
     if x.dtype != torch.bfloat16:
         raise ValueError(f"fused_attn_layer: the CUDA kernel takes bf16, got {x.dtype}")
     b, s, d = x.shape
@@ -196,23 +241,30 @@ def fused_attn_layer(
     ln = (ln_scale.float().contiguous(), ln_bias.float().contiguous())
     valid = s if valid_len is None else valid_len
     scale = 1.0 / (dh**0.5)
-    if is_int8(qkv_w):
+    int8 = is_int8(qkv_w)
+    if int8:
         hq, sx = launch.ln_quant_rows(xf, ln, eps)
         qkv = launch.int8_gemm(hq, qkv_w.w.w_t, sx, qkv_w.w.scale, qkv_w.bias, launch.GEMM_BF16)
-        ctx = launch.attention(qkv, b, s, num_heads, valid, scale)
+        ctx = launch.attention(qkv, b, s, num_heads, valid, scale, sdpa_int8=sdpa_int8)
         cq, csx = launch.ln_quant_rows(ctx)
         out = launch.int8_gemm(cq, o_w.w.w_t, csx, o_w.w.scale, o_w.bias,
                                launch.GEMM_RESIDUAL_BF16, residual=xf)
     else:
         h = launch.ln_rows_bf16(xf, ln, eps)
         qkv = launch.bf16_gemm(h, qkv_w.w, qkv_w.bias, launch.BF16_BIAS)
-        ctx = launch.attention(qkv, b, s, num_heads, valid, scale, out_dtype=torch.bfloat16)
+        ctx = launch.attention(qkv, b, s, num_heads, valid, scale, out_dtype=torch.bfloat16,
+                               sdpa_int8=sdpa_int8)
         out = launch.bf16_gemm(ctx, o_w.w, o_w.bias, launch.BF16_RESIDUAL, residual=xf)
     fused_attn_layer.launches += 1
+    fused_attn_layer.launches_by_form["int8" if int8 else "bf16"] += 1
+    if sdpa_int8:
+        fused_attn_layer.launches_by_form["sdpa_int8"] += 1
     return out.reshape(b, s, d)
 
 
 fused_attn_layer.launches = 0  # launches of the CUDA kernels (CPU calls do not count)
+# launches by form: the projections ("int8", "bf16") and the int8 SDPA ("sdpa_int8")
+fused_attn_layer.launches_by_form = {"int8": 0, "bf16": 0, "sdpa_int8": 0}
 
 
 def layer_is_int8(p: dict, name: str) -> bool:

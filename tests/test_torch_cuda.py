@@ -19,6 +19,7 @@ kernel's tokens (teacher forcing); a head id passes when the plain logit
 there is within 2^-6 of the top logit.
 """
 
+import dataclasses
 import os
 import shutil
 
@@ -180,6 +181,104 @@ def test_decode_loop_kernel_tokens_are_greedy_under_plain_model(device):
         assert float((gaps[live] / top[live].abs()).max()) <= DECODE_GAP_REL
         if stops is not None:
             assert bool((lengths <= stops).all())
+
+
+def _live_rel_gap(gaps, top, lengths):
+    live = torch.arange(gaps.shape[1], device=gaps.device)[None, :] + 1 < lengths[:, None]
+    return float((gaps[live] / top[live].abs()).max())
+
+
+@pytest.mark.parametrize("form", ["int8_w", "fuse_kv", "int8_w+fuse_kv"])
+def test_decode_loop_new_forms_tokens_are_greedy_under_plain_model(device, form):
+    """Kernel C's int8-decoder and in-kernel cross-K/V forms: the kernel's
+    tokens scored by the plain decoder (teacher forcing); under fuse_kv on
+    the slabs of the LN'd real rows (S_valid of a padded raw output)."""
+    from manga_ocr_tpu_torch.engine.engine import _cast_quantized
+    from manga_ocr_tpu_torch.models import decoder as dec
+    from manga_ocr_tpu_torch.models.params import init_params
+    from manga_ocr_tpu_torch.models.quantize import quantize_decoder
+    from manga_ocr_tpu_torch.ops import decode_loop as dl
+    from manga_ocr_tpu_torch.ops.common import layer_norm
+
+    cfg = MangaOCRConfig.tiny()
+    params = init_params(cfg, 0, device)["decoder"]
+    if "int8_w" in form:
+        params = quantize_decoder(params)
+    params = _cast_quantized(params, torch.bfloat16)  # int8 weights and f32 scales kept
+    s_valid = cfg.encoder.seq_len
+    raw = (2 * torch.randn((5, s_valid + 3, 64), device=device) + 0.5).to(torch.bfloat16)
+    fln = {"scale": 1 + 0.1 * torch.randn(64, device=device),
+           "bias": 0.1 * torch.randn(64, device=device)}
+    enc = layer_norm(raw[:, :s_valid], fln["scale"], fln["bias"], cfg.decoder.layer_norm_eps)
+    cross = dec.precompute_cross_kv_packed(params, enc, cfg.decoder)
+    before = dict(dl.greedy_decode_loop.launches_by_form)
+    if "fuse_kv" in form:
+        tokens, lengths = dl.greedy_decode_loop(params, None, cfg.decoder, 20, enc_raw=raw,
+                                                s_valid=s_valid, enc_final_ln=fln)
+    else:
+        tokens, lengths = dl.greedy_decode_loop(params, cross, cfg.decoder, 20)
+    for f in ("int8_w", "fuse_kv"):
+        assert dl.greedy_decode_loop.launches_by_form[f] == before[f] + (f in form)
+    assert tokens.shape == (5, 21) and bool((tokens[:, 0] == cfg.decoder.bos_token_id).all())
+    gaps, top = dl.teacher_forced_gaps(params, cross, cfg.decoder, tokens)
+    assert _live_rel_gap(gaps, top, lengths) <= DECODE_GAP_REL
+
+
+@pytest.mark.parametrize("options", [dict(ablate="self"), dict(ablate="cross"),
+                                     dict(ablate="mlp"), dict(gelu_mode="sigmoid")],
+                         ids=["self", "cross", "mlp", "sigmoid"])
+def test_decode_loop_ablate_and_gelu_tokens_are_greedy_under_plain_model(device, options):
+    from manga_ocr_tpu_torch.models import decoder as dec
+    from manga_ocr_tpu_torch.models import model as mdl
+    from manga_ocr_tpu_torch.models.params import init_params
+    from manga_ocr_tpu_torch.ops import decode_loop as dl
+
+    cfg = MangaOCRConfig.tiny()
+    params = mdl.cast_params(init_params(cfg, 1, device)["decoder"], torch.bfloat16)
+    enc = torch.randn((5, cfg.encoder.seq_len, 64), device=device).to(torch.bfloat16)
+    cross = dec.precompute_cross_kv_packed(params, enc, cfg.decoder)
+    tokens, lengths = dl.greedy_decode_loop(params, cross, cfg.decoder, 20, **options)
+    gaps, top = dl.teacher_forced_gaps(params, cross, cfg.decoder, tokens, **options)
+    assert _live_rel_gap(gaps, top, lengths) <= DECODE_GAP_REL
+
+
+def test_decode_loop_ablate_head_emits_prev_plus_one(device):
+    from manga_ocr_tpu_torch.models import decoder as dec
+    from manga_ocr_tpu_torch.models import model as mdl
+    from manga_ocr_tpu_torch.models.params import init_params
+    from manga_ocr_tpu_torch.ops import decode_loop as dl
+
+    cfg = MangaOCRConfig.tiny()
+    dcfg = dataclasses.replace(cfg.decoder, eos_token_id=1000)  # past the vocab: never emitted
+    params = mdl.cast_params(init_params(cfg, 2, device)["decoder"], torch.bfloat16)
+    enc = torch.randn((3, cfg.encoder.seq_len, 64), device=device).to(torch.bfloat16)
+    cross = dec.precompute_cross_kv_packed(params, enc, dcfg)
+    steps = 30  # prev + 1 runs past the 100-id vocab: zero embedding rows
+    tokens, lengths = dl.greedy_decode_loop(params, cross, dcfg, steps, ablate="head")
+    want = torch.arange(2, steps + 3, device=device, dtype=torch.int32)
+    assert bool((tokens == want).all()) and bool((lengths == steps + 1).all())
+
+
+@pytest.mark.parametrize("int8", [True, False], ids=["int8", "bf16"])
+def test_sdpa_int8_attention_layer_kernel_matches_plain(device, int8):
+    from manga_ocr_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(9)
+    d, heads = 128, 2
+    p = {n: _step_dense(rng, d, d, device, int8) for n in "qkvo"}
+    x = torch.from_numpy(rng.normal(size=(3, 37, d))).to(device, torch.bfloat16)
+    ln = (torch.ones(d, device=device), torch.zeros(d, device=device))
+    for valid in (37, 30):
+        before = dict(fa.fused_attn_layer.launches_by_form)
+        got = fa.fused_attn_layer(x, p, *ln, heads, valid_len=valid, sdpa_int8=True)
+        want = fa.fused_attn_layer_reference(x, p, *ln, heads, valid_len=valid, sdpa_int8=True)
+        assert fa.fused_attn_layer.launches_by_form["sdpa_int8"] == before["sdpa_int8"] + 1
+        assert _within(got, want)
+        # headpack is A's default core: bit for bit
+        torch.testing.assert_close(fa.fused_attn_layer(x, p, *ln, heads, valid_len=valid,
+                                                       sdpa_headpack=True),
+                                   fa.fused_attn_layer(x, p, *ln, heads, valid_len=valid),
+                                   atol=0, rtol=0)
 
 
 def test_unquantized_engine_runs_through_e_d_and_c(device):

@@ -14,10 +14,13 @@ weights and pixels, in float32, one configuration each:
   ``greedy_decode`` on each package's encoder output).
 
 The encoder output must agree within 1e-4; the greedy tokens and lengths
-at ``max_length=12`` must be equal.  Then A's variant flags through
-``encode``: ``attn_sdpa_int8`` and ``attn_sdpa_headpack`` raise (they must
-not return the float SDPA), the scheduling flags give the unflagged output
-bit for bit, and the pairs JAX refuses raise ``ValueError``."""
+at ``max_length=12`` must be equal.  Kernel A's SDPA variants run through
+the same checks (``attn_sdpa_int8`` on int8 and float projections,
+``attn_sdpa_headpack``, both under the int8 serving config that JAX
+seq-pads).  Then A's variant flags through ``encode``: ``attn_sdpa_int8``
+changes the output and ``attn_sdpa_headpack`` does not, the scheduling
+flags give the unflagged output bit for bit, and the pairs JAX refuses
+raise ``ValueError``; and ``encode(raw_padded=True)`` against JAX's."""
 
 import dataclasses
 import functools
@@ -54,6 +57,11 @@ def _configs():
         "merged_int8": (_enc(tiny, attn_kernel="merged_layer", gelu_mode="sigmoid"), "int8", None),
         "merged_float": (_enc(tiny, attn_kernel="merged_layer"), "float", None),
         "fused_attention": (tiny, "float", True),
+        # A's SDPA variants under the int8 serving config (seq-padded in JAX)
+        "sdpa_int8_int8": (_enc(with_serving_kernels(tiny), attn_sdpa_int8=True), "int8", None),
+        "sdpa_int8_float": (_enc(with_serving_kernels(tiny), attn_sdpa_int8=True), "float", None),
+        "sdpa_headpack_int8": (_enc(with_serving_kernels(tiny), attn_sdpa_headpack=True), "int8",
+                               None),
     }
     for lpc in (1, 2, 3):
         out[f"stacked_int8_lpc{lpc}"] = (
@@ -132,13 +140,35 @@ def _fused_layer_setup(int8=True):
 
 
 @pytest.mark.parametrize("flag", ["attn_sdpa_int8", "attn_sdpa_headpack"])
-def test_numerics_variants_raise_in_encode(flag):
-    """The port must not return the float-SDPA result for these flags."""
+def test_numerics_variants_reach_the_kernel_in_encode(flag):
+    """The flags reach kernel A through ``encode``, with the kernels and
+    with their plain versions: ``sdpa_int8`` changes the output (it must
+    not return the default SDPA's), ``sdpa_headpack`` is the default SDPA
+    (another summation order in JAX) and gives its output bit for bit."""
     ecfg, enc, px = _fused_layer_setup()
     for use_kernels in (True, False):
-        with pytest.raises(NotImplementedError, match=flag.removeprefix("attn_")):
-            tvit.encode(enc, px, dataclasses.replace(ecfg, **{flag: True}),
-                        use_kernels=use_kernels)
+        want = tvit.encode(enc, px, ecfg, use_kernels=use_kernels)
+        got = tvit.encode(enc, px, dataclasses.replace(ecfg, **{flag: True}),
+                          use_kernels=use_kernels)
+        if flag == "attn_sdpa_int8":
+            assert float((got - want).abs().max()) > 1e-4 * float(want.abs().max())
+        else:
+            torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+def test_raw_padded_encode_matches_jax():
+    """``encode(raw_padded=True)``: the stack's output before the final LN.
+    JAX's int8 serving config returns its seq-padded rows (5 -> 8); the
+    port's are the seq_len real rows, equal to JAX's first ones."""
+    cfg = with_serving_kernels(MangaOCRConfig.tiny())
+    params, px = _params(cfg, "int8", seed=4), _pixels(cfg, n=2, seed=5)
+    want = np.asarray(jvit.encode(jax.tree.map(jnp.asarray, params["encoder"]), jnp.asarray(px),
+                                  cfg.encoder, raw_padded=True))
+    got = tvit.encode(params_from_jax(params, "cpu")["encoder"], torch.tensor(px),
+                      port_config(cfg).encoder, raw_padded=True).numpy()
+    s = cfg.encoder.seq_len
+    assert want.shape == (2, 8, 64) and got.shape == (2, s, 64)
+    np.testing.assert_allclose(got, want[:, :s], atol=ENC_TOL, rtol=ENC_TOL)
 
 
 @pytest.mark.parametrize("flags", [{"attn_fuse_qkv": True}, {"batched_sdpa": True},

@@ -3,9 +3,12 @@ against ``TpuMangaOcrEngine(dtype=float32)`` on the same numpy-made weights
 and the same crops, in the three single-device configurations: int8
 serving (JAX's CPU engine turns it on by itself), unquantized serving
 (``quantize_int8=False``) and the exact reference path
-(``serving_kernels=False``).  The strings must be IDENTICAL.  Weights use
+(``serving_kernels=False``); the int8 serving engine with kernel A's int8
+SDPA and kernel C's ``fuse_kv`` form; and ``serving_kernels=False`` on a
+``fused_loop`` + ``fuse_cross_kv`` config.  The strings must be IDENTICAL.  Weights use
 std 0.1 so the texts differ from crop to crop (and some rows end at EOS)."""
 
+import dataclasses
 import glob
 import os
 
@@ -115,11 +118,13 @@ def test_cuda_device_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize(
-    "kw", [{"quantize_int8": False}, {"serving_kernels": False}],
-    ids=["unquantized_serving", "reference_path"],
+    "kw, dec", [({"quantize_int8": False}, {}), ({"serving_kernels": False}, {}),
+                ({"serving_kernels": False}, {"step_kernel": "fused_loop", "fuse_cross_kv": True})],
+    ids=["unquantized_serving", "reference_path", "fused_loop_fuse_cross_kv"],
 )
-def test_other_configurations_identical_to_jax_engine(kw, page):
+def test_other_configurations_identical_to_jax_engine(kw, dec, page):
     cfg = MangaOCRConfig.tiny()
+    cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, **dec))
     np_params = init_params_numpy(cfg, 0, std=0.1)
     tok = CharTokenizer.synthetic()
     jax_engine = TpuMangaOcrEngine(np_params, cfg, tok, max_length=MAX_LEN, dtype=jnp.float32,
@@ -130,6 +135,28 @@ def test_other_configurations_identical_to_jax_engine(kw, page):
     )
     assert torch_engine.cfg == port_config(jax_engine.cfg)
     assert all(v.dtype != torch.int8 for v in _leaves(torch_engine.params))
+    got = torch_engine.ocr_page(page)
+    assert got == jax_engine.ocr_page(page)
+    assert len(set(got)) > 3
+
+
+def test_int8_engine_with_sdpa_int8_and_fuse_cross_kv_identical_to_jax_engine(page):
+    """The slice's serving path: the int8 engine with kernel A's int8 SDPA
+    in the encoder and kernel C's fuse_kv form for the decode (JAX's
+    ``with_serving_kernels`` keeps both flags, and so does the port's)."""
+    cfg = MangaOCRConfig.tiny()
+    cfg = dataclasses.replace(
+        cfg, encoder=dataclasses.replace(cfg.encoder, attn_sdpa_int8=True),
+        decoder=dataclasses.replace(cfg.decoder, fuse_cross_kv=True))
+    np_params = init_params_numpy(cfg, 0, std=0.1)
+    jax_engine = TpuMangaOcrEngine(np_params, cfg, CharTokenizer.synthetic(), max_length=MAX_LEN,
+                                   dtype=jnp.float32)
+    torch_engine = TorchMangaOcrEngine(
+        params_from_jax(np_params, "cpu"), port_config(cfg), PortTokenizer.synthetic(),
+        max_length=MAX_LEN, dtype=torch.float32, device="cpu",
+    )
+    assert torch_engine.cfg == port_config(jax_engine.cfg)
+    assert torch_engine.cfg.encoder.attn_sdpa_int8 and torch_engine.cfg.decoder.fuse_cross_kv
     got = torch_engine.ocr_page(page)
     assert got == jax_engine.ocr_page(page)
     assert len(set(got)) > 3

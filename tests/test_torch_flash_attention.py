@@ -2,7 +2,8 @@
 mode on the CPU) with int8-quantized and with float tiny projections, in
 float32, with ``valid_len`` < S so the key mask is exercised, and A's
 variant flags (the scheduling-only three give the unflagged output bit for
-bit, the numerics two raise, the pairs JAX refuses raise its ValueError);
+bit; ``sdpa_int8`` and ``sdpa_headpack`` against JAX, with headpack's odd
+head count refused; the pairs JAX refuses raise its ValueError);
 kernel H's plain version against the JAX ``fused_encoder_layer``, int8 and
 float, both GELUs; kernel E's plain version against the JAX
 ``attention_packed`` (which pads S to 128 and masks the padded keys) and
@@ -113,13 +114,65 @@ def test_wrapper_takes_plain_version_on_cpu_and_counts_nothing():
     assert ta.fused_attn_layer.launches == before
 
 
-@pytest.mark.parametrize("variant", ["sdpa_int8", "sdpa_headpack"])
-def test_unported_variants_raise(variant):
-    args = _torch(*_inputs())
-    with pytest.raises(NotImplementedError):
-        ta.fused_attn_layer(*args, HEADS, **{variant: True})
-    with pytest.raises(NotImplementedError):
-        ta.fused_attn_layer_reference(*args, HEADS, **{variant: True})
+@pytest.mark.parametrize("valid_len", [5, 8], ids=["masked", "unmasked"])
+@pytest.mark.parametrize("int8", [True, False], ids=["int8", "float"])
+def test_sdpa_int8_plain_version_matches_jax_kernel(int8, valid_len):
+    """A's ``sdpa_int8`` form (int8 QK^T and PV, dynamic quantization) with
+    either projection form.  The int8 sums are exact in both; the f32
+    softmax and LN sums run in another order, which could flip one rounding
+    of p's quantization (a step of 1/127 of a row's largest p): none does on
+    these inputs, so the tolerance is 1e-4 of the largest output."""
+    x, p, lns, lnb = _inputs(3, int8=int8)
+    want = np.asarray(jax_attn(jnp.asarray(x), _jax_tree(p), jnp.asarray(lns), jnp.asarray(lnb),
+                               HEADS, eps=1e-12, valid_len=valid_len, sdpa_int8=True))
+    args = _torch(x, p, lns, lnb)
+    got = ta.fused_attn_layer_reference(*args, HEADS, eps=1e-12, valid_len=valid_len,
+                                        sdpa_int8=True)
+    top = np.abs(want).max()
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4 * top, rtol=0)
+    # the int8 SDPA is a different function from the default one
+    base = ta.fused_attn_layer_reference(*args, HEADS, eps=1e-12, valid_len=valid_len)
+    assert float((got - base).abs().max()) > 1e-4 * top
+    before = dict(ta.fused_attn_layer.launches_by_form)
+    torch.testing.assert_close(ta.fused_attn_layer(*args, HEADS, valid_len=valid_len,
+                                                   sdpa_int8=True), got, atol=0, rtol=0)
+    assert ta.fused_attn_layer.launches_by_form == before
+
+
+def test_sdpa_int8_pad_rows_do_not_reach_real_rows():
+    """v is quantized over the valid rows only: pad rows of any size leave
+    the real rows' outputs unchanged."""
+    x, p, lns, lnb = _inputs(4)
+    tx, tp, tl, tb = _torch(x, p, lns, lnb)
+    base = ta.fused_attn_layer(tx, tp, tl, tb, HEADS, valid_len=5, sdpa_int8=True)
+    tx2 = tx.clone()
+    tx2[:, 5:] = 100.0
+    moved = ta.fused_attn_layer(tx2, tp, tl, tb, HEADS, valid_len=5, sdpa_int8=True)
+    torch.testing.assert_close(moved[:, :5], base[:, :5], atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("int8", [True, False], ids=["int8", "float"])
+def test_sdpa_headpack_matches_jax_kernel(int8):
+    """Two heads per block-diagonal contraction in JAX: the default SDPA in
+    another summation order (the zero blocks add exact zeros)."""
+    x, p, lns, lnb = _inputs(5, int8=int8)
+    want = np.asarray(jax_attn(jnp.asarray(x), _jax_tree(p), jnp.asarray(lns), jnp.asarray(lnb),
+                               HEADS, eps=1e-12, valid_len=5, sdpa_headpack=True))
+    args = _torch(x, p, lns, lnb)
+    got = ta.fused_attn_layer(*args, HEADS, valid_len=5, sdpa_headpack=True)
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL * np.abs(want).max(), rtol=0)
+    torch.testing.assert_close(got, ta.fused_attn_layer(*args, HEADS, valid_len=5),
+                               atol=0, rtol=0)
+
+
+def test_sdpa_headpack_odd_head_count_raises():
+    """JAX silently runs the per-head loop for an odd head count; the port
+    refuses it, in the kernel and the plain version."""
+    args = _torch(*_inputs(6, d=48))
+    for fn in (ta.fused_attn_layer, ta.fused_attn_layer_reference):
+        with pytest.raises(ValueError, match="odd"):
+            fn(*args, 3, sdpa_headpack=True)
+        fn(*args, 3)  # the default form takes three heads
 
 
 @pytest.mark.parametrize("variant", ["fuse_qkv", "batched_sdpa", "parallel_grid"])

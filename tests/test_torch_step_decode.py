@@ -4,7 +4,9 @@ numpy-made tiny weights and encoder output: tokens and lengths must be
 IDENTICAL, for the head ``xla``/``fused`` (kernel F) x step MLP
 ``xla``/``fused`` (kernel D, ``pre_ln=False``) x bf16/int8 cross K/V, with
 ``stop_lengths``, and with a ``max_length`` that is not a multiple of
-``chunk_size`` (the last chunk runs past it, and past the position table).
+``chunk_size`` (the last chunk runs past it, and past the position table);
+and ``ocr_forward`` through kernel C's ``fuse_kv`` form (``fuse_cross_kv``)
+on a float and an int8 decoder.
 The JAX kernels run in interpret mode on the CPU; the port gets its own
 config with the same fields."""
 
@@ -21,6 +23,7 @@ import jax.numpy as jnp
 from manga_ocr_tpu.models import decoder as jdec
 from manga_ocr_tpu.models import model as jmdl
 from manga_ocr_tpu.models.config import MangaOCRConfig
+from manga_ocr_tpu.models.quantize import quantize_decoder as jax_quantize_decoder
 from manga_ocr_tpu_torch.models import decoder as tdec
 from manga_ocr_tpu_torch.models import model as tmdl
 from manga_ocr_tpu_torch.models.params import init_params_numpy, params_from_jax
@@ -152,11 +155,27 @@ def test_step_decode_counts_no_cpu_launches():
             fused_mlp.fused_mlp_block_bf16.launches) == before
 
 
-def test_unported_decoders_raise():
-    cfg = port_config(_cfg())
-    np_params, enc = _setup(cfg)
-    tp = params_from_jax(np_params, "cpu")
-    fused = dataclasses.replace(cfg, decoder=dataclasses.replace(
+@pytest.mark.parametrize("int8_w", [False, True], ids=["float_decoder", "int8_decoder"])
+def test_ocr_forward_fuse_cross_kv_matches_jax(int8_w):
+    """``ocr_forward`` under ``fused_loop`` with ``fuse_cross_kv``: the raw
+    encoder output straight into kernel C's ``fuse_kv`` form, on a float and
+    on a ``quantize_decoder`` decoder (tests/test_decode_loop.py)."""
+    cfg = _cfg()
+    cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
         cfg.decoder, step_kernel="fused_loop", fuse_cross_kv=True))
-    with pytest.raises(NotImplementedError):
-        tmdl.ocr_forward(tp, torch.zeros((1, 32, 32, 3)), fused)
+    np_params, _ = _setup(cfg, seed=7)
+    if int8_w:
+        np_params["decoder"] = jax.tree.map(np.asarray, jax_quantize_decoder(np_params["decoder"]))
+    px = np.random.default_rng(7).normal(size=(BATCH, 32, 32, 3)).astype(np.float32)
+    want = jmdl.ocr_forward(jax.tree.map(jnp.asarray, np_params), jnp.asarray(px), cfg,
+                            max_length=12)
+    tp = params_from_jax(np_params, "cpu")
+    before = tdec.precompute_cross_kv_packed.calls
+    got = tmdl.ocr_forward(tp, torch.from_numpy(px), port_config(cfg), max_length=12)
+    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
+    np.testing.assert_array_equal(got.lengths.numpy(), np.asarray(want.lengths))
+    assert len({tuple(r) for r in got.tokens.numpy()}) > 1
+    plain = tmdl.ocr_forward(tp, torch.from_numpy(px), port_config(cfg), max_length=12,
+                             use_kernels=False)
+    torch.testing.assert_close(plain.tokens, got.tokens, atol=0, rtol=0)
+    assert tdec.precompute_cross_kv_packed.calls == before
