@@ -2,11 +2,19 @@
 
 Run from the repository root:  python3 chip_smoke.py
 (``python3 chip_smoke.py --stack-floor`` prints only the plain encoder
-stack's own noise floor, which sets ENC_STACK_MEAN_REL.)
+stack's own noise floor, which sets ENC_STACK_MEAN_REL;
+``python3 chip_smoke.py --core-times ROOT...`` only the attention core's
+times, built and timed from each tree ROOT in turn.)
 
 1. Requires CUDA; prints the card's name and power limit (nvidia-smi).
 2. Builds the kernels of manga_ocr_tpu_torch/csrc with nvcc (sm_90a), one
-   nvcc per source, all started together.
+   nvcc per source, all started together, and prints the ptxas line of the
+   attention core (registers, spill bytes) for each head-dim form; a spill
+   fails.  Then holds the attention core that A, E, G, H and I share
+   against its plain version at full width on ragged shapes: S = 5, 16,
+   17, 37, 197, every key and the last three masked, in each stride layout
+   (A's q|k|v rows, E's packed, G's head-major), f32 and bf16 output, the
+   softmax by division and by the reciprocal multiply.
 3. Holds each kernel against its plain PyTorch version on the card at the
    shapes its path gives it (MangaOCRConfig.base(), batch 32 and 256,
    S=197, D=768), with CUDA-event times of both: A, B, C on int8 params;
@@ -171,6 +179,29 @@ def log_ptxas(build_log: str) -> None:
             log(f"ptxas: {name[:90]}: {ln.strip()}")
 
 
+def log_core_ptxas(build_log: str) -> None:
+    """The attention core's ptxas lines (registers, spill bytes) for each
+    head-dim instantiation; fails if any spills or none is found."""
+    import re
+
+    name, found = "", 0
+    for ln in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+            continue
+        dh = re.search(r"attention_kernelILi(\d+)E", name)
+        if dh is None or not ("spill" in ln or "registers" in ln):
+            continue
+        log(f"ptxas: attention core dh<={dh.group(1)}: {ln.strip()}")
+        if "spill" in ln:
+            found += 1
+            if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln)):
+                fail(f"the attention core (dh<={dh.group(1)}) spills: {ln.strip()}")
+    if not found:
+        fail("no ptxas line of the attention core in the build log")
+
+
 def cuda_ms(fn, reps: int = 5, warm: bool = True) -> float:
     """Mean time of ``fn`` over ``reps`` runs, after one warm run (skipped
     with ``warm=False`` where the caller has just run ``fn``)."""
@@ -243,6 +274,127 @@ def check_encoder_kernels(params, cfg, results: dict) -> None:
                                                    prepared=(lw.qkv, lw.o), **kw)):
         fail("fused_attn_layer: sdpa_headpack differs from the default form")
     log("fused_attn_layer[sdpa_headpack] B=256: bit-identical to the default form")
+
+
+# The attention core's ragged shapes: partial query and key tiles (S not a
+# multiple of 16), a single tile, and the key mask (valid_len = S - 3).
+CORE_SEQS = (5, 16, 17, 37, 197)
+CORE_LAYOUTS = ("qkv", "packed", "heads")
+
+
+def core_inputs(layout: str, b: int, s: int, heads: int, dh: int, gen):
+    """q, k, v in one of the three layouts the attention core reads (A's
+    q|k|v GEMM output [B*S, 3D], E's three [B, S, D], G's three
+    [B, H, S, dh]), their (batch, head, row) element strides, an output
+    tensor of the layout's own shape with its strides, and the [B, H, S, dh]
+    head view of a tensor of either shape."""
+    import torch
+
+    d = heads * dh
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    if layout == "heads":
+        q, k, v = randn(b, heads, s, dh), randn(b, heads, s, dh), randn(b, heads, s, dh)
+        strides = (heads * s * dh, s * dh, dh)
+        out_shape, out_strides = (b, heads, s, dh), strides
+
+        def view(t):
+            return t
+    else:
+        if layout == "qkv":
+            qkv = randn(b * s, 3 * d)
+            q, k, v = qkv, qkv[:, d:], qkv[:, 2 * d:]
+            strides = (s * 3 * d, dh, 3 * d)
+        else:
+            q, k, v = randn(b, s, d), randn(b, s, d), randn(b, s, d)
+            strides = (s * d, dh, d)
+        out_shape, out_strides = (b, s, d), (s * d, dh, d)
+
+        def view(t):
+            return t.reshape(b, s, -1)[..., :d].reshape(b, s, heads, dh).transpose(1, 2)
+    return (q, k, v), strides, out_shape, out_strides, view
+
+
+def check_attention_core() -> None:
+    """The attention core that A, E, G, H and I share, against its plain
+    version (``_sdpa_reference``) at full width (12 heads of dh 64) on the
+    ragged shapes: S in CORE_SEQS with every key and with valid_len = S - 3,
+    each stride layout, f32 and bf16 output, the softmax by division and by
+    the reciprocal multiply."""
+    import torch
+
+    from manga_ocr_tpu_torch.kernels import launch
+    from manga_ocr_tpu_torch.ops.flash_attention import _sdpa_reference
+
+    heads, dh, b = 12, 64, 4
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    worst, cases = 0.0, 0
+    for layout in CORE_LAYOUTS:
+        for s in CORE_SEQS:
+            (q, k, v), strides, out_shape, out_strides, view = core_inputs(
+                layout, b, s, heads, dh, gen)
+            for valid in (s, s - 3):
+                for out_dtype in (torch.float32, torch.bfloat16):
+                    for divide in (True, False):
+                        out = torch.empty(out_shape, dtype=out_dtype, device="cuda")
+                        launch._attention(q, k, v, strides, out, out_strides, b, s, heads, dh,
+                                          valid, 1.0 / dh**0.5, divide)
+                        want = _sdpa_reference(view(q).float(), view(k).float(),
+                                               view(v).float(), valid, divide, torch.bfloat16)
+                        max_abs, _ = compare("attention core",
+                                             f"{layout} S={s} valid={valid} {out_dtype} "
+                                             f"divide={divide}", view(out),
+                                             want.to(out_dtype))
+                        worst = max(worst, max_abs / float(want.abs().max()))
+                        cases += 1
+    log(f"attention core: {cases} ragged cases within bounds, largest max_abs_err "
+        f"{worst} of the largest output")
+
+
+def core_times() -> dict:
+    """CUDA-event ms of the attention core alone at the main path's shape
+    (B=256, S=197, 12 heads of dh 64, every key), in each stride layout,
+    output type and softmax normalisation (division or the reciprocal
+    multiply), 20 launches each after a warm one."""
+    import torch
+
+    from manga_ocr_tpu_torch.kernels import launch
+
+    b, s, heads, dh = 256, 197, 12, 64
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    times = {}
+    for layout in CORE_LAYOUTS:
+        (q, k, v), strides, out_shape, out_strides, _ = core_inputs(layout, b, s, heads, dh, gen)
+        for out_dtype in (torch.float32, torch.bfloat16):
+            out = torch.empty(out_shape, dtype=out_dtype, device="cuda")
+            for divide in (True, False):
+                times[f"{layout} {str(out_dtype)[6:]} {'divide' if divide else 'reciprocal'}"] = \
+                    cuda_ms(lambda: launch._attention(q, k, v, strides, out, out_strides, b, s,
+                                                      heads, dh, s, 1.0 / dh**0.5, divide),
+                            reps=20)
+    return times
+
+
+# ``--core-times ROOT...``: core_times() in one child process per ROOT (a
+# tree of the repository, e.g. another commit unpacked with git archive,
+# whose kernels the child builds), in the order given: list a pair as
+# A B B A to compare two trees on one card.
+CORE_TIMES_CHILD = """
+import json, runpy, sys
+sys.path.insert(0, sys.argv[1])
+print(json.dumps(runpy.run_path(sys.argv[2])["core_times"]()))
+"""
+
+
+def compare_core_times(roots: list) -> None:
+    for root in roots:
+        out = subprocess.run([sys.executable, "-c", CORE_TIMES_CHILD, os.path.abspath(root),
+                              os.path.abspath(__file__)], capture_output=True, text=True)
+        if out.returncode != 0:
+            fail(f"core times of {root}: {out.stderr.strip()[-2000:]}")
+        log(f"core times of {root}: {out.stdout.strip().splitlines()[-1]}")
 
 
 def bound(nbytes: float, ops: dict) -> tuple[float, str]:
@@ -1625,11 +1777,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     log(card)
+    if sys.argv[1:2] == ["--core-times"] and sys.argv[2:]:
+        compare_core_times(sys.argv[2:])
+        return 0
     if sys.argv[1:] == ["--stack-floor"]:
         stack_floor()
         return 0
     if sys.argv[1:]:
-        fail(f"unknown arguments {sys.argv[1:]}; usage: chip_smoke.py [--stack-floor]")
+        fail(f"unknown arguments {sys.argv[1:]}; usage: chip_smoke.py "
+             f"[--stack-floor | --core-times ROOT...]")
 
     from manga_ocr_tpu_torch.engine.engine import _cast_quantized
     from manga_ocr_tpu_torch.kernels import build
@@ -1642,7 +1798,11 @@ def main() -> int:
     build.load(verbose=True)
     log(f"kernels built in {time.time() - t0:.1f} s")
     log_ptxas(build.last_build_log)
+    log_core_ptxas(build.last_build_log)
     phase("build")
+    check_attention_core()
+    log(f"attention core alone, B=256: ms {json.dumps(core_times())} on {card}")
+    phase("attention core")
 
     cfg = with_serving_kernels(MangaOCRConfig.base(), quantized=True)
     raw = init_params(cfg, SEED, "cuda", std=WEIGHT_STD)

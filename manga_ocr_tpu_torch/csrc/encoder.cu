@@ -37,18 +37,29 @@
 //                  single-stage tile loop is bound by its own load latency
 //                  well below the int8 tensor-core peak.  Pipelined loads
 //                  (cp.async / TMA) and wgmma are the next steps.
-//   attention      one block per (batch row, head): K and V of that head in
-//                  shared memory, one warp per query row, f32 scores of bf16
-//                  products scaled by 1/sqrt(dh), keys >= valid_len masked,
-//                  softmax exp(s - max) * (1/sum) for A and H (_attn_core)
-//                  and exp(s - max) / sum for E, G and I, p rounded to bf16,
-//                  PV in f32, the context written in f32 (int8 A, which
-//                  row-quantizes it next) or bf16 (bf16 A, E, G).  q, k, v
+//   attention      the SDPA core of A (_attn_core), E (_packed_kernel), G
+//                  (_attn_kernel) and the attention half of H and I: f32
+//                  logits of bf16 q.k scaled by 1/sqrt(dh), keys >= valid_len
+//                  masked, softmax exp(s - max) * (1/sum) for A and H and
+//                  exp(s - max) / sum for E, G and I, p rounded to bf16, PV
+//                  in f32, the context written in f32 (int8 A, H, I, which
+//                  row-quantize it next) or bf16 (bf16 A, E, G).  q, k, v
 //                  and the output are addressed by (batch, head, row)
 //                  strides, so one core reads A's q|k|v GEMM output, E's
 //                  three [B, S, D] tensors and G's [B, H, S, dh] ones.
-//                  Bound: exp and shared-memory reads; S=197 fits a head's
-//                  K/V (51 KB) whole, so no online softmax is needed.
+//                  One block per (batch row, head), 4 warps: K and V of the
+//                  head staged whole in shared memory by cp.async (S = 197
+//                  fits, so no online softmax), each warp a 16-row query
+//                  tile at a time on the tensor cores (mma.sync m16n8k16
+//                  with ldmatrix fragments for QK^T and PV), the score tile
+//                  and the softmax in registers.  Bound: DRAM bytes (q, k, v
+//                  read once, the context written once: ~310 MB, 0.09 ms at
+//                  B=256, against ~31 GFLOP that mma.sync covers in about
+//                  half that); what the design does about it: no pass of
+//                  scores or probabilities through memory, V's copy in
+//                  flight behind the first tiles' QK^T, and three blocks per
+//                  SM (dh <= 64) to overlap one block's staging with
+//                  another's products.
 //
 // Not carried over from the TPU kernels: the batch-group blocking against
 // VMEM, A's 197 -> 200 and E's and G's 197 -> 256 sequence pads (the port
@@ -198,108 +209,341 @@ int8_gemm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ Bt,
 // Attention core: out[b, h, i, :] = softmax(q[b, h, i, :] k[b, h]^T * scale) v[b, h]
 // ---------------------------------------------------------------------------
 
-constexpr int ATTN_THREADS = 256, ATTN_WARPS = ATTN_THREADS / 32, DH_MAX = 128;
-
 // Element strides of a (batch, head, row) addressed tensor; element c of
 // row i of head h of batch item b is at b * b_ + h * h_ + i * s_ + c.
 struct Strides {
   long long b_, h_, s_;
 };
 
-__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+typedef __nv_bfloat16 bf16;
 
-// One block per (batch row, head).  q, k and v share the input strides
+// The core: 4 warps per block, 16-row query tiles, keys in chunks of 16,
+// at most CORE_CHUNKS chunks (the score tile of a query tile is held in
+// registers whole).  Head dims up to 128 (multiples of 8), each run by the
+// smallest of the DH = 16, 64, 128 forms that holds it (zero columns pad
+// the rest).
+constexpr int CORE_WARPS = 4, CORE_THREADS = 32 * CORE_WARPS, CORE_CHUNKS = 13;
+constexpr int CORE_MAX_KEYS = 16 * CORE_CHUNKS, CORE_DH_MAX = 128;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, past L1; ``bytes`` = 0 writes 16 zero bytes
+// (and reads nothing).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most ``N`` of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
+// row (l & 7) of matrix (l >> 3), and r[m] is matrix m's fragment (``trans``:
+// of the transposed matrix).
+template <bool kTrans>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  if constexpr (kTrans)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_u32(p))
+                 : "memory");
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_u32(p))
+                 : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// a / b for a softmax numerator a in [0, 1] and its row sum b >= 1, given
+// rb = 1/b correctly rounded (__frcp_rn): q0 = a * rb, one residual step
+// brings q within one ulp of a / b, and then (Markstein's theorem) the
+// residual a - b q is exact and q + residual * rb rounds to the correctly
+// rounded quotient -- what __fdiv_rn returns, in five instructions with no
+// range check, as long as nothing underflows: a = 0 gives 0, and an a of at
+// least e^kDivMinLogit (> 2^-58) is far from it (the sequence stays exact
+// down to a ~ 2^-119); the caller divides smaller ones with __fdiv_rn.
+constexpr float kDivMinLogit = -40.0f;
+
+__device__ __forceinline__ float div_by_sum(float a, float b, float rb) {
+  float q = __fmul_rn(a, rb);
+  q = __fmaf_rn(__fmaf_rn(-b, q, a), rb, q);
+  return __fmaf_rn(__fmaf_rn(-b, q, a), rb, q);
+}
+
+// One block per (batch row, head); q, k and v share the input strides
 // ``in`` (kernels A, H and I read the q|k|v GEMM output [B*S, 3D], kernel E
-// three [B, S, D] tensors, kernel G three [B, H, S, dh] ones); the output
-// has its own.  The softmax normalises with a reciprocal multiply (A's and
-// H's _attn_core) or a division (E's _packed_kernel, G's _attn_kernel, I's
-// _one_layer); the output is f32 (int8 A, H and I, which row-quantize it
-// next) or bf16.
-template <bool kDivide, typename OutT>
-__global__ void __launch_bounds__(ATTN_THREADS)
-attention_kernel(const __nv_bfloat16* __restrict__ qg, const __nv_bfloat16* __restrict__ kg,
-                 const __nv_bfloat16* __restrict__ vg, Strides in, OutT* __restrict__ out,
-                 Strides os, int S, int H, int dh, int valid_len, float scale) {
+// three [B, S, D] tensors, kernel G three [B, H, S, dh] ones), the output
+// has its own.
+//
+// K and V of the head are staged whole in shared memory by cp.async
+// (K first, then V in a second group that lands while the first query
+// tiles run QK^T and the softmax), rows padded to CORE_MAX_KEYS and head
+// columns to DH with zeros (so every loop over keys runs its full,
+// branch-free length), each row DH + 8 halves long so that the eight rows
+// of an ldmatrix fall on eight different 16-byte bank groups.
+// Each warp takes query tiles w, w + 4, ... of 16 rows, each copied by
+// cp.async into the warp's own buffer while the warp works on the tile
+// before it:
+//   QK^T   Q and K fragments by ldmatrix.x4, mma.sync m16n8k16 into the
+//          16 x 16*CORE_CHUNKS f32 score tile, held in registers;
+//   mask   logits = s * scale (__fmul_rn), keys >= valid_len set to kNegInf
+//          and the padded keys >= S to -inf (their p is exactly 0);
+//   softmax row max and sum over each thread's columns and then across the
+//          quad that holds the row (two __shfl_xor), p = expf(s - max),
+//          divided by the sum (``divide``: E, G, I) or multiplied by its
+//          reciprocal (A, H), rounded to bf16 and packed straight into the
+//          A fragments of PV (the C layout of two neighbouring n8 tiles is
+//          the m16n8k16 A layout), so p never touches shared memory;
+//   PV     V fragments by ldmatrix.x4.trans, mma.sync into 16 x DH f32
+//          accumulators; rows < S and columns < dh stored as float2 (f32
+//          out: int8 A, H and I, which row-quantize it next) or bf16 pairs.
+template <int DH>
+__global__ void __launch_bounds__(CORE_THREADS, DH <= 64 ? 3 : 2)
+attention_kernel(const bf16* __restrict__ qg, const bf16* __restrict__ kg,
+                 const bf16* __restrict__ vg, Strides in, void* __restrict__ out, Strides os,
+                 int out_bf16, int divide, int S, int H, int dh, int valid_len, float scale) {
+  constexpr int LD = DH + 8;               // halves per staged row
+  constexpr int ROW_CHUNKS = DH / 8;       // 16-byte chunks per staged row
+  constexpr int KK = DH / 16;              // k16 steps of QK^T
   extern __shared__ __align__(16) unsigned char smem[];
-  const int ldk = dh + 2;  // +2 halves: conflict-free K row reads
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Vs = Ks + S * ldk;
-  float* qs = reinterpret_cast<float*>(Vs + S * dh);  // [warps][dh]
-  float* ps = qs + ATTN_WARPS * dh;                   // [warps][S]
+  const int nch = (S + 15) >> 4;           // query tiles
+  bf16* Ks = reinterpret_cast<bf16*>(smem);  // every chunk staged: zeros past S
+  bf16* Vs = Ks + CORE_MAX_KEYS * LD;
+  bf16* Qs = Vs + CORE_MAX_KEYS * LD;      // a 16-row query tile per warp
   const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;  // fragment row group, thread in quad
   const long long in0 = b * in.b_ + h * in.h_, out0 = b * os.b_ + h * os.h_;
-  const int half_dh = dh / 2;
 
-  for (int idx = threadIdx.x; idx < S * half_dh; idx += ATTN_THREADS) {
-    const int j = idx / half_dh, c = idx % half_dh;
-    const long long off = in0 + j * in.s_ + 2 * c;
-    *reinterpret_cast<__nv_bfloat162*>(Ks + j * ldk + 2 * c) =
-        *reinterpret_cast<const __nv_bfloat162*>(kg + off);
-    *reinterpret_cast<__nv_bfloat162*>(Vs + j * dh + 2 * c) =
-        *reinterpret_cast<const __nv_bfloat162*>(vg + off);
-  }
+  // Stage rows [row0, row0 + rows) of a head tensor into ``dst`` (one
+  // 16-byte piece per thread of ``lanes`` threads at a time), rows >= S and
+  // columns >= dh zero-filled.
+  const int dh_chunks = dh >> 3;
+  auto stage = [&](bf16* dst, const bf16* src, int row0, int rows, int first, int lanes) {
+    for (int idx = first; idx < rows * ROW_CHUNKS; idx += lanes) {
+      const int r = idx / ROW_CHUNKS, c = idx % ROW_CHUNKS, j = row0 + r;
+      const bool real = j < S && c < dh_chunks;
+      cp_async16(dst + r * LD + c * 8, src + (real ? in0 + j * in.s_ + c * 8 : in0),
+                 real ? 16 : 0);
+    }
+  };
+  // group 0: K and each warp's first query tile; group 1: V
+  bf16* Qw = Qs + warp * 16 * LD;  // this warp's query tile
+  stage(Ks, kg, 0, CORE_MAX_KEYS, tid, CORE_THREADS);
+  if (warp < nch) stage(Qw, qg, warp * 16, 16, lane, 32);
+  cp_async_commit();
+  stage(Vs, vg, 0, CORE_MAX_KEYS, tid, CORE_THREADS);
+  cp_async_commit();
+  cp_async_wait<1>();
   __syncthreads();
 
-  float* q = qs + warp * dh;
-  float* p = ps + warp * S;
-  for (int i = warp; i < S; i += ATTN_WARPS) {
-    for (int d = lane; d < dh; d += 32) q[d] = __bfloat162float(qg[in0 + i * in.s_ + d]);
-    __syncwarp();
-    float mx = -INFINITY;
-    for (int j = lane; j < S; j += 32) {
-      const __nv_bfloat162* kr = reinterpret_cast<const __nv_bfloat162*>(Ks + j * ldk);
-      float s = 0.0f;  // bf16 x bf16 products are exact in f32
-      for (int c = 0; c < half_dh; ++c) {
-        const float2 kv = __bfloat1622float2(kr[c]);
-        s += q[2 * c] * kv.x;
-        s += q[2 * c + 1] * kv.y;
+  // ldmatrix row addresses of this lane: K (non-transposed, key rows x
+  // head columns) gives the B fragments of two n8 key tiles for one k16
+  // step; V (transposed) those of two n8 head-column tiles for one k16 key
+  // chunk; Q (non-transposed) the A fragment of one k16 step.
+  const int k_row = (lane & 7) + ((lane >> 4) << 3), k_col = ((lane >> 3) & 1) << 3;
+  const int v_row = (lane & 7) + (((lane >> 3) & 1) << 3), v_col = (lane >> 4) << 3;
+
+  const int rounds = (nch + CORE_WARPS - 1) / CORE_WARPS;  // the same for every warp
+  for (int it = 0; it < rounds; ++it) {
+    const int tile = it * CORE_WARPS + warp;
+    const bool active = tile < nch;
+    const int r0 = tile * 16 + g, r1 = r0 + 8;  // this thread's two query rows
+    uint32_t pa[CORE_CHUNKS][4];                // p of key chunk c as an A fragment
+    if (active) {
+      if (it > 0) {  // this tile's Q, copied during the last one
+        cp_async_wait<0>();
+        __syncwarp();
       }
-      s = j < valid_len ? __fmul_rn(s, scale) : kNegInf;
-      p[j] = s;
-      mx = fmaxf(mx, s);
+      uint32_t qa[KK][4];
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk) ldmatrix_x4<false>(qa[kk], Qw + v_row * LD + kk * 16 + v_col);
+      __syncwarp();  // every lane has its fragments: the buffer takes the next tile
+      if (tile + CORE_WARPS < nch) stage(Qw, qg, (tile + CORE_WARPS) * 16, 16, lane, 32);
+      cp_async_commit();
+      // s[n][0..1]: row r0, keys 8n + 2t, +1; s[n][2..3]: row r1
+      float s[2 * CORE_CHUNKS][4];
+#pragma unroll
+      for (int c = 0; c < CORE_CHUNKS; ++c) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[2 * c][e] = s[2 * c + 1][e] = 0.0f;
+#pragma unroll
+        for (int kk = 0; kk < KK; ++kk) {
+          uint32_t kb[4];
+          ldmatrix_x4<false>(kb, Ks + (c * 16 + k_row) * LD + kk * 16 + k_col);
+          const uint32_t b0[2] = {kb[0], kb[1]}, b1[2] = {kb[2], kb[3]};
+          mma_bf16(s[2 * c], qa[kk], b0);
+          mma_bf16(s[2 * c + 1], qa[kk], b1);
+        }
+      }
+      // logits: every key scaled, then the n8 tiles that reach past
+      // min(S, valid_len) masked (the hot loops stay free of branches)
+#pragma unroll
+      for (int n = 0; n < 2 * CORE_CHUNKS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = __fmul_rn(s[n][e], scale);
+      float mn0 = INFINITY, mn1 = INFINITY;  // the rows' smallest logits (masked keys too)
+      if (divide) {
+#pragma unroll
+        for (int n = 0; n < 2 * CORE_CHUNKS; ++n) {
+          mn0 = fminf(mn0, fminf(s[n][0], s[n][1]));
+          mn1 = fminf(mn1, fminf(s[n][2], s[n][3]));
+        }
+      }
+      const int unmasked = min(S, valid_len);
+#pragma unroll
+      for (int n = 0; n < 2 * CORE_CHUNKS; ++n) {
+        if (n * 8 + 8 > unmasked) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int j = n * 8 + 2 * t + (e & 1);
+            if (j >= unmasked) s[n][e] = j >= S ? -INFINITY : kNegInf;
+          }
+        }
+      }
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < 2 * CORE_CHUNKS; ++n) {
+        mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+      }
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+      }
+      float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+      for (int n = 0; n < 2 * CORE_CHUNKS; ++n) {
+        s[n][0] = expf(s[n][0] - mx0);
+        s[n][1] = expf(s[n][1] - mx0);
+        s[n][2] = expf(s[n][2] - mx1);
+        s[n][3] = expf(s[n][3] - mx1);
+        sum0 += s[n][0] + s[n][1];
+        sum1 += s[n][2] + s[n][3];
+      }
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        sum0 += __shfl_xor_sync(0xffffffffu, sum0, o);
+        sum1 += __shfl_xor_sync(0xffffffffu, sum1, o);
+      }
+      // every p is 0 or at least e^kDivMinLogit unless a logit lies further
+      // below its row's max: then every p is divided the long way
+      const bool tiny = mn0 - mx0 < kDivMinLogit || mn1 - mx1 < kDivMinLogit;
+      if (divide && !tiny) {  // e / sum, exactly as IEEE division (div_by_sum)
+        const float r0s = __frcp_rn(sum0), r1s = __frcp_rn(sum1);
+#pragma unroll
+        for (int n = 0; n < 2 * CORE_CHUNKS; ++n) {
+          s[n][0] = div_by_sum(s[n][0], sum0, r0s);
+          s[n][1] = div_by_sum(s[n][1], sum0, r0s);
+          s[n][2] = div_by_sum(s[n][2], sum1, r1s);
+          s[n][3] = div_by_sum(s[n][3], sum1, r1s);
+        }
+      } else if (divide) {
+#pragma unroll
+        for (int n = 0; n < 2 * CORE_CHUNKS; ++n) {
+          s[n][0] = __fdiv_rn(s[n][0], sum0);
+          s[n][1] = __fdiv_rn(s[n][1], sum0);
+          s[n][2] = __fdiv_rn(s[n][2], sum1);
+          s[n][3] = __fdiv_rn(s[n][3], sum1);
+        }
+      } else {
+        const float inv0 = 1.0f / sum0, inv1 = 1.0f / sum1;
+#pragma unroll
+        for (int n = 0; n < 2 * CORE_CHUNKS; ++n) {
+          s[n][0] = __fmul_rn(s[n][0], inv0);
+          s[n][1] = __fmul_rn(s[n][1], inv0);
+          s[n][2] = __fmul_rn(s[n][2], inv1);
+          s[n][3] = __fmul_rn(s[n][3], inv1);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < CORE_CHUNKS; ++c) {
+        pa[c][0] = pack_bf16x2(s[2 * c][0], s[2 * c][1]);
+        pa[c][1] = pack_bf16x2(s[2 * c][2], s[2 * c][3]);
+        pa[c][2] = pack_bf16x2(s[2 * c + 1][0], s[2 * c + 1][1]);
+        pa[c][3] = pack_bf16x2(s[2 * c + 1][2], s[2 * c + 1][3]);
+      }
     }
-    mx = warp_max(mx);
-    float sum = 0.0f;
-    for (int j = lane; j < S; j += 32) {
-      const float e = expf(p[j] - mx);
-      p[j] = e;
-      sum += e;
+    if (it == 0) {  // V has landed before the first PV
+      cp_async_wait<0>();
+      __syncthreads();
     }
-    sum = warp_sum(sum);
-    const float inv = 1.0f / sum;
-    for (int j = lane; j < S; j += 32)
-      p[j] = bf16_round(kDivide ? __fdiv_rn(p[j], sum) : __fmul_rn(p[j], inv));
-    __syncwarp();
-    for (int d = lane; d < dh; d += 32) {
-      float acc = 0.0f;
-      for (int j = 0; j < S; ++j) acc += p[j] * __bfloat162float(Vs[j * dh + d]);
-      store_out(out + out0 + i * os.s_ + d, acc);
+    if (active) {
+      float o[DH / 8][4];
+#pragma unroll
+      for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < CORE_CHUNKS; ++c) {
+#pragma unroll
+        for (int np = 0; np < DH / 16; ++np) {
+          uint32_t vb[4];
+          ldmatrix_x4<true>(vb, Vs + (c * 16 + v_row) * LD + np * 16 + v_col);
+          const uint32_t b0[2] = {vb[0], vb[1]}, b1[2] = {vb[2], vb[3]};
+          mma_bf16(o[2 * np], pa[c], b0);
+          mma_bf16(o[2 * np + 1], pa[c], b1);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < DH / 8; ++n) {
+        const int col = n * 8 + 2 * t;
+        if (col >= dh) continue;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = half ? r1 : r0;
+          if (row >= S) continue;
+          const long long off = out0 + row * os.s_ + col;
+          if (out_bf16)
+            *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) + off) =
+                __floats2bfloat162_rn(o[n][2 * half], o[n][2 * half + 1]);
+          else
+            *reinterpret_cast<float2*>(static_cast<float*>(out) + off) =
+                make_float2(o[n][2 * half], o[n][2 * half + 1]);
+        }
+      }
     }
-    __syncwarp();
   }
 }
 
-template <bool kDivide, typename OutT>
+template <int DH>
 int launch_attention(const void* q, const void* k, const void* v, Strides in, void* out,
-                     Strides os, int B, int S, int H, int dh, int valid_len, float scale,
-                     cudaStream_t stream) {
-  const size_t smem = (size_t)S * (dh + 2) * 2 + (size_t)S * dh * 2 +
-                      (size_t)ATTN_WARPS * dh * 4 + (size_t)ATTN_WARPS * S * 4;
-  cudaError_t err = cudaFuncSetAttribute(attention_kernel<kDivide, OutT>,
+                     Strides os, int out_bf16, int divide, int B, int S, int H, int dh,
+                     int valid_len, float scale, cudaStream_t stream) {
+  const size_t smem = (2 * (size_t)CORE_MAX_KEYS + CORE_WARPS * 16) * (DH + 8) * sizeof(bf16);
+  cudaError_t err = cudaFuncSetAttribute(attention_kernel<DH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  attention_kernel<kDivide, OutT><<<B * H, ATTN_THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), in, static_cast<OutT*>(out), os, S, H, dh, valid_len,
-      scale);
+  attention_kernel<DH><<<B * H, CORE_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), in,
+      out, os, out_bf16, divide, S, H, dh, valid_len, scale);
   return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
 // Kernel A's sdpa_int8 core: QK^T and PV on int8 with dynamic quantization
 // ---------------------------------------------------------------------------
+
+constexpr int ATTN_THREADS = 256, ATTN_WARPS = ATTN_THREADS / 32, DH_MAX = 128;
+
+__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 // One block per (batch row, head), as the core above, with every
 // quantization of the head inside the block:
@@ -512,19 +756,20 @@ int mocr_attention(const void* q, const void* k, const void* v, long long in_b, 
                    long long in_s, void* out, long long out_b, long long out_h, long long out_s,
                    int out_bf16, int divide, int B, int S, int H, int dh, int valid_len,
                    float scale, void* stream) {
-  // bf16 pairs are read as one 32-bit word: every offset must be even
-  if (dh > DH_MAX || dh % 2 || (in_b | in_h | in_s) % 2) return (int)cudaErrorInvalidValue;
+  // cp.async copies 16-byte pieces of q/k/v rows (element strides multiples
+  // of 8, 16-byte bases); the output is written in pairs (even strides)
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v);
+  if (dh < 8 || dh > CORE_DH_MAX || dh % 8 || S < 1 || S > CORE_MAX_KEYS ||
+      (in_b | in_h | in_s) % 8 || bases % 16 || (out_b | out_h | out_s) % 2 ||
+      reinterpret_cast<uintptr_t>(out) % 8)
+    return (int)cudaErrorInvalidValue;
   const Strides in{in_b, in_h, in_s}, os{out_b, out_h, out_s};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (divide)
-    return out_bf16 ? launch_attention<true, __nv_bfloat16>(q, k, v, in, out, os, B, S, H, dh,
-                                                            valid_len, scale, st)
-                    : launch_attention<true, float>(q, k, v, in, out, os, B, S, H, dh,
-                                                    valid_len, scale, st);
-  return out_bf16 ? launch_attention<false, __nv_bfloat16>(q, k, v, in, out, os, B, S, H, dh,
-                                                           valid_len, scale, st)
-                  : launch_attention<false, float>(q, k, v, in, out, os, B, S, H, dh, valid_len,
-                                                   scale, st);
+  auto* launch = dh <= 16 ? launch_attention<16>
+                 : dh <= 64 ? launch_attention<64>
+                            : launch_attention<128>;
+  return launch(q, k, v, in, out, os, out_bf16, divide, B, S, H, dh, valid_len, scale, st);
 }
 
 }  // extern "C"

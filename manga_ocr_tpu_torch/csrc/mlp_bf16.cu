@@ -55,15 +55,6 @@ constexpr int LDA = BK + 8;   // bf16 per A row in shared memory (80 bytes)
 constexpr int LDB = BN + 8;   // bf16 per B row in shared memory (272 bytes)
 constexpr int GEMM_THREADS = 256;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // Two bf16 values as one 32-bit register, ``lo`` in the low half (the
 // lower k index, as the mma fragments expect).
 __device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {

@@ -73,7 +73,7 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
-last_build_log = ""  # nvcc's output of the build this process ran, if any
+last_build_log = ""  # nvcc's output of the library this process loaded, if known
 
 
 def _sources() -> list[str]:
@@ -100,11 +100,16 @@ def _nvcc() -> str:
 def build(verbose: bool = False) -> str:
     """Compile the library if no library for the current sources exists;
     return its path.  ``verbose`` adds ``-Xptxas -v`` (registers, shared
-    memory and spills per kernel) to a fresh build's log."""
+    memory and spills per kernel) to the build's log, which is kept beside
+    the library and read into ``last_build_log`` when it is reused."""
     global last_build_log
     extra = ("-Xptxas", "-v") if verbose else ()
     path = os.path.join(BUILD_DIR, f"libmocr_cuda_{_key(extra)}.so")
+    log_path = path + ".log"  # the build's nvcc output, kept beside it
     if os.path.exists(path):
+        if os.path.exists(log_path):
+            with open(log_path) as f:
+                last_build_log = f.read()
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
@@ -134,6 +139,8 @@ def build(verbose: bool = False) -> str:
         last_build_log += proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{last_build_log}")
+        with open(log_path, "w") as f:
+            f.write(last_build_log)
         os.replace(tmp, path)
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -103,6 +103,21 @@ def int8_gemm(
     return out
 
 
+# The attention core (csrc/encoder.cu) holds a query tile's scores over at
+# most this many keys in registers, and copies q/k/v rows in 16-byte pieces.
+CORE_MAX_KEYS = 208
+CORE_DH_MAX = 128
+
+
+def _check_core(seq: int, dh: int, name: str) -> None:
+    """The shapes the attention core takes: a head dim that is a multiple
+    of 8 up to 128, and at most CORE_MAX_KEYS keys."""
+    if dh % 8 or not 8 <= dh <= CORE_DH_MAX:
+        raise ValueError(f"{name}: head dim {dh} unsupported (a multiple of 8, <= {CORE_DH_MAX})")
+    if not 1 <= seq <= CORE_MAX_KEYS:
+        raise ValueError(f"{name}: sequence length {seq} unsupported (1..{CORE_MAX_KEYS} keys)")
+
+
 def _attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, in_strides: tuple[int, int, int],
     out: torch.Tensor, out_strides: tuple[int, int, int], batch: int, seq: int, heads: int,
@@ -110,10 +125,25 @@ def _attention(
 ) -> torch.Tensor:
     """The attention core on (batch, head, row) element strides, or, with
     ``sdpa_int8``, kernel A's int8 core (the softmax multiplies by the
-    reciprocal); the caller has checked shapes, types and strides."""
-    if dh % 2 or dh > 128 or (sdpa_int8 and (dh % 4 or divide)):
-        raise ValueError(f"attention: head dim {dh} unsupported (even, <= 128; int8: dh % 4 == 0 "
-                         f"and no division)")
+    reciprocal); the caller has checked shapes and types.  Raises
+    ValueError, before any build or launch, for what the core does not
+    take: see ``_check_core``; q/k/v element strides that are not multiples
+    of 8 or bases not 16-byte aligned (its cp.async copies), odd output
+    strides."""
+    if sdpa_int8:
+        if dh % 4 or dh > 128 or divide:
+            raise ValueError(f"attention: sdpa_int8 takes head dims that are multiples of 4, "
+                             f"<= 128, and no division; got dh={dh}, divide={divide}")
+    else:
+        _check_core(seq, dh, "attention")
+        if any(st % 8 for st in in_strides):
+            raise ValueError(f"attention: q/k/v element strides {tuple(in_strides)} must be "
+                             f"multiples of 8 (16-byte cp.async pieces)")
+        if any(st % 2 for st in out_strides):
+            raise ValueError(f"attention: output element strides {tuple(out_strides)} must be "
+                             f"even (pairs are stored together)")
+        for t, name in ((q, "q"), (k, "k"), (v, "v"), (out, "out")):
+            _expect_aligned(t, f"attention {name}")
     lib = build.load()
     if sdpa_int8:
         err = lib.mocr_attention_sdpa_int8(
@@ -312,6 +342,7 @@ def encoder_layers(
         raise ValueError(f"encoder_layers: D={d} is not a multiple of {heads} heads")
     if d % 64 or inter % 64:
         raise ValueError(f"encoder_layers: needs D and I multiples of 64, got D={d} I={inter}")
+    _check_core(s, d // heads, "encoder_layers")
     int8 = _expect_weights(weights, (n_l,), d, inter, "encoder_layers")
     _expect(x, torch.bfloat16, (b, s, d), "encoder_layers x")
     specs = _scratch_spec(b * s, d, inter, int8)

@@ -10,8 +10,10 @@ does not need and may not have.)
 
 Shapes are small but satisfy the kernels' constraints (int8 GEMM K % 64 ==
 0 and even N, bf16 GEMM K % 32 == 0 and N % 8 == 0, head dims multiples of
-8, vocab a multiple of 512; the decode-step kernels J and K also at dh 96;
-the whole encoder blocks H and I at D 128, I 256, three stacked layers).
+8, at most 208 keys in the attention core, vocab a multiple of 512; the
+decode-step kernels J and K also at dh 96; the whole encoder blocks H and
+I at D 128, I 256, three stacked layers; the attention core also at dh 16,
+48 and 128 and on ragged sequence lengths).
 Tolerances: see chip_smoke.py — the int8
 products are exact, so encoder outputs differ by at most a few bf16 ulps of
 the largest output; decode tokens are scored by the plain version fed the
@@ -44,6 +46,11 @@ def device():
     if not (shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc")):
         pytest.skip("needs nvcc")
     return torch.device("cuda")
+
+
+def _randn(rng, shape, device, dtype=torch.float32):
+    """Standard normal values made with numpy (not torch's global RNG)."""
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(device, dtype)
 
 
 def _quantized_dense(rng, k, n, device):
@@ -171,7 +178,7 @@ def test_decode_loop_kernel_tokens_are_greedy_under_plain_model(device):
 
     cfg = MangaOCRConfig.tiny()
     params = mdl.cast_params(init_params(cfg, 0, device)["decoder"], torch.bfloat16)
-    enc = torch.randn((5, cfg.encoder.seq_len, 64), device=device).to(torch.bfloat16)
+    enc = _randn(np.random.default_rng(20), (5, cfg.encoder.seq_len, 64), device, torch.bfloat16)
     cross = dec.precompute_cross_kv_packed(params, enc, cfg.decoder)
     for stops in (None, torch.tensor([2, 4, 6, 8, 30], device=device)):
         tokens, lengths = dl.greedy_decode_loop(params, cross, cfg.decoder, 20, stop_lengths=stops)
@@ -206,9 +213,9 @@ def test_decode_loop_new_forms_tokens_are_greedy_under_plain_model(device, form)
         params = quantize_decoder(params)
     params = _cast_quantized(params, torch.bfloat16)  # int8 weights and f32 scales kept
     s_valid = cfg.encoder.seq_len
-    raw = (2 * torch.randn((5, s_valid + 3, 64), device=device) + 0.5).to(torch.bfloat16)
-    fln = {"scale": 1 + 0.1 * torch.randn(64, device=device),
-           "bias": 0.1 * torch.randn(64, device=device)}
+    rng = np.random.default_rng(21)
+    raw = (2 * _randn(rng, (5, s_valid + 3, 64), device) + 0.5).to(torch.bfloat16)
+    fln = {"scale": 1 + 0.1 * _randn(rng, (64,), device), "bias": 0.1 * _randn(rng, (64,), device)}
     enc = layer_norm(raw[:, :s_valid], fln["scale"], fln["bias"], cfg.decoder.layer_norm_eps)
     cross = dec.precompute_cross_kv_packed(params, enc, cfg.decoder)
     before = dict(dl.greedy_decode_loop.launches_by_form)
@@ -235,7 +242,7 @@ def test_decode_loop_ablate_and_gelu_tokens_are_greedy_under_plain_model(device,
 
     cfg = MangaOCRConfig.tiny()
     params = mdl.cast_params(init_params(cfg, 1, device)["decoder"], torch.bfloat16)
-    enc = torch.randn((5, cfg.encoder.seq_len, 64), device=device).to(torch.bfloat16)
+    enc = _randn(np.random.default_rng(22), (5, cfg.encoder.seq_len, 64), device, torch.bfloat16)
     cross = dec.precompute_cross_kv_packed(params, enc, cfg.decoder)
     tokens, lengths = dl.greedy_decode_loop(params, cross, cfg.decoder, 20, **options)
     gaps, top = dl.teacher_forced_gaps(params, cross, cfg.decoder, tokens, **options)
@@ -251,7 +258,7 @@ def test_decode_loop_ablate_head_emits_prev_plus_one(device):
     cfg = MangaOCRConfig.tiny()
     dcfg = dataclasses.replace(cfg.decoder, eos_token_id=1000)  # past the vocab: never emitted
     params = mdl.cast_params(init_params(cfg, 2, device)["decoder"], torch.bfloat16)
-    enc = torch.randn((3, cfg.encoder.seq_len, 64), device=device).to(torch.bfloat16)
+    enc = _randn(np.random.default_rng(23), (3, cfg.encoder.seq_len, 64), device, torch.bfloat16)
     cross = dec.precompute_cross_kv_packed(params, enc, dcfg)
     steps = 30  # prev + 1 runs past the 100-id vocab: zero embedding rows
     tokens, lengths = dl.greedy_decode_loop(params, cross, dcfg, steps, ablate="head")
@@ -430,7 +437,7 @@ def test_fused_layer_decode_runs_through_j_k_b_and_f(device):
         cfg.decoder, step_kernel="fused_layer", head_kernel="fused", cross_kv_int8=True))
     raw = init_params(cfg, 0, device)
     params = {"decoder": _cast_quantized(quantize_decoder(raw["decoder"]), torch.bfloat16)}
-    enc = torch.randn((3, cfg.encoder.seq_len, 64), device=device).to(torch.bfloat16)
+    enc = _randn(np.random.default_rng(24), (3, cfg.encoder.seq_len, 64), device, torch.bfloat16)
     wrappers = (dl.fused_self_attn_step, dl.fused_cross_attn_step, fm.fused_mlp_block,
                 fh.fused_greedy_head)
     before = [w.launches for w in wrappers]
@@ -487,6 +494,56 @@ def test_head_major_attention_kernel_matches_plain(device):
     torch.testing.assert_close(e, got.transpose(1, 2).reshape(3, 37, 128), atol=0, rtol=0)
 
 
+def _core_inputs(layout, rng, b, s, heads, dh, device):
+    """q, k, v in a layout the attention core reads (A's q|k|v GEMM output,
+    E's packed [B, S, D], G's [B, H, S, dh]), their (batch, head, row)
+    strides, an output of the layout's shape with its strides, and the
+    [B, H, S, dh] view of either."""
+    d = heads * dh
+    if layout == "heads":
+        q, k, v = (_randn(rng, (b, heads, s, dh), device, torch.bfloat16) for _ in range(3))
+        strides = (heads * s * dh, s * dh, dh)
+        return (q, k, v), strides, (b, heads, s, dh), strides, lambda t: t
+    if layout == "qkv":
+        qkv = _randn(rng, (b * s, 3 * d), device, torch.bfloat16)
+        q, k, v = qkv, qkv[:, d:], qkv[:, 2 * d:]
+        strides = (s * 3 * d, dh, 3 * d)
+    else:
+        q, k, v = (_randn(rng, (b, s, d), device, torch.bfloat16) for _ in range(3))
+        strides = (s * d, dh, d)
+
+    def view(t):
+        return t.reshape(b, s, -1)[..., :d].reshape(b, s, heads, dh).transpose(1, 2)
+    return (q, k, v), strides, (b, s, d), (s * d, dh, d), view
+
+
+@pytest.mark.parametrize("divide", [True, False], ids=["divide", "reciprocal"])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("dh", [16, 48, 64, 128])
+@pytest.mark.parametrize("layout", ["qkv", "packed", "heads"])
+def test_attention_core_matches_plain_on_ragged_shapes(device, layout, dh, out_dtype, divide):
+    """The tensor-core attention core shared by A, E, G, H and I against
+    its plain version: partial query and key tiles (S = 5, 17, 37, 197), a
+    whole tile (16), the key mask (valid_len = S - 3); each head-dim form
+    (16, 64, 128) and a head dim that the 64 form pads with zero columns
+    (48)."""
+    from manga_ocr_tpu_torch.kernels import launch
+    from manga_ocr_tpu_torch.ops.flash_attention import _sdpa_reference
+
+    rng = np.random.default_rng(15)
+    heads, b = 3, 2
+    for s in (5, 16, 17, 37, 197):
+        (q, k, v), strides, out_shape, out_strides, view = _core_inputs(layout, rng, b, s, heads,
+                                                                        dh, device)
+        for valid in (s, s - 3):
+            out = torch.empty(out_shape, dtype=out_dtype, device=device)
+            launch._attention(q, k, v, strides, out, out_strides, b, s, heads, dh, valid,
+                              1.0 / dh**0.5, divide)
+            want = _sdpa_reference(view(q).float(), view(k).float(), view(v).float(), valid,
+                                   divide, torch.bfloat16).to(out_dtype)
+            assert _within(view(out), want), (s, valid)
+
+
 def _layer_params(rng, device, int8, layers=None):
     """One layer's params (D 128, 2 heads, I 256), or ``layers`` stacked
     [L, ...] layers'; float weights stay f32 (the kernels and the plain
@@ -501,7 +558,7 @@ def _layer_params(rng, device, int8, layers=None):
     for ln in ("ln1", "ln2"):
         for name, shift in (("scale", 1.0), ("bias", 0.0)):
             t = enc["layers"][ln][name]
-            enc["layers"][ln][name] = shift + 0.1 * torch.randn(t.shape, device=device)
+            enc["layers"][ln][name] = shift + 0.1 * _randn(rng, tuple(t.shape), device)
     if int8:
         enc = quantize_encoder(enc, quantize_attn_proj=True)
     return enc["layers"] if layers else layer_params(enc["layers"], 0)

@@ -8,7 +8,10 @@ kernel H's plain version against the JAX ``fused_encoder_layer``, int8 and
 float, both GELUs; kernel E's plain version against the JAX
 ``attention_packed`` (which pads S to 128 and masks the padded keys) and
 ``mha_packed``; kernel G's against the JAX ``fused_attention`` (S not a
-multiple of 128) and ``mha_fused``.  Tolerance 1e-5: the int8 products are
+multiple of 128) and ``mha_fused``; E and G at ragged S (5, 17, 33: partial
+16-row tiles of the CUDA core), every key attended and with the last three
+masked; the CUDA attention core's shape limits raising ValueError before
+any build.  Tolerance 1e-5: the int8 products are
 exact in both; f32 sums (LN statistics, softmax, PV) run in another
 order."""
 
@@ -243,12 +246,30 @@ def _qkv(seed=3, b=2, s=5, d=64):
     return [rng.normal(size=(b, s, d)).astype(np.float32) for _ in range(3)]
 
 
-def test_packed_plain_version_matches_jax_kernel():
-    q, k, v = _qkv()
-    want = np.asarray(jax_packed(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), HEADS))
-    got = ta.attention_packed_reference(torch.tensor(q), torch.tensor(k), torch.tensor(v), HEADS)
-    assert got.shape == want.shape
-    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
+def _masked_row_blocks(s, n):
+    """Row blocks [i0, i0 + n) covering [0, s): the JAX kernels take no key
+    mask, so a valid_len = n output is held, block by block, to JAX on the
+    first n keys (query rows past n see the same keys)."""
+    return sorted({min(i0, s - n) for i0 in range(0, s, n)})
+
+
+# Ragged S for kernels E and G (dh 16): the CUDA core tiles queries and keys
+# by 16, so 5, 17 and 33 leave partial tiles; valid_len = S - 3 masks keys.
+RAGGED = [(s, v) for s in (5, 17, 33) for v in (s, s - 3)]
+RAGGED_IDS = [f"S{s}-{'unmasked' if v == s else 'masked'}" for s, v in RAGGED]
+
+
+@pytest.mark.parametrize("s,valid_len", RAGGED, ids=RAGGED_IDS)
+def test_packed_plain_version_matches_jax_kernel(s, valid_len):
+    q, k, v = _qkv(s=s)
+    tq, tk, tv = (torch.tensor(a) for a in (q, k, v))
+    got = ta.attention_packed_reference(tq, tk, tv, HEADS, valid_len=valid_len)
+    assert got.shape == q.shape
+    n = valid_len
+    for i0 in _masked_row_blocks(s, n):
+        want = np.asarray(jax_packed(jnp.asarray(q[:, i0:i0 + n]), jnp.asarray(k[:, :n]),
+                                     jnp.asarray(v[:, :n]), HEADS))
+        np.testing.assert_allclose(got[:, i0:i0 + n].numpy(), want, atol=TOL, rtol=TOL)
 
 
 def test_packed_valid_len_masks_keys_like_a_shorter_sequence():
@@ -285,18 +306,28 @@ def test_mha_packed_matches_jax():
     assert ta.attention_packed.launches == before
 
 
-def test_fused_attention_plain_version_matches_jax_kernel():
-    """G on [B, H, S, dh] with S = 5: JAX pads to 128 and masks the pads."""
+@pytest.mark.parametrize("s,valid_len", RAGGED, ids=RAGGED_IDS)
+def test_fused_attention_plain_version_matches_jax_kernel(s, valid_len):
+    """G on [B, H, S, dh]: JAX pads S to 128 and masks the pads.  G itself
+    attends every key; with keys masked, the plain version of the core
+    that the card holds G's layout to (``_sdpa_reference``, the softmax a
+    division) against JAX on the first valid_len keys."""
     rng = np.random.default_rng(8)
-    q, k, v = (rng.normal(size=(2, HEADS, 5, 16)).astype(np.float32) for _ in range(3))
-    want = np.asarray(jax_fused_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
+    q, k, v = (rng.normal(size=(2, HEADS, s, 16)).astype(np.float32) for _ in range(3))
     tq, tk, tv = (torch.tensor(a) for a in (q, k, v))
-    got = ta.fused_attention_reference(tq, tk, tv)
-    assert got.shape == want.shape
-    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
-    before = ta.fused_attention.launches
-    torch.testing.assert_close(ta.fused_attention(tq, tk, tv), got, atol=0, rtol=0)
-    assert ta.fused_attention.launches == before
+    if valid_len == s:
+        got = ta.fused_attention_reference(tq, tk, tv)
+        before = ta.fused_attention.launches
+        torch.testing.assert_close(ta.fused_attention(tq, tk, tv), got, atol=0, rtol=0)
+        assert ta.fused_attention.launches == before
+    else:
+        got = ta._sdpa_reference(tq, tk, tv, valid_len, True, torch.float32)
+    assert got.shape == q.shape
+    n = valid_len
+    for i0 in _masked_row_blocks(s, n):
+        want = np.asarray(jax_fused_attention(jnp.asarray(q[:, :, i0:i0 + n]),
+                                              jnp.asarray(k[:, :, :n]), jnp.asarray(v[:, :, :n])))
+        np.testing.assert_allclose(got[:, :, i0:i0 + n].numpy(), want, atol=TOL, rtol=TOL)
 
 
 def test_mha_fused_matches_jax():
@@ -309,3 +340,36 @@ def test_mha_fused_matches_jax():
     np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
     torch.testing.assert_close(ta.mha_fused(tx, tx, tp, HEADS, use_kernels=False), got,
                                atol=0, rtol=0)
+
+
+def _core_call(dh=16, seq=5, heads=2, in_strides=None, offset=0):
+    """launch._attention on CPU tensors of G's layout [B, H, S, dh] (the
+    element strides may be overridden; ``offset`` shifts q's base)."""
+    from manga_ocr_tpu_torch.kernels import launch
+
+    q, k, v = (torch.zeros((2, heads, seq, dh), dtype=torch.bfloat16) for _ in range(3))
+    strides = in_strides or (heads * seq * dh, seq * dh, dh)
+    qv = q.view(-1)[offset:] if offset else q
+    return launch._attention(qv, k, v, strides, torch.empty_like(q), strides, 2, seq, heads, dh,
+                             seq, 1.0 / dh**0.5, divide=True)
+
+
+@pytest.mark.parametrize("case,match", [
+    (dict(dh=12), "head dim 12"),
+    (dict(dh=136), "head dim 136"),
+    (dict(seq=209), "sequence length 209"),
+    (dict(in_strides=(2 * 5 * 16, 5 * 16, 20)), "multiples of 8"),
+    (dict(offset=4), "16-byte aligned"),
+], ids=["dh12", "dh136", "S209", "stride20", "misaligned"])
+def test_attention_core_refuses_what_it_does_not_take(case, match, monkeypatch):
+    """The tensor-core attention core's limits raise ValueError on the
+    tensors' own checks, before any build or launch (here on CPU tensors,
+    where a build would fail)."""
+    from manga_ocr_tpu_torch.kernels import build
+
+    def no_build(*args, **kwargs):
+        raise AssertionError("the kernels were built before the shapes were checked")
+
+    monkeypatch.setattr(build, "load", no_build)
+    with pytest.raises(ValueError, match=match):
+        _core_call(**case)
