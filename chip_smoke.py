@@ -4,7 +4,10 @@ Run from the repository root:  python3 chip_smoke.py
 (``python3 chip_smoke.py --stack-floor`` prints only the plain encoder
 stack's own noise floor, which sets ENC_STACK_MEAN_REL;
 ``python3 chip_smoke.py --core-times ROOT...`` only the attention core's
-times, built and timed from each tree ROOT in turn.)
+times, built and timed from each tree ROOT in turn;
+``python3 chip_smoke.py --gemm-times ROOT...`` the bf16 GEMM's times at the
+main paths' shapes, both engines' crops/s and a torch.profiler split of one
+H bf16 layer and one bf16-engine dispatch, from each tree in turn.)
 
 1. Requires CUDA; prints the card's name and power limit (nvidia-smi).
 2. Builds the kernels of manga_ocr_tpu_torch/csrc with nvcc (sm_90a), one
@@ -14,7 +17,14 @@ times, built and timed from each tree ROOT in turn.)
    against its plain version at full width on ragged shapes: S = 5, 16,
    17, 37, 197, every key and the last three masked, in each stride layout
    (A's q|k|v rows, E's packed, G's head-major), f32 and bf16 output, the
-   softmax by division and by the reciprocal multiply.
+   softmax by division and by the reciprocal multiply.  Then the bf16 GEMM
+   that every bf16 projection runs on (TMA + mbarrier ring + wgmma): its
+   ptxas line per tile instantiation (a spill fails), its GELU (the erf
+   polynomial's reciprocal branch-free) against the division form that B,
+   C and F use, on all 2^32 f32 inputs, and the kernel against its plain
+   version at the main paths' shapes (the encoder block's four products at
+   M = 256 x 197, the decode step's at M = 32 and 256), each with its
+   device time, TFLOP/s, bound and one torch.addmm call's time.
 3. Holds each kernel against its plain PyTorch version on the card at the
    shapes its path gives it (MangaOCRConfig.base(), batch 32 and 256,
    S=197, D=768), with CUDA-event times of both: A, B, C on int8 params;
@@ -202,6 +212,30 @@ def log_core_ptxas(build_log: str) -> None:
         fail("no ptxas line of the attention core in the build log")
 
 
+def log_gemm_ptxas(build_log: str) -> None:
+    """The bf16 GEMM's ptxas lines (registers, stack, spill bytes) for each
+    tile instantiation; fails if any spills or none is found."""
+    import re
+
+    name, found = "", 0
+    for ln in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+            continue
+        tile = re.search(r"gemm_kernel\w*?TileILi(\d+)ELi(\d+)ELi(\d+)E", name)
+        if tile is None or not ("spill" in ln or "registers" in ln):
+            continue
+        label = "{}x{} tiles, {} stages".format(*tile.groups())
+        log(f"ptxas: bf16 GEMM {label}: {ln.strip()}")
+        if "spill" in ln:
+            found += 1
+            if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln)):
+                fail(f"the bf16 GEMM ({label}) spills: {ln.strip()}")
+    if not found:
+        fail("no ptxas line of the bf16 GEMM in the build log")
+
+
 def cuda_ms(fn, reps: int = 5, warm: bool = True) -> float:
     """Mean time of ``fn`` over ``reps`` runs, after one warm run (skipped
     with ``warm=False`` where the caller has just run ``fn``)."""
@@ -377,24 +411,255 @@ def core_times() -> dict:
     return times
 
 
-# ``--core-times ROOT...``: core_times() in one child process per ROOT (a
+# ``--core-times ROOT...`` and ``--gemm-times ROOT...``: one function of
+# this file (core_times, compare_child) run in one child process per ROOT (a
 # tree of the repository, e.g. another commit unpacked with git archive,
 # whose kernels the child builds), in the order given: list a pair as
 # A B B A to compare two trees on one card.
-CORE_TIMES_CHILD = """
+TREE_CHILD = """
 import json, runpy, sys
 sys.path.insert(0, sys.argv[1])
-print(json.dumps(runpy.run_path(sys.argv[2])["core_times"]()))
+print(json.dumps(runpy.run_path(sys.argv[2])[sys.argv[3]]()))
 """
 
 
-def compare_core_times(roots: list) -> None:
+def compare_trees(fn_name: str, roots: list) -> None:
     for root in roots:
-        out = subprocess.run([sys.executable, "-c", CORE_TIMES_CHILD, os.path.abspath(root),
-                              os.path.abspath(__file__)], capture_output=True, text=True)
+        out = subprocess.run([sys.executable, "-c", TREE_CHILD, os.path.abspath(root),
+                              os.path.abspath(__file__), fn_name], capture_output=True,
+                             text=True, cwd=os.path.abspath(root))
         if out.returncode != 0:
-            fail(f"core times of {root}: {out.stderr.strip()[-2000:]}")
-        log(f"core times of {root}: {out.stdout.strip().splitlines()[-1]}")
+            fail(f"{fn_name} of {root}: {out.stderr.strip()[-2000:]}")
+        lines = out.stdout.strip().splitlines()
+        for ln in lines[:-1]:
+            log(f"[{root}] {ln}")
+        log(f"{fn_name} of {root}: {lines[-1]}")
+
+
+# The bf16 GEMM (csrc/mlp_bf16.cu) at the shapes of the main paths: the
+# four products of an encoder block at B=256 (H, I, A's bf16 form and D on
+# 256 x 197 rows) and the decode step's at B=32 and 256 (J's q|k|v and K's
+# q, f32 out; J's and K's o; D's step form), in the mode each path uses.
+GEMM_SHAPES = [(f"{name} M={m}", m, n, k, mode) for m in (256 * 197,)
+               for name, n, k, mode in (("qkv", 2304, 768, "bias"), ("o", 768, 768, "residual"),
+                                        ("fc1", 3072, 768, "gelu_erf"),
+                                        ("fc2", 768, 3072, "residual"))] + \
+    [(f"step {name} M={m}", m, n, k, mode) for m in (32, 256)
+     for name, n, k, mode in (("qkv", 2304, 768, "f32"), ("q", 768, 768, "f32"),
+                              ("o", 768, 768, "residual"), ("fc1", 3072, 768, "gelu_erf"),
+                              ("fc2", 768, 3072, "residual"))]
+
+
+def gemm_inputs(m: int, n: int, k: int, mode: str, gen):
+    """a, b, bias, the epilogue code and the residual (None unless
+    ``mode`` is "residual") of one GEMM shape."""
+    import torch
+
+    from manga_ocr_tpu_torch.kernels import launch
+
+    code = {"gelu_erf": launch.BF16_GELU_ERF, "residual": launch.BF16_RESIDUAL,
+            "f32": launch.BF16_F32, "bias": launch.BF16_BIAS}[mode]
+    a = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    b = (torch.randn((k, n), generator=gen, device="cuda") * WEIGHT_STD).to(torch.bfloat16)
+    bias = torch.randn((n,), generator=gen, device="cuda") * 0.1
+    res = (torch.randn((m, n), generator=gen, device="cuda").to(torch.bfloat16)
+           if mode == "residual" else None)
+    return a, b, bias, code, res
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device ms of one ``fn`` call: ``reps`` calls captured in one CUDA
+    graph, replayed once after a warm replay (no host launch gaps)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def cost_gemm(m, n, k, mode):  # the bf16 GEMM: a, b, bias (and residual) in, out once
+    out = 4 if mode == "f32" else 2
+    return ((m * k + k * n) * 2 + n * 4 + m * n * (out + (2 if mode == "residual" else 0)),
+            {"bf16": 2 * m * n * k})
+
+
+def check_bf16_gemm() -> None:
+    """The GEMM's gelu_erf (branch-free reciprocal) against its division
+    form on every f32 input, then gemm_times(check=True)."""
+    from manga_ocr_tpu_torch.kernels import launch
+
+    bad = launch.check_gelu_erf_rcp("cuda")
+    if bad:
+        fail(f"gelu_erf (branch-free reciprocal) differs from its division form on {bad} f32 "
+             "inputs")
+    log("gelu_erf (branch-free reciprocal) equals its division form bit for bit on all 2^32 "
+        "f32 inputs")
+    gemm_times(check=True)
+
+
+def gemm_times(check: bool = False) -> dict:
+    """Device ms (CUDA graph) of the bf16 GEMM alone at each GEMM_SHAPES
+    shape.  With ``check``, also holds it against its plain version
+    (``bf16_gemm_reference``) and logs its TFLOP/s and share of the bf16
+    peak, its bound, the plain version's time and one torch.addmm call's on
+    the same operands as the library yardstick (timed only; the port never
+    calls it)."""
+    import torch
+
+    from manga_ocr_tpu_torch.kernels import launch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    times = {}
+    for label, m, n, k, mode in GEMM_SHAPES:
+        a, b, bias, code, res = gemm_inputs(m, n, k, mode, gen)
+        reps = 10 if m > 4096 else 50
+        if check:
+            from manga_ocr_tpu_torch.ops.fused_mlp import bf16_gemm_reference
+
+            got = launch.bf16_gemm(a, b, bias, code, res)
+            want = bf16_gemm_reference(a, b, bias, code, res)
+            torch.cuda.synchronize()
+            max_abs, _ = compare("bf16 GEMM", label, got, want)
+            del got, want
+        ms = times[label] = graph_ms(lambda: launch.bf16_gemm(a, b, bias, code, res), reps)
+        if check:
+            plain_ms = cuda_ms(lambda: bf16_gemm_reference(a, b, bias, code, res))
+            bias16 = bias.to(torch.bfloat16)
+            library_ms = graph_ms(lambda: torch.addmm(bias16, a, b), reps)
+            bound_ms, bound_by = bound(*cost_gemm(m, n, k, mode))
+            tflops = 2 * m * n * k / ms / 1e9
+            log(f"bf16 GEMM {label} N={n} K={k} {mode}: max_abs_err={max_abs} ms={ms} "
+                f"TFLOP/s={tflops} ({tflops / 989:.3f} of the bf16 peak) bound_ms={bound_ms} "
+                f"({bound_by}) library_ms={library_ms} (torch.addmm) plain_ms={plain_ms}")
+        del a, b, bias, res
+        torch.cuda.empty_cache()
+    return times
+
+
+def device_ms_by_kernel(prof) -> list:
+    """(kernel name, device ms) of a torch.profiler run, largest first: the
+    device's own events only (kernels, copies), not the host operators
+    that launched them."""
+    from torch.autograd import DeviceType
+
+    rows = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def log_profile(label: str, prof) -> None:
+    rows = device_ms_by_kernel(prof)
+    if not rows:
+        log(f"profile {label}: the trace shows no device time")
+        return
+    total = sum(ms for _, ms in rows)
+    log(f"profile {label}: device ms {total} in {len(rows)} kernels; by kernel:")
+    for name, ms in rows[:12]:
+        log(f"  {ms:10.4f} ms  {ms / total:6.1%}  {name[:110]}")
+
+
+def profile_split() -> None:
+    """One torch.profiler trace of one H bf16 layer at B=256 and one of the
+    bf16 engine's largest dispatch of a 256-crop page (preprocess, encoder,
+    cross-K/V and decode), each printed as device ms by kernel name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from manga_ocr_tpu_torch.engine import TorchMangaOcrEngine
+    from manga_ocr_tpu_torch.kernels import launch
+    from manga_ocr_tpu_torch.models import model as mdl
+    from manga_ocr_tpu_torch.models import vit
+    from manga_ocr_tpu_torch.models.config import MangaOCRConfig
+    from manga_ocr_tpu_torch.models.params import init_params, layer_params
+    from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
+    from manga_ocr_tpu_torch.ops import flash_attention as fa
+    from manga_ocr_tpu_torch.ops import preprocess as pp
+    from manga_ocr_tpu_torch.ops.encoder_weights import layer_view, prepare_layers
+    from manga_ocr_tpu_torch.parallel import batching
+
+    cfg = MangaOCRConfig.base()
+    ecfg = cfg.encoder
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    layers = mdl.cast_params(init_params(cfg, SEED, "cuda", std=WEIGHT_STD)["encoder"],
+                             torch.bfloat16)["layers"]
+    lp, lw = layer_params(layers, 0), layer_view(prepare_layers(layers, torch.bfloat16), 0)
+    b, s, d = 256, ecfg.seq_len, ecfg.hidden_size
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    x = torch.randn((b, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+    scratch = launch.encoder_scratch(b * s, d, ecfg.intermediate_size, False, "cuda")
+
+    def layer():
+        return fa.fused_encoder_layer(x, lp, ecfg.num_heads, ecfg.layer_norm_eps, "erf", lw,
+                                      scratch)
+    layer()
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        layer()
+        torch.cuda.synchronize()
+    log_profile("H bf16 layer B=256", prof)
+    del layers, lp, lw, x, scratch
+
+    engine = TorchMangaOcrEngine(init_params(cfg, SEED, "cpu", std=WEIGHT_STD), cfg,
+                                 CharTokenizer.synthetic(), device="cuda", quantize_int8=False)
+    crops = load_crops()
+    page = [crops[i % len(crops)] for i in range(256)]
+    bt = max(batching.prep_page_gray(page, pp.ORIENT_VERTICAL), key=lambda t: t.crops.shape[0])
+    crops_d, sizes = torch.from_numpy(bt.crops).cuda(), torch.from_numpy(bt.sizes).cuda()
+
+    def dispatch():
+        with torch.inference_mode():
+            px = pp.model_preprocess(crops_d, sizes, ecfg.image_size).to(engine.dtype)
+            enc = vit.encode(engine.params["encoder"], px, engine.cfg.encoder)
+            return mdl.greedy_decode(engine.params, enc, engine.cfg, engine.max_length).lengths
+    dispatch()
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        dispatch()
+        torch.cuda.synchronize()
+    log_profile(f"bf16 engine dispatch B={bt.crops.shape[0]}", prof)
+
+
+def engine_rates() -> dict:
+    """crops/s of the int8 and the bf16 engine on one 256-crop page."""
+    from manga_ocr_tpu_torch.engine import TorchMangaOcrEngine
+    from manga_ocr_tpu_torch.models.config import MangaOCRConfig
+    from manga_ocr_tpu_torch.models.params import init_params
+    from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
+
+    cfg = MangaOCRConfig.base()
+    crops = load_crops()
+    params = init_params(cfg, SEED, "cpu", std=WEIGHT_STD)
+    rates = {}
+    for form, quantize in (("int8", True), ("bf16", False)):
+        engine = TorchMangaOcrEngine(params, cfg, CharTokenizer.synthetic(), device="cuda",
+                                     quantize_int8=quantize)
+        engine.ocr_page(crops[:2])
+        rates[form] = page_rate(engine, crops, f"{form} engine")
+        del engine
+    return rates
+
+
+def compare_child() -> dict:
+    """What ``--gemm-times`` reads of one tree: the GEMM's times, both
+    engines' page rates, and the profiler split (printed)."""
+    times = gemm_times()
+    rates = engine_rates()
+    profile_split()
+    return {"gemm_ms": times, "crops_per_s": rates}
 
 
 def bound(nbytes: float, ops: dict) -> tuple[float, str]:
@@ -1778,14 +2043,17 @@ def main() -> int:
     card = card_line()
     log(card)
     if sys.argv[1:2] == ["--core-times"] and sys.argv[2:]:
-        compare_core_times(sys.argv[2:])
+        compare_trees("core_times", sys.argv[2:])
+        return 0
+    if sys.argv[1:2] == ["--gemm-times"] and sys.argv[2:]:
+        compare_trees("compare_child", sys.argv[2:])
         return 0
     if sys.argv[1:] == ["--stack-floor"]:
         stack_floor()
         return 0
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}; usage: chip_smoke.py "
-             f"[--stack-floor | --core-times ROOT...]")
+             f"[--stack-floor | --core-times ROOT... | --gemm-times ROOT...]")
 
     from manga_ocr_tpu_torch.engine.engine import _cast_quantized
     from manga_ocr_tpu_torch.kernels import build
@@ -1799,10 +2067,13 @@ def main() -> int:
     log(f"kernels built in {time.time() - t0:.1f} s")
     log_ptxas(build.last_build_log)
     log_core_ptxas(build.last_build_log)
+    log_gemm_ptxas(build.last_build_log)
     phase("build")
     check_attention_core()
     log(f"attention core alone, B=256: ms {json.dumps(core_times())} on {card}")
     phase("attention core")
+    check_bf16_gemm()
+    phase("bf16 GEMM")
 
     cfg = with_serving_kernels(MangaOCRConfig.base(), quantized=True)
     raw = init_params(cfg, SEED, "cuda", std=WEIGHT_STD)

@@ -40,8 +40,29 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
+// 1/d as IEEE division gives it (correctly rounded), for d >= 1 or NaN,
+// without the division's branch to its slow path: d is capped at 2^126
+// (1/d stays normal; only d = inf or NaN reaches the cap, from x = +-inf or
+// NaN in erf_poly, where exp(-x^2) makes t's value irrelevant), then one
+// Newton step with FMAs on the hardware's approximate reciprocal.
+__device__ __forceinline__ float rcp_ge1(float d) {
+  d = fminf(d, 0x1p126f);
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d));
+  return __fmaf_rn(r, __fmaf_rn(-d, r, 1.0f), r);
+}
+
+// kRcp takes the polynomial's reciprocal by rcp_ge1 in place of the
+// division: the same bits on every f32 input (gelu_erf<true> against
+// gelu_erf<false>, checked exhaustively on the card by
+// mocr_check_gelu_erf_rcp, csrc/mlp_bf16.cu), and branch-free, so the
+// compiler can interleave many of them.  The bf16 GEMM's epilogue takes
+// it (fc1 311 -> 406 TFLOP/s on an H100); kernel C's decode ran slower
+// with it at small batch, so B, C and F keep the division.
+template <bool kRcp = false>
 __device__ __forceinline__ float erf_poly(float x) {
-  float t = 1.0f / __fadd_rn(1.0f, __fmul_rn(0.3275911f, fabsf(x)));
+  const float d = __fadd_rn(1.0f, __fmul_rn(0.3275911f, fabsf(x)));
+  float t = kRcp ? rcp_ge1(d) : 1.0f / d;
   float p = __fmul_rn(1.061405429f, t);
   p = __fmul_rn(__fadd_rn(p, -1.453152027f), t);
   p = __fmul_rn(__fadd_rn(p, 1.421413741f), t);
@@ -52,9 +73,10 @@ __device__ __forceinline__ float erf_poly(float x) {
   return __fmul_rn(s, y);
 }
 
+template <bool kRcp = false>
 __device__ __forceinline__ float gelu_erf(float x) {
   return __fmul_rn(__fmul_rn(0.5f, x),
-                   __fadd_rn(1.0f, erf_poly(__fmul_rn(x, 0.7071067811865476f))));
+                   __fadd_rn(1.0f, erf_poly<kRcp>(__fmul_rn(x, 0.7071067811865476f))));
 }
 
 __device__ __forceinline__ float gelu_sigmoid(float x) {

@@ -57,6 +57,8 @@ _SIGNATURES = {
     "mocr_ln_rows_bf16": (_P, _P, _P, _F, _P, _I, _I, _P),
     # a, b, bias, residual, out, M, N, K, mode, stream
     "mocr_bf16_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # mismatches (u64, device), stream
+    "mocr_check_gelu_erf_rcp": (_P, _P),
     # x, wt, bt, lns, lnb, wp, bp, B, D, V, n_split, rows_per_block, eps,
     # part_v, part_i, ids, stream
     "mocr_fused_head": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P),

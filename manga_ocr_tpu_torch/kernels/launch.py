@@ -214,6 +214,31 @@ def ln_rows_bf16(
     return y
 
 
+# The bf16 GEMM (csrc/mlp_bf16.cu) reads A and B through TMA boxes of 64
+# bf16 (128 bytes) along K, and along N for B: K a multiple of 64, rows
+# 16-byte strided (N % 8 == 0), 16-byte aligned bases; its epilogue reads
+# the residual in 16-byte pieces and the bias in pairs.
+GEMM_BK = 64
+
+
+def _check_bf16_gemm(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor,
+                     residual: torch.Tensor | None) -> None:
+    """The shapes the bf16 GEMM takes: M >= 1, K a multiple of GEMM_BK,
+    N a multiple of 8, 16-byte aligned A, B (and residual), an 8-byte
+    aligned bias (read in pairs)."""
+    m, k = a.shape
+    n = b.shape[1]
+    if m < 1 or k < GEMM_BK or k % GEMM_BK or n < 8 or n % 8:
+        raise ValueError(f"bf16_gemm: needs M >= 1, K a multiple of {GEMM_BK} and N a multiple "
+                         f"of 8, got M={m} K={k} N={n}")
+    _expect_aligned(a, "bf16_gemm a")
+    _expect_aligned(b, "bf16_gemm b")
+    if residual is not None:
+        _expect_aligned(residual, "bf16_gemm residual")
+    if bias.data_ptr() % 8:
+        raise ValueError("bf16_gemm bias: expected an 8-byte aligned tensor")
+
+
 def bf16_gemm(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -224,20 +249,19 @@ def bf16_gemm(
     """``epilogue(a[M, K] . b[K, N] + bias[N])`` in bf16 with f32
     accumulation; ``mode`` one of BF16_GELU_ERF, BF16_GELU_SIGMOID (the GELU
     in f32, then bf16), BF16_RESIDUAL (bf16, then plus the bf16
-    ``residual``), BF16_F32 (f32 out) or BF16_BIAS (bf16 out)."""
+    ``residual``), BF16_F32 (f32 out) or BF16_BIAS (bf16 out).  Raises
+    ValueError, before any build or launch, for what the kernel does not
+    take (``_check_bf16_gemm``)."""
     m, k = a.shape
     n = b.shape[1]
-    if k % 32 or n % 8:
-        raise ValueError(f"bf16_gemm: needs K % 32 == 0 and N % 8 == 0, got K={k} N={n}")
+    _check_bf16_gemm(a, b, bias, residual)
+    if mode not in (BF16_GELU_ERF, BF16_GELU_SIGMOID, BF16_RESIDUAL, BF16_F32, BF16_BIAS):
+        raise ValueError(f"bf16_gemm: unknown mode {mode}")
     _expect(a, torch.bfloat16, (m, k), "bf16_gemm a")
     _expect(b, torch.bfloat16, (k, n), "bf16_gemm b")
     _expect(bias, torch.float32, (n,), "bf16_gemm bias")
-    _expect_aligned(a, "bf16_gemm a")
-    _expect_aligned(b, "bf16_gemm b")
     if mode == BF16_RESIDUAL:
         _expect(residual, torch.bfloat16, (m, n), "bf16_gemm residual")
-    elif mode not in (BF16_GELU_ERF, BF16_GELU_SIGMOID, BF16_F32, BF16_BIAS):
-        raise ValueError(f"bf16_gemm: unknown mode {mode}")
     out_dtype = torch.float32 if mode == BF16_F32 else torch.bfloat16
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     lib = build.load()
@@ -248,6 +272,18 @@ def bf16_gemm(
     )
     build.check(err, "bf16_gemm")
     return out
+
+
+def check_gelu_erf_rcp(device) -> int:
+    """The number of f32 inputs (of all 2^32 bit patterns) on which
+    common.cuh's gelu_erf<true> (the bf16 GEMM's: the erf polynomial's
+    reciprocal by the branch-free rcp_ge1) differs from gelu_erf<false>
+    (the division); 0 is the kernel's claim."""
+    mismatches = torch.zeros((1,), dtype=torch.int64, device=device)
+    lib = build.load()
+    build.check(lib.mocr_check_gelu_erf_rcp(mismatches.data_ptr(), build.stream_ptr(device)),
+                "check_gelu_erf_rcp")
+    return int(mismatches.item())
 
 
 def attention_packed(
@@ -344,7 +380,12 @@ def encoder_layers(
         raise ValueError(f"encoder_layers: needs D and I multiples of 64, got D={d} I={inter}")
     _check_core(s, d // heads, "encoder_layers")
     int8 = _expect_weights(weights, (n_l,), d, inter, "encoder_layers")
+    if not int8:  # the bf16 GEMM's B operands (TMA)
+        for i in (0, 3, 8, 11):
+            _expect_aligned(weights[i][first], f"encoder_layers weight {i}")
     _expect(x, torch.bfloat16, (b, s, d), "encoder_layers x")
+    if not int8:  # x is the o GEMM's residual
+        _expect_aligned(x, "encoder_layers x")
     specs = _scratch_spec(b * s, d, inter, int8)
     if len(scratch) != len(specs):
         raise ValueError(f"encoder_layers: expected {len(specs)} scratch arrays")
@@ -354,6 +395,8 @@ def encoder_layers(
                 raise ValueError(f"encoder_layers: scratch {i} is unused by this form")
         else:
             _expect(t, spec[1], spec[0], f"encoder_layers scratch {i}")
+            if not int8:  # every bf16 scratch array is a GEMM operand or output
+                _expect_aligned(t, f"encoder_layers scratch {i}")
     c_w = (ctypes.c_void_p * 16)(*(None if t is None else t[first].data_ptr() for t in weights))
     c_s = (ctypes.c_void_p * 6)(*(None if t is None else t.data_ptr() for t in scratch))
     out = torch.empty_like(x)

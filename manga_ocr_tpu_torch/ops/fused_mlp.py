@@ -107,6 +107,34 @@ def fused_mlp_block_reference(
     return r.reshape(shape)
 
 
+_GEMM_GELU = {launch.BF16_GELU_ERF: "erf", launch.BF16_GELU_SIGMOID: "sigmoid"}
+
+
+def bf16_gemm_reference(
+    a: torch.Tensor,  # [M, K] bf16
+    b: torch.Tensor,  # [K, N] bf16
+    bias: torch.Tensor,  # [N] f32
+    mode: int,
+    residual: torch.Tensor | None = None,  # [M, N] bf16, BF16_RESIDUAL only
+) -> torch.Tensor:
+    """Plain version of the bf16 GEMM (``launch.bf16_gemm``, every bf16
+    projection of kernels A, D, H, I, J and K): f32 products of the bf16
+    operands plus the f32 bias, then ``mode``'s epilogue with the kernel's
+    roundings (``_kernel_bf16``'s fc1 and fc2 halves, ``_one_layer``'s
+    ``proj``): the GELU in f32 then bf16; bf16, then plus the bf16 residual;
+    f32 out; bf16 out."""
+    y = a.float() @ b.float() + bias.float()
+    if mode == launch.BF16_F32:
+        return y
+    if mode in _GEMM_GELU:
+        return gelu_fn(_GEMM_GELU[mode])(y).to(torch.bfloat16)
+    if mode == launch.BF16_RESIDUAL:
+        return (residual.float() + y.to(torch.bfloat16).float()).to(torch.bfloat16)
+    if mode == launch.BF16_BIAS:
+        return y.to(torch.bfloat16)
+    raise ValueError(f"bf16_gemm_reference: unknown mode {mode}")
+
+
 def fused_mlp_block_bf16_reference(
     x: torch.Tensor,
     ln_scale: torch.Tensor,

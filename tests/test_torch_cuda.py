@@ -9,7 +9,7 @@ decision is made inside the fixture, never at import).  Run on the card:
 does not need and may not have.)
 
 Shapes are small but satisfy the kernels' constraints (int8 GEMM K % 64 ==
-0 and even N, bf16 GEMM K % 32 == 0 and N % 8 == 0, head dims multiples of
+0 and even N, bf16 GEMM K % 64 == 0 and N % 8 == 0, head dims multiples of
 8, at most 208 keys in the attention core, vocab a multiple of 512; the
 decode-step kernels J and K also at dh 96; the whole encoder blocks H and
 I at D 128, I 256, three stacked layers; the attention core also at dh 16,
@@ -122,6 +122,64 @@ def test_bf16_mlp_block_kernel_matches_plain(device, form):
                                                      gelu_mode=gelu_mode, **kw)
             assert fm.fused_mlp_block_bf16.launches == before + 1
             assert _within(got, want)
+
+
+_GEMM_MODES = ("gelu_erf", "gelu_sigmoid", "residual", "f32", "bias")
+
+
+def _gemm_case(rng, m, n, k, mode, device):
+    """The bf16 GEMM (TMA + wgmma) and its plain version on one shape and
+    epilogue mode; numpy-made inputs."""
+    from manga_ocr_tpu_torch.kernels import launch
+    from manga_ocr_tpu_torch.ops.fused_mlp import bf16_gemm_reference
+
+    code = {"gelu_erf": launch.BF16_GELU_ERF, "gelu_sigmoid": launch.BF16_GELU_SIGMOID,
+            "residual": launch.BF16_RESIDUAL, "f32": launch.BF16_F32,
+            "bias": launch.BF16_BIAS}[mode]
+    a = _randn(rng, (m, k), device, torch.bfloat16)
+    b = (_randn(rng, (k, n), device) * 0.05).to(torch.bfloat16)
+    bias = _randn(rng, (n,), device) * 0.1
+    res = _randn(rng, (m, n), device, torch.bfloat16) if mode == "residual" else None
+    got = launch.bf16_gemm(a, b, bias, code, res)
+    want = bf16_gemm_reference(a, b, bias, code, res)
+    assert got.dtype == want.dtype and got.shape == (m, n)
+    assert bool(torch.isfinite(got.float()).all())
+    return got, want
+
+
+@pytest.mark.parametrize("n", [8, 768, 2304])
+@pytest.mark.parametrize("m", [1, 5, 70, 197, 1000])
+@pytest.mark.parametrize("mode", _GEMM_MODES)
+def test_bf16_gemm_matches_plain_on_ragged_shapes(device, mode, m, n):
+    """Every epilogue at ragged row counts (TMA zero-fills the rows past M;
+    the stores are masked) and narrow to wide N (one partial 64-column box
+    at N 8), K 768."""
+    got, want = _gemm_case(np.random.default_rng(m * 7 + n), m, n, 768, mode, device)
+    assert _within(got, want)
+
+
+@pytest.mark.parametrize("k", [64, 128, 3072])
+@pytest.mark.parametrize("mode", _GEMM_MODES)
+def test_bf16_gemm_matches_plain_across_depths(device, mode, k):
+    """One k tile, two, and fc2's 48 (the ring wraps many times)."""
+    got, want = _gemm_case(np.random.default_rng(k), 197, 768, k, mode, device)
+    assert _within(got, want)
+
+
+def test_bf16_gemm_gelu_equals_gelu_erf_on_every_input(device):
+    """The GEMM's GELU (common.cuh's gelu_erf<true>: the erf polynomial
+    with a branch-free reciprocal) gives the bits of the division form
+    that kernels B, C and F use on all 2^32 f32 inputs."""
+    from manga_ocr_tpu_torch.kernels import launch
+
+    assert launch.check_gelu_erf_rcp(device) == 0
+
+
+def test_bf16_gemm_matches_plain_at_encoder_rows(device):
+    """The q|k|v product at B=256: M = 256 x 197 rows, the 128 x 256 tiles
+    and the persistent grid's many tiles per block."""
+    got, want = _gemm_case(np.random.default_rng(11), 256 * 197, 2304, 768, "bias", device)
+    assert _within(got, want)
 
 
 def test_packed_attention_kernel_matches_plain(device):
