@@ -34,12 +34,18 @@ H bf16 layer and one bf16-engine dispatch, from each tree in turn.)
    32, on the bf16 decoder).  Each kernel's bound (the least time the card
    could take: bytes over the memory rate or operations over the peak rate
    of their type, the larger) is computed from the same shapes, and E is
-   also timed as one scaled_dot_product_attention call.
+   also timed as one scaled_dot_product_attention call.  Kernel C's
+   serving form runs on the cluster kernel (csrc/decode_cluster.cu), held
+   at B=32, a ragged B=40 and B=256 beside the present kernel's serving form
+   (kernel="loop") on the same inputs, with the grid, the bound, the slab
+   and cache re-read floor and, at B=256, the stage split of its profiled
+   instance; its ptxas lines are printed after the build.
 4. Drives TorchMangaOcrEngine at full width (random weights from a numpy
    seed) through ocr_page on crops from tests/fixtures/eval:
    - int8 serving (kernels A, B, C), also through the HTTP server;
    - unquantized serving (quantize_int8=False: kernels E, D, C);
-   checking the launch counters of every kernel, the encoder output and the
+   checking the launch counters of every kernel (kernel C in its cluster
+   form on both engines' dispatches), the encoder output and the
    decode tokens against the plain path's, and printing crops/s on one
    256-crop page.  Then the step-by-step greedy decode (head_kernel and
    step_mlp_kernel "fused": kernels F and D) at B=32 over 100 steps, its
@@ -70,7 +76,9 @@ H bf16 layer and one bf16-engine dispatch, from each tree in turn.)
    bit-identical to A's default form); C's int8_w form, its fuse_kv form
    (bf16 and int8 weights, scored by the unfused plain decoder over the
    slabs of the final LN, timed beside precompute_cross_kv_packed + the
-   unfused kernel) at B=256, and C's time with each stage ablated.  Then
+   unfused kernel) at B=256, both timed at B=512 with the grid the wrapper
+   sized from the compiled kernel's occupancy, and C's time with each stage
+   ablated.  Then
    the slice's paths: the int8 engine with attn_sdpa_int8 and
    fuse_cross_kv through ocr_page (A 12 in the sdpa_int8 form, B 12 and C
    1 in the fuse_kv form per dispatch, no slab precompute; teacher-forced
@@ -999,9 +1007,46 @@ def hold_decode(name: str, label: str, run, plain, dec_params, cross, dcfg, cost
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
+def reread_floor(cfg, lengths, s) -> float:
+    """The least time in ms the serving decode's K/V reads could take when
+    no cache holds them (the slabs alone are 310 MB at B=256): every
+    row-step reads its row's cross slabs (layers x K, V x s x D bf16) and
+    its live self cache (layers x K, V x (t + 1) x D bf16), at the memory
+    rate, for the row-steps this run's rows needed."""
+    d, n_l = cfg.hidden_size, cfg.num_layers
+    n = lengths.long() - 1  # steps each row ran
+    row_steps = int(n.sum())
+    cache_keys = int((n * (n + 1) // 2).sum())
+    nbytes = n_l * 2 * d * 2 * (row_steps * s + cache_keys)
+    return nbytes / H100_BYTES_PER_S * 1e3
+
+
+def log_cluster_ptxas(build_log: str) -> None:
+    """The cluster kernel's ptxas lines (registers, stack, spill bytes) of
+    its kernels and of the phases it calls apart (projection, vocab argmax,
+    attention).  A record: the body runs at the 128-register cap of its
+    512 threads and spills a little (PERF.md)."""
+    import re
+
+    name = ""
+    for ln in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'|Function properties for (\S+)", ln)
+        if m:
+            name = m.group(1) or m.group(2)
+            continue
+        if "decode_cluster_cu" in name and ("spill" in ln or "registers" in ln):
+            short = re.sub(r".*decode_cluster_cu_\w{8}", "", name)[:40]
+            log(f"ptxas: cluster kernel {short}: {ln.strip()}")
+
+
 def check_decode_kernel(params, cfg, results: dict) -> None:
-    """Kernel C (bf16 weights, precomputed slabs) against its plain version
-    at B=32 and 256, steps=299."""
+    """Kernel C's serving form (bf16 weights, precomputed slabs) on the
+    cluster kernel against its plain version at B=32, a ragged B=40 and
+    B=256, steps=299, teacher-forced within DECODE_GAP_REL; the present
+    kernel's serving form (kernel="loop") on the same inputs, held to the
+    same bound and timed beside it; the grid (clusters launched and seated,
+    rows a tile), the bound and the slab and cache re-read floor; at B=256
+    the cluster kernel's stage split (its profiled instance)."""
     import torch
 
     from manga_ocr_tpu_torch.models import decoder as dec
@@ -1010,19 +1055,37 @@ def check_decode_kernel(params, cfg, results: dict) -> None:
 
     dcfg = cfg.decoder
     steps = cfg.max_length - 1
+    s_len = cfg.encoder.seq_len
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     d = cfg.encoder.hidden_size
     one, zero = torch.ones(d, device="cuda"), torch.zeros(d, device="cuda")
-    for batch in (32, 256):
-        enc = torch.randn((batch, cfg.encoder.seq_len, d), generator=gen, device="cuda")
+    for batch in (32, 40, 256):
+        enc = torch.randn((batch, s_len, d), generator=gen, device="cuda")
         enc = common.layer_norm(enc, one, zero, 1e-12).to(torch.bfloat16)
         cross = dec.precompute_cross_kv_packed(params["decoder"], enc, dcfg, int8=False)
-        results["greedy_decode_loop"] = hold_decode(
-            "greedy_decode_loop", f"B={batch}",
-            lambda: dl.greedy_decode_loop(params["decoder"], cross, dcfg, steps),
-            lambda: dl.greedy_decode_loop_reference(params["decoder"], cross, dcfg, steps),
-            params["decoder"], cross, dcfg,
-            lambda lens: cost_decode_loop(dcfg, lens, cfg.encoder.seq_len))
+        recs, grids = {}, {}
+        for kernel in ("cluster", "loop"):
+            recs[kernel] = hold_decode(
+                f"greedy_decode_loop[{kernel}]", f"B={batch}",
+                lambda: dl.greedy_decode_loop(params["decoder"], cross, dcfg, steps, kernel=kernel),
+                lambda: dl.greedy_decode_loop_reference(params["decoder"], cross, dcfg, steps),
+                params["decoder"], cross, dcfg,
+                lambda lens: cost_decode_loop(dcfg, lens, s_len))
+            grids[kernel] = dict(dl.greedy_decode_loop.last_grid)
+        lens = dl.greedy_decode_loop(params["decoder"], cross, dcfg, steps)[1]
+        floor = reread_floor(dcfg, lens, s_len)
+        log(f"greedy_decode_loop serving form B={batch}: cluster kernel {recs['cluster']['ms']} ms "
+            f"(grid {grids['cluster']}), present kernel {recs['loop']['ms']} ms (grid "
+            f"{grids['loop']}): {recs['loop']['ms'] / recs['cluster']['ms']:.3f}x; bound "
+            f"{recs['cluster']['bound_ms']} ms ({recs['cluster']['bound_by']}), slab and cache "
+            f"re-read floor {floor} ms, on {card_line()}")
+        if batch == 256:
+            results["greedy_decode_loop[cluster]"] = recs["cluster"]
+            clocks = dl.cluster_stage_clocks(params["decoder"], cross, dcfg, steps)
+            total = sum(clocks.values())
+            log(f"greedy_decode_loop[cluster] B={batch} stage split (first CTA's clocks, profiled "
+                f"instance): { {k: round(v / total, 4) for k, v in clocks.items()} }, "
+                f"{total / steps:.0f} clocks a step")
 
 
 def check_decode_forms(raw, cfg, results: dict) -> None:
@@ -1031,8 +1094,10 @@ def check_decode_forms(raw, cfg, results: dict) -> None:
     output, scored by the unfused plain decoder over the slabs of its final
     LN (which is what fuse_kv computes), and timed beside
     precompute_cross_kv_packed + the unfused kernel on the same input.
-    Then the ablation split: kernel C (bf16, slabs) with each stage skipped,
-    every row running all 299 steps (EOS set past the vocab)."""
+    Then C's int8_w and fuse_kv forms at B=512 with the grid sized from
+    the compiled kernel's occupancy, and the ablation split: the present
+    kernel (bf16, slabs) with each stage skipped, every row running all 299
+    steps (EOS set past the vocab)."""
     import dataclasses
 
     import torch
@@ -1079,14 +1144,30 @@ def check_decode_forms(raw, cfg, results: dict) -> None:
         if not int8_w:
             results["greedy_decode_loop[fuse_kv]"] = rec
 
-    # the ablation split of a step (a record, not a check)
+    # the present kernel's grid from its compiled occupancy: int8_w and
+    # fuse_kv at B=512 (a bucket of BATCH_SCHEDULE), a record
+    wide = 512
+    enc_raw2 = enc_raw.repeat(2, 1, 1)
+    enc2 = common.layer_norm(enc_raw2, fln["scale"], fln["bias"], dcfg.layer_norm_eps)
+    for form, kw in (("int8_w", {}), ("fuse_kv", dict(enc_raw=enc_raw2, s_valid=s,
+                                                     enc_final_ln=fln))):
+        p = decs["int8_w" if form == "int8_w" else "bf16"]
+        cross = None if kw else dec.precompute_cross_kv_packed(p, enc2, dcfg, int8=False)
+        ms = cuda_ms(lambda: dl.greedy_decode_loop(p, cross, dcfg, steps, **kw), reps=1)
+        log(f"greedy_decode_loop[{form}] B={wide}: {ms} ms, grid "
+            f"{dl.greedy_decode_loop.last_grid} on {card_line()}")
+    del enc_raw2, enc2
+
+    # the ablation split of the present kernel's step (a record, not a
+    # check; the ablate forms run on it, so its unablated form is the base)
     full = dataclasses.replace(dcfg, eos_token_id=dcfg.vocab_size)  # never emitted
     p = decs["bf16"]
     cross = dec.precompute_cross_kv_packed(p, enc, full, int8=False)
     times = {}
     for stage in ("", "self", "cross", "mlp", "head"):
         times[stage or "none"] = cuda_ms(
-            lambda: dl.greedy_decode_loop(p, cross, full, steps, ablate=stage), reps=1)
+            lambda: dl.greedy_decode_loop(p, cross, full, steps, ablate=stage, kernel="loop"),
+            reps=1)
     split = {k: (times["none"] - v) / steps for k, v in times.items() if k != "none"}
     log(f"greedy_decode_loop ablation B={batch} ({steps} steps, every row live): ms with the "
         f"stage skipped {times}; per-step ms of each stage (full - ablated) / steps {split}; "
@@ -1169,7 +1250,8 @@ def kernel_wrappers() -> dict:
 
 
 # Launch counts by form (``launches_by_form``), read as "wrapper[form]".
-COUNTED_FORMS = {"fused_attn_layer": ("sdpa_int8",), "greedy_decode_loop": ("int8_w", "fuse_kv")}
+COUNTED_FORMS = {"fused_attn_layer": ("sdpa_int8",),
+                 "greedy_decode_loop": ("cluster", "int8_w", "fuse_kv")}
 
 
 def counted(fn):
@@ -1777,6 +1859,7 @@ def run_encoder_configs(params, crops, results: dict) -> None:
             secs = time.perf_counter() - t0
             want = {name: 0 for name in counts}
             want.update(per_run, greedy_decode_loop=1, precompute_cross_kv_packed=1)
+            want["greedy_decode_loop[cluster]"] = 1
             if counts != want:
                 fail(f"{label}: launch counts {counts}, expected {want}")
             if record is not None:
@@ -1826,7 +1909,7 @@ def run_merged_layer_engine(params, crops, results: dict) -> None:
     engine.ocr_page(crops[:2])
     drive_page(engine, crops, "merged_layer engine",
                {"fused_encoder_layer": cfg.encoder.num_layers, "greedy_decode_loop": 1,
-                "precompute_cross_kv_packed": 1}, results,
+                "greedy_decode_loop[cluster]": 1, "precompute_cross_kv_packed": 1}, results,
                record={"fused_encoder_layer": "fused_encoder_layer[bf16]"})
 
 
@@ -1979,7 +2062,7 @@ def run_engines(results: dict) -> dict:
     engine.ocr_page(crops[:2])  # first call: library load, allocator growth
     drive_page(engine, crops, "int8 engine",
                {"fused_attn_layer": 12, "fused_mlp_block": 12, "greedy_decode_loop": 1,
-                "precompute_cross_kv_packed": 1}, results)
+                "greedy_decode_loop[cluster]": 1, "precompute_cross_kv_packed": 1}, results)
     check_page_tokens(engine, crops)
     rates["int8"] = page_rate(engine, crops, "int8 engine")
     stage_split(engine, crops, "int8 engine")
@@ -1993,7 +2076,7 @@ def run_engines(results: dict) -> dict:
     engine.ocr_page(crops[:2])
     drive_page(engine, crops, "bf16 engine",
                {"attention_packed": 12, "fused_mlp_block_bf16": 12, "greedy_decode_loop": 1,
-                "precompute_cross_kv_packed": 1}, results)
+                "greedy_decode_loop[cluster]": 1, "precompute_cross_kv_packed": 1}, results)
     check_page_tokens(engine, crops)
     rates["bf16"] = page_rate(engine, crops, "bf16 engine")
     stage_split(engine, crops, "bf16 engine")
@@ -2066,6 +2149,7 @@ def main() -> int:
     build.load(verbose=True)
     log(f"kernels built in {time.time() - t0:.1f} s")
     log_ptxas(build.last_build_log)
+    log_cluster_ptxas(build.last_build_log)
     log_core_ptxas(build.last_build_log)
     log_gemm_ptxas(build.last_build_log)
     phase("build")
@@ -2105,8 +2189,8 @@ def main() -> int:
                                 "manga_ocr_tpu/ops/flash_attention.py:617"),
            "fused_mlp_block": ("manga_ocr_tpu_torch/csrc/encoder.cu",
                                "manga_ocr_tpu/ops/fused_mlp.py:165"),
-           "greedy_decode_loop": ("manga_ocr_tpu_torch/csrc/decode_loop.cu",
-                                  "manga_ocr_tpu/ops/decode_loop.py:579"),
+           "greedy_decode_loop[cluster]": ("manga_ocr_tpu_torch/csrc/decode_cluster.cu",
+                                           "manga_ocr_tpu/ops/decode_loop.py:579"),
            "fused_mlp_block_bf16": ("manga_ocr_tpu_torch/csrc/mlp_bf16.cu",
                                     "manga_ocr_tpu/ops/fused_mlp.py:188"),
            "attention_packed": ("manga_ocr_tpu_torch/csrc/encoder.cu",

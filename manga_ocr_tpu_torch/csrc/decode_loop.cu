@@ -15,9 +15,24 @@ extern template int launch_decode_loop<true, false>(bool, int, const DecodeParam
                                                     int*, int*, cudaStream_t);
 extern template int launch_decode_loop<true, true>(bool, int, const DecodeParams&, int, int,
                                                    int*, int*, cudaStream_t);
+extern template int decode_loop_blocks_per_sm<false, false>(bool, int, int, int*);
+extern template int decode_loop_blocks_per_sm<false, true>(bool, int, int, int*);
+extern template int decode_loop_blocks_per_sm<true, false>(bool, int, int, int*);
+extern template int decode_loop_blocks_per_sm<true, true>(bool, int, int, int*);
 }  // namespace mocr
 
 extern "C" {
+
+// Blocks per SM of the form (int8_w, fuse_kv, opts) at ``rows`` per block
+// and ``smem`` dynamic bytes, into *blocks.
+int mocr_decode_loop_blocks_per_sm(int int8, int fuse_kv, int opts, int rows, int smem,
+                                   int* blocks) {
+  if (fuse_kv)
+    return int8 ? decode_loop_blocks_per_sm<true, true>(opts, rows, smem, blocks)
+                : decode_loop_blocks_per_sm<false, true>(opts, rows, smem, blocks);
+  return int8 ? decode_loop_blocks_per_sm<true, false>(opts, rows, smem, blocks)
+              : decode_loop_blocks_per_sm<false, false>(opts, rows, smem, blocks);
+}
 
 // ptrs: COMMON_PTRS pointers (tok_emb, pos_emb, tok_type, elns, elnb, twt, tbt,
 // hlns, hlnb, wp, bp, cross_k, cross_v, cache_k, cache_v, stops-or-null,

@@ -38,10 +38,14 @@
 // 16 loads in flight (with 4 the loop was bound by load latency).  Past that
 // the per-row work binds: the time grows about linearly with R (measured:
 // 326, 548, 836 ms for R = 1, 2, 4 at B=32), so the wrapper picks the
-// smallest R that fits the grid in one wave of two blocks per SM.  The
-// fuse_kv prologue adds ~465 M multiply-adds per row (2 layers x K and V x
-// 197 x 768^2) on the same GEMV.  Tensor-core products over a block's rows,
-// and splitting the weights across a thread-block cluster, are the next steps.
+// smallest R that fits the grid in one wave of the blocks per SM that the
+// CUDA runtime reports for the compiled form (decode_loop_blocks_per_sm).
+// The fuse_kv prologue adds ~465 M multiply-adds per row (2 layers x K and
+// V x 197 x 768^2) on the same GEMV.  The serving form (bf16 weights,
+// slabs, erf GELU, no ablate) runs instead on decode_cluster.cu: tensor-core
+// products over a tile's rows, the weights split across a thread-block
+// cluster; this kernel keeps the other forms and the shapes that one does
+// not take.
 //
 // Numerics mirror the JAX kernel where greedy tokens depend on them:
 //   - embedding: tok + pos rounded to bf16, then + type rounded to bf16;
@@ -256,11 +260,11 @@ __device__ void cross_kv_prologue(const DecodeParams& p, int row0, int nrows, fl
 // choice only into the kernels that use them: present in every kernel, they
 // slowed the default bf16 loop by 4-14% (measured on the H100).  No minimum
 // of blocks per SM: ptxas keeps the R = 1 kernels within 64 registers (two
-// blocks per SM, as the wrapper's row choice assumes) by itself, and a cap of
-// 64 slowed them by 3%; an explicit minimum of one let them take ~110
-// registers (one block per SM, two waves at B=256).  Some int8_w and fuse_kv
-// kernels of R >= 2 rows take more than 64 registers (ptxas -v, printed by
-// chip_smoke.py): one block per SM there.
+// blocks per SM) by itself, and a cap of 64 slowed them by 3%; an explicit
+// minimum of one let them take ~110 registers (one block per SM, two waves
+// at B=256).  Some int8_w and fuse_kv kernels of R >= 2 rows take more than
+// 64 registers (ptxas -v, printed by chip_smoke.py): one block per SM there,
+// which the wrapper's row choice reads from the runtime (occupancy below).
 template <int R, bool INT8, bool FUSE, bool OPTS>
 __global__ void __launch_bounds__(DEC_THREADS)
 decode_loop_kernel(DecodeParams p, int big_n, int ld_scores, int* __restrict__ tokens,
@@ -417,6 +421,16 @@ int launch(const DecodeParams& p, int big_n, int ld_scores, int* tokens, int* le
   return (int)cudaGetLastError();
 }
 
+// Blocks of one instantiation that an SM holds at ``smem`` dynamic bytes.
+template <int R, bool INT8, bool FUSE, bool OPTS>
+int occupancy(int smem, int* blocks) {
+  cudaError_t err = cudaFuncSetAttribute(decode_loop_kernel<R, INT8, FUSE, OPTS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, decode_loop_kernel<R, INT8, FUSE, OPTS>, DEC_THREADS, smem);
+}
+
 template <bool INT8, bool FUSE, bool OPTS>
 int launch_rows(int rows, const DecodeParams& p, int big_n, int ld_scores, int* tok, int* len,
                 cudaStream_t st) {
@@ -444,6 +458,22 @@ int launch_decode_loop(bool opts, int rows, const DecodeParams& p, int big_n, in
     return rows == 1 ? launch<1, INT8, FUSE, true>(p, big_n, ld_scores, tokens, lengths, stream)
                      : (int)cudaErrorInvalidValue;
   return launch_rows<INT8, FUSE, false>(rows, p, big_n, ld_scores, tokens, lengths, stream);
+}
+
+// The blocks per SM of the kernel launch_decode_loop would launch: the
+// wrapper sizes its rows per block from it (ptxas gives some int8_w and
+// fuse_kv instantiations more than 64 registers a thread: one block per SM).
+template <bool INT8, bool FUSE>
+int decode_loop_blocks_per_sm(bool opts, int rows, int smem, int* blocks) {
+  if (opts) return rows == 1 ? occupancy<1, INT8, FUSE, true>(smem, blocks)
+                             : (int)cudaErrorInvalidValue;
+  switch (rows) {
+    case 1: return occupancy<1, INT8, FUSE, false>(smem, blocks);
+    case 2: return occupancy<2, INT8, FUSE, false>(smem, blocks);
+    case 4: return occupancy<4, INT8, FUSE, false>(smem, blocks);
+    case 8: return occupancy<8, INT8, FUSE, false>(smem, blocks);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace mocr

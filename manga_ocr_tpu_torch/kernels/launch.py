@@ -196,6 +196,50 @@ def decode_loop(
     build.check(err, "greedy_decode_loop")
 
 
+def decode_loop_blocks_per_sm(device, int8_w: bool, fuse_kv: bool, opts: bool, rows: int,
+                              smem: int) -> int:
+    """Blocks of the present decode kernel's form (``rows`` per block,
+    ``smem`` dynamic bytes) that one SM holds, as the CUDA runtime reports
+    for the compiled kernel (its registers and shared memory)."""
+    key = (torch.device(device).index, int8_w, fuse_kv, opts, rows, smem)
+    if key not in _BLOCKS_PER_SM:
+        lib = build.load()
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = lib.mocr_decode_loop_blocks_per_sm(int(int8_w), int(fuse_kv), int(opts), rows,
+                                                     smem, ctypes.byref(out))
+        build.check(err, "greedy_decode_loop occupancy")
+        if out.value < 1:
+            raise RuntimeError(f"greedy_decode_loop: {rows} rows per block do not fit on an SM")
+        _BLOCKS_PER_SM[key] = out.value
+    return _BLOCKS_PER_SM[key]
+
+
+_BLOCKS_PER_SM: dict = {}
+
+
+def decode_cluster(
+    ptrs: list[int], ints: list[int], scale: float, eps: float,
+    tokens: torch.Tensor, lengths: torch.Tensor, prof: torch.Tensor | None = None,
+) -> tuple[int, int, int]:
+    """Launch the serving form's cluster kernel on pointers the caller
+    validated -> (clusters launched, clusters the card seats at once
+    (``cudaOccupancyMaxActiveClusters``), rows of a tile).  ``prof`` (int64 zeros on the
+    card, one per stage) runs the profiled instance, which adds its first
+    CTA's clocks per stage there."""
+    lib = build.load()
+    c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    c_ints = (ctypes.c_int * len(ints))(*ints)
+    clusters = (ctypes.c_int * 3)()
+    err = lib.mocr_decode_cluster(
+        c_ptrs, len(ptrs), c_ints, len(ints), float(scale), float(eps),
+        tokens.data_ptr(), lengths.data_ptr(), clusters, 0 if prof is None else prof.data_ptr(),
+        build.stream_ptr(tokens.device),
+    )
+    build.check(err, "greedy_decode_loop (cluster)")
+    return clusters[0], clusters[1], clusters[2]
+
+
 def ln_rows_bf16(
     x: torch.Tensor, ln: tuple[torch.Tensor, torch.Tensor], eps: float
 ) -> torch.Tensor:

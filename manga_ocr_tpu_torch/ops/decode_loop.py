@@ -24,12 +24,18 @@ and ``interpret`` schedule the JAX kernel on the TPU and change no token
 (both head forms keep the first maximum); they are accepted and checked
 (positive ints), and schedule nothing here.
 
-On CUDA tensors the whole loop is one launch of ``csrc/decode_loop.cuh``
-(the C entry point in ``csrc/decode_loop.cu``, one source per form); on
-CPU tensors ``greedy_decode_loop_reference`` runs it as a Python loop over
-steps with the same done-masking: PAD after EOS, lengths that count BOS
-and EOS, and the optional ``stop_lengths`` instrument (rows behave as if
-EOS fired at that length).
+On CUDA tensors the whole loop is one launch: the serving form (bf16
+weights, precomputed slabs, the erf GELU, no ablate) of
+``csrc/decode_cluster.cu`` (a thread-block cluster per tile of rows, one
+decoder head per CTA, tensor-core projections) where ``decode_form`` finds
+the shapes it takes, else of ``csrc/decode_loop.cuh`` (the C entry point in
+``csrc/decode_loop.cu``, one source per form), whose rows per block follow
+the compiled kernel's occupancy.  Each kernel reads its weights in its own
+layout, prepared once per set of params (``loop_weights``,
+``cluster_weights``).  On CPU tensors ``greedy_decode_loop_reference`` runs
+it as a Python loop over steps with the same done-masking: PAD after EOS,
+lengths that count BOS and EOS, and the optional ``stop_lengths``
+instrument (rows behave as if EOS fired at that length).
 """
 
 from __future__ import annotations
@@ -37,11 +43,13 @@ from __future__ import annotations
 import torch
 
 from manga_ocr_tpu_torch.kernels import launch
+from manga_ocr_tpu_torch.ops import encoder_weights as ew
 from manga_ocr_tpu_torch.ops.kernel_utils import gelu_erf, gelu_fn, int8_matmul, ln32, quant_rows
 
 _SMEM_LIMIT = 227 * 1024 - 1024  # per-block opt-in limit less static scratch
 _ROWS_PER_BLOCK = (1, 2, 4, 8)
-# 512-thread blocks at <= 64 registers a thread: two fit on one SM.
+# kernel F's row choice: two 512-thread blocks of <= 64 registers on one SM
+# (kernel C asks the CUDA runtime for its compiled form's count instead)
 _BLOCKS_PER_SM = 2
 _EXIT_CHUNK = 8  # plain version: early-exit check every 8 steps
 _KV_TILE = 8  # fuse_kv: encoder rows per projection tile (csrc/decode_loop.cuh)
@@ -316,14 +324,22 @@ def teacher_forced_gaps(
     return gaps, top
 
 
-def rows_per_block(batch: int, device) -> int:
+def rows_per_block(batch: int, device, blocks_per_sm: int = _BLOCKS_PER_SM) -> int:
     """The fewest rows per block whose grid runs in one wave of co-resident
     blocks: the kernel's time grows about linearly with the rows a block
     owns (measured on the H100: 326, 548, 836 ms for 1, 2, 4 rows at B=32),
-    so more rows per block only pay once a second wave would cost more."""
-    slots = _BLOCKS_PER_SM * torch.cuda.get_device_properties(device).multi_processor_count
+    so more rows per block only pay once a second wave would cost more.
+    ``blocks_per_sm`` is how many blocks one SM holds (kernel C asks its
+    compiled form, ``_loop_rows``; kernel F assumes two)."""
+    return rows_for_slots(batch, blocks_per_sm * torch.cuda.get_device_properties(device)
+                          .multi_processor_count)
+
+
+def rows_for_slots(batch: int, slots) -> int:
+    """The fewest rows per block (of ``_ROWS_PER_BLOCK``) whose grid fits in
+    ``slots`` co-resident blocks (an int, or a function of the rows)."""
     for r in _ROWS_PER_BLOCK:
-        if -(-batch // r) <= slots:
+        if -(-batch // r) <= (slots(r) if callable(slots) else slots):
             return r
     return _ROWS_PER_BLOCK[-1]
 
@@ -337,6 +353,17 @@ def _smem_bytes(rows: int, d: int, heads: int, inter: int, steps: int, s_len: in
     big_n = max(3 * d, inter, d)
     main = (rows * (2 * d + big_n) + heads * max(steps, s_len)) * 4 + (rows * big_n if int8_w else 0)
     return max(main, 2 * _KV_TILE * d * 4) if fuse_kv else main
+
+
+def _loop_rows(batch: int, dev, int8_w: bool, fuse_kv: bool, opts: bool, smem_of) -> int:
+    """Rows per block of the present kernel, from its compiled occupancy:
+    the blocks of each row count that one SM holds (registers and shared
+    memory of that very instantiation, asked of the CUDA runtime)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if opts:  # the ablate / sigmoid-GELU kernels are built for one row only
+        return 1
+    return rows_for_slots(batch, lambda r: sms * launch.decode_loop_blocks_per_sm(
+        dev, int8_w, fuse_kv, opts, r, smem_of(r)))
 
 
 def _packed_int8(w: torch.Tensor) -> torch.Tensor:
@@ -374,10 +401,253 @@ def _kernel_layer(lp: dict, l: int, fuse_kv: bool) -> list:
     return out
 
 
+def _own(tensors: list) -> list:
+    """Copies of ``tensors`` (None kept): a cast or ``contiguous`` of a leaf
+    already in that form returns the leaf itself, and the prepared-weights
+    cache must hold no reference to the params it is keyed on."""
+    return [None if t is None else t.clone() for t in tensors]
+
+
+def _loop_weights(params_decoder: dict, fuse_kv: bool) -> tuple[dict, list]:
+    """The present kernel's weights: the common tensors (the whole position
+    table; a call reads its first ``steps`` rows) and each layer's list."""
+    n_layers = params_decoder["layers"]["self_ln"]["scale"].shape[0]
+    c = _common_weights(params_decoder, params_decoder["pos_embed"].shape[0], torch.bfloat16)
+    return (dict(zip(c, _own(list(c.values())))),
+            [_own(_kernel_layer(params_decoder["layers"], l, fuse_kv)) for l in range(n_layers)])
+
+
+def loop_weights(params_decoder: dict, fuse_kv: bool) -> tuple[dict, list]:
+    """``_loop_weights`` once per set of params (``encoder_weights.prepared``:
+    an in-place write to a leaf prepares anew)."""
+    return ew.prepared(params_decoder, ("decode_loop", fuse_kv),
+                       lambda: _loop_weights(params_decoder, fuse_kv))
+
+
+# -- the serving form's cluster kernel (csrc/decode_cluster.cu) ---------------
+CLUSTER_ROWS = 16  # decoder rows of one cluster's tile
+CLUSTER_WARPS = 16  # warps of one CTA (one per row in attention)
+_CLUSTER_SIZES = (1, 2, 4, 8)  # heads = CTAs of a cluster (8: the portable maximum)
+_MAX_TILES = 6  # n8 tiles a warp holds at once (csrc/decode_cluster.cu MAX_T)
+# the projections of a step, in the kernel's plan order: (K, N slice) of each
+_PLAN_ORDER = ("qkv", "o", "cq", "co", "fc1", "fc2", "tr", "vocab")
+
+
+def pack_fragments(w: torch.Tensor, heads: int) -> torch.Tensor:
+    """bf16 [K, N] -> [heads, N/heads/8, K/32, 32, 8]: CTA h's column slice
+    h * N/heads ... in the order the cluster kernel reads its ``mma.sync``
+    B fragments.  Entry [h, j, p, lane, 2r + e] is W[k, n] with n = h *
+    N/heads + 8j + lane/4 and k = 32p + 16(r/2) + 8(r%2) + 2(lane%4) + e:
+    one 16-byte load gives a lane its two k16 steps' fragments of tile j,
+    and a warp's load reads 512 contiguous bytes."""
+    k, n = w.shape
+    nt = n // heads // 8
+    t = w.reshape(k // 32, 2, 2, 4, 2, heads, nt, 8)  # [p, kk, half, q, e, h, j, g]
+    t = t.permute(5, 6, 0, 7, 3, 1, 2, 4)  # [h, j, p, g, q, kk, half, e]
+    return t.reshape(heads, nt, k // 32, 32, 8).contiguous()
+
+
+def _head_major_qkv(sa: dict, l: int, heads: int, dt) -> tuple[torch.Tensor, torch.Tensor]:
+    """Self q|k|v of layer ``l`` with columns ordered per head: [q_h | k_h |
+    v_h] for h = 0 .. heads-1, so CTA h's slice is its own head's three."""
+    ws = [sa[n]["kernel"][l].to(dt) for n in ("q", "k", "v")]
+    bs = [sa[n]["bias"][l].float() for n in ("q", "k", "v")]
+    d = ws[0].shape[1]
+    dh = d // heads
+    cols = [slice(h * dh, (h + 1) * dh) for h in range(heads)]
+    return (torch.cat([w[:, c] for c in cols for w in ws], 1),
+            torch.cat([b[c] for c in cols for b in bs]))
+
+
+def vocab_slice(vocab: int, heads: int) -> int:
+    """Vocab columns of one CTA: the vocab padded to heads x a multiple of 8
+    (padded columns have zero weights and are never chosen)."""
+    return -(-vocab // (8 * heads)) * 8
+
+
+def _cluster_weights(params_decoder: dict, heads: int) -> tuple[list, list]:
+    """The cluster kernel's weights in its pointer order: the common
+    tensors, then per layer (qkv, o, cq, co, fc1, fc2: packed weight and
+    per-head f32 bias; the three LNs after their stage)."""
+    dt = torch.bfloat16
+    lp = params_decoder["layers"]
+    c = _common_weights(params_decoder, params_decoder["pos_embed"].shape[0], dt)
+    d, vocab = c["wp"].shape
+    vs = vocab_slice(vocab, heads)
+    wp = torch.zeros((d, heads * vs), dtype=dt, device=c["wp"].device)
+    wp[:, :vocab] = c["wp"]
+    bp = torch.zeros((heads * vs,), dtype=torch.float32, device=c["bp"].device)
+    bp[:vocab] = c["bp"]
+    common = [c["tok_emb"], c["pos_emb"], c["tok_type"], c["elns"], c["elnb"],
+              pack_fragments(c["twt"], heads), c["tbt"], c["hlns"], c["hlnb"],
+              pack_fragments(wp, heads), bp]
+    layers = []
+    for l in range(lp["self_ln"]["scale"].shape[0]):
+        w = _layer_weights(lp, l, dt)
+        qkv_w, qkv_b = _head_major_qkv(lp["self_attn"], l, heads, dt)
+        out = [pack_fragments(qkv_w, heads), qkv_b.contiguous()]
+        out += [pack_fragments(w["o"]["w"], heads), w["o"]["b"].contiguous(), *w["self_ln"]]
+        out += [pack_fragments(w["cq"]["w"], heads), w["cq"]["b"].contiguous()]
+        out += [pack_fragments(w["co"]["w"], heads), w["co"]["b"].contiguous(), *w["cross_ln"]]
+        out += [pack_fragments(w["fc1"]["w"], heads), w["fc1"]["b"].contiguous()]
+        out += [pack_fragments(w["fc2"]["w"], heads), w["fc2"]["b"].contiguous(), *w["mlp_ln"]]
+        layers.append(_own(out))
+    return _own(common), layers
+
+
+def cluster_weights(params_decoder: dict, heads: int) -> tuple[list, list]:
+    """``_cluster_weights`` once per set of params and head count."""
+    return ew.prepared(params_decoder, ("decode_cluster", heads),
+                       lambda: _cluster_weights(params_decoder, heads))
+
+
+def _proj_plan(k: int, n_slice: int, argmax: bool = False) -> tuple[int, int]:
+    """How a CTA's 16 warps split one projection of K inputs onto its
+    ``n_slice`` columns (n8 tiles): ``kp`` parts along K (each of whole k32
+    pairs; their f32 sums are added in part order) times 16/kp groups of
+    tiles, each warp holding up to ``t`` tiles at once; the least k-pairs a
+    warp walks, then the fewest parts.  The vocab takes no K split (its
+    argmax is read from the accumulators).  Each part adds one pass over
+    the slice, behind a barrier, counted as one k-pair."""
+    nt, n_pairs = n_slice // 8, k // 32
+    best = None
+    for kp in (1, 2, 4, 8, 16):
+        if n_pairs % kp or (argmax and kp > 1):
+            continue
+        groups = CLUSTER_WARPS // kp
+        t = min(_MAX_TILES, -(-nt // groups))
+        rounds = -(-nt // (groups * t))
+        cost = rounds * (t * (n_pairs // kp) + kp)
+        if best is None or cost < best[0]:
+            best = (cost, kp, t)
+    return best[1], best[2]
+
+
+def cluster_plan(d: int, heads: int, inter: int, vocab: int, steps: int, s_len: int) -> dict:
+    """The cluster kernel's split of one decode at these widths: per
+    projection (K, N slice, kp, t) in ``_PLAN_ORDER`` and the dynamic shared
+    memory of one CTA at 16 rows a tile (``cluster_smem``; the kernel widens
+    a tile only where that fits).  Raises ``ValueError`` for a shape the
+    kernel does not take."""
+    dh = d // heads if heads else 0
+    why = None
+    if heads not in _CLUSTER_SIZES:
+        why = f"heads={heads} not in {_CLUSTER_SIZES}"
+    elif dh * heads != d or dh % 16 or dh > 128:
+        why = f"head dim {d}/{heads} not a multiple of 16 up to 128"
+    elif d % 64 or inter % 32 or inter % heads or (inter // heads) % 8:
+        why = (f"D={d} or I={inter} (D a multiple of 64, I of 32, split into slices of "
+               f"multiples of 8)")
+    if why is not None:
+        raise ValueError(f"greedy_decode_loop: the cluster kernel does not take {why}")
+    ds, fs, vs = d // heads, inter // heads, vocab_slice(vocab, heads)
+    shapes = {"qkv": (d, 3 * dh), "o": (d, ds), "cq": (d, dh), "co": (d, ds), "fc1": (d, fs),
+              "fc2": (inter, ds), "tr": (d, ds), "vocab": (d, vs)}
+    plans = {name: (*shapes[name], *_proj_plan(*shapes[name], argmax=name == "vocab"))
+             for name in _PLAN_ORDER}
+    smem = cluster_smem(CLUSTER_ROWS, d, heads, inter, steps, s_len)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"greedy_decode_loop: the cluster kernel needs {smem} bytes of shared "
+                         f"memory per CTA")
+    return {"plans": plans, "smem": smem, "vocab_slice": vs}
+
+
+def cluster_smem(rows: int, d: int, heads: int, inter: int, steps: int, s_len: int) -> int:
+    """Dynamic shared memory of one CTA of the cluster kernel at ``rows``
+    rows a tile (``csrc/decode_cluster.cu`` ``smem_bytes``): the residual
+    rows, the gathered rows (bf16 [rows, max(D, I)], f32 [rows, D], or the
+    attention's per-(row, 32-key chunk) f32 sums and per-warp scratch), the
+    projection output, two exchange buffers, the scores, the argmax
+    candidates and the row state."""
+    dh = d // heads
+    fs = inter // heads
+    keys = max(steps, s_len)
+    n_ch = -(-keys // 32)
+    u = max(rows * (max(d, inter) + 8) * 2, rows * d * 4,
+            rows * n_ch * dh * 4 + CLUSTER_WARPS * 32 * 8 * 4)
+    return (rows * (d + 8) * 2 + u + rows * max(3 * dh, fs, dh) * 4 + 2 * rows * max(2 * fs, 4 * dh)
+            + rows * keys * 4 + 2 * CLUSTER_WARPS * rows * 4 + 2 * rows * 4 + 3 * rows * 4)
+
+
+def decode_form(params_decoder: dict, cfg, steps: int, s_len: int, fuse_kv: bool,
+                stages: int, gelu_mode: str) -> str:
+    """Which kernel runs a CUDA decode, by form and shape alone, before any
+    launch: "cluster" (``csrc/decode_cluster.cu``) for the serving form --
+    bf16 weights, precomputed slabs, the erf GELU, no ablate -- at the
+    shapes ``cluster_plan`` takes; "loop" (``csrc/decode_loop.cuh``) for
+    every other form and shape."""
+    if fuse_kv or stages or gelu_mode != "erf" or _is_int8_decoder(params_decoder):
+        return "loop"
+    d = params_decoder["layers"]["self_ln"]["scale"].shape[1]
+    try:
+        cluster_plan(d, cfg.num_heads, cfg.intermediate_size, cfg.vocab_size, steps, s_len)
+    except ValueError:
+        return "loop"
+    return "cluster"
+
+
 def _count(forms: tuple[str, ...]) -> None:
     greedy_decode_loop.launches += 1
     for form in forms:
         greedy_decode_loop.launches_by_form[form] += 1
+
+
+def _check_ptrs(tensors, dev) -> None:
+    for t in tensors:
+        if t.device != dev or t.data_ptr() % 16:
+            raise ValueError(f"greedy_decode_loop: decoder weights must be 16-byte aligned on {dev}")
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _launch_cluster(params_decoder, cfg, steps, k_slab, v_slab, stops, tokens, lengths,
+                    prof=None) -> None:
+    """The serving form on the cluster kernel (shapes checked by the caller
+    through ``decode_form``; ``prof`` as ``launch.decode_cluster`` takes it)."""
+    n_layers, batch, s_len, d = k_slab.shape
+    heads = cfg.num_heads
+    plan = cluster_plan(d, heads, cfg.intermediate_size, cfg.vocab_size, steps, s_len)
+    common, layers = cluster_weights(params_decoder, heads)
+    _check_ptrs([*common, *(t for w in layers for t in w)], k_slab.device)
+    cache_k = torch.empty((n_layers, batch, steps, d), dtype=torch.bfloat16, device=k_slab.device)
+    cache_v = torch.empty_like(cache_k)
+    ptrs = [t.data_ptr() for t in common]
+    ptrs += [k_slab.data_ptr(), v_slab.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
+             _ptr(stops)]
+    for w in layers:
+        ptrs += [t.data_ptr() for t in w]
+    ints = [batch, d, heads, cfg.intermediate_size, cfg.vocab_size, plan["vocab_slice"], n_layers,
+            s_len, steps, cfg.bos_token_id, cfg.eos_token_id, cfg.pad_token_id]
+    for name in _PLAN_ORDER:
+        ints += plan["plans"][name][2:]
+    clusters, seated, rows = launch.decode_cluster(ptrs, ints, 1.0 / ((d // heads) ** 0.5),
+                                                   cfg.layer_norm_eps, tokens, lengths, prof)
+    greedy_decode_loop.last_grid = {"form": "cluster", "clusters": clusters, "seated": seated,
+                                    "rows_per_tile": rows, "tiles": -(-batch // rows),
+                                    "ctas_per_cluster": heads}
+
+
+# the stages of a profiled cluster launch (csrc/decode_cluster.cu N_STAGES)
+CLUSTER_STAGES = ("embed", "projections", "self attention", "cross attention", "exchanges",
+                  "LN", "vocab argmax", "token exchange")
+
+
+def cluster_stage_clocks(params_decoder: dict, cross, cfg, steps: int) -> dict:
+    """A diagnosis: one launch of the cluster kernel's profiled instance on
+    the card (the same decode; not counted as a launch) -> the SM clocks
+    its first CTA spent in each of ``CLUSTER_STAGES``, summed over steps."""
+    k_slab, v_slab = _float_slabs(cross, torch.bfloat16)
+    _, batch, s_len, _ = k_slab.shape
+    if decode_form(params_decoder, cfg, steps, s_len, False, 0, "erf") != "cluster":
+        raise ValueError("cluster_stage_clocks: the cluster kernel does not take this decode")
+    dev = k_slab.device
+    tokens = torch.empty((batch, steps + 1), dtype=torch.int32, device=dev)
+    lengths = torch.empty((batch,), dtype=torch.int32, device=dev)
+    prof = torch.zeros(len(CLUSTER_STAGES), dtype=torch.int64, device=dev)
+    _launch_cluster(params_decoder, cfg, steps, k_slab, v_slab, None, tokens, lengths, prof=prof)
+    return dict(zip(CLUSTER_STAGES, prof.tolist()))
 
 
 def greedy_decode_loop(
@@ -390,18 +660,31 @@ def greedy_decode_loop(
     enc_raw: torch.Tensor | None = None,  # fuse_kv: [B, S_pad, D] encoder output before its final LN
     s_valid: int | None = None,  # fuse_kv: the real rows of enc_raw (default S_pad)
     enc_final_ln: dict | None = None,  # fuse_kv: the encoder's final LN {"scale", "bias"}
+    kernel: str = "auto",  # "auto" (decode_form's choice), "cluster" or "loop" (the present kernel)
     **options,  # ablate, gelu_mode, chains, head_phased, group, vocab_tile, vmem_budget_mb, interpret
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Run ``steps`` greedy decode steps -> (tokens [B, steps+1] int32
     starting with BOS, lengths [B] int32), in any form of the module
-    docstring.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise."""
+    docstring.  CPU tensors take the plain version; CUDA tensors launch a
+    kernel (``decode_form`` says which, unless ``kernel`` names one; a
+    "cluster" the form or shape does not allow raises ``ValueError``, on
+    any device) or raise."""
     stages, gelu_mode = _parse_options(cfg, **options)
     int8_w = _is_int8_decoder(params_decoder)
     fuse_kv = enc_raw is not None
     src = enc_raw if fuse_kv else (cross.k if cross is not None else None)
     if src is None or (fuse_kv and cross is not None):
         raise ValueError("greedy_decode_loop: give the cross slabs or enc_raw, not both")
+    if kernel not in ("auto", "cluster", "loop"):
+        raise ValueError(f"greedy_decode_loop: kernel {kernel!r} not in auto, cluster, loop")
+    s_len = (src.shape[1] if s_valid is None else s_valid) if fuse_kv else src.shape[2]
+    form = decode_form(params_decoder, cfg, steps, s_len, fuse_kv, stages, gelu_mode)
+    if kernel == "cluster" and form != "cluster":
+        raise ValueError("greedy_decode_loop: the cluster kernel takes the serving form (bf16 "
+                         "weights, precomputed slabs, erf GELU, no ablate) at the shapes of "
+                         "cluster_plan only")
+    if kernel == "loop":
+        form = "loop"
     if src.device.type == "cpu":
         return greedy_decode_loop_reference(
             params_decoder, cross, cfg, steps, dtype, stop_lengths, enc_raw, s_valid, enc_final_ln,
@@ -442,17 +725,6 @@ def greedy_decode_loop(
             if not t.is_contiguous() or t.device != dev or t.shape != (n_layers, batch, s_len, d):
                 raise ValueError(f"greedy_decode_loop: {name} must be contiguous "
                                  f"[{n_layers}, B, S, {d}] on {dev}")
-    # the kernels that read ablate / the sigmoid GELU are built for one row
-    # per block only (diagnosis forms; compiled apart from the serving ones)
-    rows = 1 if stages or gelu_mode == "sigmoid" else rows_per_block(batch, dev)
-    smem = _smem_bytes(rows, d, heads, inter, steps, s_len, int8_w, fuse_kv)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"greedy_decode_loop: {smem} bytes of shared memory per block")
-
-    c = _common_weights(params_decoder, steps, torch.bfloat16)
-    layers = [_kernel_layer(params_decoder["layers"], l, fuse_kv) for l in range(n_layers)]
-    cache_k = torch.empty((n_layers, batch, steps, d), dtype=torch.bfloat16, device=dev)
-    cache_v = torch.empty_like(cache_k)
     stops = None
     if stop_lengths is not None:
         stops = torch.as_tensor(stop_lengths, dtype=torch.int32, device=dev).contiguous()
@@ -460,32 +732,52 @@ def greedy_decode_loop(
             raise ValueError(f"greedy_decode_loop: stop_lengths must be [{batch}]")
     tokens = torch.empty((batch, steps + 1), dtype=torch.int32, device=dev)
     lengths = torch.empty((batch,), dtype=torch.int32, device=dev)
+    if form == "cluster":
+        _launch_cluster(params_decoder, cfg, steps, k_slab, v_slab, stops, tokens, lengths)
+        _count(("cluster",))
+        return tokens, lengths
+
+    # the kernels that read ablate / the sigmoid GELU are built for one row
+    # per block only (diagnosis forms; compiled apart from the serving ones)
+    opts = bool(stages) or gelu_mode == "sigmoid"
+
+    def smem_of(r):
+        return _smem_bytes(r, d, heads, inter, steps, s_len, int8_w, fuse_kv)
+
+    rows = _loop_rows(batch, dev, int8_w, fuse_kv, opts, smem_of)
+    smem = smem_of(rows)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"greedy_decode_loop: {smem} bytes of shared memory per block")
+
+    c, layers = loop_weights(params_decoder, fuse_kv)
+    cache_k = torch.empty((n_layers, batch, steps, d), dtype=torch.bfloat16, device=dev)
+    cache_v = torch.empty_like(cache_k)
     tensors = [*c.values(), *(t for w in layers for t in w if t is not None)]
     if final_ln is not None:
         tensors += final_ln
-    for t in tensors:
-        if t.device != dev or t.data_ptr() % 16:
-            raise ValueError(f"greedy_decode_loop: decoder weights must be 16-byte aligned on {dev}")
-
-    def ptr(t):
-        return 0 if t is None else t.data_ptr()
-
+    _check_ptrs(tensors, dev)
     ptrs = [c[k].data_ptr() for k in (
         "tok_emb", "pos_emb", "tok_type", "elns", "elnb", "twt", "tbt", "hlns", "hlnb",
         "wp", "bp",
     )]
     ptrs += [k_slab.data_ptr(), v_slab.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
-             ptr(stops), ptr(enc_raw), *(ptr(t) for t in (final_ln or (None, None)))]
+             _ptr(stops), _ptr(enc_raw), *(_ptr(t) for t in (final_ln or (None, None)))]
     for w in layers:
-        ptrs += [ptr(t) for t in w]
+        ptrs += [_ptr(t) for t in w]
     ints = [batch, d, heads, inter, vocab, n_layers, s_len, steps,
             cfg.bos_token_id, cfg.eos_token_id, cfg.pad_token_id, rows, int(int8_w), int(fuse_kv),
             s_enc, stages, int(gelu_mode == "sigmoid")]
     launch.decode_loop(ptrs, ints, 1.0 / (dh**0.5), cfg.layer_norm_eps, tokens, lengths)
+    greedy_decode_loop.last_grid = {
+        "form": "loop", "rows_per_block": rows, "blocks": -(-batch // rows),
+        "blocks_per_sm": launch.decode_loop_blocks_per_sm(dev, int8_w, fuse_kv, opts, rows, smem)}
     _count(tuple(f for f, on in (("int8_w", int8_w), ("fuse_kv", fuse_kv)) if on))
     return tokens, lengths
 
 
-greedy_decode_loop.launches = 0  # launches of the CUDA kernel (CPU calls do not count)
-# launches by form: "int8_w" (int8 decoder weights) and "fuse_kv" (slabs in the launch)
-greedy_decode_loop.launches_by_form = {"int8_w": 0, "fuse_kv": 0}
+greedy_decode_loop.launches = 0  # launches of a CUDA kernel (CPU calls do not count)
+# launches by form: "cluster" (the serving form's cluster kernel), "int8_w"
+# (int8 decoder weights) and "fuse_kv" (slabs in the launch); the last two
+# run on the present kernel
+greedy_decode_loop.launches_by_form = {"cluster": 0, "int8_w": 0, "fuse_kv": 0}
+greedy_decode_loop.last_grid = None  # the grid of the last CUDA launch (a record for chip_smoke)

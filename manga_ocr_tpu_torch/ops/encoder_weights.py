@@ -73,21 +73,29 @@ def _leaves(tree) -> list[torch.Tensor]:
     return [tree]
 
 
-_PREPARED = WeakIdKeyDictionary()  # first leaf -> (stamp, LayerWeights)
+_PREPARED = WeakIdKeyDictionary()  # first leaf -> {key: (stamp, prepared)}
+
+
+def prepared(tree, key, make):
+    """``make()``'s result for the params ``tree``, made once per tree and
+    ``key`` (see the module docstring): remembered per tree under its first
+    leaf, checked against the identity, storage and version counter of
+    every leaf.  Kernel C's decoder weights use it too."""
+    leaves = _leaves(tree)
+    stamp = tuple((id(t), t.data_ptr(), -1 if t.is_inference() else t._version) for t in leaves)
+    per_tree = _PREPARED.setdefault(leaves[0], {})
+    hit = per_tree.get(key)
+    if hit is not None and hit[0] == stamp:
+        return hit[1]
+    value = make()
+    per_tree[key] = (stamp, value)
+    return value
 
 
 def prepare_layers(layers: dict, dtype: torch.dtype) -> LayerWeights:
     """``prepare_weights`` of a stacked layer tree, once per tree and
     dtype (see the module docstring)."""
-    leaves = _leaves(layers)
-    stamp = (dtype, tuple((id(t), t.data_ptr(), -1 if t.is_inference() else t._version)
-                          for t in leaves))
-    hit = _PREPARED.get(leaves[0])
-    if hit is not None and hit[0] == stamp:
-        return hit[1]
-    weights = prepare_weights(layers, dtype)
-    _PREPARED[leaves[0]] = (stamp, weights)
-    return weights
+    return prepared(layers, ("encoder", dtype), lambda: prepare_weights(layers, dtype))
 
 
 def _index(t, l: int):

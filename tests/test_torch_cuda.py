@@ -248,6 +248,64 @@ def test_decode_loop_kernel_tokens_are_greedy_under_plain_model(device):
             assert bool((lengths <= stops).all())
 
 
+@pytest.mark.parametrize("batch", [1, 17, 40, 600])
+def test_decode_cluster_kernel_tokens_are_greedy_under_plain_model(device, batch):
+    """The serving form's cluster kernel (H = 4: clusters of 4 CTAs, 16-row
+    tiles, the last one ragged; at B=600 more 16-row tiles than the card
+    seats clusters, so wider tiles of two m16 row tiles a CTA) with stop
+    lengths ending rows at different steps: a launch counted under
+    "cluster", its tokens scored by the plain decoder (teacher forcing),
+    lengths within the stops."""
+    from manga_ocr_tpu_torch.models import decoder as dec
+    from manga_ocr_tpu_torch.models import model as mdl
+    from manga_ocr_tpu_torch.models.params import init_params
+    from manga_ocr_tpu_torch.ops import decode_loop as dl
+
+    cfg = MangaOCRConfig.tiny()
+    params = mdl.cast_params(init_params(cfg, 3, device)["decoder"], torch.bfloat16)
+    rng = np.random.default_rng(30 + batch)
+    enc = _randn(rng, (batch, cfg.encoder.seq_len, 64), device, torch.bfloat16)
+    cross = dec.precompute_cross_kv_packed(params, enc, cfg.decoder)
+    stops = torch.from_numpy(rng.integers(2, 24, size=batch).astype(np.int32)).to(device)
+    for stop_lengths in (None, stops):
+        before = dl.greedy_decode_loop.launches_by_form["cluster"]
+        tokens, lengths = dl.greedy_decode_loop(params, cross, cfg.decoder, 20,
+                                                stop_lengths=stop_lengths, kernel="cluster")
+        assert dl.greedy_decode_loop.launches_by_form["cluster"] == before + 1
+        grid = dl.greedy_decode_loop.last_grid
+        assert grid["form"] == "cluster" and grid["clusters"] <= grid["seated"]
+        tiles16 = -(-batch // 16)
+        assert grid["rows_per_tile"] == (16 if tiles16 <= grid["seated"]
+                                         else -(-batch // grid["seated"]))
+        assert tokens.shape == (batch, 21)
+        assert bool((tokens[:, 0] == cfg.decoder.bos_token_id).all())
+        gaps, top = dl.teacher_forced_gaps(params, cross, cfg.decoder, tokens)
+        assert _live_rel_gap(gaps, top, lengths) <= DECODE_GAP_REL
+        past = torch.arange(21, device=device)[None, :] >= lengths[:, None]
+        assert bool((tokens[past] == cfg.decoder.pad_token_id).all())
+        if stop_lengths is not None:
+            assert bool((lengths <= stops).all())
+
+
+def test_decode_cluster_and_present_kernel_agree_under_teacher_forcing(device):
+    """The present kernel's serving form, forced with kernel="loop", on the
+    same inputs: both token matrices greedy under the plain decoder."""
+    from manga_ocr_tpu_torch.models import decoder as dec
+    from manga_ocr_tpu_torch.models import model as mdl
+    from manga_ocr_tpu_torch.models.params import init_params
+    from manga_ocr_tpu_torch.ops import decode_loop as dl
+
+    cfg = MangaOCRConfig.tiny()
+    params = mdl.cast_params(init_params(cfg, 4, device)["decoder"], torch.bfloat16)
+    enc = _randn(np.random.default_rng(40), (9, cfg.encoder.seq_len, 64), device, torch.bfloat16)
+    cross = dec.precompute_cross_kv_packed(params, enc, cfg.decoder)
+    for kernel in ("loop", "cluster"):
+        tokens, lengths = dl.greedy_decode_loop(params, cross, cfg.decoder, 20, kernel=kernel)
+        assert dl.greedy_decode_loop.last_grid["form"] == kernel
+        gaps, top = dl.teacher_forced_gaps(params, cross, cfg.decoder, tokens)
+        assert _live_rel_gap(gaps, top, lengths) <= DECODE_GAP_REL
+
+
 def _live_rel_gap(gaps, top, lengths):
     live = torch.arange(gaps.shape[1], device=gaps.device)[None, :] + 1 < lengths[:, None]
     return float((gaps[live] / top[live].abs()).max())

@@ -8,7 +8,10 @@ projections in the loop, also on JAX's own seq-padded encoder output);
 ``ablate`` of each stage; the sigmoid GELU; the TPU scheduling knobs, which
 change no token and must be positive.  Also the ``stop_lengths`` instrument,
 the EOS done-masking, the cross-K/V precompute, and the teacher-forced
-scorer used on the card."""
+scorer used on the card; and, for the CUDA path, which kernel takes which
+form and shape (the serving form's cluster kernel or the present one), its
+refusals, its split plan, and the decoder weights each kernel reads,
+prepared once per set of params."""
 
 import dataclasses
 
@@ -29,6 +32,7 @@ from manga_ocr_tpu_torch.models import decoder as tdec
 from manga_ocr_tpu_torch.models import model as tmdl
 from manga_ocr_tpu_torch.models.params import init_params_numpy, params_from_jax
 from manga_ocr_tpu_torch.ops import decode_loop as tl
+from manga_ocr_tpu_torch.ops import encoder_weights as ew
 from manga_ocr_tpu_torch.ops.common import layer_norm
 from port_config import port_config
 
@@ -328,3 +332,164 @@ def test_wrapper_counts_no_cpu_launches():
     tl.greedy_decode_loop(tdp, None, port_config(cfg).decoder, 3, enc_raw=torch.from_numpy(enc))
     assert (tl.greedy_decode_loop.launches, tl.greedy_decode_loop.launches_by_form,
             tdec.precompute_cross_kv_packed.calls) == before
+
+
+# -- the serving form's cluster kernel: choice, refusals, prepared weights ----
+
+
+def _tiny_port(std=0.02, seed=12, **decoder):
+    """The port's tiny config (decoder fields replaced) and its decoder
+    params from the JAX package's numpy weights."""
+    cfg = MangaOCRConfig.tiny()
+    cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, **decoder))
+    np_dec = init_params_numpy(cfg, seed, std=std)["decoder"]
+    return port_config(cfg).decoder, params_from_jax(np_dec, "cpu")
+
+
+@pytest.mark.parametrize("case,want", [
+    (dict(), "cluster"),
+    (dict(int8_w=True), "loop"),
+    (dict(fuse_kv=True), "loop"),
+    (dict(stages=tl._SELF), "loop"),
+    (dict(gelu_mode="sigmoid"), "loop"),
+    (dict(num_heads=8), "loop"),  # dh = 8: not a multiple of 16
+    (dict(num_heads=2), "cluster"),  # dh = 32
+    (dict(intermediate_size=80), "loop"),  # I % 32 != 0, 20 columns a CTA
+    (dict(steps=4000), "loop"),  # the scores of 4000 steps overflow shared memory
+], ids=["serving", "int8_w", "fuse_kv", "ablate", "sigmoid", "dh8", "dh32", "inter80", "steps"])
+def test_decode_form_chooses_cluster_for_the_serving_form_only(case, want):
+    case = dict(case)
+    int8_w, fuse_kv = case.pop("int8_w", False), case.pop("fuse_kv", False)
+    stages, gelu = case.pop("stages", 0), case.pop("gelu_mode", "erf")
+    steps = case.pop("steps", STEPS)
+    cfg, tdp = _tiny_port(**case)
+    if int8_w:
+        from manga_ocr_tpu_torch.models.quantize import quantize_decoder
+        tdp = quantize_decoder(tdp)
+    assert tl.decode_form(tdp, cfg, steps, 5, fuse_kv, stages, gelu) == want
+
+
+@pytest.mark.parametrize("bad", [
+    dict(kernel="cluster", ablate="mlp"), dict(kernel="cluster", gelu_mode="sigmoid"),
+    dict(kernel="cluster", int8_w=True), dict(kernel="cluster", fuse_kv=True),
+    dict(kernel="cluster", num_heads=8), dict(kernel="tiled"),
+], ids=["ablate", "sigmoid", "int8_w", "fuse_kv", "dh8", "kernel"])
+def test_cluster_refusals_raise_before_any_build(bad):
+    """What the cluster kernel does not take raises ValueError in the
+    wrapper, before any build (here, with no nvcc, a build would raise
+    something else), whatever the device."""
+    bad = dict(bad)
+    int8_w, fuse_kv = bad.pop("int8_w", False), bad.pop("fuse_kv", False)
+    heads = bad.pop("num_heads", None)
+    cfg, tdp = _tiny_port(**({} if heads is None else {"num_heads": heads}))
+    if int8_w:
+        from manga_ocr_tpu_torch.models.quantize import quantize_decoder
+        tdp = quantize_decoder(tdp)
+    enc = torch.from_numpy(np.random.default_rng(3).normal(size=(2, 5, 64)).astype(np.float32))
+    cross = tdec.precompute_cross_kv_packed(tdp, enc, cfg)
+    src = dict(cross=None, enc_raw=enc) if fuse_kv else dict(cross=cross)
+    with pytest.raises(ValueError):
+        tl.greedy_decode_loop(tdp, cfg=cfg, steps=STEPS, **src, **bad)
+
+
+def test_cluster_choice_runs_the_plain_version_on_the_cpu():
+    cfg, tdp = _tiny_port(std=0.1)
+    enc = torch.from_numpy(np.random.default_rng(4).normal(size=(3, 5, 64)).astype(np.float32))
+    cross = tdec.precompute_cross_kv_packed(tdp, enc, cfg)
+    want = tl.greedy_decode_loop_reference(tdp, cross, cfg, STEPS)
+    for kernel in ("cluster", "loop", "auto"):
+        got = tl.greedy_decode_loop(tdp, cross, cfg, STEPS, kernel=kernel)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=0, rtol=0)
+
+
+def _unpack_fragments(packed: torch.Tensor) -> torch.Tensor:
+    """The [K, N] matrix the cluster kernel multiplies by, read from a
+    ``pack_fragments`` layout by the kernel's own index formulas."""
+    heads, nt, n_pairs, _, _ = packed.shape
+    h, j, p, lane, x = torch.meshgrid(*(torch.arange(s) for s in packed.shape), indexing="ij")
+    r, e = x // 2, x % 2
+    kk = 32 * p + 16 * (r // 2) + 8 * (r % 2) + 2 * (lane % 4) + e
+    nn = h * nt * 8 + 8 * j + lane // 4
+    w = torch.zeros((32 * n_pairs, heads * nt * 8), dtype=packed.dtype)
+    w[kk.reshape(-1), nn.reshape(-1)] = packed.reshape(-1).cpu()
+    return w
+
+
+def test_cluster_layout_reproduces_the_plain_projections():
+    """Each weight the cluster kernel reads, unpacked by the kernel's own
+    fragment formulas, is CTA h's column slice of the plain projection:
+    self q|k|v as [q_h | k_h | v_h], the others in column order, the vocab
+    padded with zero columns; x times it is the plain product's slice."""
+    cfg, tdp = _tiny_port(std=0.1)
+    heads, d = cfg.num_heads, cfg.hidden_size
+    dh = d // heads
+    common, layers = tl.cluster_weights(tdp, heads)
+    x = torch.from_numpy(np.random.default_rng(5).normal(size=(16, 3 * d)).astype(np.float32))
+    x = x.bfloat16().float()
+
+    def check(packed, bias, w_plain, b_plain):
+        w = _unpack_fragments(packed)
+        assert w.shape == w_plain.shape
+        assert torch.equal(w, w_plain.to(torch.bfloat16))
+        k = w.shape[0]
+        torch.testing.assert_close(x[:, :k] @ w.float() + bias, x[:, :k] @ w_plain.bfloat16().float()
+                                   + b_plain, atol=0, rtol=0)
+
+    lp = tdp["layers"]
+    for l, w in enumerate(layers):
+        sa = lp["self_attn"]
+        cols = [sa[n]["kernel"][l][:, h * dh:(h + 1) * dh] for h in range(heads)
+                for n in ("q", "k", "v")]
+        bias = [sa[n]["bias"][l][h * dh:(h + 1) * dh] for h in range(heads) for n in ("q", "k", "v")]
+        check(w[0], w[1], torch.cat(cols, 1), torch.cat(bias))
+        for i, (a, n) in ((2, ("self_attn", "o")), (6, ("cross_attn", "q")),
+                          (8, ("cross_attn", "o")), (12, ("mlp", "fc1")), (14, ("mlp", "fc2"))):
+            dense = lp[a][n]
+            check(w[i], w[i + 1], dense["kernel"][l], dense["bias"][l].float())
+    head = tdp["head"]
+    check(common[5], common[6], head["transform"]["dense"]["kernel"],
+          head["transform"]["dense"]["bias"].float())
+    vocab = cfg.vocab_size
+    vs = tl.vocab_slice(vocab, heads)
+    assert vs % 8 == 0 and heads * vs >= vocab
+    wp = torch.zeros((d, heads * vs))
+    wp[:, :vocab] = head["proj"]["kernel"]
+    bp = torch.zeros(heads * vs)
+    bp[:vocab] = head["proj"]["bias"]
+    check(common[9], common[10], wp, bp)
+
+
+def test_prepared_decoder_weights_are_made_once_and_anew_after_an_inplace_write():
+    cfg, tdp = _tiny_port()
+    loop, cluster = tl.loop_weights(tdp, False), tl.cluster_weights(tdp, cfg.num_heads)
+    assert tl.loop_weights(tdp, False) is loop
+    assert tl.cluster_weights(tdp, cfg.num_heads) is cluster
+    assert tl.loop_weights(tdp, True) is not loop  # fuse_kv adds the cross k/v weights
+    # no prepared tensor is a leaf of the params (the cache holds none)
+    leaves = {t.data_ptr() for t in ew._leaves(tdp)}
+    assert not leaves & {t.data_ptr() for t in cluster[0] + [u for w in cluster[1] for u in w]}
+    fc1 = tdp["layers"]["mlp"]["fc1"]["kernel"]
+    with torch.no_grad():
+        fc1.add_(1.0)
+    loop2, cluster2 = tl.loop_weights(tdp, False), tl.cluster_weights(tdp, cfg.num_heads)
+    assert loop2 is not loop and cluster2 is not cluster
+    assert not torch.equal(loop2[1][0][16], loop[1][0][16])  # layer 0's fc1 weight
+    assert not torch.equal(cluster2[1][0][12], cluster[1][0][12])
+
+
+@pytest.mark.parametrize("d,heads,inter,vocab,steps,s_len", [
+    (768, 8, 3072, 6144, 299, 197), (64, 4, 128, 100, 20, 5), (64, 2, 128, 100, 11, 5)],
+    ids=["base", "tiny", "tiny_h2"])
+def test_cluster_plan_covers_every_projection(d, heads, inter, vocab, steps, s_len):
+    plan = tl.cluster_plan(d, heads, inter, vocab, steps, s_len)
+    for name, (k, n, kp, t) in plan["plans"].items():
+        n_pairs, nt = k // 32, n // 8
+        assert n % 8 == 0 and k % 32 == 0 and n_pairs % kp == 0
+        assert tl.CLUSTER_WARPS % kp == 0 and 1 <= t <= tl._MAX_TILES
+        assert name != "vocab" or kp == 1
+        assert nt >= 1
+    assert plan["smem"] == tl.cluster_smem(16, d, heads, inter, steps, s_len) <= tl._SMEM_LIMIT
+    if d == 768:  # B=256 on 15 seated clusters takes tiles of 18 rows
+        assert tl.cluster_smem(19, d, heads, inter, steps, s_len) <= 227 * 1024 - 1024
+        assert tl.cluster_smem(20, d, heads, inter, steps, s_len) > 227 * 1024
