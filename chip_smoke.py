@@ -5,9 +5,10 @@ Run from the repository root:  python3 chip_smoke.py
 stack's own noise floor, which sets ENC_STACK_MEAN_REL;
 ``python3 chip_smoke.py --core-times ROOT...`` only the attention core's
 times, built and timed from each tree ROOT in turn;
-``python3 chip_smoke.py --gemm-times ROOT...`` the bf16 GEMM's times at the
-main paths' shapes, both engines' crops/s and a torch.profiler split of one
-H bf16 layer and one bf16-engine dispatch, from each tree in turn.)
+``python3 chip_smoke.py --gemm-times ROOT...`` the bf16 and the int8 GEMM's
+times at the main paths' shapes, both engines' crops/s and a torch.profiler
+split of one H bf16 layer, one A int8 and one B call at B=256 and one
+dispatch of each engine, from each tree in turn.)
 
 1. Requires CUDA; prints the card's name and power limit (nvidia-smi).
 2. Builds the kernels of manga_ocr_tpu_torch/csrc with nvcc (sm_90a), one
@@ -24,7 +25,13 @@ H bf16 layer and one bf16-engine dispatch, from each tree in turn.)
    C and F use, on all 2^32 f32 inputs, and the kernel against its plain
    version at the main paths' shapes (the encoder block's four products at
    M = 256 x 197, the decode step's at M = 32 and 256), each with its
-   device time, TFLOP/s, bound and one torch.addmm call's time.
+   device time, TFLOP/s, bound and one torch.addmm call's time.  Then the
+   int8 GEMM under every int8 projection (TMA + mbarrier ring + s8 wgmma;
+   its ptxas lines are printed with the bf16 GEMM's) against its plain
+   version, bit for bit (the GELU modes within a few f32 ulps), at the
+   encoder block's four shapes, the decode step's and M = 1, 17 and 197,
+   each with its device time, TOP/s, bound and one torch._int_mm call's
+   time.
 3. Holds each kernel against its plain PyTorch version on the card at the
    shapes its path gives it (MangaOCRConfig.base(), batch 32 and 256,
    S=197, D=768), with CUDA-event times of both: A, B, C on int8 params;
@@ -221,27 +228,30 @@ def log_core_ptxas(build_log: str) -> None:
 
 
 def log_gemm_ptxas(build_log: str) -> None:
-    """The bf16 GEMM's ptxas lines (registers, stack, spill bytes) for each
-    tile instantiation; fails if any spills or none is found."""
+    """The ptxas lines (registers, stack, spill bytes) of both GEMMs on the
+    gemm_sm90.cuh pipeline (bf16: Bf16Op, int8: S8Op) for each tile
+    instantiation; fails if any spills or either GEMM has none."""
     import re
 
-    name, found = "", 0
+    name, found = "", {"bf16": 0, "int8": 0}
     for ln in build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             name = m.group(1)
             continue
-        tile = re.search(r"gemm_kernel\w*?TileILi(\d+)ELi(\d+)ELi(\d+)E", name)
+        tile = re.search(r"gemm_kernel\w*?(Bf16Op|S8Op)\w*?TileILi(\d+)ELi(\d+)ELi(\d+)E", name)
         if tile is None or not ("spill" in ln or "registers" in ln):
             continue
-        label = "{}x{} tiles, {} stages".format(*tile.groups())
-        log(f"ptxas: bf16 GEMM {label}: {ln.strip()}")
+        form = "bf16" if tile.group(1) == "Bf16Op" else "int8"
+        label = "{} GEMM {}x{} tiles, {} stages".format(form, *tile.groups()[1:])
+        log(f"ptxas: {label}: {ln.strip()}")
         if "spill" in ln:
-            found += 1
+            found[form] += 1
             if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln)):
-                fail(f"the bf16 GEMM ({label}) spills: {ln.strip()}")
-    if not found:
-        fail("no ptxas line of the bf16 GEMM in the build log")
+                fail(f"the {label} spills: {ln.strip()}")
+    for form, n in found.items():
+        if not n:
+            fail(f"no ptxas line of the {form} GEMM in the build log")
 
 
 def cuda_ms(fn, reps: int = 5, warm: bool = True) -> float:
@@ -558,6 +568,129 @@ def gemm_times(check: bool = False) -> dict:
     return times
 
 
+# The int8 GEMM (csrc/gemm_int8.cu) at the shapes of the main paths: the
+# four products of an encoder block at B=256 (A's int8 form, B, H and I on
+# 256 x 197 rows, with the serving encoder's sigmoid GELU) and the decode
+# step's at B=32 and 256 (J's q|k|v and K's q, f32 out; J's and K's o; B's
+# step form with the erf GELU), in the mode each path uses; fc1's product
+# with no GELU, in f32 and in bf16 (what the GELU and what the f32 bytes
+# cost its epilogue); then the encoder's four at ragged row counts (one
+# row, a partial 64-row tile, one crop), held only.
+INT8_ENCODER_PRODUCTS = (("qkv", 2304, 768, "bf16"), ("o", 768, 768, "residual"),
+                         ("fc1", 3072, 768, "gelu_sigmoid"), ("fc2", 768, 3072, "residual"))
+INT8_GEMM_SHAPES = [(f"{name} M={m}", m, n, k, mode) for m in (256 * 197,)
+                    for name, n, k, mode in INT8_ENCODER_PRODUCTS] + \
+    [(f"step {name} M={m}", m, n, k, mode) for m in (32, 256)
+     for name, n, k, mode in (("qkv", 2304, 768, "f32"), ("q", 768, 768, "f32"),
+                              ("o", 768, 768, "residual"), ("fc1", 3072, 768, "gelu_erf"),
+                              ("fc2", 768, 3072, "residual"))] + \
+    [(f"fc1[{mode}] M=50432", 256 * 197, 3072, 768, mode) for mode in ("f32", "bf16")]
+INT8_GEMM_RAGGED = [(f"{name} M={m}", m, n, k, mode) for m in (1, 17, 197)
+                    for name, n, k, mode in INT8_ENCODER_PRODUCTS]
+# The GELU modes compute expf and a division, whose last bit may differ
+# between the kernel's and PyTorch's builds of them: held to a few f32 ulps
+# of the largest output.  The other modes must be bit for bit.
+INT8_GELU_REL = 2.0**-20
+
+
+def int8_gemm_inputs(m: int, n: int, k: int, mode: str, gen):
+    """a [M, K], b_t [N, K] (int8 over the whole range, as row-quantized
+    activations and weights are), sx, sw, bias, the epilogue code and the
+    residual (None unless ``mode`` is "residual") of one int8 GEMM shape."""
+    import torch
+
+    from manga_ocr_tpu_torch.kernels import launch
+
+    code = {"bf16": launch.GEMM_BF16, "gelu_sigmoid": launch.GEMM_GELU_F32,
+            "residual": launch.GEMM_RESIDUAL_BF16, "f32": launch.GEMM_F32,
+            "gelu_erf": launch.GEMM_GELU_ERF_F32}[mode]
+    def ints(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int16).to(torch.int8)
+
+    a, b_t = ints(m, k), ints(n, k)
+    sx = (torch.rand((m,), generator=gen, device="cuda") + 0.5) * (4.0 / 127)
+    sw = (torch.rand((n,), generator=gen, device="cuda") + 0.5) * (4 * WEIGHT_STD / 127)
+    bias = torch.randn((n,), generator=gen, device="cuda") * 0.1
+    res = (torch.randn((m, n), generator=gen, device="cuda").to(torch.bfloat16)
+           if mode == "residual" else None)
+    return a, b_t, sx, sw, bias, code, res
+
+
+def hold_int8_gemm(label: str, args: tuple, mode: str) -> float:
+    """The int8 GEMM against int8_gemm_reference on the same inputs: bit for
+    bit, or within INT8_GELU_REL for the GELU modes; returns the largest
+    difference."""
+    import torch
+
+    from manga_ocr_tpu_torch.kernels import launch
+    from manga_ocr_tpu_torch.ops.fused_mlp import int8_gemm_reference
+
+    got, want = launch.int8_gemm(*args), int8_gemm_reference(*args)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype or \
+            not torch.isfinite(got.float()).all():
+        fail(f"int8 GEMM {label}: {got.dtype} {tuple(got.shape)} or non-finite output")
+    exact = torch.equal(got, want)
+    max_abs = float((got.float() - want.float()).abs().max())
+    if not exact and (not mode.startswith("gelu") or
+                      max_abs > INT8_GELU_REL * float(want.float().abs().max())):
+        fail(f"int8 GEMM {label} {mode}: differs from its plain version by up to {max_abs}")
+    del got, want
+    return max_abs
+
+
+def int8_gemm_times(check: bool = False) -> dict:
+    """Device ms (CUDA graph) of the int8 GEMM alone at each
+    INT8_GEMM_SHAPES shape, through ``launch.int8_gemm`` (whose signature
+    every tree shares).  With ``check``, also holds it against
+    int8_gemm_reference there and at INT8_GEMM_RAGGED, and logs its TOP/s
+    and share of the int8 peak, its bound, the plain version's time and one
+    torch._int_mm call's (the int32 product alone, on the same operands) as
+    the library yardstick (timed only; the port never calls it)."""
+    import torch
+
+    from manga_ocr_tpu_torch.kernels import launch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    times = {}
+    for label, m, n, k, mode in INT8_GEMM_SHAPES + (INT8_GEMM_RAGGED if check else []):
+        a, b_t, sx, sw, bias, code, res = int8_gemm_inputs(m, n, k, mode, gen)
+        args = (a, b_t, sx, sw, bias, code, res)
+        max_abs = hold_int8_gemm(label, args, mode) if check else None
+        if (label, m, n, k, mode) in INT8_GEMM_RAGGED:
+            log(f"int8 GEMM {label} N={n} K={k} {mode}: max_abs_err={max_abs}")
+            continue
+        reps = 10 if m > 4096 else 50
+        ms = times[label] = graph_ms(lambda: launch.int8_gemm(*args), reps)
+        if check:
+            from manga_ocr_tpu_torch.ops.fused_mlp import int8_gemm_reference
+
+            plain_ms = cuda_ms(lambda: int8_gemm_reference(*args))
+            library_ms = None
+            if m > 16:  # torch._int_mm takes M > 16
+                b_kn = b_t.t()
+                try:
+                    torch._int_mm(a, b_kn)
+                except RuntimeError:  # a layout it refuses: its own copy, not timed
+                    b_kn = b_kn.contiguous()
+                library_ms = graph_ms(lambda: torch._int_mm(a, b_kn), reps)
+            bound_ms, bound_by = bound(*cost_int8_gemm(m, n, k, mode))
+            tops = 2 * m * n * k / ms / 1e9
+            log(f"int8 GEMM {label} N={n} K={k} {mode}: max_abs_err={max_abs} ms={ms} "
+                f"TOP/s={tops} ({tops / 1979:.3f} of the int8 peak) bound_ms={bound_ms} "
+                f"({bound_by}) library_ms={library_ms} (torch._int_mm) plain_ms={plain_ms}")
+        del a, b_t, sx, sw, bias, res, args
+        torch.cuda.empty_cache()
+    return times
+
+
+def cost_int8_gemm(m, n, k, mode):  # a, b_t, scales, bias (and residual) in, out once
+    out = 2 if mode in ("bf16", "residual") else 4
+    return (m * k + n * k + m * 4 + n * 8 + m * n * (out + (2 if mode == "residual" else 0)),
+            {"int8": 2 * m * n * k})
+
+
 def device_ms_by_kernel(prof) -> list:
     """(kernel name, device ms) of a torch.profiler run, largest first: the
     device's own events only (kernels, copies), not the host operators
@@ -580,65 +713,88 @@ def log_profile(label: str, prof) -> None:
         log(f"  {ms:10.4f} ms  {ms / total:6.1%}  {name[:110]}")
 
 
-def profile_split() -> None:
-    """One torch.profiler trace of one H bf16 layer at B=256 and one of the
-    bf16 engine's largest dispatch of a 256-crop page (preprocess, encoder,
-    cross-K/V and decode), each printed as device ms by kernel name."""
+def traced(label: str, fn) -> None:
+    """``fn`` once to warm, then once under torch.profiler, printed as
+    device ms by kernel name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    log_profile(label, prof)
+
+
+def profile_split() -> None:
+    """torch.profiler traces, each printed as device ms by kernel name: one
+    H bf16 layer at B=256; one A int8 call and one B call at B=256 on the
+    int8 serving encoder's weights, prepared as the encoder reads them; and
+    the largest dispatch of a 256-crop page (preprocess, encoder, cross-K/V
+    and decode) on the bf16 and on the int8 engine."""
+    import torch
+
     from manga_ocr_tpu_torch.engine import TorchMangaOcrEngine
+    from manga_ocr_tpu_torch.engine.engine import _cast_quantized
     from manga_ocr_tpu_torch.kernels import launch
     from manga_ocr_tpu_torch.models import model as mdl
     from manga_ocr_tpu_torch.models import vit
-    from manga_ocr_tpu_torch.models.config import MangaOCRConfig
+    from manga_ocr_tpu_torch.models.config import MangaOCRConfig, with_serving_kernels
     from manga_ocr_tpu_torch.models.params import init_params, layer_params
+    from manga_ocr_tpu_torch.models.quantize import quantize_encoder
     from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
     from manga_ocr_tpu_torch.ops import flash_attention as fa
+    from manga_ocr_tpu_torch.ops import fused_mlp as fm
     from manga_ocr_tpu_torch.ops import preprocess as pp
     from manga_ocr_tpu_torch.ops.encoder_weights import layer_view, prepare_layers
     from manga_ocr_tpu_torch.parallel import batching
 
     cfg = MangaOCRConfig.base()
-    ecfg = cfg.encoder
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    layers = mdl.cast_params(init_params(cfg, SEED, "cuda", std=WEIGHT_STD)["encoder"],
-                             torch.bfloat16)["layers"]
+    ecfg = with_serving_kernels(cfg, quantized=True).encoder
+    raw = init_params(cfg, SEED, "cuda", std=WEIGHT_STD)["encoder"]
+    layers = mdl.cast_params(raw, torch.bfloat16)["layers"]
     lp, lw = layer_params(layers, 0), layer_view(prepare_layers(layers, torch.bfloat16), 0)
     b, s, d = 256, ecfg.seq_len, ecfg.hidden_size
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     x = torch.randn((b, s, d), generator=gen, device="cuda").to(torch.bfloat16)
     scratch = launch.encoder_scratch(b * s, d, ecfg.intermediate_size, False, "cuda")
+    traced("H bf16 layer B=256", lambda: fa.fused_encoder_layer(
+        x, lp, ecfg.num_heads, ecfg.layer_norm_eps, "erf", lw, scratch))
+    del layers, lp, lw, scratch
 
-    def layer():
-        return fa.fused_encoder_layer(x, lp, ecfg.num_heads, ecfg.layer_norm_eps, "erf", lw,
-                                      scratch)
-    layer()
-    torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
-        layer()
-        torch.cuda.synchronize()
-    log_profile("H bf16 layer B=256", prof)
-    del layers, lp, lw, x, scratch
+    enc = _cast_quantized(quantize_encoder(raw, quantize_attn_proj=True),
+                          torch.bfloat16)["layers"]
+    attn = {k: {n: t[0] for n, t in v.items()} for k, v in enc["attn"].items()}
+    lw = layer_view(prepare_layers(enc, torch.bfloat16), 0)
+    ln1 = (enc["ln1"]["scale"][0], enc["ln1"]["bias"][0])
+    ln2 = (enc["ln2"]["scale"][0], enc["ln2"]["bias"][0])
+    mlp_w = (lw.fc1.w, enc["mlp"]["fc1"]["bias"][0], lw.fc2.w, enc["mlp"]["fc2"]["bias"][0])
+    eps = ecfg.layer_norm_eps
+    traced("A int8 B=256", lambda: fa.fused_attn_layer(
+        x, attn, *ln1, ecfg.num_heads, eps=eps, valid_len=s, prepared=(lw.qkv, lw.o)))
+    traced("B B=256", lambda: fm.fused_mlp_block(x, *ln2, *mlp_w, eps=eps,
+                                                 gelu_mode=ecfg.gelu_mode))
+    del raw, enc, attn, lw, mlp_w, x
 
-    engine = TorchMangaOcrEngine(init_params(cfg, SEED, "cpu", std=WEIGHT_STD), cfg,
-                                 CharTokenizer.synthetic(), device="cuda", quantize_int8=False)
     crops = load_crops()
     page = [crops[i % len(crops)] for i in range(256)]
     bt = max(batching.prep_page_gray(page, pp.ORIENT_VERTICAL), key=lambda t: t.crops.shape[0])
     crops_d, sizes = torch.from_numpy(bt.crops).cuda(), torch.from_numpy(bt.sizes).cuda()
+    for form, quantize in (("bf16", False), ("int8", True)):
+        engine = TorchMangaOcrEngine(init_params(cfg, SEED, "cpu", std=WEIGHT_STD), cfg,
+                                     CharTokenizer.synthetic(), device="cuda",
+                                     quantize_int8=quantize)
 
-    def dispatch():
-        with torch.inference_mode():
-            px = pp.model_preprocess(crops_d, sizes, ecfg.image_size).to(engine.dtype)
-            enc = vit.encode(engine.params["encoder"], px, engine.cfg.encoder)
-            return mdl.greedy_decode(engine.params, enc, engine.cfg, engine.max_length).lengths
-    dispatch()
-    torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
-        dispatch()
-        torch.cuda.synchronize()
-    log_profile(f"bf16 engine dispatch B={bt.crops.shape[0]}", prof)
+        def dispatch():
+            with torch.inference_mode():
+                px = pp.model_preprocess(crops_d, sizes, ecfg.image_size).to(engine.dtype)
+                enc = vit.encode(engine.params["encoder"], px, engine.cfg.encoder)
+                return mdl.greedy_decode(engine.params, enc, engine.cfg,
+                                         engine.max_length).lengths
+        traced(f"{form} engine dispatch B={bt.crops.shape[0]}", dispatch)
+        del engine
+        torch.cuda.empty_cache()
 
 
 def engine_rates() -> dict:
@@ -662,12 +818,13 @@ def engine_rates() -> dict:
 
 
 def compare_child() -> dict:
-    """What ``--gemm-times`` reads of one tree: the GEMM's times, both
+    """What ``--gemm-times`` reads of one tree: both GEMMs' times, both
     engines' page rates, and the profiler split (printed)."""
     times = gemm_times()
+    int8_times = int8_gemm_times()
     rates = engine_rates()
     profile_split()
-    return {"gemm_ms": times, "crops_per_s": rates}
+    return {"gemm_ms": times, "int8_gemm_ms": int8_times, "crops_per_s": rates}
 
 
 def bound(nbytes: float, ops: dict) -> tuple[float, str]:
@@ -2158,6 +2315,8 @@ def main() -> int:
     phase("attention core")
     check_bf16_gemm()
     phase("bf16 GEMM")
+    int8_gemm_times(check=True)
+    phase("int8 GEMM")
 
     cfg = with_serving_kernels(MangaOCRConfig.base(), quantized=True)
     raw = init_params(cfg, SEED, "cuda", std=WEIGHT_STD)
@@ -2187,7 +2346,7 @@ def main() -> int:
 
     src = {"fused_attn_layer": ("manga_ocr_tpu_torch/csrc/encoder.cu",
                                 "manga_ocr_tpu/ops/flash_attention.py:617"),
-           "fused_mlp_block": ("manga_ocr_tpu_torch/csrc/encoder.cu",
+           "fused_mlp_block": ("manga_ocr_tpu_torch/csrc/gemm_int8.cu",
                                "manga_ocr_tpu/ops/fused_mlp.py:165"),
            "greedy_decode_loop[cluster]": ("manga_ocr_tpu_torch/csrc/decode_cluster.cu",
                                            "manga_ocr_tpu/ops/decode_loop.py:579"),
@@ -2201,7 +2360,7 @@ def main() -> int:
                                     "manga_ocr_tpu/ops/decode_layer.py:201"),
            "fused_cross_attn_step": ("manga_ocr_tpu_torch/csrc/decode_layer.cu",
                                      "manga_ocr_tpu/ops/decode_layer.py:336"),
-           "fused_mlp_block[step]": ("manga_ocr_tpu_torch/csrc/encoder.cu",
+           "fused_mlp_block[step]": ("manga_ocr_tpu_torch/csrc/gemm_int8.cu",
                                      "manga_ocr_tpu/ops/fused_mlp.py:165"),
            "fused_attn_layer[bf16]": ("manga_ocr_tpu_torch/csrc/encoder.cu",
                                       "manga_ocr_tpu/ops/flash_attention.py:617"),

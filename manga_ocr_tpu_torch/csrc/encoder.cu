@@ -21,22 +21,19 @@
 // kernels that share three building blocks (the whole blocks of kernels H
 // and I chain the same pieces from C++, csrc/encoder_layer.cu):
 //
-//   ln_quant_rows  one block per row: optional LN (f32 stats) then per-row
-//                  int8 quantization.  The row max spans the whole row, so
-//                  B's second quantization (over 3072 GELU outputs) runs
-//                  after fc1 has written its f32 output.  Bound: bytes
-//                  (reads 2-4 B, writes 1 B per element).
-//   int8_gemm      int8 x int8 -> int32 on the tensor cores
-//                  (mma.sync m16n8k32), 128x128x64 tiles in shared memory,
-//                  fused f32 epilogue  y = (acc * sx[m]) * sw[n] + b[n]
-//                  then one of the Int8Epilogue forms of entry.cuh (bf16
-//                  out, a GELU with f32 out, bf16 out + bf16 residual, f32
-//                  out).  The int32 sums are exact, so only epilogue
-//                  rounding can differ from the plain version.  Bound: at
-//                  B=256 (M = 50432) the products are large; this simple
-//                  single-stage tile loop is bound by its own load latency
-//                  well below the int8 tensor-core peak.  Pipelined loads
-//                  (cp.async / TMA) and wgmma are the next steps.
+//   ln_quant_rows  optional LN (f32 stats) then per-row int8 quantization,
+//                  each row held in registers by a warp (a row of up to
+//                  8 x 32 16-byte chunks: K = 768 in bf16 or f32) or by 2,
+//                  4 or 8 warps (B's second quantization, over 3072 f32
+//                  GELU outputs: the row max spans the whole row, so it runs
+//                  after fc1 has written them), 16-byte loads, shuffle
+//                  reductions.  Bound: bytes (reads 2-4 B, writes 1 B per
+//                  element).  Limits: K % 8 == 0 and K <= 2048 chunks of 16
+//                  bytes (8192 f32 values), 16-byte aligned x and LN
+//                  parameters, 8-byte aligned q.
+//   int8_gemm      the int8 products with their dequant epilogues: csrc/
+//                  gemm_int8.cu (mocr_int8_gemm, on gemm_sm90.cuh's TMA +
+//                  wgmma pipeline).
 //   attention      the SDPA core of A (_attn_core), E (_packed_kernel), G
 //                  (_attn_kernel) and the attention half of H and I: f32
 //                  logits of bf16 q.k scaled by 1/sqrt(dh), keys >= valid_len
@@ -75,134 +72,140 @@ namespace {
 // LN + per-row int8 quantization
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__global__ void ln_quant_rows_kernel(const T* __restrict__ x, const float* __restrict__ ln_scale,
-                                     const float* __restrict__ ln_bias, int do_ln, float eps,
-                                     int8_t* __restrict__ q, float* __restrict__ sx, int K) {
-  extern __shared__ float row[];
-  __shared__ float red[32];
-  const long base = (long)blockIdx.x * K;
-  for (int i = threadIdx.x; i < K; i += blockDim.x) row[i] = to_f32(x[base + i]);
+// A row is held in registers by a group of ``wpr`` of the block's
+// kRowWarps warps (one, two, four or eight): lane l of the group's warp w owns
+// the row's 16-byte chunks g, g + 32 wpr, ... (g = 32 w + l), at most
+// kChunks of them, each read with one 16-byte load.  Sums and the row max
+// reduce by shuffles within a warp, then through shared memory across the
+// group's warps.
+constexpr int kRowWarps = 8;
+
+// The sum (or max) of ``v`` over the row group of warp ``warp``; every
+// thread of the block calls it (the barriers), ``red`` holds kRowWarps
+// floats.
+template <bool kMax>
+__device__ __forceinline__ float group_reduce(float v, float* red, int warp, int wpr) {
+  v = kMax ? warp_max(v) : warp_sum(v);
+  if (wpr == 1) return v;
+  if (threadIdx.x % 32 == 0) red[warp] = v;
   __syncthreads();
-  if (do_ln) block_layer_norm(row, row, K, ln_scale, ln_bias, eps, red);
+  const int first = warp - warp % wpr;
+  float r = red[first];
+  for (int w = 1; w < wpr; ++w) r = kMax ? fmaxf(r, red[first + w]) : r + red[first + w];
+  __syncthreads();  // red is free again
+  return r;
+}
+
+template <typename T, int kChunks>
+__global__ void __launch_bounds__(32 * kRowWarps)
+    ln_quant_rows_kernel(const T* __restrict__ x, const float* __restrict__ ln_scale,
+                         const float* __restrict__ ln_bias, int do_ln, float eps,
+                         int8_t* __restrict__ q, float* __restrict__ sx, int M, int K, int wpr) {
+  constexpr int E = 16 / sizeof(T);  // elements of a 16-byte chunk
+  __shared__ float red[kRowWarps];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = blockIdx.x * (kRowWarps / wpr) + warp / wpr;
+  const int g = 32 * (warp % wpr) + lane, stride = 32 * wpr, chunks = K / E;
+  const bool live = row < M;  // rows past M still join the barriers
+  const long long base = (long long)row * K;
+  float v[kChunks][E];
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    const int i = g + c * stride;
+    uint4 raw = make_uint4(0, 0, 0, 0);
+    if (live && i < chunks) raw = *reinterpret_cast<const uint4*>(x + base + (long long)i * E);
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int j = 0; j < E; ++j) v[c][j] = to_f32(e[j]);
+  }
+  if (do_ln) {
+    float s = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+      for (int j = 0; j < E; ++j) s += v[c][j];  // chunks past K hold zeros
+    const float mu = group_reduce<false>(s, red, warp, wpr) / (float)K;
+    float var = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      if (g + c * stride >= chunks) continue;
+#pragma unroll
+      for (int j = 0; j < E; ++j) {
+        const float d = v[c][j] - mu;
+        var += d * d;
+      }
+    }
+    const float r = 1.0f / sqrtf(group_reduce<false>(var, red, warp, wpr) / (float)K + eps);
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int i = g + c * stride;
+      if (i >= chunks) continue;
+      float sc[E], bi[E];
+#pragma unroll
+      for (int j = 0; j < E; j += 4) {
+        *reinterpret_cast<float4*>(sc + j) =
+            *reinterpret_cast<const float4*>(ln_scale + i * E + j);
+        *reinterpret_cast<float4*>(bi + j) =
+            *reinterpret_cast<const float4*>(ln_bias + i * E + j);
+      }
+#pragma unroll
+      for (int j = 0; j < E; ++j)
+        v[c][j] = __fadd_rn(__fmul_rn(__fmul_rn(v[c][j] - mu, r), sc[j]), bi[j]);
+    }
+  }
   float m = 0.0f;
-  for (int i = threadIdx.x; i < K; i += blockDim.x) m = fmaxf(m, fabsf(row[i]));
-  const float amax = fmaxf(block_max(m, red), 1e-8f);
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c)
+    if (g + c * stride < chunks)
+#pragma unroll
+      for (int j = 0; j < E; ++j) m = fmaxf(m, fabsf(v[c][j]));
+  const float amax = fmaxf(group_reduce<true>(m, red, warp, wpr), 1e-8f);
   const float inv = 127.0f / amax;
-  for (int i = threadIdx.x; i < K; i += blockDim.x)
-    q[base + i] = (int8_t)__float2int_rn(__fmul_rn(row[i], inv));
-  if (threadIdx.x == 0) sx[blockIdx.x] = __fmul_rn(amax, kInv127);
+  if (!live) return;
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    const int i = g + c * stride;
+    if (i >= chunks) continue;
+    uint32_t packed[E / 4];
+#pragma unroll
+    for (int j = 0; j < E; j += 4) {
+      uint32_t p = 0;
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        p |= (uint32_t)(uint8_t)(int8_t)__float2int_rn(__fmul_rn(v[c][j + b], inv)) << (8 * b);
+      packed[j / 4] = p;
+    }
+    if (E == 8)
+      *reinterpret_cast<uint2*>(q + base + (long long)i * E) =
+          make_uint2(packed[0], packed[E / 4 - 1]);
+    else
+      *reinterpret_cast<uint32_t*>(q + base + (long long)i * E) = packed[0];
+  }
+  if (g == 0) sx[row] = __fmul_rn(amax, kInv127);
 }
 
-// ---------------------------------------------------------------------------
-// int8 GEMM: out[M, N] = epilogue(A[M, K] . B_t[N, K]^T)
-// ---------------------------------------------------------------------------
-
-constexpr int BM = 128, BN = 128, BK = 64, LDS = BK + 16;  // 80-byte smem rows
-constexpr int GEMM_THREADS = 256;
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__global__ void __launch_bounds__(GEMM_THREADS)
-int8_gemm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ Bt,
-                 const float* __restrict__ sx, const float* __restrict__ sw,
-                 const float* __restrict__ bias, const __nv_bfloat16* __restrict__ res,
-                 void* __restrict__ out, int M, int N, int K, int mode) {
-  __shared__ __align__(16) int8_t As[BM * LDS];
-  __shared__ __align__(16) int8_t Bs[BN * LDS];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int warp_m = warp >> 2, warp_n = warp & 3;  // 2 x 4 warps: 64 x 32 each
-  const int g = lane >> 2, tq = lane & 3;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // 128 rows x 64 bytes per operand = 512 16-byte chunks; 2 per thread
-#pragma unroll
-    for (int it = 0; it < 2; ++it) {
-      const int c = tid + it * GEMM_THREADS;
-      const int row = c >> 2, col = (c & 3) * 16;
-      int4 va = make_int4(0, 0, 0, 0), vb = make_int4(0, 0, 0, 0);
-      if (m0 + row < M) va = *reinterpret_cast<const int4*>(A + (long)(m0 + row) * K + k0 + col);
-      if (n0 + row < N) vb = *reinterpret_cast<const int4*>(Bt + (long)(n0 + row) * K + k0 + col);
-      *reinterpret_cast<int4*>(As + row * LDS + col) = va;
-      *reinterpret_cast<int4*>(Bs + row * LDS + col) = vb;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kb = 0; kb < BK; kb += 32) {
-      uint32_t af[4][4], bfr[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = warp_m * 64 + i * 16 + g;
-        af[i][0] = *reinterpret_cast<const uint32_t*>(As + r * LDS + kb + tq * 4);
-        af[i][1] = *reinterpret_cast<const uint32_t*>(As + (r + 8) * LDS + kb + tq * 4);
-        af[i][2] = *reinterpret_cast<const uint32_t*>(As + r * LDS + kb + 16 + tq * 4);
-        af[i][3] = *reinterpret_cast<const uint32_t*>(As + (r + 8) * LDS + kb + 16 + tq * 4);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = warp_n * 32 + j * 8 + g;
-        bfr[j][0] = *reinterpret_cast<const uint32_t*>(Bs + n * LDS + kb + tq * 4);
-        bfr[j][1] = *reinterpret_cast<const uint32_t*>(Bs + n * LDS + kb + 16 + tq * 4);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], af[i], bfr[j]);
-    }
-    __syncthreads();
-  }
-
-  // epilogue: c0/c1 at (row g, cols 2tq, 2tq+1), c2/c3 at row g + 8
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = m0 + warp_m * 64 + i * 16 + g + half * 8;
-      if (m >= M) continue;
-      const float sxm = sx[m];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + warp_n * 32 + j * 8 + tq * 2;
-        if (n >= N) continue;
-        float y0 = __fadd_rn(__fmul_rn(__fmul_rn((float)acc[i][j][half * 2], sxm), sw[n]), bias[n]);
-        float y1 = __fadd_rn(__fmul_rn(__fmul_rn((float)acc[i][j][half * 2 + 1], sxm), sw[n + 1]),
-                             bias[n + 1]);
-        const long o = (long)m * N + n;
-        if (mode == kI8GeluSigmoidF32) {
-          *reinterpret_cast<float2*>(static_cast<float*>(out) + o) =
-              make_float2(gelu_sigmoid(y0), gelu_sigmoid(y1));
-        } else if (mode == kI8F32) {
-          *reinterpret_cast<float2*>(static_cast<float*>(out) + o) = make_float2(y0, y1);
-        } else if (mode == kI8GeluErfF32) {
-          *reinterpret_cast<float2*>(static_cast<float*>(out) + o) =
-              make_float2(gelu_erf(y0), gelu_erf(y1));
-        } else {
-          if (mode == kI8ResidualBf16) {
-            const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(res + o);
-            y0 = __fadd_rn(__bfloat162float(r.x), bf16_round(y0));
-            y1 = __fadd_rn(__bfloat162float(r.y), bf16_round(y1));
-          }
-          *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + o) =
-              __floats2bfloat162_rn(y0, y1);
-        }
-      }
-    }
-  }
+// The smallest row group (warps per row) whose lanes hold the row in at
+// most 8 chunks each, and the instantiation of that chunk count.
+template <typename T>
+int launch_ln_quant_rows(const void* x, const void* ln_scale, const void* ln_bias, int do_ln,
+                         float eps, void* q_out, void* sx_out, int M, int K,
+                         cudaStream_t stream) {
+  const int chunks = K / (16 / (int)sizeof(T));
+  int wpr = 1;
+  while (wpr < kRowWarps && chunks > 32 * wpr * 8) wpr *= 2;
+  const int per_lane = (chunks + 32 * wpr - 1) / (32 * wpr);
+  if (per_lane > 8) return (int)cudaErrorInvalidValue;
+  auto kernel = per_lane <= 2   ? ln_quant_rows_kernel<T, 2>
+                : per_lane <= 3 ? ln_quant_rows_kernel<T, 3>
+                : per_lane <= 4 ? ln_quant_rows_kernel<T, 4>
+                : per_lane <= 6 ? ln_quant_rows_kernel<T, 6>
+                                : ln_quant_rows_kernel<T, 8>;
+  const int rows = kRowWarps / wpr;
+  kernel<<<(M + rows - 1) / rows, 32 * kRowWarps, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(ln_scale),
+      static_cast<const float*>(ln_bias), do_ln, eps, static_cast<int8_t*>(q_out),
+      static_cast<float*>(sx_out), M, K, wpr);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -684,33 +687,18 @@ int mocr_attention_sdpa_int8(const void* q, const void* k, const void* v, long l
 int mocr_ln_quant_rows(const void* x, int x_is_bf16, const void* ln_scale, const void* ln_bias,
                        int do_ln, float eps, void* q_out, void* sx_out, int M, int K,
                        void* stream) {
-  const size_t smem = (size_t)K * sizeof(float);
+  // 16-byte row chunks of x (and of the LN parameters), 8- or 4-byte
+  // pieces of q
+  if (M < 1 || K < 8 || K % 8 || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(q_out) % 8 ||
+      (do_ln && (reinterpret_cast<uintptr_t>(ln_scale) % 16 ||
+                 reinterpret_cast<uintptr_t>(ln_bias) % 16)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_is_bf16) {
-    ln_quant_rows_kernel<__nv_bfloat16><<<M, 256, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(ln_scale),
-        static_cast<const float*>(ln_bias), do_ln, eps, static_cast<int8_t*>(q_out),
-        static_cast<float*>(sx_out), K);
-  } else {
-    ln_quant_rows_kernel<float><<<M, 256, smem, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(ln_scale),
-        static_cast<const float*>(ln_bias), do_ln, eps, static_cast<int8_t*>(q_out),
-        static_cast<float*>(sx_out), K);
-  }
-  return (int)cudaGetLastError();
-}
-
-int mocr_int8_gemm(const void* a, const void* b_t, const void* sx, const void* sw,
-                   const void* bias, const void* residual, void* out, int M, int N, int K,
-                   int mode, void* stream) {
-  if (K % BK || N % 2 || mode < kI8Bf16 || mode > kI8GeluErfF32) return (int)cudaErrorInvalidValue;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  int8_gemm_kernel<<<grid, GEMM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(a), static_cast<const int8_t*>(b_t),
-      static_cast<const float*>(sx), static_cast<const float*>(sw),
-      static_cast<const float*>(bias), static_cast<const __nv_bfloat16*>(residual), out, M, N, K,
-      mode);
-  return (int)cudaGetLastError();
+  return x_is_bf16 ? launch_ln_quant_rows<__nv_bfloat16>(x, ln_scale, ln_bias, do_ln, eps, q_out,
+                                                         sx_out, M, K, st)
+                   : launch_ln_quant_rows<float>(x, ln_scale, ln_bias, do_ln, eps, q_out, sx_out,
+                                                 M, K, st);
 }
 
 int mocr_attention(const void* q, const void* k, const void* v, long long in_b, long long in_h,

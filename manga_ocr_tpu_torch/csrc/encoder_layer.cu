@@ -15,7 +15,7 @@
 // The TPU kernels keep a batch block's residual stream in VMEM across the
 // attention and MLP halves (H) and across ``lpc`` layers (I), with every
 // weight resident.  Here a block is the chain of the repository's kernels
-// (csrc/encoder.cu, csrc/mlp_bf16.cu):
+// (csrc/encoder.cu, csrc/gemm_int8.cu, csrc/mlp_bf16.cu):
 //   int8:  ln_quant_rows(LN1) -> int8 GEMM q|k|v (bf16 out) -> attention
 //          (f32 context) -> ln_quant_rows -> int8 GEMM o (+ x, bf16) ->
 //          ln_quant_rows(LN2) -> int8 GEMM fc1 (GELU, f32) ->

@@ -1,6 +1,6 @@
 // The C entry points that one source chains from another (the whole
-// encoder blocks of csrc/encoder_layer.cu run the kernels of encoder.cu and
-// mlp_bf16.cu), and the epilogue codes of the two GEMMs.  The Python
+// encoder blocks of csrc/encoder_layer.cu run the kernels of encoder.cu,
+// gemm_int8.cu and mlp_bf16.cu), and the epilogue codes of the two GEMMs.  The Python
 // launchers (manga_ocr_tpu_torch/kernels/launch.py) use the same codes.
 // Every entry point launches on ``stream`` and returns cudaGetLastError().
 #pragma once

@@ -24,13 +24,17 @@
 // Both operands are loaded with 128-byte swizzle: a tile row is 128 bytes,
 // 8 rows make one 1024-byte swizzle atom, and every stage starts on a
 // 1024-byte boundary, so the wgmma descriptors need no base offset.  The
-// ragged M (and N) edge comes in as zeros from TMA; the epilogue masks its
-// stores.  ``Op`` supplies the element type's k depth of a stage, B's
-// loads and the products of one stage: an s8 operand set (k32 products, a
-// K-major B) fits the same skeleton.
+// ragged M (and N, and K) edge comes in as zeros from TMA (a box's full
+// bytes count toward its stage's transaction either way); the epilogue
+// masks its stores.  ``Op`` supplies the element type's k depth of a stage,
+// B's loads and the products of one stage: Bf16Op (mlp_bf16.cu: k16
+// products, B N-major through the transpose bit) and S8Op (gemm_int8.cu:
+// k32 products, B K-major).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (a type only; nothing of libcuda is linked)
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace mocr {
@@ -91,6 +95,34 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// One 2-D TMA box from shared memory to global memory (coordinates
+// innermost first) in this thread's current bulk group; elements past the
+// tensor's bounds are not written.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most ``N`` of this thread's bulk groups still read their
+// shared-memory sources (their global writes may still be in flight).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Makes this thread's shared-memory writes visible to the TMA unit.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -117,6 +149,12 @@ __device__ __forceinline__ void fence_operands(float (&acc)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(acc[i])::"memory");
 }
 
+template <int N>
+__device__ __forceinline__ void fence_operands(int (&acc)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(acc[i])::"memory");
+}
+
 template <int R>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
@@ -136,22 +174,41 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint3
          (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
 }
 
+// The accumulator lists of the wgmma products below: %0 .. %(N/2 - 1) in
+// the instruction text, one "+f" or "+r" operand each.
+#define MOCR_ACC32 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define MOCR_ACC64 MOCR_ACC32 ", " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define MOCR_ACC128 MOCR_ACC64 ", " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, " \
+  "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, " \
+  "%125, %126, %127"
+#define MOCR_D8(c, i)                                                                     \
+  c(d[i]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3]), c(d[i + 4]), c(d[i + 5]), c(d[i + 6]), \
+      c(d[i + 7])
+#define MOCR_D32(c) MOCR_D8(c, 0), MOCR_D8(c, 8), MOCR_D8(c, 16), MOCR_D8(c, 24)
+#define MOCR_D64(c) MOCR_D32(c), MOCR_D8(c, 32), MOCR_D8(c, 40), MOCR_D8(c, 48), MOCR_D8(c, 56)
+#define MOCR_D128(c)                                                                        \
+  MOCR_D64(c), MOCR_D8(c, 64), MOCR_D8(c, 72), MOCR_D8(c, 80), MOCR_D8(c, 88), MOCR_D8(c, 96), \
+      MOCR_D8(c, 104), MOCR_D8(c, 112), MOCR_D8(c, 120)
+#define MOCR_F(x) "+f"(x)
+#define MOCR_R(x) "+r"(x)
+
 // D (64 x N, f32) += A (64 x 16, K-major) . B (16 x N, N-major: the
 // transpose bit), bf16 operands from shared memory; ``accumulate`` 0
 // overwrites D.  One overload per N: the accumulator array sets it.
-#define MOCR_D8(i)                                                                          \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
-      "+f"(d[i + 6]), "+f"(d[i + 7])
-
 __device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
                                            int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" MOCR_ACC32
       "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
-      : MOCR_D8(0), MOCR_D8(8), MOCR_D8(16), MOCR_D8(24)
+      : MOCR_D32(MOCR_F)
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
@@ -159,14 +216,9 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t desc_a, uint
                                            int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" MOCR_ACC64
       "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
-      : MOCR_D8(0), MOCR_D8(8), MOCR_D8(16), MOCR_D8(24),
-        MOCR_D8(32), MOCR_D8(40), MOCR_D8(48), MOCR_D8(56)
+      : MOCR_D64(MOCR_F)
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
@@ -174,24 +226,53 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[128], uint64_t desc_a, uin
                                            int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {" MOCR_ACC128
       "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
-      : MOCR_D8(0), MOCR_D8(8), MOCR_D8(16), MOCR_D8(24),
-        MOCR_D8(32), MOCR_D8(40), MOCR_D8(48), MOCR_D8(56),
-        MOCR_D8(64), MOCR_D8(72), MOCR_D8(80), MOCR_D8(88),
-        MOCR_D8(96), MOCR_D8(104), MOCR_D8(112), MOCR_D8(120)
+      : MOCR_D128(MOCR_F)
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// D (64 x N, s32) += A (64 x 32, K-major) . B (32 x N, K-major), s8
+// operands from shared memory; ``accumulate`` 0 overwrites D.  8-bit
+// products take both operands K-major (no transpose bit).  The sums wrap
+// (no .satfinite): the int8 GEMM's |sum| <= 127^2 K stays below 2^31 for
+// any K up to 133,000.
+__device__ __forceinline__ void wgmma_s8(int (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {" MOCR_ACC32 "}, %32, %33, p;\n}\n"
+      : MOCR_D32(MOCR_R)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {" MOCR_ACC64 "}, %64, %65, p;\n}\n"
+      : MOCR_D64(MOCR_R)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_s8(int (&d)[128], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {" MOCR_ACC128 "}, %128, %129, p;\n}\n"
+      : MOCR_D128(MOCR_R)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+#undef MOCR_ACC32
+#undef MOCR_ACC64
+#undef MOCR_ACC128
 #undef MOCR_D8
+#undef MOCR_D32
+#undef MOCR_D64
+#undef MOCR_D128
+#undef MOCR_F
+#undef MOCR_R
 
 // Output tile shape and ring depth of one instantiation.  Registers:
 // setmaxnreg hands the producer's to the consumers, which hold the
@@ -227,15 +308,18 @@ constexpr int smem_bytes() {
 }
 
 // out tile = Epi(A[M, K] . B + ...): A through ``map_a`` (boxes of 128 bytes
-// x BM rows), B through ``map_b`` as Op reads it.  K is a multiple of
-// Op::kBK.  Each consumer warpgroup hands Epi its accumulators (the wgmma
-// fragment: thread (warp, lane) holds acc[4j + 2h + e] at row
-// ``16 warp + lane / 4 + 8h``, column ``8j + 2 (lane % 4) + e`` of its
-// 64 x BN block at (m0, n0)), its staging buffer and its named barrier.
+// x BM rows), B through ``map_b`` as Op reads it.  K is a multiple of 64
+// (the last k tile of a 128-k stage may be half zeros).  Each consumer
+// warpgroup hands Epi its accumulators (the wgmma fragment: thread (warp,
+// lane) holds acc[4j + 2h + e] at row ``16 warp + lane / 4 + 8h``, column
+// ``8j + 2 (lane % 4) + e`` of its 64 x BN block at (m0, n0)), its staging
+// buffer, its named barrier and ``map_out``, the output's tensor map where
+// Epi stores through TMA (Epi::encode_out).
 template <class Op, class T, class Epi>
 __global__ void __launch_bounds__(T::kThreads, 1)
     gemm_kernel(const __grid_constant__ CUtensorMap map_a,
-                const __grid_constant__ CUtensorMap map_b, const Epi epi, int M, int N, int K) {
+                const __grid_constant__ CUtensorMap map_b,
+                const __grid_constant__ CUtensorMap map_out, const Epi epi, int M, int N, int K) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   uint8_t* a_ring = ring;
@@ -245,7 +329,7 @@ __global__ void __launch_bounds__(T::kThreads, 1)
   uint64_t* empty = full + T::kStages;
   const int tiles_n = (N + T::kBN - 1) / T::kBN;
   const int tiles = (M + T::kBM - 1) / T::kBM * tiles_n;
-  const int k_tiles = K / Op::kBK;
+  const int k_tiles = (K + Op::kBK - 1) / Op::kBK;  // a ragged last box reads zeros
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < T::kStages; ++s) {
@@ -306,8 +390,242 @@ __global__ void __launch_bounds__(T::kThreads, 1)
       wgmma_wait<0>();
       fence_operands(acc);
       if (signals) mbar_arrive(&empty[prev]);
-      epi(acc, m0 + c * 64, n0, warp, lane, staging + c * Epi::kStagingBytes, 1 + c, M, N);
+      epi(acc, m0 + c * 64, n0, warp, lane, staging + c * Epi::kStagingBytes, 1 + c, M, N,
+          &map_out);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The epilogues' stores (Bf16Store, Int8Store): a consumer warpgroup's
+// 64 x BN block goes out in chunks of 64 rows by Chunk::kWidth columns.
+// Each thread writes its fragment's values of a chunk into the warpgroup's
+// staging buffer (bf16, or f32 for an f32 output); after a named barrier the
+// 128 threads copy the chunk out in 16-byte pieces along the rows (whole
+// sectors, where the fragment's pairs would touch 8 rows per store), adding
+// a bf16 residual there; a second barrier frees the buffer.  A chunk's
+// residual (and the epilogue's bias and scales) are loaded before its
+// staging writes: the compiler may not move a load past a store that could
+// alias it, so a load issued between the stores would wait a full memory
+// round trip.  (Int8Store's modes without a residual hand each chunk to the
+// TMA unit instead, staged as a swizzled box: stage_pair_swizzled.)
+// ---------------------------------------------------------------------------
+
+template <bool kF32>
+struct Chunk {
+  static constexpr int kWidth = kF32 ? 32 : 64;        // columns
+  static constexpr int kRowPitch = kF32 ? 40 : 72;     // staging row pitch, elements
+  static constexpr int kGroups = kWidth / 8;           // 8-column fragment groups
+  static constexpr int kPieces = kF32 ? 4 : 8;         // elements per 16-byte piece
+  static constexpr int kPerRow = kWidth / kPieces;     // pieces per chunk row
+  static constexpr int kPasses = 64 * kPerRow / 128;   // copy passes per chunk
+  static constexpr int kStagingBytes = 64 * 40 * 4;    // the larger of the two forms
+};
+
+// The bf16 residual pieces of the chunk at columns [nc, nc + kWidth) that
+// thread ``tid`` adds in copy_out.
+template <bool kF32>
+__device__ __forceinline__ void load_residual(uint4 (&rv)[Chunk<kF32>::kPasses],
+                                              const __nv_bfloat16* res, int m0, int nc, int tid,
+                                              int M, int N) {
+  typedef Chunk<kF32> C;
+#pragma unroll
+  for (int p = 0; p < C::kPasses; ++p) {
+    const int row = (tid + 128 * p) / C::kPerRow;
+    const int n = nc + C::kPieces * ((tid + 128 * p) % C::kPerRow);
+    if (m0 + row < M && n < N)
+      rv[p] = *reinterpret_cast<const uint4*>(res + (long long)(m0 + row) * N + n);
+  }
+}
+
+// bf16(y) + r in f32, then bf16, on packed pairs.
+__device__ __forceinline__ uint32_t add_residual(uint32_t y, uint32_t r) {
+  const float2 yf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&y));
+  const float2 rf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r));
+  const __nv_bfloat162 o = __floats2bfloat162_rn(__fadd_rn(rf.x, yf.x), __fadd_rn(rf.y, yf.y));
+  return *reinterpret_cast<const uint32_t*>(&o);
+}
+
+// A fragment's value pair (``y0``, ``y1``) into the staging buffer at
+// ``row`` and chunk column ``col``.
+template <bool kF32>
+__device__ __forceinline__ void stage_pair(uint8_t* stage, int row, int col, float y0, float y1) {
+  if (kF32)
+    *reinterpret_cast<float2*>(reinterpret_cast<float*>(stage) + row * Chunk<kF32>::kRowPitch +
+                               col) = make_float2(y0, y1);
+  else
+    *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<__nv_bfloat16*>(stage) +
+                                       row * Chunk<kF32>::kRowPitch + col) =
+        __floats2bfloat162_rn(y0, y1);
+}
+
+// A fragment's value pair into a chunk laid out as a TMA box of 64 rows of
+// 128 bytes with 128-byte swizzle (16-byte piece p of row r at piece
+// p ^ (r % 8)): the layout a store through a SWIZZLE_128B tensor map reads,
+// and the fragment's 8 rows land on 8 different bank groups.
+template <bool kF32>
+__device__ __forceinline__ void stage_pair_swizzled(uint8_t* box, int row, int col, float y0,
+                                                    float y1) {
+  const int byte = col * (kF32 ? 4 : 2);
+  uint8_t* p = box + row * 128 + (((byte >> 4) ^ (row & 7)) << 4) + (byte & 15);
+  if (kF32)
+    *reinterpret_cast<float2*>(p) = make_float2(y0, y1);
+  else
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(y0, y1);
+}
+
+// The staged chunk at columns [nc, nc + kWidth) out to ``out`` [M, N] (f32
+// or bf16), plus the residual pieces ``rv`` under kResidual; both barriers.
+template <bool kF32, bool kResidual>
+__device__ __forceinline__ void copy_out(const uint8_t* stage,
+                                         const uint4 (&rv)[Chunk<kF32>::kPasses], void* out,
+                                         int m0, int nc, int tid, int bar, int M, int N) {
+  typedef Chunk<kF32> C;
+  named_barrier_sync(bar, 128);
+#pragma unroll
+  for (int p = 0; p < C::kPasses; ++p) {
+    const int row = (tid + 128 * p) / C::kPerRow, piece = (tid + 128 * p) % C::kPerRow;
+    const int m = m0 + row, n = nc + C::kPieces * piece;
+    if (m >= M || n >= N) continue;  // N % 8 == 0: a piece is wholly in or out
+    const long long o = (long long)m * N + n;
+    if (kF32) {
+      *reinterpret_cast<uint4*>(static_cast<float*>(out) + o) = *reinterpret_cast<const uint4*>(
+          reinterpret_cast<const float*>(stage) + row * C::kRowPitch + C::kPieces * piece);
+      continue;
+    }
+    uint4 v = *reinterpret_cast<const uint4*>(reinterpret_cast<const __nv_bfloat16*>(stage) +
+                                              row * C::kRowPitch + C::kPieces * piece);
+    if (kResidual) {
+      v.x = add_residual(v.x, rv[p].x);
+      v.y = add_residual(v.y, rv[p].y);
+      v.z = add_residual(v.z, rv[p].z);
+      v.w = add_residual(v.w, rv[p].w);
+    }
+    *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(out) + o) = v;
+  }
+  named_barrier_sync(bar, 128);  // the staging buffer is free again
+}
+
+// ---------------------------------------------------------------------------
+// Host side, shared by the bf16 GEMM (mlp_bf16.cu) and the int8 GEMM
+// (gemm_int8.cu): tensor maps, the tile instantiations, the choice among
+// them and the launch.  ``Op`` adds to its device part the element type of
+// its operands (kMapType, kElemBytes) and the tensor map of B (encode_b).
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up once through the CUDA runtime's
+// entry-point query (so the library links nothing beyond the runtime).
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 2-D tensor map of a row-major [rows, cols] matrix of ``elem_bytes``-byte
+// elements with boxes of one 128-byte row piece (128-byte swizzle) by
+// ``box_rows`` rows; out-of-bounds elements read as zero.
+inline bool encode_map(CUtensorMap* map, const void* base, CUtensorMapDataType type,
+                       int elem_bytes, int rows, int cols, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem_bytes), (cuuint32_t)box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return encode_tiled()(map, type, 2, const_cast<void*>(base), dims, strides, box, elem_strides,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+constexpr int kMaxDevices = 64;
+
+inline int sm_count(int dev) {
+  static int counts[kMaxDevices];
+  if (counts[dev] == 0) cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
+  return counts[dev];
+}
+
+// The instantiations: 128 x 256 tiles for the encoder's row counts, 64-row
+// tiles (one consumer warpgroup) where 128-row tiles would leave SMs idle.
+// A stage holds 128 bytes of K either way (64 bf16 or 128 int8 values).
+typedef Tile<128, 256, 4> WideTile;
+typedef Tile<64, 128, 6> NarrowTile;
+typedef Tile<64, 64, 8> SmallTile;
+
+// The instantiation with the least estimated time: rounds of one tile per
+// SM, each costing its tile's area plus a fixed share (fill and epilogue).
+// At the encoder's row counts that is the 128 x 256 tile; at the step
+// shapes a 64-row tile, the narrowest that needs no second round.
+enum { kWide, kNarrow, kSmall };
+
+inline int pick_tile(int M, int N, int sms) {
+  const int bm[3] = {WideTile::kBM, NarrowTile::kBM, SmallTile::kBM};
+  const int bn[3] = {WideTile::kBN, NarrowTile::kBN, SmallTile::kBN};
+  int best = kWide;
+  long long best_cost = -1;
+  for (int i = kWide; i <= kSmall; ++i) {
+    const long long tiles = (long long)((M + bm[i] - 1) / bm[i]) * ((N + bn[i] - 1) / bn[i]);
+    const long long cost = (tiles + sms - 1) / sms * (bm[i] * bn[i] + 4096);
+    if (best_cost < 0 || cost < best_cost) {
+      best = i;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+template <class Op, class T, class Epi>
+int launch_tile(const void* a, const void* b, const Epi& epi, int M, int N, int K, int dev,
+                cudaStream_t stream) {
+  auto kernel = gemm_kernel<Op, T, Epi>;
+  constexpr int kSmem = smem_bytes<T, Epi>();
+  static bool smem_set[kMaxDevices];
+  if (!smem_set[dev]) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set[dev] = true;
+  }
+  CUtensorMap map_a, map_b, map_out = {};
+  if (!encode_map(&map_a, a, Op::kMapType, Op::kElemBytes, M, K, T::kBM) ||
+      !Op::encode_b(&map_b, b, N, K, T::kBN) || !epi.encode_out(&map_out, M, N))
+    return (int)cudaErrorInvalidValue;
+  const int tiles = (M + T::kBM - 1) / T::kBM * ((N + T::kBN - 1) / T::kBN);
+  const int grid = tiles < sm_count(dev) ? tiles : sm_count(dev);
+  kernel<<<grid, T::kThreads, kSmem, stream>>>(map_a, map_b, map_out, epi, M, N, K);
+  return (int)cudaGetLastError();
+}
+
+// out = Epi(A[M, K] . B) on the instantiation pick_tile chooses, on the
+// current device; the caller has checked the shapes and alignments.
+template <class Op, class Epi>
+int launch_gemm(const void* a, const void* b, const Epi& epi, int M, int N, int K,
+                cudaStream_t stream) {
+  if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  switch (pick_tile(M, N, sm_count(dev))) {
+    case kWide: return launch_tile<Op, WideTile>(a, b, epi, M, N, K, dev, stream);
+    case kNarrow: return launch_tile<Op, NarrowTile>(a, b, epi, M, N, K, dev, stream);
+    default: return launch_tile<Op, SmallTile>(a, b, epi, M, N, K, dev, stream);
   }
 }
 

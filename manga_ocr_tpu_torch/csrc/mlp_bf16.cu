@@ -87,6 +87,13 @@ constexpr int kBoxBytes = 64 * kBoxN * 2;  // ... by 64 k rows
 struct Bf16Op {
   typedef float Acc;
   static constexpr int kBK = 64;
+  static constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static constexpr int kElemBytes = 2;
+
+  // B [K, N]: boxes of 64 columns by 64 k rows.
+  static bool encode_b(CUtensorMap* map, const void* b, int N, int K, int) {
+    return sm90::encode_map(map, b, kMapType, kElemBytes, K, N, 64);
+  }
 
   // Boxes wholly past N are not loaded (their columns are never stored).
   template <int BN>
@@ -124,24 +131,19 @@ struct Bf16Op {
 
 // The epilogues of entry.cuh's Bf16Epilogue codes, with the roundings of
 // _kernel_bf16: y = acc + bias in f32, then the GELU in f32 and bf16; or
-// bf16(y) + residual in f32, then bf16; or y (f32); or bf16(y).
-// On a consumer warpgroup's own 64 x BN block, 64 columns (32 for kBfF32)
-// at a time: each thread applies the bias (and GELU) to its fragment and
-// writes the result to the warpgroup's staging buffer (bf16, or f32 for
-// kBfF32); then the 128 threads copy the chunk out in 16-byte pieces along
-// the rows (whole sectors, where the fragment's pairs would touch 8 rows
-// per store), adding the residual there.  A chunk's bias and residual are
-// loaded before its staging writes: the compiler may not move a load past
-// a store that could alias it, so a load issued between the stores would
-// wait a full memory round trip.
+// bf16(y) + residual in f32, then bf16; or y (f32); or bf16(y).  Written
+// through the staging buffer in chunks of 64 columns (32 for kBfF32):
+// gemm_sm90.cuh's Chunk.
 struct Bf16Store {
   const float* bias;
   const bf16* res;
   void* out;
   int mode;
 
-  // A chunk: 64 rows of 64 bf16 (row pitch 72) or 32 f32 (pitch 40).
-  static constexpr int kStagingBytes = 64 * 40 * 4;
+  static constexpr int kStagingBytes = sm90::Chunk<true>::kStagingBytes;
+
+  // Every mode stores through the staging copy (no output tensor map).
+  bool encode_out(CUtensorMap*, int, int) const { return true; }
 
   template <int MODE>
   __device__ __forceinline__ static void apply(float& y0, float& y1) {
@@ -154,91 +156,44 @@ struct Bf16Store {
     }
   }
 
-  // bf16(y) + r in f32, then bf16, on packed pairs.
-  __device__ __forceinline__ static uint32_t add_residual(uint32_t y, uint32_t r) {
-    const float2 yf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&y));
-    const float2 rf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r));
-    const __nv_bfloat162 o = __floats2bfloat162_rn(__fadd_rn(rf.x, yf.x), __fadd_rn(rf.y, yf.y));
-    return *reinterpret_cast<const uint32_t*>(&o);
-  }
-
   template <int MODE, int NA>
   __device__ __forceinline__ void store(const float (&acc)[NA], int m0, int n0, int warp,
                                         int lane, uint8_t* stage, int bar, int M,
                                         int N) const {
     constexpr bool kF32 = MODE == kBfF32;
-    constexpr int kWidth = kF32 ? 32 : 64, kRowPitch = kF32 ? 40 : 72;
-    constexpr int kGroups = kWidth / 8;            // 8-column groups per chunk
-    constexpr int kPieces = kF32 ? 4 : 8;          // elements per 16-byte piece
-    constexpr int kPerRow = kWidth / kPieces;      // pieces per chunk row
-    constexpr int kPasses = 64 * kPerRow / 128;    // copy passes per chunk
-    static_assert(NA % (4 * kGroups) == 0, "whole chunks");
+    typedef sm90::Chunk<kF32> C;
+    static_assert(NA % (4 * C::kGroups) == 0, "whole chunks");
     const int tid = warp * 32 + lane, t = lane % 4, r0 = warp * 16 + lane / 4;
-    float* stage_f = reinterpret_cast<float*>(stage);
-    bf16* stage_h = reinterpret_cast<bf16*>(stage);
 #pragma unroll
-    for (int q = 0; q < NA / (4 * kGroups); ++q) {
-      const int nc = n0 + kWidth * q;
-      uint4 rv[kPasses];
-      if (MODE == kBfResidual) {
+    for (int q = 0; q < NA / (4 * C::kGroups); ++q) {
+      const int nc = n0 + C::kWidth * q;
+      uint4 rv[C::kPasses];
+      if (MODE == kBfResidual) sm90::load_residual<kF32>(rv, res, m0, nc, tid, M, N);
+      float2 b[C::kGroups];
 #pragma unroll
-        for (int p = 0; p < kPasses; ++p) {
-          const int row = (tid + 128 * p) / kPerRow, n = nc + kPieces * ((tid + 128 * p) % kPerRow);
-          if (m0 + row < M && n < N)
-            rv[p] = *reinterpret_cast<const uint4*>(res + (long long)(m0 + row) * N + n);
-        }
-      }
-      float2 b[kGroups];
-#pragma unroll
-      for (int i = 0; i < kGroups; ++i) {
+      for (int i = 0; i < C::kGroups; ++i) {
         const int n = nc + 8 * i + 2 * t;
         b[i] = n < N ? *reinterpret_cast<const float2*>(bias + n) : make_float2(0.0f, 0.0f);
       }
 #pragma unroll
-      for (int i = 0; i < kGroups; ++i) {
+      for (int i = 0; i < C::kGroups; ++i) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int j = kGroups * q + i, col = 8 * i + 2 * t, row = r0 + 8 * h;
+          const int j = C::kGroups * q + i;
           float y0 = __fadd_rn(acc[4 * j + 2 * h], b[i].x);
           float y1 = __fadd_rn(acc[4 * j + 2 * h + 1], b[i].y);
-          if (kF32) {
-            *reinterpret_cast<float2*>(stage_f + row * kRowPitch + col) = make_float2(y0, y1);
-            continue;
-          }
           apply<MODE>(y0, y1);
-          *reinterpret_cast<__nv_bfloat162*>(stage_h + row * kRowPitch + col) =
-              __floats2bfloat162_rn(y0, y1);
+          sm90::stage_pair<kF32>(stage, r0 + 8 * h, 8 * i + 2 * t, y0, y1);
         }
       }
-      sm90::named_barrier_sync(bar, 128);
-#pragma unroll
-      for (int p = 0; p < kPasses; ++p) {
-        const int row = (tid + 128 * p) / kPerRow, piece = (tid + 128 * p) % kPerRow;
-        const int m = m0 + row, n = nc + kPieces * piece;
-        if (m >= M || n >= N) continue;  // N % 8 == 0: a piece is wholly in or out
-        const long long o = (long long)m * N + n;
-        if (kF32) {
-          *reinterpret_cast<uint4*>(static_cast<float*>(out) + o) =
-              *reinterpret_cast<const uint4*>(stage_f + row * kRowPitch + kPieces * piece);
-          continue;
-        }
-        uint4 v = *reinterpret_cast<const uint4*>(stage_h + row * kRowPitch + kPieces * piece);
-        if (MODE == kBfResidual) {
-          v.x = add_residual(v.x, rv[p].x);
-          v.y = add_residual(v.y, rv[p].y);
-          v.z = add_residual(v.z, rv[p].z);
-          v.w = add_residual(v.w, rv[p].w);
-        }
-        *reinterpret_cast<uint4*>(static_cast<bf16*>(out) + o) = v;
-      }
-      sm90::named_barrier_sync(bar, 128);  // the staging buffer is free again
+      sm90::copy_out<kF32, MODE == kBfResidual>(stage, rv, out, m0, nc, tid, bar, M, N);
     }
   }
 
   template <int NA>
   __device__ __forceinline__ void operator()(const float (&acc)[NA], int m0, int n0, int warp,
-                                             int lane, uint8_t* stage, int bar, int M,
-                                             int N) const {
+                                             int lane, uint8_t* stage, int bar, int M, int N,
+                                             const CUtensorMap*) const {
     switch (mode) {
       case kBfGeluErf: store<kBfGeluErf>(acc, m0, n0, warp, lane, stage, bar, M, N); break;
       case kBfGeluSigmoid:
@@ -250,102 +205,6 @@ struct Bf16Store {
     }
   }
 };
-
-// The instantiations: 128 x 256 tiles for the encoder's row counts, 64-row
-// tiles (one consumer warpgroup) where 128-row tiles would leave SMs idle.
-typedef sm90::Tile<128, 256, 4> WideTile;
-typedef sm90::Tile<64, 128, 6> NarrowTile;
-typedef sm90::Tile<64, 64, 8> SmallTile;
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up once through the CUDA runtime's
-// entry-point query (so the library links nothing beyond the runtime).
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A 2-D bf16 tensor map of a row-major [rows, cols] matrix with boxes of
-// 64 columns (128 bytes, 128-byte swizzle) by ``box_rows``; out-of-bounds
-// elements read as zero.
-bool encode_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-                        strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-constexpr int kMaxDevices = 64;
-
-int sm_count(int dev) {
-  static int counts[kMaxDevices];
-  if (counts[dev] == 0) cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
-  return counts[dev];
-}
-
-// The instantiation with the least estimated time: rounds of one tile per
-// SM, each costing its tile's area plus a fixed share (fill and epilogue).
-// At the encoder's row counts that is the 128 x 256 tile; at the step
-// shapes a 64-row tile, the narrowest that needs no second round.
-enum { kWide, kNarrow, kSmall };
-
-int pick_tile(int M, int N, int sms) {
-  const int bm[3] = {WideTile::kBM, NarrowTile::kBM, SmallTile::kBM};
-  const int bn[3] = {WideTile::kBN, NarrowTile::kBN, SmallTile::kBN};
-  int best = kWide;
-  long long best_cost = -1;
-  for (int i = kWide; i <= kSmall; ++i) {
-    const long long tiles = (long long)((M + bm[i] - 1) / bm[i]) * ((N + bn[i] - 1) / bn[i]);
-    const long long cost = (tiles + sms - 1) / sms * (bm[i] * bn[i] + 4096);
-    if (best_cost < 0 || cost < best_cost) {
-      best = i;
-      best_cost = cost;
-    }
-  }
-  return best;
-}
-
-template <class T>
-int launch_gemm(const void* a, const void* b, const Bf16Store& epi, int M, int N, int K, int dev,
-                cudaStream_t stream) {
-  auto kernel = sm90::gemm_kernel<Bf16Op, T, Bf16Store>;
-  constexpr int kSmem = sm90::smem_bytes<T, Bf16Store>();
-  static bool smem_set[kMaxDevices];
-  if (!smem_set[dev]) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (err != cudaSuccess) return (int)err;
-    smem_set[dev] = true;
-  }
-  CUtensorMap map_a, map_b;
-  if (!encode_map(&map_a, a, M, K, T::kBM) || !encode_map(&map_b, b, K, N, 64))
-    return (int)cudaErrorInvalidValue;
-  const int tiles = (M + T::kBM - 1) / T::kBM * ((N + T::kBN - 1) / T::kBN);
-  const int grid = tiles < sm_count(dev) ? tiles : sm_count(dev);
-  kernel<<<grid, T::kThreads, kSmem, stream>>>(map_a, map_b, epi, M, N, K);
-  return (int)cudaGetLastError();
-}
 
 // gelu_erf<true> against gelu_erf<false> on every f32 bit pattern (NaN
 // equal to NaN): counts the inputs whose results differ in any bit.
@@ -389,19 +248,9 @@ int mocr_bf16_gemm(const void* a, const void* b, const void* bias, const void* r
       reinterpret_cast<uintptr_t>(bias) % 8 || reinterpret_cast<uintptr_t>(residual) % 16 ||
       reinterpret_cast<uintptr_t>(out) % 16)
     return (int)cudaErrorInvalidValue;
-  if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
   const Bf16Store epi{static_cast<const float*>(bias), static_cast<const bf16*>(residual), out,
                       mode};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (pick_tile(M, N, sm_count(dev))) {
-    case kWide: return launch_gemm<WideTile>(a, b, epi, M, N, K, dev, st);
-    case kNarrow: return launch_gemm<NarrowTile>(a, b, epi, M, N, K, dev, st);
-    default: return launch_gemm<SmallTile>(a, b, epi, M, N, K, dev, st);
-  }
+  return sm90::launch_gemm<Bf16Op>(a, b, epi, M, N, K, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -39,18 +39,32 @@ def _expect_aligned(t: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: expected a 16-byte aligned tensor")
 
 
+# ln_quant_rows (csrc/encoder.cu) holds a row in the registers of up to 8
+# warps, at most 8 16-byte chunks a lane.
+LN_QUANT_MAX_CHUNKS = 8 * 32 * 8
+
+
 def ln_quant_rows(
     x: torch.Tensor, ln: tuple[torch.Tensor, torch.Tensor] | None = None, eps: float = 1e-12
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """[M, K] bf16 or f32 -> (int8 [M, K], f32 [M]): optional LN, then
-    ``kernel_utils.quant_rows``."""
+    ``kernel_utils.quant_rows``.  Raises ValueError, before any build or
+    launch, for what the kernel (each row in registers, read in 16-byte
+    chunks) does not take: M < 1, K not a multiple of 8 or over
+    LN_QUANT_MAX_CHUNKS 16-byte chunks, x or the LN parameters not 16-byte
+    aligned."""
     m, k = x.shape
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"ln_quant_rows: expected bf16 or f32, got {x.dtype}")
+    if m < 1 or k < 8 or k % 8 or k * x.element_size() > 16 * LN_QUANT_MAX_CHUNKS:
+        raise ValueError(f"ln_quant_rows: needs M >= 1 and K a multiple of 8 of at most "
+                         f"{LN_QUANT_MAX_CHUNKS} 16-byte chunks, got M={m} K={k} {x.dtype}")
+    _expect_aligned(x, "ln_quant_rows x")
+    for t, name in zip(ln or (), ("ln scale", "ln bias")):
+        _expect_aligned(t, f"ln_quant_rows {name}")
     _expect(x, x.dtype, (m, k), "ln_quant_rows x")
-    if ln is not None:
-        for t, name in zip(ln, ("ln scale", "ln bias")):
-            _expect(t, torch.float32, (k,), name)
+    for t, name in zip(ln or (), ("ln scale", "ln bias")):
+        _expect(t, torch.float32, (k,), name)
     q = torch.empty((m, k), dtype=torch.int8, device=x.device)
     sx = torch.empty((m,), dtype=torch.float32, device=x.device)
     lib = build.load()
@@ -65,6 +79,33 @@ def ln_quant_rows(
     return q, sx
 
 
+# The GEMMs of csrc/gemm_sm90.cuh (the bf16 GEMM of csrc/mlp_bf16.cu, the
+# int8 GEMM of csrc/gemm_int8.cu) read A and B through TMA boxes of 128
+# bytes along K (and along N for the bf16 B): K a multiple of 64, rows
+# 16-byte strided (N % 8 == 0), 16-byte aligned bases; their epilogues
+# write 16-byte pieces, read the residual in 16-byte pieces and the
+# per-column vectors (bias, int8 weight scales) in pairs.
+GEMM_BK = 64
+
+
+def _check_gemm(name: str, a: torch.Tensor, b: tuple, n: int, vectors: tuple,
+                residual: torch.Tensor | None) -> None:
+    """The shapes the GEMMs take: M >= 1, K a multiple of GEMM_BK, N a
+    multiple of 8, 16-byte aligned A, B ((tensor, name)) and residual,
+    8-byte aligned per-column ``vectors`` ((tensor, name) each)."""
+    m, k = a.shape
+    if m < 1 or k < GEMM_BK or k % GEMM_BK or n < 8 or n % 8:
+        raise ValueError(f"{name}: needs M >= 1, K a multiple of {GEMM_BK} and N a multiple "
+                         f"of 8, got M={m} K={k} N={n}")
+    _expect_aligned(a, f"{name} a")
+    _expect_aligned(b[0], f"{name} {b[1]}")
+    if residual is not None:
+        _expect_aligned(residual, f"{name} residual")
+    for t, vname in vectors:
+        if t.data_ptr() % 8:
+            raise ValueError(f"{name} {vname}: expected an 8-byte aligned tensor")
+
+
 def int8_gemm(
     a: torch.Tensor,
     b_t: torch.Tensor,
@@ -77,11 +118,14 @@ def int8_gemm(
     """``epilogue((a[M, K] . b_t[N, K]^T) * sx[m] * sw[n] + bias[n])`` with
     ``mode`` one of GEMM_BF16 (bf16 out), GEMM_GELU_F32 (sigmoid GELU, f32
     out), GEMM_RESIDUAL_BF16 (bf16 out plus the bf16 ``residual``), GEMM_F32
-    (f32 out), GEMM_GELU_ERF_F32 (erf-polynomial GELU, f32 out)."""
+    (f32 out), GEMM_GELU_ERF_F32 (erf-polynomial GELU, f32 out).  Raises
+    ValueError, before any build or launch, for what the kernel does not
+    take (``_check_gemm``)."""
     m, k = a.shape
     n = b_t.shape[0]
-    if k % 64 or n % 2:
-        raise ValueError(f"int8_gemm: needs K % 64 == 0 and even N, got K={k} N={n}")
+    _check_gemm("int8_gemm", a, (b_t, "b_t"), n, ((sw, "sw"), (bias, "bias")), residual)
+    if mode != GEMM_BF16 and mode != GEMM_RESIDUAL_BF16 and mode not in _GEMM_F32_OUT:
+        raise ValueError(f"int8_gemm: unknown mode {mode}")
     _expect(a, torch.int8, (m, k), "int8_gemm a")
     _expect(b_t, torch.int8, (n, k), "int8_gemm b_t")
     _expect(sx, torch.float32, (m,), "int8_gemm sx")
@@ -89,8 +133,6 @@ def int8_gemm(
     _expect(bias, torch.float32, (n,), "int8_gemm bias")
     if mode == GEMM_RESIDUAL_BF16:
         _expect(residual, torch.bfloat16, (m, n), "int8_gemm residual")
-    elif mode != GEMM_BF16 and mode not in _GEMM_F32_OUT:
-        raise ValueError(f"int8_gemm: unknown mode {mode}")
     out_dtype = torch.float32 if mode in _GEMM_F32_OUT else torch.bfloat16
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     lib = build.load()
@@ -258,31 +300,6 @@ def ln_rows_bf16(
     return y
 
 
-# The bf16 GEMM (csrc/mlp_bf16.cu) reads A and B through TMA boxes of 64
-# bf16 (128 bytes) along K, and along N for B: K a multiple of 64, rows
-# 16-byte strided (N % 8 == 0), 16-byte aligned bases; its epilogue reads
-# the residual in 16-byte pieces and the bias in pairs.
-GEMM_BK = 64
-
-
-def _check_bf16_gemm(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor,
-                     residual: torch.Tensor | None) -> None:
-    """The shapes the bf16 GEMM takes: M >= 1, K a multiple of GEMM_BK,
-    N a multiple of 8, 16-byte aligned A, B (and residual), an 8-byte
-    aligned bias (read in pairs)."""
-    m, k = a.shape
-    n = b.shape[1]
-    if m < 1 or k < GEMM_BK or k % GEMM_BK or n < 8 or n % 8:
-        raise ValueError(f"bf16_gemm: needs M >= 1, K a multiple of {GEMM_BK} and N a multiple "
-                         f"of 8, got M={m} K={k} N={n}")
-    _expect_aligned(a, "bf16_gemm a")
-    _expect_aligned(b, "bf16_gemm b")
-    if residual is not None:
-        _expect_aligned(residual, "bf16_gemm residual")
-    if bias.data_ptr() % 8:
-        raise ValueError("bf16_gemm bias: expected an 8-byte aligned tensor")
-
-
 def bf16_gemm(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -295,10 +312,10 @@ def bf16_gemm(
     in f32, then bf16), BF16_RESIDUAL (bf16, then plus the bf16
     ``residual``), BF16_F32 (f32 out) or BF16_BIAS (bf16 out).  Raises
     ValueError, before any build or launch, for what the kernel does not
-    take (``_check_bf16_gemm``)."""
+    take (``_check_gemm``)."""
     m, k = a.shape
     n = b.shape[1]
-    _check_bf16_gemm(a, b, bias, residual)
+    _check_gemm("bf16_gemm", a, (b, "b"), n, ((bias, "bias"),), residual)
     if mode not in (BF16_GELU_ERF, BF16_GELU_SIGMOID, BF16_RESIDUAL, BF16_F32, BF16_BIAS):
         raise ValueError(f"bf16_gemm: unknown mode {mode}")
     _expect(a, torch.bfloat16, (m, k), "bf16_gemm a")
@@ -424,12 +441,10 @@ def encoder_layers(
         raise ValueError(f"encoder_layers: needs D and I multiples of 64, got D={d} I={inter}")
     _check_core(s, d // heads, "encoder_layers")
     int8 = _expect_weights(weights, (n_l,), d, inter, "encoder_layers")
-    if not int8:  # the bf16 GEMM's B operands (TMA)
-        for i in (0, 3, 8, 11):
-            _expect_aligned(weights[i][first], f"encoder_layers weight {i}")
+    for i in (0, 3, 8, 11, 6, 7, 14, 15):  # the GEMMs' B operands (TMA), the LN parameters
+        _expect_aligned(weights[i][first], f"encoder_layers weight {i}")
     _expect(x, torch.bfloat16, (b, s, d), "encoder_layers x")
-    if not int8:  # x is the o GEMM's residual
-        _expect_aligned(x, "encoder_layers x")
+    _expect_aligned(x, "encoder_layers x")  # the o GEMM's residual
     specs = _scratch_spec(b * s, d, inter, int8)
     if len(scratch) != len(specs):
         raise ValueError(f"encoder_layers: expected {len(specs)} scratch arrays")
@@ -439,8 +454,7 @@ def encoder_layers(
                 raise ValueError(f"encoder_layers: scratch {i} is unused by this form")
         else:
             _expect(t, spec[1], spec[0], f"encoder_layers scratch {i}")
-            if not int8:  # every bf16 scratch array is a GEMM operand or output
-                _expect_aligned(t, f"encoder_layers scratch {i}")
+            _expect_aligned(t, f"encoder_layers scratch {i}")  # GEMM operands and outputs
     c_w = (ctypes.c_void_p * 16)(*(None if t is None else t[first].data_ptr() for t in weights))
     c_s = (ctypes.c_void_p * 6)(*(None if t is None else t.data_ptr() for t in scratch))
     out = torch.empty_like(x)

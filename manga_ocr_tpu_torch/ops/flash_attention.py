@@ -82,7 +82,7 @@ from manga_ocr_tpu_torch.ops.fused_mlp import (
     fused_mlp_block_reference,
     prepare_proj,
 )
-from manga_ocr_tpu_torch.ops.kernel_utils import NEG_INF, int8_matmul, ln32, quant_rows
+from manga_ocr_tpu_torch.ops.kernel_utils import NEG_INF, div127, int8_matmul, ln32, quant_rows
 
 CUDA_GELU_MODES = ("erf", "sigmoid")
 
@@ -151,7 +151,7 @@ def _sdpa_int8_reference(
     # every real value's step)
     v = torch.where(keep[:, None], v, torch.zeros_like(v))
     v_amax = v.abs().amax(-2, keepdim=True).clamp_min(1e-8)
-    v_q = torch.round(v * (127.0 / v_amax))
+    v_q = torch.round(v * div127(v_amax))
     return (pq.float() @ v_q) * sp * (v_amax * (1.0 / 127.0))
 
 

@@ -7,9 +7,10 @@ takes either weight form:
   ``Int8Weight``): the serving encoder's pre-LN block with the sigmoid GELU,
   and the int8 decoder's step form LN(x + MLP(x)) (``pre_ln=False``,
   ``post_ln=True``, erf GELU).  On CUDA tensors it runs the kernels of
-  ``csrc/encoder.cu``: [LN +] row quantization -> int8 fc1 with a dequant +
-  bias + GELU epilogue (f32 out) -> row quantization of the GELU output ->
-  int8 fc2 with a dequant + bias + residual epilogue [-> ``ln_rows_bf16``,
+  ``csrc/encoder.cu`` (row passes) and ``csrc/gemm_int8.cu`` (the int8
+  GEMM): [LN +] row quantization -> int8 fc1 with a dequant + bias + GELU
+  epilogue (f32 out) -> row quantization of the GELU output -> int8 fc2
+  with a dequant + bias + residual epilogue [-> ``ln_rows_bf16``,
   ``csrc/mlp_bf16.cu``, for the post-LN].  The int8 GEMM reads its weights
   as [N, K]: ``int8_weight`` makes that copy once, and a plain
   ``(w_q, scale)`` tuple is transposed on every call.
@@ -105,6 +106,35 @@ def fused_mlp_block_reference(
     if post_ln:
         r = ln32(r, ln_scale, ln_bias, eps).to(x.dtype)
     return r.reshape(shape)
+
+
+_INT8_GEMM_GELU = {launch.GEMM_GELU_ERF_F32: "erf", launch.GEMM_GELU_F32: "sigmoid"}
+
+
+def int8_gemm_reference(
+    a: torch.Tensor,  # [M, K] int8
+    b_t: torch.Tensor,  # [N, K] int8
+    sx: torch.Tensor,  # [M] f32 row scales
+    sw: torch.Tensor,  # [N] f32 column scales
+    bias: torch.Tensor,  # [N] f32
+    mode: int,
+    residual: torch.Tensor | None = None,  # [M, N] bf16, GEMM_RESIDUAL_BF16 only
+) -> torch.Tensor:
+    """Plain version of the int8 GEMM (``launch.int8_gemm``, every int8
+    projection of kernels A, B, H, I, J and K): the exact int32 product,
+    then ``_kernel_int8``'s dequant ``(acc * sx) * sw + bias`` in f32 and
+    ``mode``'s epilogue: bf16 out; the GELU, f32 out; bf16, then plus the
+    bf16 residual in f32, then bf16; f32 out."""
+    y = int8_matmul(a, b_t.t()).float() * sx.float()[:, None] * sw.float() + bias.float()
+    if mode == launch.GEMM_F32:
+        return y
+    if mode in _INT8_GEMM_GELU:
+        return gelu_fn(_INT8_GEMM_GELU[mode])(y)
+    if mode == launch.GEMM_RESIDUAL_BF16:
+        return (residual.float() + y.to(torch.bfloat16).float()).to(torch.bfloat16)
+    if mode == launch.GEMM_BF16:
+        return y.to(torch.bfloat16)
+    raise ValueError(f"int8_gemm_reference: unknown mode {mode}")
 
 
 _GEMM_GELU = {launch.BF16_GELU_ERF: "erf", launch.BF16_GELU_SIGMOID: "sigmoid"}

@@ -32,8 +32,15 @@ def quant_rows(h32: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     even, as ``jnp.round`` does."""
     amax = h32.abs().amax(-1, keepdim=True).clamp_min(1e-8)
     sx = amax * (1.0 / 127.0)
-    inv = 127.0 / amax
-    return torch.round(h32 * inv).to(torch.int8), sx
+    return torch.round(h32 * div127(amax)).to(torch.int8), sx
+
+
+def div127(amax: torch.Tensor) -> torch.Tensor:
+    """``127 / amax`` rounded once, as ``jnp`` and the kernels (``127.0f /
+    amax``) divide.  PyTorch evaluates a Python number over a tensor as
+    ``reciprocal(amax) * 127``, which rounds twice and differs in the last
+    bit for about a quarter of all inputs."""
+    return torch.full_like(amax, 127.0) / amax
 
 
 def erf_poly(x: torch.Tensor) -> torch.Tensor:
@@ -65,10 +72,16 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
     An f32 matmul of int8 values is not exact once K * 127^2 > 2^24, so the
     plain versions use ``torch._int_mm`` where it accepts the shape (always
-    on the CPU; on CUDA it needs M > 16 and K, N multiples of 8) and an f64
-    product otherwise (exact: K * 127^2 << 2^53)."""
+    on the CPU; on CUDA it needs M > 16 and K, N multiples of 8, and cuBLAS
+    refuses some of those, e.g. K = 64 on an H100) and an f64 product
+    otherwise (exact: K * 127^2 << 2^53)."""
     m, k = a.shape
     n = b.shape[1]
-    if a.device.type == "cpu" or (m > 16 and k % 8 == 0 and n % 8 == 0):
+    if a.device.type == "cpu":
         return torch._int_mm(a.contiguous(), b.contiguous())
+    if m > 16 and k % 8 == 0 and n % 8 == 0:
+        try:
+            return torch._int_mm(a.contiguous(), b.contiguous())
+        except RuntimeError:  # CUBLAS_STATUS_NOT_SUPPORTED: not a CUDA fault
+            pass
     return (a.double() @ b.double()).to(torch.int32)

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from manga_ocr_tpu_torch.ops.kernel_utils import int8_matmul
+from manga_ocr_tpu_torch.ops.kernel_utils import div127, int8_matmul
 
 
 def quantize_weight_per_col(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -41,7 +41,7 @@ def dense_int8(
     x32 = x.float().reshape(-1, shape[-1])
     amax = x32.abs().amax(-1, keepdim=True).clamp_min(1e-8)
     sx = amax / 127.0
-    x_q = torch.round(x32 * (127.0 / amax)).to(torch.int8)
+    x_q = torch.round(x32 * div127(amax)).to(torch.int8)
     y = int8_matmul(x_q, w_q).float() * sx * w_scale.float()
     if bias is not None:
         y = y + bias.float()

@@ -8,8 +8,8 @@ decision is made inside the fixture, never at import).  Run on the card:
 (``--noconftest``: tests/conftest.py sets up JAX, which the card's machine
 does not need and may not have.)
 
-Shapes are small but satisfy the kernels' constraints (int8 GEMM K % 64 ==
-0 and even N, bf16 GEMM K % 64 == 0 and N % 8 == 0, head dims multiples of
+Shapes are small but satisfy the kernels' constraints (both GEMMs K % 64
+== 0 and N % 8 == 0, head dims multiples of
 8, at most 208 keys in the attention core, vocab a multiple of 512; the
 decode-step kernels J and K also at dh 96; the whole encoder blocks H and
 I at D 128, I 256, three stacked layers; the attention core also at dh 16,
@@ -180,6 +180,93 @@ def test_bf16_gemm_matches_plain_at_encoder_rows(device):
     and the persistent grid's many tiles per block."""
     got, want = _gemm_case(np.random.default_rng(11), 256 * 197, 2304, 768, "bias", device)
     assert _within(got, want)
+
+
+_INT8_GEMM_MODES = ("bf16", "gelu_sigmoid", "residual", "f32", "gelu_erf")
+# The GELU modes compute expf and a division, whose last bit may differ
+# between the kernel's and PyTorch's builds of them; the others must be
+# bit for bit (exact int32 sums, the same f32 roundings).
+INT8_GELU_REL = 2.0**-20
+
+
+def _int8_gemm_held(rng, m, n, k, mode, device):
+    """The int8 GEMM (TMA + s8 wgmma) against its plain version on one
+    shape and epilogue mode, numpy-made inputs over the whole int8 range."""
+    from manga_ocr_tpu_torch.kernels import launch
+    from manga_ocr_tpu_torch.ops.fused_mlp import int8_gemm_reference
+
+    code = {"bf16": launch.GEMM_BF16, "gelu_sigmoid": launch.GEMM_GELU_F32,
+            "residual": launch.GEMM_RESIDUAL_BF16, "f32": launch.GEMM_F32,
+            "gelu_erf": launch.GEMM_GELU_ERF_F32}[mode]
+
+    def ints(*shape):
+        return torch.from_numpy(rng.integers(-127, 128, shape, dtype=np.int8)).to(device)
+
+    def scales(n_, top):
+        return torch.from_numpy(rng.uniform(0.5, 1.5, n_).astype(np.float32) * top).to(device)
+
+    args = (ints(m, k), ints(n, k), scales(m, 4.0 / 127), scales(n, 0.08 / 127),
+            _randn(rng, (n,), device) * 0.1, code,
+            _randn(rng, (m, n), device, torch.bfloat16) if mode == "residual" else None)
+    got, want = launch.int8_gemm(*args), int8_gemm_reference(*args)
+    assert got.dtype == want.dtype and got.shape == (m, n)
+    assert bool(torch.isfinite(got.float()).all())
+    if mode.startswith("gelu"):
+        err = float((got - want).abs().max())
+        return err <= INT8_GELU_REL * float(want.abs().max())
+    return torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [8, 200, 768, 2304])
+@pytest.mark.parametrize("m", [1, 17, 70, 197, 1000])
+@pytest.mark.parametrize("mode", _INT8_GEMM_MODES)
+def test_int8_gemm_matches_plain_on_ragged_shapes(device, mode, m, n):
+    """Every epilogue at ragged row counts (TMA zero-fills the rows past M;
+    the stores are masked) and N from one partial box row to 2304 (B_t's
+    rows past N read as zeros), K 768."""
+    assert _int8_gemm_held(np.random.default_rng(m * 11 + n), m, n, 768, mode, device)
+
+
+@pytest.mark.parametrize("k", [64, 128, 192, 768, 3072])
+@pytest.mark.parametrize("mode", _INT8_GEMM_MODES)
+def test_int8_gemm_matches_plain_across_depths(device, mode, k):
+    """Half a 128-k stage (TMA zero-fills the rest), one, one and a half,
+    the encoder's 768 and fc2's 3072 (the ring wraps many times)."""
+    assert _int8_gemm_held(np.random.default_rng(k + 1), 197, 768, k, mode, device)
+
+
+@pytest.mark.parametrize("n,k,mode", [(2304, 768, "bf16"), (3072, 768, "gelu_sigmoid"),
+                                      (768, 3072, "residual")])
+def test_int8_gemm_matches_plain_at_encoder_rows(device, n, k, mode):
+    """The encoder's products at B=256: M = 256 x 197 rows, the 128 x 256
+    tiles and the persistent grid's many tiles per block."""
+    assert _int8_gemm_held(np.random.default_rng(n + k), 256 * 197, n, k, mode, device)
+
+
+@pytest.mark.parametrize("k,dtype", [(768, torch.bfloat16), (768, torch.float32),
+                                     (3072, torch.float32), (2048, torch.float32),
+                                     (8192, torch.float32), (64, torch.bfloat16),
+                                     (192, torch.float32)])
+@pytest.mark.parametrize("m", [1, 5, 37])
+@pytest.mark.parametrize("ln", [True, False], ids=["ln", "no_ln"])
+def test_ln_quant_rows_matches_plain(device, ln, m, k, dtype):
+    """The row pass (a row in the registers of 1, 2, 4 or 8 warps) against
+    ``quant_rows(ln32(x))``: without LN bit for bit (the row max and the
+    roundings are the same); with LN the f32 statistics are summed in
+    another order, which may move a value across an int8 rounding step."""
+    from manga_ocr_tpu_torch.kernels import launch
+    from manga_ocr_tpu_torch.ops.kernel_utils import ln32, quant_rows
+
+    rng = np.random.default_rng(m * 7 + k)
+    x = _randn(rng, (m, k), device, dtype) * 3.0
+    lnp = (1 + 0.1 * _randn(rng, (k,), device), 0.1 * _randn(rng, (k,), device))
+    q, sx = launch.ln_quant_rows(x, lnp if ln else None)
+    want_q, want_sx = quant_rows(ln32(x, *lnp, 1e-12) if ln else x.float())
+    if ln:
+        assert int((q.int() - want_q.int()).abs().max()) <= 1
+        torch.testing.assert_close(sx, want_sx[:, 0], atol=0, rtol=1e-5)
+    else:
+        assert torch.equal(q, want_q) and torch.equal(sx, want_sx[:, 0])
 
 
 def test_packed_attention_kernel_matches_plain(device):
