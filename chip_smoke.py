@@ -6,9 +6,10 @@ stack's own noise floor, which sets ENC_STACK_MEAN_REL;
 ``python3 chip_smoke.py --core-times ROOT...`` only the attention core's
 times, built and timed from each tree ROOT in turn;
 ``python3 chip_smoke.py --gemm-times ROOT...`` the bf16 and the int8 GEMM's
-times at the main paths' shapes, both engines' crops/s and a torch.profiler
-split of one H bf16 layer, one A int8 and one B call at B=256 and one
-dispatch of each engine, from each tree in turn.)
+times at the main paths' shapes, kernel F's device time at B=32 and 256 and
+the times of the step and fused_layer decodes that launch it, both engines'
+crops/s and a torch.profiler split of one H bf16 layer, one A int8 and one
+B call at B=256 and one dispatch of each engine, from each tree in turn.)
 
 1. Requires CUDA; prints the card's name and power limit (nvidia-smi).
 2. Builds the kernels of manga_ocr_tpu_torch/csrc with nvcc (sm_90a), one
@@ -35,7 +36,11 @@ dispatch of each engine, from each tree in turn.)
 3. Holds each kernel against its plain PyTorch version on the card at the
    shapes its path gives it (MangaOCRConfig.base(), batch 32 and 256,
    S=197, D=768), with CUDA-event times of both: A, B, C on int8 params;
-   D (three forms), E and F on bf16 params; the decode-step kernels J
+   D (three forms), E and F on bf16 params (F: the ptxas lines of its
+   vocab product, row pass and reduce, a spill failing; each id within
+   HEAD_GAP_REL of the plain top logit and planted ties at their lowest
+   id; one torch.addmm of its vocab product as a yardstick); the
+   decode-step kernels J
    (steps 0, 150 and 303 of a 305-row cache, and the cache row it writes),
    K and B's post-LN step form on a quantize_decoder decoder (and, at batch
    32, on the bf16 decoder).  Each kernel's bound (the least time the card
@@ -230,7 +235,8 @@ def log_core_ptxas(build_log: str) -> None:
 def log_gemm_ptxas(build_log: str) -> None:
     """The ptxas lines (registers, stack, spill bytes) of both GEMMs on the
     gemm_sm90.cuh pipeline (bf16: Bf16Op, int8: S8Op) for each tile
-    instantiation; fails if any spills or either GEMM has none."""
+    instantiation, but kernel F's ArgmaxStore ones; fails if any spills or
+    either GEMM has none."""
     import re
 
     name, found = "", {"bf16": 0, "int8": 0}
@@ -240,8 +246,8 @@ def log_gemm_ptxas(build_log: str) -> None:
             name = m.group(1)
             continue
         tile = re.search(r"gemm_kernel\w*?(Bf16Op|S8Op)\w*?TileILi(\d+)ELi(\d+)ELi(\d+)E", name)
-        if tile is None or not ("spill" in ln or "registers" in ln):
-            continue
+        if tile is None or "ArgmaxStore" in name or not ("spill" in ln or "registers" in ln):
+            continue  # (kernel F's vocab product: log_head_ptxas)
         form = "bf16" if tile.group(1) == "Bf16Op" else "int8"
         label = "{} GEMM {}x{} tiles, {} stages".format(form, *tile.groups()[1:])
         log(f"ptxas: {label}: {ln.strip()}")
@@ -252,6 +258,43 @@ def log_gemm_ptxas(build_log: str) -> None:
     for form, n in found.items():
         if not n:
             fail(f"no ptxas line of the {form} GEMM in the build log")
+
+
+def log_head_ptxas(build_log: str) -> None:
+    """Kernel F's ptxas lines (registers, stack, spill bytes): its vocab
+    product (the bf16 GEMM's tiles with the ArgmaxStore epilogue), its row
+    pass per chunk count and its reduce; fails if any spills or one of the
+    three has none."""
+    import re
+
+    name, found = "", {"vocab product": 0, "row pass": 0, "reduce": 0}
+    for ln in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+            continue
+        if not ("spill" in ln or "registers" in ln):
+            continue
+        tile = re.search(r"gemm_kernel\w*?Bf16Op\w*?TileILi(\d+)ELi(\d+)ELi(\d+)E\w*?ArgmaxStore",
+                         name)
+        rows = re.search(r"head_rows_kernelILi(\d+)E", name)
+        if tile:
+            form, label = "vocab product", "F vocab product {}x{} tiles, {} stages".format(
+                *tile.groups())
+        elif rows:
+            form, label = "row pass", f"F row pass, {rows.group(1)} chunks a lane"
+        elif "head_reduce_kernel" in name:
+            form, label = "reduce", "F reduce"
+        else:
+            continue
+        log(f"ptxas: {label}: {ln.strip()}")
+        if "spill" in ln:
+            found[form] += 1
+            if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln)):
+                fail(f"the {label} spills: {ln.strip()}")
+    for form, n in found.items():
+        if not n:
+            fail(f"no ptxas line of kernel F's {form} in the build log")
 
 
 def cuda_ms(fn, reps: int = 5, warm: bool = True) -> float:
@@ -817,14 +860,87 @@ def engine_rates() -> dict:
     return rates
 
 
+def head_decode_times() -> dict:
+    """Kernel F alone at B=32 and 256 (CUDA-graph device ms, and one
+    torch.profiler split by kernel, printed), on the bf16 head of the random
+    model; then the two decodes that launch it at B=32 on a random encoder
+    output: the step-by-step decode (F and D, 100 steps) and the fused_layer
+    decode (J, K, B's step form and F; 299 steps, quantize_decoder
+    weights), each after a warm run: the median of three CUDA-event times
+    (host-bound: eager launches) and the device ms of one profiled run (the
+    kernels' own time, also printed by kernel).  Only entry points every
+    tree shares."""
+    import dataclasses
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from manga_ocr_tpu_torch.engine.engine import _cast_quantized
+    from manga_ocr_tpu_torch.models import model as mdl
+    from manga_ocr_tpu_torch.models.config import MangaOCRConfig
+    from manga_ocr_tpu_torch.models.params import init_params
+    from manga_ocr_tpu_torch.models.quantize import quantize_decoder
+    from manga_ocr_tpu_torch.ops import fused_head as fh
+
+    cfg = MangaOCRConfig.base()
+    dcfg = cfg.decoder
+    raw = init_params(cfg, SEED, "cuda", std=WEIGHT_STD)["decoder"]
+    dec = mdl.cast_params(raw, torch.bfloat16)
+    t, p = dec["head"]["transform"], dec["head"]["proj"]
+    head_w = (t["dense"]["kernel"], t["dense"]["bias"], t["ln"]["scale"], t["ln"]["bias"],
+              p["kernel"], p["bias"])
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    times = {}
+    for batch in (32, 256):
+        h = torch.randn((batch, dcfg.hidden_size), generator=gen, device="cuda").to(torch.bfloat16)
+        times[f"F B={batch}"] = graph_ms(
+            lambda: fh.fused_greedy_head(h, *head_w, eps=dcfg.layer_norm_eps), 50)
+        traced(f"F B={batch}", lambda: fh.fused_greedy_head(h, *head_w, eps=dcfg.layer_norm_eps))
+    enc = torch.randn((32, cfg.encoder.seq_len, cfg.encoder.hidden_size), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    step = dataclasses.replace(cfg, decoder=dataclasses.replace(
+        dcfg, step_kernel="xla", head_kernel="fused", step_mlp_kernel="fused",
+        cross_kv_int8=True, head_phased=False))
+    fused = dataclasses.replace(cfg, decoder=dataclasses.replace(
+        dcfg, step_kernel="fused_layer", head_kernel="fused", cross_kv_int8=True))
+    qdec = _cast_quantized(quantize_decoder(raw), torch.bfloat16)
+    for label, params, c, max_len in (("step decode B=32", dec, step, STEP_DECODE_LEN),
+                                      ("fused_layer decode B=32", qdec, fused, cfg.max_length)):
+        def run():
+            with torch.inference_mode():
+                return mdl.greedy_decode({"decoder": params}, enc, c, max_len, 8)
+
+        run()  # warm
+        wall = []
+        for _ in range(3):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = run()
+            ev[1].record()
+            torch.cuda.synchronize()
+            wall.append(ev[0].elapsed_time(ev[1]))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        log_profile(label, prof)
+        times[label] = statistics.median(wall)
+        times[label + " device"] = sum(ms for _, ms in device_ms_by_kernel(prof))
+        times[label + " mean length"] = float(out.lengths.float().mean())
+    return times
+
+
 def compare_child() -> dict:
-    """What ``--gemm-times`` reads of one tree: both GEMMs' times, both
-    engines' page rates, and the profiler split (printed)."""
+    """What ``--gemm-times`` reads of one tree: both GEMMs' times, kernel F's
+    and its decodes' times, both engines' page rates, and the profiler
+    split (printed)."""
     times = gemm_times()
     int8_times = int8_gemm_times()
+    head_times = head_decode_times()
     rates = engine_rates()
     profile_split()
-    return {"gemm_ms": times, "int8_gemm_ms": int8_times, "crops_per_s": rates}
+    return {"gemm_ms": times, "int8_gemm_ms": int8_times, "head_ms": head_times,
+            "crops_per_s": rates}
 
 
 def bound(nbytes: float, ops: dict) -> tuple[float, str]:
@@ -959,13 +1075,15 @@ def hold(name: str, label: str, kern, plain, cost, library=None,
 def check_bf16_kernels(params, cfg, results: dict) -> None:
     """Kernels D (encoder pre-LN on [B*197, 768]; the step forms pre_ln=False
     and post_ln on [B, 768]), E and F against their plain versions at B=32
-    and 256, on bf16 params."""
+    and 256, on bf16 params; first F's ptxas lines."""
     import torch
     import torch.nn.functional as F
 
+    from manga_ocr_tpu_torch.kernels import build
     from manga_ocr_tpu_torch.ops import flash_attention as fa
-    from manga_ocr_tpu_torch.ops import fused_head as fh
     from manga_ocr_tpu_torch.ops import fused_mlp as fm
+
+    log_head_ptxas(build.last_build_log)
 
     ecfg, dcfg = cfg.encoder, cfg.decoder
     enc, dl = params["encoder"]["layers"], params["decoder"]["layers"]
@@ -1017,29 +1135,60 @@ def check_bf16_kernels(params, cfg, results: dict) -> None:
             library=lambda: F.scaled_dot_product_attention(
                 heads_view(q), heads_view(k), heads_view(v), attn_mask=key_mask))
 
-        h = randn(batch, dcfg.hidden_size)
-        ids = fh.fused_greedy_head(h, *head_w, eps=dcfg.layer_norm_eps)
-        logits = fh.head_logits_reference(h, *head_w, eps=dcfg.layer_norm_eps)
-        torch.cuda.synchronize()
-        if ids.shape != (batch,) or int(((ids < 0) | (ids >= dcfg.vocab_size)).sum()):
-            fail(f"fused_greedy_head B={batch}: bad ids")
-        top = logits.amax(-1)
-        gap = top - logits.gather(1, ids.long()[:, None])[:, 0]
-        rel = float((gap / top.abs()).max())
-        same = float((ids.long() == logits.argmax(-1)).float().mean())
-        ms = cuda_ms(lambda: fh.fused_greedy_head(h, *head_w, eps=dcfg.layer_norm_eps))
-        plain_ms = cuda_ms(lambda: fh.fused_greedy_head_reference(h, *head_w,
-                                                                  eps=dcfg.layer_norm_eps))
-        log(f"fused_greedy_head B={batch}: max gap {float(gap.max())} (rel {rel}), ids equal "
-            f"to the plain argmax {same}; ms={ms} plain_ms={plain_ms}")
-        if rel > HEAD_GAP_REL:
-            fail(f"fused_greedy_head B={batch}: an id {rel} below the top logit "
-                 f"(bound {HEAD_GAP_REL})")
-        bound_ms, bound_by = bound(*cost_head(batch, dcfg.hidden_size, dcfg.vocab_size))
-        log(f"fused_greedy_head B={batch}: bound_ms={bound_ms} ({bound_by})")
-        results["fused_greedy_head"] = {"max_abs_err": float(gap.max()), "ms": ms,
-                                        "plain_ms": plain_ms, "bound_ms": bound_ms,
-                                        "bound_by": bound_by, "library_ms": None}
+        results["fused_greedy_head"] = check_head(randn(batch, dcfg.hidden_size), head_w, dcfg)
+
+
+# Kernel F's planted ties at full width (zero weight columns, one large
+# bias): inside one 64-column slot, across two slots of one 256-column tile,
+# across tiles of the vocab product and the JAX kernel's 512-column tiles.
+HEAD_TIES = ([40, 9], [200, 140], [5000, 300, 6143])
+
+
+def check_head(h, head_w, dcfg) -> dict:
+    """Kernel F on rows ``h`` [B, 768] against its plain version: every id
+    within HEAD_GAP_REL of the plain top logit, the planted ties exactly at
+    their lowest column; the kernel's and the plain version's times, the
+    bound, and one torch.addmm of the [B, 768] x [768, 6144] vocab product
+    as a yardstick (a part of F's function only: no library time)."""
+    import torch
+
+    from manga_ocr_tpu_torch.ops import fused_head as fh
+
+    batch, eps = h.shape[0], dcfg.layer_norm_eps
+    ids = fh.fused_greedy_head(h, *head_w, eps=eps)
+    logits = fh.head_logits_reference(h, *head_w, eps=eps)
+    torch.cuda.synchronize()
+    if ids.shape != (batch,) or int(((ids < 0) | (ids >= dcfg.vocab_size)).sum()):
+        fail(f"fused_greedy_head B={batch}: bad ids")
+    top = logits.amax(-1)
+    gap = top - logits.gather(1, ids.long()[:, None])[:, 0]
+    rel = float((gap / top.abs()).max())
+    same = float((ids.long() == logits.argmax(-1)).float().mean())
+    if rel > HEAD_GAP_REL:
+        fail(f"fused_greedy_head B={batch}: an id {rel} below the top logit "
+             f"(bound {HEAD_GAP_REL})")
+    wt, bt, lns, lnb, wp, bp = head_w
+    for ties in HEAD_TIES:
+        wp_t, bp_t = wp.clone(), bp.clone()
+        wp_t[:, ties] = 0
+        bp_t[ties] = 1000.0
+        got = fh.fused_greedy_head(h, wt, bt, lns, lnb, wp_t, bp_t, eps=eps)
+        if got.tolist() != [min(ties)] * batch:
+            fail(f"fused_greedy_head B={batch}: ties planted at {ties} gave ids "
+                 f"{sorted(set(got.tolist()))}, not {min(ties)}")
+        del wp_t, bp_t
+    ms = cuda_ms(lambda: fh.fused_greedy_head(h, *head_w, eps=eps))
+    plain_ms = cuda_ms(lambda: fh.fused_greedy_head_reference(h, *head_w, eps=eps))
+    hid = fh.head_hidden_reference(h, wt, bt, lns, lnb, eps).to(torch.bfloat16)
+    wp16, bp16 = wp.to(torch.bfloat16), bp.to(torch.bfloat16)
+    addmm_ms = cuda_ms(lambda: torch.addmm(bp16, hid, wp16))
+    bound_ms, bound_by = bound(*cost_head(batch, dcfg.hidden_size, dcfg.vocab_size))
+    log(f"fused_greedy_head B={batch}: max gap {float(gap.max())} (rel {rel}), ids equal "
+        f"to the plain argmax {same}, planted ties {list(HEAD_TIES)} at their lowest id; "
+        f"ms={ms} plain_ms={plain_ms} bound_ms={bound_ms} ({bound_by}); yardstick: "
+        f"torch.addmm of the vocab product alone {addmm_ms} ms")
+    return {"max_abs_err": float(gap.max()), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 def check_step_kernels(params, params_bf16, cfg, results: dict) -> None:

@@ -27,9 +27,11 @@
 // ragged M (and N, and K) edge comes in as zeros from TMA (a box's full
 // bytes count toward its stage's transaction either way); the epilogue
 // masks its stores.  ``Op`` supplies the element type's k depth of a stage,
-// B's loads and the products of one stage: Bf16Op (mlp_bf16.cu: k16
-// products, B N-major through the transpose bit) and S8Op (gemm_int8.cu:
-// k32 products, B K-major).
+// B's loads and the products of one stage: Bf16Op (below: k16 products, B
+// N-major through the transpose bit) and S8Op (gemm_int8.cu: k32 products,
+// B K-major).  ``Epi`` is the epilogue: Bf16Store (mlp_bf16.cu), Int8Store
+// (gemm_int8.cu) and ArgmaxStore (fused_head.cu, kernel F's vocab product:
+// the first maximum of each row's 64-column slots, no output tile).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (a type only; nothing of libcuda is linked)
@@ -552,6 +554,54 @@ inline bool encode_map(CUtensorMap* map, const void* base, CUtensorMapDataType t
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
+
+// The bf16 operand set, shared by the bf16 GEMM (mlp_bf16.cu) and kernel
+// F's vocab product (fused_head.cu): a stage holds 64 k (one 128-byte row
+// of A), B as BN / 64 boxes of [64 k][64 n], each an N-major wgmma operand.
+struct Bf16Op {
+  typedef float Acc;
+  static constexpr int kBK = 64;
+  static constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static constexpr int kElemBytes = 2;
+  static constexpr int kBoxN = 64;                  // B box: 64 columns (128 bytes) ...
+  static constexpr int kBoxBytes = 64 * kBoxN * 2;  // ... by 64 k rows
+
+  // B [K, N]: boxes of 64 columns by 64 k rows.
+  static bool encode_b(CUtensorMap* map, const void* b, int N, int K, int) {
+    return encode_map(map, b, kMapType, kElemBytes, K, N, 64);
+  }
+
+  // Boxes wholly past N are not loaded (their columns are never stored).
+  template <int BN>
+  __device__ static int boxes(int n0, int N) {
+    const int left = (N - n0 + kBoxN - 1) / kBoxN;
+    return left < BN / kBoxN ? left : BN / kBoxN;
+  }
+
+  template <int BN>
+  __device__ static uint32_t b_bytes(int n0, int N) {
+    return boxes<BN>(n0, N) * kBoxBytes;
+  }
+
+  template <int BN>
+  __device__ static void load_b(uint8_t* dst, const CUtensorMap* map, uint64_t* bar, int n0,
+                                int k0, int N) {
+    const int nb = boxes<BN>(n0, N);
+    for (int j = 0; j < nb; ++j) tma_load_2d(dst + j * kBoxBytes, map, bar, n0 + j * kBoxN, k0);
+  }
+
+  // Four k16 products.  A (K-major): the k step moves 32 bytes along the
+  // swizzled row; 8-row groups 1024 bytes apart.  B (N-major): the k step
+  // moves 16 rows (2048 bytes); 8-row k groups 1024 bytes apart (stride
+  // byte offset), 64-column boxes kBoxBytes apart (leading byte offset).
+  template <int NA>
+  __device__ static void mma(float (&acc)[NA], uint32_t a, uint32_t b, bool accumulate) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_bf16(acc, smem_desc(a + 32 * kk, 16, 1024), smem_desc(b + 2048 * kk, kBoxBytes, 1024),
+                 accumulate || kk > 0 ? 1 : 0);
+  }
+};
 
 constexpr int kMaxDevices = 64;
 

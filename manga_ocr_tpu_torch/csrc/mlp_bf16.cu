@@ -66,6 +66,7 @@ using namespace mocr;
 namespace {
 
 typedef __nv_bfloat16 bf16;
+using sm90::Bf16Op;
 
 __global__ void ln_rows_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_scale,
                                     const float* __restrict__ ln_bias, float eps,
@@ -78,56 +79,6 @@ __global__ void ln_rows_bf16_kernel(const bf16* __restrict__ x, const float* __r
   block_layer_norm(row, row, K, ln_scale, ln_bias, eps, red);
   for (int i = threadIdx.x; i < K; i += blockDim.x) y[base + i] = __float2bfloat16_rn(row[i]);
 }
-
-constexpr int kBoxN = 64;                  // B box: 64 columns (128 bytes) ...
-constexpr int kBoxBytes = 64 * kBoxN * 2;  // ... by 64 k rows
-
-// The bf16 operands: a stage holds 64 k (one 128-byte row of A), B as
-// BN / 64 boxes of [64 k][64 n], each an N-major wgmma operand.
-struct Bf16Op {
-  typedef float Acc;
-  static constexpr int kBK = 64;
-  static constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  static constexpr int kElemBytes = 2;
-
-  // B [K, N]: boxes of 64 columns by 64 k rows.
-  static bool encode_b(CUtensorMap* map, const void* b, int N, int K, int) {
-    return sm90::encode_map(map, b, kMapType, kElemBytes, K, N, 64);
-  }
-
-  // Boxes wholly past N are not loaded (their columns are never stored).
-  template <int BN>
-  __device__ static int boxes(int n0, int N) {
-    const int left = (N - n0 + kBoxN - 1) / kBoxN;
-    return left < BN / kBoxN ? left : BN / kBoxN;
-  }
-
-  template <int BN>
-  __device__ static uint32_t b_bytes(int n0, int N) {
-    return boxes<BN>(n0, N) * kBoxBytes;
-  }
-
-  template <int BN>
-  __device__ static void load_b(uint8_t* dst, const CUtensorMap* map, uint64_t* bar, int n0,
-                                int k0, int N) {
-    const int nb = boxes<BN>(n0, N);
-    for (int j = 0; j < nb; ++j)
-      sm90::tma_load_2d(dst + j * kBoxBytes, map, bar, n0 + j * kBoxN, k0);
-  }
-
-  // Four k16 products.  A (K-major): the k step moves 32 bytes along the
-  // swizzled row; 8-row groups 1024 bytes apart.  B (N-major): the k step
-  // moves 16 rows (2048 bytes); 8-row k groups 1024 bytes apart (stride
-  // byte offset), 64-column boxes kBoxBytes apart (leading byte offset).
-  template <int NA>
-  __device__ static void mma(float (&acc)[NA], uint32_t a, uint32_t b, bool accumulate) {
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      sm90::wgmma_bf16(acc, sm90::smem_desc(a + 32 * kk, 16, 1024),
-                       sm90::smem_desc(b + 2048 * kk, kBoxBytes, 1024),
-                       accumulate || kk > 0 ? 1 : 0);
-  }
-};
 
 // The epilogues of entry.cuh's Bf16Epilogue codes, with the roundings of
 // _kernel_bf16: y = acc + bias in f32, then the GELU in f32 and bf16; or

@@ -1,6 +1,5 @@
-// Row-parallel GEMVs and the greedy LM head, shared by the whole-decode
-// kernel (decode_loop.cu, kernel C) and the fused greedy head
-// (fused_head.cu, kernel F).
+// Row-parallel GEMVs and the greedy LM head of the whole-decode kernel's
+// forms on decode_loop.cuh (kernel C).
 //
 // A block of ROW_THREADS threads owns R rows held in shared memory as f32
 // values that are already bf16-exact; the weights are bf16 [K, N] row-major

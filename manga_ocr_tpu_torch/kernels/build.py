@@ -65,9 +65,9 @@ _SIGNATURES = {
     "mocr_bf16_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # mismatches (u64, device), stream
     "mocr_check_gelu_erf_rcp": (_P, _P),
-    # x, wt, bt, lns, lnb, wp, bp, B, D, V, n_split, rows_per_block, eps,
-    # part_v, part_i, ids, stream
-    "mocr_fused_head": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P),
+    # x, wt, bt, lns, lnb, wp, bp, B, D, V, eps, h32, hb, part_v, part_i,
+    # ids, stream
+    "mocr_fused_head": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P),
     # qkv, cache_k, cache_v, ctx, ctx_bf16, B, T, H, dh, step, scale, stream
     "mocr_self_attn_step": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     # q, k, v, k_scale, v_scale, kv_int8, ctx, ctx_bf16, B, S, H, dh, s_valid,

@@ -466,6 +466,13 @@ def encoder_layers(
     return out
 
 
+# Kernel F (csrc/fused_head.cu): its row pass holds a row of D f32 values
+# in one warp's registers, and its vocab product writes one partial per
+# row and HEAD_SLOT columns.
+HEAD_MAX_D = 1024
+HEAD_SLOT = 64
+
+
 def fused_head(
     x: torch.Tensor,
     wt: torch.Tensor,
@@ -475,26 +482,35 @@ def fused_head(
     wp: torch.Tensor,
     bp: torch.Tensor,
     eps: float,
-    n_split: int,
-    rows_per_block: int,
 ) -> torch.Tensor:
-    """x [B, D] bf16 -> first-argmax ids [B] int32 of the greedy head."""
+    """x [B, D] bf16 -> first-argmax ids [B] int32 of the greedy head: the
+    transform on the bf16 GEMM, the GELU + LN row pass, the vocab product
+    with its argmax epilogue, the reduce of the slots' partials.  Raises
+    ValueError, before any build or launch, for what the kernels do not
+    take: D not a multiple of 64 or over HEAD_MAX_D, V not a multiple of
+    HEAD_SLOT, an operand not 16-byte aligned."""
     b, d = x.shape
     v = wp.shape[1]
-    if d % 2 or v % (2 * n_split):
-        raise ValueError(f"fused_head: unsupported D={d}, V={v}, n_split={n_split}")
+    if b < 1 or d < 64 or d % 64 or d > HEAD_MAX_D or v < HEAD_SLOT or v % HEAD_SLOT:
+        raise ValueError(f"fused_head: needs B >= 1, D a multiple of 64 up to {HEAD_MAX_D} and "
+                         f"V a multiple of {HEAD_SLOT}, got B={b} D={d} V={v}")
     _expect(x, torch.bfloat16, (b, d), "fused_head x")
     _expect(wt, torch.bfloat16, (d, d), "fused_head wt")
     _expect(wp, torch.bfloat16, (d, v), "fused_head wp")
     for t, name, n in ((bt, "bt", d), (lns, "ln scale", d), (lnb, "ln bias", d), (bp, "bp", v)):
         _expect(t, torch.float32, (n,), f"fused_head {name}")
-    part_v = torch.empty((b, n_split), dtype=torch.float32, device=x.device)
-    part_i = torch.empty((b, n_split), dtype=torch.int32, device=x.device)
+    for t, name in ((x, "x"), (wt, "wt"), (bt, "bt"), (lns, "ln scale"), (lnb, "ln bias"),
+                    (wp, "wp"), (bp, "bp")):
+        _expect_aligned(t, f"fused_head {name}")
+    h32 = torch.empty((b, d), dtype=torch.float32, device=x.device)
+    hb = torch.empty((b, d), dtype=torch.bfloat16, device=x.device)
+    part_v = torch.empty((b, v // HEAD_SLOT), dtype=torch.float32, device=x.device)
+    part_i = torch.empty((b, v // HEAD_SLOT), dtype=torch.int32, device=x.device)
     ids = torch.empty((b,), dtype=torch.int32, device=x.device)
     lib = build.load()
     err = lib.mocr_fused_head(
         x.data_ptr(), wt.data_ptr(), bt.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
-        wp.data_ptr(), bp.data_ptr(), b, d, v, n_split, rows_per_block, float(eps),
+        wp.data_ptr(), bp.data_ptr(), b, d, v, float(eps), h32.data_ptr(), hb.data_ptr(),
         part_v.data_ptr(), part_i.data_ptr(), ids.data_ptr(), build.stream_ptr(x.device),
     )
     build.check(err, "fused_head")

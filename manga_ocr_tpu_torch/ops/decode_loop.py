@@ -48,9 +48,6 @@ from manga_ocr_tpu_torch.ops.kernel_utils import gelu_erf, gelu_fn, int8_matmul,
 
 _SMEM_LIMIT = 227 * 1024 - 1024  # per-block opt-in limit less static scratch
 _ROWS_PER_BLOCK = (1, 2, 4, 8)
-# kernel F's row choice: two 512-thread blocks of <= 64 registers on one SM
-# (kernel C asks the CUDA runtime for its compiled form's count instead)
-_BLOCKS_PER_SM = 2
 _EXIT_CHUNK = 8  # plain version: early-exit check every 8 steps
 _KV_TILE = 8  # fuse_kv: encoder rows per projection tile (csrc/decode_loop.cuh)
 # ``ablate`` stages, as the kernel's bitmask (bit i = _STAGES[i] skipped)
@@ -322,17 +319,6 @@ def teacher_forced_gaps(
         top[:, t] = lg.amax(-1)
         gaps[:, t] = top[:, t] - lg.gather(1, tokens[:, t + 1].long()[:, None])[:, 0]
     return gaps, top
-
-
-def rows_per_block(batch: int, device, blocks_per_sm: int = _BLOCKS_PER_SM) -> int:
-    """The fewest rows per block whose grid runs in one wave of co-resident
-    blocks: the kernel's time grows about linearly with the rows a block
-    owns (measured on the H100: 326, 548, 836 ms for 1, 2, 4 rows at B=32),
-    so more rows per block only pay once a second wave would cost more.
-    ``blocks_per_sm`` is how many blocks one SM holds (kernel C asks its
-    compiled form, ``_loop_rows``; kernel F assumes two)."""
-    return rows_for_slots(batch, blocks_per_sm * torch.cuda.get_device_properties(device)
-                          .multi_processor_count)
 
 
 def rows_for_slots(batch: int, slots) -> int:

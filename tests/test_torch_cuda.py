@@ -283,19 +283,26 @@ def test_packed_attention_kernel_matches_plain(device):
         assert got.dtype == torch.bfloat16 and _within(got, want)
 
 
-@pytest.mark.parametrize("batch", [3, 40])
-def test_greedy_head_kernel_ids_are_top_under_plain_logits(device, batch):
+@pytest.mark.parametrize("batch,d,vocab", [(3, 64, 1024), (40, 64, 1024), (1, 768, 6144),
+                                            (17, 768, 6144), (40, 768, 6144), (256, 768, 6144)])
+def test_greedy_head_kernel_ids_are_top_under_plain_logits(device, batch, d, vocab):
+    """Kernel F (the transform on the bf16 GEMM, the row pass, the vocab
+    product with its argmax epilogue, the reduce): one launch counted per
+    call, each id within HEAD_GAP_REL of the plain top logit; then ties
+    planted exactly (zero weight columns, the same large bias) inside one
+    64-column slot, across slots of one 256-column tile and across tiles,
+    each giving exactly the lowest tied id."""
     from manga_ocr_tpu_torch.ops import fused_head as fh
 
     rng = np.random.default_rng(7)
-    d, vocab = 64, 1024
+    w_scale = 0.2 * (64 / d) ** 0.5  # logits of one size at every width
 
     def t(*shape, scale=1.0, shift=0.0, dtype=torch.float32):
         return torch.from_numpy(shift + scale * rng.normal(size=shape)).to(device, dtype)
 
-    args = (t(batch, d, dtype=torch.bfloat16), t(d, d, scale=0.2, dtype=torch.bfloat16),
+    args = [t(batch, d, dtype=torch.bfloat16), t(d, d, scale=w_scale, dtype=torch.bfloat16),
             t(d, scale=0.1), t(d, scale=0.1, shift=1.0), t(d, scale=0.1),
-            t(d, vocab, scale=0.2, dtype=torch.bfloat16), t(vocab, scale=0.1))
+            t(d, vocab, scale=w_scale, dtype=torch.bfloat16), t(vocab, scale=0.1)]
     before = fh.fused_greedy_head.launches
     ids = fh.fused_greedy_head(*args)
     assert fh.fused_greedy_head.launches == before + 1
@@ -304,6 +311,27 @@ def test_greedy_head_kernel_ids_are_top_under_plain_logits(device, batch):
     top = logits.amax(-1)
     gap = top - logits.gather(1, ids.long()[:, None])[:, 0]
     assert float((gap / top.abs()).max()) <= HEAD_GAP_REL
+    for ties in ([40, 9], [200, 140], [vocab - 100, 300, vocab - 1]):
+        wp, bp = args[5].clone(), args[6].clone()
+        wp[:, ties] = 0
+        bp[ties] = 1000.0
+        ids = fh.fused_greedy_head(*args[:5], wp, bp)
+        assert ids.tolist() == [min(ties)] * batch
+
+
+def test_greedy_head_kernel_refuses_what_it_does_not_take(device):
+    from manga_ocr_tpu_torch.ops import fused_head as fh
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    for d, x_dtype in ((96, torch.bfloat16), (64, torch.float32)):
+        args = (zeros(4, d, dtype=x_dtype), zeros(d, d, dtype=torch.bfloat16), zeros(d),
+                zeros(d), zeros(d), zeros(d, 512, dtype=torch.bfloat16), zeros(512))
+        before = fh.fused_greedy_head.launches
+        with pytest.raises(ValueError):
+            fh.fused_greedy_head(*args)
+        assert fh.fused_greedy_head.launches == before
 
 
 def test_kernel_wrappers_reject_what_they_do_not_take(device):
