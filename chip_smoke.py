@@ -7,9 +7,12 @@ stack's own noise floor, which sets ENC_STACK_MEAN_REL;
 times, built and timed from each tree ROOT in turn;
 ``python3 chip_smoke.py --gemm-times ROOT...`` the bf16 and the int8 GEMM's
 times at the main paths' shapes, kernel F's device time at B=32 and 256 and
-the times of the step and fused_layer decodes that launch it, both engines'
-crops/s and a torch.profiler split of one H bf16 layer, one A int8 and one
-B call at B=256 and one dispatch of each engine, from each tree in turn.)
+the times of the step and fused_layer decodes that launch it, kernel C's
+forms at B=256 (serving, fuse_kv with its profiled split, the unfused
+path, int8_w), the three engines' crops/s (int8, bf16, int8 with
+attn_sdpa_int8 + fuse_cross_kv) and a torch.profiler split of one H bf16
+layer, one A int8 and one B call at B=256 and one dispatch of each engine,
+from each tree in turn.)
 
 1. Requires CUDA; prints the card's name and power limit (nvidia-smi).
 2. Builds the kernels of manga_ocr_tpu_torch/csrc with nvcc (sm_90a), one
@@ -86,17 +89,21 @@ B call at B=256 and one dispatch of each engine, from each tree in turn.)
 6. The forms of kernels A and C that complete the port: A's sdpa_int8
    form held against its plain version at B=256 (and sdpa_headpack shown
    bit-identical to A's default form); C's int8_w form, its fuse_kv form
-   (bf16 and int8 weights, scored by the unfused plain decoder over the
-   slabs of the final LN, timed beside precompute_cross_kv_packed + the
-   unfused kernel) at B=256, both timed at B=512 with the grid the wrapper
-   sized from the compiled kernel's occupancy, and C's time with each stage
-   ablated.  Then
+   (bf16 weights: the prologue -- the final LN's row pass and the bf16
+   GEMM into the slabs -- then the cluster kernel; int8 weights: the
+   present kernel; both scored by the unfused plain decoder over the slabs
+   of the final LN and timed beside final LN + precompute_cross_kv_packed
+   + the unfused kernel; the bf16 form also held and timed on the present
+   kernel, kernel="loop", with the prologue's own device time and the
+   grid) at B=256, both timed at B=512 with their grids (the present
+   kernel's sized from its compiled occupancy), and C's time with each
+   stage ablated.  Then
    the slice's paths: the int8 engine with attn_sdpa_int8 and
    fuse_cross_kv through ocr_page (A 12 in the sdpa_int8 form, B 12 and C
-   1 in the fuse_kv form per dispatch, no slab precompute; teacher-forced
-   tokens, crops/s, the stage split), and ocr_forward on 32 crops with
-   quantize_decoder weights, with and without fuse_cross_kv (C's int8_w
-   form; exact counts, teacher-forced tokens).
+   1 in the fuse_kv and the cluster form per dispatch, no slab precompute;
+   teacher-forced tokens, crops/s, the stage split), and ocr_forward on 32
+   crops with quantize_decoder weights, with and without fuse_cross_kv
+   (C's int8_w form; exact counts, teacher-forced tokens).
 7. Prints its total seconds, one JSON line of kernel results, then the
    device line {"ok": true, "device": {...}} last.  Any failed check exits
    non-zero before the device line.
@@ -775,14 +782,14 @@ def profile_split() -> None:
     H bf16 layer at B=256; one A int8 call and one B call at B=256 on the
     int8 serving encoder's weights, prepared as the encoder reads them; and
     the largest dispatch of a 256-crop page (preprocess, encoder, cross-K/V
-    and decode) on the bf16 and on the int8 engine."""
+    and decode) on the bf16 and the int8 engine and on the int8 engine with
+    attn_sdpa_int8 + fuse_cross_kv."""
     import torch
 
     from manga_ocr_tpu_torch.engine import TorchMangaOcrEngine
     from manga_ocr_tpu_torch.engine.engine import _cast_quantized
     from manga_ocr_tpu_torch.kernels import launch
     from manga_ocr_tpu_torch.models import model as mdl
-    from manga_ocr_tpu_torch.models import vit
     from manga_ocr_tpu_torch.models.config import MangaOCRConfig, with_serving_kernels
     from manga_ocr_tpu_torch.models.params import init_params, layer_params
     from manga_ocr_tpu_torch.models.quantize import quantize_encoder
@@ -824,24 +831,37 @@ def profile_split() -> None:
     page = [crops[i % len(crops)] for i in range(256)]
     bt = max(batching.prep_page_gray(page, pp.ORIENT_VERTICAL), key=lambda t: t.crops.shape[0])
     crops_d, sizes = torch.from_numpy(bt.crops).cuda(), torch.from_numpy(bt.sizes).cuda()
-    for form, quantize in (("bf16", False), ("int8", True)):
-        engine = TorchMangaOcrEngine(init_params(cfg, SEED, "cpu", std=WEIGHT_STD), cfg,
+    for form, c, quantize in (("bf16", cfg, False), ("int8", cfg, True),
+                              ("int8 sdpa_int8+fuse_kv", slice_config(), True)):
+        engine = TorchMangaOcrEngine(init_params(cfg, SEED, "cpu", std=WEIGHT_STD), c,
                                      CharTokenizer.synthetic(), device="cuda",
                                      quantize_int8=quantize)
 
         def dispatch():
             with torch.inference_mode():
                 px = pp.model_preprocess(crops_d, sizes, ecfg.image_size).to(engine.dtype)
-                enc = vit.encode(engine.params["encoder"], px, engine.cfg.encoder)
-                return mdl.greedy_decode(engine.params, enc, engine.cfg,
-                                         engine.max_length).lengths
+                return mdl.ocr_forward(engine.params, px, engine.cfg, engine.max_length).lengths
         traced(f"{form} engine dispatch B={bt.crops.shape[0]}", dispatch)
         del engine
         torch.cuda.empty_cache()
 
 
+def slice_config():
+    """MangaOCRConfig.base() with kernel A's int8 SDPA (attn_sdpa_int8) and
+    kernel C's fuse_kv form (fuse_cross_kv): the int8 engine of phase 6."""
+    import dataclasses
+
+    from manga_ocr_tpu_torch.models.config import MangaOCRConfig
+
+    cfg = MangaOCRConfig.base()
+    return dataclasses.replace(
+        cfg, encoder=dataclasses.replace(cfg.encoder, attn_sdpa_int8=True),
+        decoder=dataclasses.replace(cfg.decoder, fuse_cross_kv=True))
+
+
 def engine_rates() -> dict:
-    """crops/s of the int8 and the bf16 engine on one 256-crop page."""
+    """crops/s of the int8 and the bf16 engine, and of the int8 engine with
+    attn_sdpa_int8 + fuse_cross_kv, on one 256-crop page."""
     from manga_ocr_tpu_torch.engine import TorchMangaOcrEngine
     from manga_ocr_tpu_torch.models.config import MangaOCRConfig
     from manga_ocr_tpu_torch.models.params import init_params
@@ -851,13 +871,61 @@ def engine_rates() -> dict:
     crops = load_crops()
     params = init_params(cfg, SEED, "cpu", std=WEIGHT_STD)
     rates = {}
-    for form, quantize in (("int8", True), ("bf16", False)):
-        engine = TorchMangaOcrEngine(params, cfg, CharTokenizer.synthetic(), device="cuda",
+    for form, c, quantize in (("int8", cfg, True), ("bf16", cfg, False),
+                              ("int8 sdpa_int8+fuse_kv", slice_config(), True)):
+        engine = TorchMangaOcrEngine(params, c, CharTokenizer.synthetic(), device="cuda",
                                      quantize_int8=quantize)
         engine.ocr_page(crops[:2])
         rates[form] = page_rate(engine, crops, f"{form} engine")
         del engine
     return rates
+
+
+def decode_times() -> dict:
+    """Kernel C at B=256, 299 steps, bf16 decoder weights, on a random raw
+    encoder output and final LN: CUDA-event ms (mean of 2 after a warm run)
+    of the serving form over precomputed slabs, the fuse_kv form, final LN
+    + precompute_cross_kv_packed + the serving form (the unfused path), and
+    the int8_w form (quantize_decoder weights) over the same slabs; then one
+    profiled fuse_kv decode, printed as device ms by kernel.  Only entry
+    points every tree shares."""
+    import torch
+
+    from manga_ocr_tpu_torch.engine.engine import _cast_quantized
+    from manga_ocr_tpu_torch.models import decoder as dec
+    from manga_ocr_tpu_torch.models import model as mdl
+    from manga_ocr_tpu_torch.models.config import MangaOCRConfig
+    from manga_ocr_tpu_torch.models.params import init_params
+    from manga_ocr_tpu_torch.models.quantize import quantize_decoder
+    from manga_ocr_tpu_torch.ops import common
+    from manga_ocr_tpu_torch.ops import decode_loop as dl
+
+    cfg = MangaOCRConfig.base()
+    dcfg, s, d = cfg.decoder, cfg.encoder.seq_len, cfg.encoder.hidden_size
+    steps, batch, eps = cfg.max_length - 1, 256, cfg.decoder.layer_norm_eps
+    raw = init_params(cfg, SEED, "cuda", std=WEIGHT_STD)["decoder"]
+    p = mdl.cast_params(raw, torch.bfloat16)
+    q = _cast_quantized(quantize_decoder(raw), torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    enc_raw = (2 * torch.randn((batch, s, d), generator=gen, device="cuda") + 0.5)
+    enc_raw = enc_raw.to(torch.bfloat16)
+    fln = {"scale": 1 + 0.1 * torch.randn(d, generator=gen, device="cuda"),
+           "bias": 0.1 * torch.randn(d, generator=gen, device="cuda")}
+    fuse = dict(enc_raw=enc_raw, s_valid=s, enc_final_ln=fln)
+
+    def slabs(params):
+        return dec.precompute_cross_kv_packed(
+            params, common.layer_norm(enc_raw, fln["scale"], fln["bias"], eps), dcfg, int8=False)
+
+    cross = slabs(p)
+    runs = {"serving": lambda: dl.greedy_decode_loop(p, cross, dcfg, steps),
+            "fuse_kv": lambda: dl.greedy_decode_loop(p, None, dcfg, steps, **fuse),
+            "unfused (final LN + precompute + serving)":
+                lambda: dl.greedy_decode_loop(p, slabs(p), dcfg, steps),
+            "int8_w": lambda: dl.greedy_decode_loop(q, cross, dcfg, steps)}
+    times = {f"C {name} B={batch}": cuda_ms(fn, reps=2) for name, fn in runs.items()}
+    traced(f"C fuse_kv B={batch}", runs["fuse_kv"])
+    return times
 
 
 def head_decode_times() -> dict:
@@ -932,15 +1000,16 @@ def head_decode_times() -> dict:
 
 def compare_child() -> dict:
     """What ``--gemm-times`` reads of one tree: both GEMMs' times, kernel F's
-    and its decodes' times, both engines' page rates, and the profiler
-    split (printed)."""
+    and its decodes' times, kernel C's forms' times, the three engines'
+    page rates, and the profiler split (printed)."""
     times = gemm_times()
     int8_times = int8_gemm_times()
     head_times = head_decode_times()
+    c_times = decode_times()
     rates = engine_rates()
     profile_split()
     return {"gemm_ms": times, "int8_gemm_ms": int8_times, "head_ms": head_times,
-            "crops_per_s": rates}
+            "decode_ms": c_times, "crops_per_s": rates}
 
 
 def bound(nbytes: float, ops: dict) -> tuple[float, str]:
@@ -1398,17 +1467,22 @@ def check_decode_forms(raw, cfg, results: dict) -> None:
     """Kernel C's int8_w and fuse_kv forms (and both together) against
     their plain versions at B=256, steps=299: fuse_kv on a raw encoder
     output, scored by the unfused plain decoder over the slabs of its final
-    LN (which is what fuse_kv computes), and timed beside
+    LN (which is what fuse_kv computes), and timed beside final LN +
     precompute_cross_kv_packed + the unfused kernel on the same input.
-    Then C's int8_w and fuse_kv forms at B=512 with the grid sized from
-    the compiled kernel's occupancy, and the ablation split: the present
-    kernel (bf16, slabs) with each stage skipped, every row running all 299
-    steps (EOS set past the vocab)."""
+    With bf16 weights fuse_kv runs the prologue (final LN row pass, the
+    bf16 GEMM into the slabs) and the cluster kernel: it is also held and
+    timed on the present kernel (kernel="loop"), and the prologue's own
+    device time and the grid are printed.  Then C's int8_w and fuse_kv
+    forms at B=512 with their grids (the present kernel's sized from its
+    compiled occupancy), and the ablation split: the present kernel (bf16,
+    slabs) with each stage skipped, every row running all 299 steps (EOS
+    set past the vocab)."""
     import dataclasses
 
     import torch
 
     from manga_ocr_tpu_torch.engine.engine import _cast_quantized
+    from manga_ocr_tpu_torch.kernels import launch
     from manga_ocr_tpu_torch.models import decoder as dec
     from manga_ocr_tpu_torch.models import model as mdl
     from manga_ocr_tpu_torch.models.quantize import quantize_decoder
@@ -1435,23 +1509,49 @@ def check_decode_forms(raw, cfg, results: dict) -> None:
                 lambda: dl.greedy_decode_loop(p, cross, dcfg, steps),
                 lambda: dl.greedy_decode_loop_reference(p, cross, dcfg, steps),
                 p, cross, dcfg, lambda lens: cost_decode_loop(dcfg, lens, s, int8_w=True))
+        want_form = "loop" if int8_w else "cluster"
         rec = hold_decode(
             "greedy_decode_loop[fuse_kv]", f"{form} weights B={batch}",
             lambda: dl.greedy_decode_loop(p, None, dcfg, steps, **fuse),
             lambda: dl.greedy_decode_loop_reference(p, None, dcfg, steps, **fuse),
             p, cross, dcfg, lambda lens: cost_decode_loop(dcfg, lens, s, int8_w, fuse_kv=True))
+        grid = dict(dl.greedy_decode_loop.last_grid)
+        if grid["form"] != want_form:
+            fail(f"greedy_decode_loop[fuse_kv] {form} weights: ran the {grid['form']} kernel, "
+                 f"expected the {want_form} kernel")
         unfused_ms = cuda_ms(lambda: dl.greedy_decode_loop(
             p, dec.precompute_cross_kv_packed(
                 p, common.layer_norm(enc_raw, fln["scale"], fln["bias"], dcfg.layer_norm_eps),
                 dcfg, int8=False),
             dcfg, steps), reps=2)
-        log(f"greedy_decode_loop[fuse_kv] {form} weights B={batch}: {rec['ms']} ms against "
-            f"final LN + precompute_cross_kv_packed + unfused kernel C {unfused_ms} ms")
-        if not int8_w:
-            results["greedy_decode_loop[fuse_kv]"] = rec
+        log(f"greedy_decode_loop[fuse_kv] {form} weights B={batch}: {rec['ms']} ms (grid {grid}) "
+            f"against final LN + precompute_cross_kv_packed + unfused kernel C {unfused_ms} ms "
+            f"on {card_line()}")
+        if int8_w:
+            continue
+        results["greedy_decode_loop[fuse_kv]"] = rec
+        loop = hold_decode(
+            "greedy_decode_loop[fuse_kv, kernel=loop]", f"{form} weights B={batch}",
+            lambda: dl.greedy_decode_loop(p, None, dcfg, steps, kernel="loop", **fuse),
+            lambda: dl.greedy_decode_loop_reference(p, None, dcfg, steps, **fuse),
+            p, cross, dcfg, lambda lens: cost_decode_loop(dcfg, lens, s, fuse_kv=True))
+        if dl.greedy_decode_loop.last_grid["form"] != "loop":
+            fail("greedy_decode_loop[fuse_kv] kernel=loop did not run the present kernel")
+        prologue_ms = cuda_ms(lambda: dl.cross_kv_prologue(p, enc_raw, s, fln,
+                                                           dcfg.layer_norm_eps))
+        fln32 = tuple(fln[n].float().contiguous() for n in ("scale", "bias"))
+        ln_ms = cuda_ms(lambda: launch.ln_rows_bf16(enc_raw.view(batch * s, d), fln32,
+                                                    dcfg.layer_norm_eps))
+        log(f"greedy_decode_loop[fuse_kv] bf16 weights B={batch}: prologue + cluster kernel "
+            f"{rec['ms']} ms, present kernel (kernel=loop) {loop['ms']} ms: "
+            f"{loop['ms'] / rec['ms']:.3f}x; unfused path {unfused_ms} ms; the prologue alone "
+            f"{prologue_ms} ms (final LN row pass {ln_ms} ms, {2 * dcfg.num_layers} GEMMs "
+            f"[{batch * s}, {d}] x [{d}, {d}] {prologue_ms - ln_ms} ms); bound "
+            f"{rec['bound_ms']} ms ({rec['bound_by']}) on {card_line()}")
 
-    # the present kernel's grid from its compiled occupancy: int8_w and
-    # fuse_kv at B=512 (a bucket of BATCH_SCHEDULE), a record
+    # int8_w (the present kernel, its grid from its compiled occupancy) and
+    # fuse_kv (the prologue and the cluster kernel) at B=512 (a bucket of
+    # BATCH_SCHEDULE), a record
     wide = 512
     enc_raw2 = enc_raw.repeat(2, 1, 1)
     enc2 = common.layer_norm(enc_raw2, fln["scale"], fln["bias"], dcfg.layer_norm_eps)
@@ -1632,7 +1732,9 @@ def stage_split(engine, crops, label: str) -> None:
     """CUDA-event times of the largest dispatch of a 256-crop page, split
     into preprocess, encoder, and cross-K/V + decode (under fuse_cross_kv:
     the encoder without its final LN, then kernel C's fuse_kv form, which
-    applies it)."""
+    applies it in its prologue).  Each timed dispatch must launch kernel C
+    once, on the cluster kernel (and once in the fuse_kv form under
+    fuse_cross_kv)."""
     import torch
 
     from manga_ocr_tpu_torch.models import vit
@@ -1656,6 +1758,7 @@ def stage_split(engine, crops, label: str) -> None:
     crops_d = torch.from_numpy(b.crops).cuda()
     sizes = torch.from_numpy(b.sizes).cuda()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    before = dict(dl.greedy_decode_loop.launches_by_form)
     with torch.inference_mode():
         for _ in range(2):  # the second run is timed
             ev[0].record()
@@ -1667,6 +1770,9 @@ def stage_split(engine, crops, label: str) -> None:
             ev[3].record()
             torch.cuda.synchronize()
     ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    forms = {f: n - before[f] for f, n in dl.greedy_decode_loop.launches_by_form.items()}
+    if forms != {"cluster": 2, "int8_w": 0, "fuse_kv": 2 if fuse else 0}:
+        fail(f"{label} stage split: kernel C's launches by form {forms} in two dispatches")
     log(f"{label} dispatch B={b.crops.shape[0]} ({b.valid} crops, bucket {b.bucket_hw}): "
         f"preprocess {ms[0]} ms, encoder {ms[1]} ms, "
         f"{'C fuse_kv (final LN, cross-K/V, decode)' if fuse else 'cross-K/V + decode'} "
@@ -2223,26 +2329,23 @@ def run_slice_engine(params, crops, results: dict) -> float:
     """Path 1 of this slice: the int8 serving engine with kernel A's int8
     SDPA (attn_sdpa_int8) and kernel C's fuse_kv form (fuse_cross_kv), on
     the fixture page.  Per dispatch exactly: A 12 (all in the sdpa_int8
-    form), B 12, C 1 (in the fuse_kv form), and no slab precompute; the
-    tokens scored by teacher forcing; crops/s on the 256-crop page."""
-    import dataclasses
-
+    form), B 12, C 1 (in the fuse_kv form, on the cluster kernel after its
+    prologue), and no slab precompute; the tokens scored by teacher
+    forcing; crops/s on the 256-crop page."""
     from manga_ocr_tpu_torch.engine import TorchMangaOcrEngine
-    from manga_ocr_tpu_torch.models.config import MangaOCRConfig
     from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
 
-    cfg = MangaOCRConfig.base()
-    cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, attn_sdpa_int8=True),
-                              decoder=dataclasses.replace(cfg.decoder, fuse_cross_kv=True))
+    cfg = slice_config()
     engine = TorchMangaOcrEngine(params, cfg, CharTokenizer.synthetic(), device="cuda")
     engine.ocr_page(crops[:2])
     label = "int8 engine, sdpa_int8 + fuse_kv"
     n_l = cfg.encoder.num_layers
     drive_page(engine, crops, label,
                {"fused_attn_layer": n_l, "fused_attn_layer[sdpa_int8]": n_l,
-                "fused_mlp_block": n_l, "greedy_decode_loop": 1, "greedy_decode_loop[fuse_kv]": 1},
+                "fused_mlp_block": n_l, "greedy_decode_loop": 1, "greedy_decode_loop[fuse_kv]": 1,
+                "greedy_decode_loop[cluster]": 1},
                results, record={"fused_attn_layer": None, "fused_mlp_block": None,
-                                "greedy_decode_loop": None})
+                                "greedy_decode_loop": None, "greedy_decode_loop[cluster]": None})
     check_page_tokens(engine, crops)
     rate = page_rate(engine, crops, label)
     stage_split(engine, crops, label)
@@ -2525,7 +2628,9 @@ def main() -> int:
                                    "manga_ocr_tpu/ops/encoder_stack.py:190"),
            "greedy_decode_loop[int8_w]": ("manga_ocr_tpu_torch/csrc/decode_loop.cu",
                                           "manga_ocr_tpu/ops/decode_loop.py:579"),
-           "greedy_decode_loop[fuse_kv]": ("manga_ocr_tpu_torch/csrc/decode_loop.cu",
+           # the fuse_kv route: the prologue (mlp_bf16.cu's LN row pass and bf16
+           # GEMM) and the cluster kernel
+           "greedy_decode_loop[fuse_kv]": ("manga_ocr_tpu_torch/csrc/decode_cluster.cu",
                                            "manga_ocr_tpu/ops/decode_loop.py:579"),
            "fused_attn_layer[sdpa_int8]": ("manga_ocr_tpu_torch/csrc/encoder.cu",
                                            "manga_ocr_tpu/ops/flash_attention.py:617")}

@@ -1,8 +1,11 @@
-// Kernel C's serving form on thread-block clusters: the whole greedy decode
-// (bf16 decoder weights, precomputed bf16 cross-K/V slabs, the erf GELU, no
-// ablate) in one launch.  The other forms (int8_w, fuse_kv, ablate, the
-// sigmoid GELU) and the shapes this kernel does not take run on
-// decode_loop.cuh; ops/decode_loop.py decode_form chooses before any launch.
+// Kernel C on thread-block clusters: the whole greedy decode (bf16 decoder
+// weights, bf16 cross-K/V slabs, the erf GELU, no ablate) in one launch.  It
+// serves the serving form (slabs precomputed) and the fuse_kv form (slabs
+// written just before by ops/decode_loop.py cross_kv_prologue: the final
+// LN's row pass and the bf16 GEMM of mlp_bf16.cu, on the same stream).  The
+// other forms (int8_w, int8_w + fuse_kv, ablate, the sigmoid GELU) and the
+// shapes this kernel does not take run on decode_loop.cuh; ops/decode_loop.py
+// decode_form chooses before any launch.
 //
 // Replaces (Pallas, TPU): manga_ocr_tpu/ops/decode_loop.py greedy_decode_loop
 // -> _loop_call -> _decode_loop_kernel, in its serving form.

@@ -306,16 +306,21 @@ def bf16_gemm(
     bias: torch.Tensor,
     mode: int,
     residual: torch.Tensor | None = None,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """``epilogue(a[M, K] . b[K, N] + bias[N])`` in bf16 with f32
     accumulation; ``mode`` one of BF16_GELU_ERF, BF16_GELU_SIGMOID (the GELU
     in f32, then bf16), BF16_RESIDUAL (bf16, then plus the bf16
-    ``residual``), BF16_F32 (f32 out) or BF16_BIAS (bf16 out).  Raises
-    ValueError, before any build or launch, for what the kernel does not
-    take (``_check_gemm``)."""
+    ``residual``), BF16_F32 (f32 out) or BF16_BIAS (bf16 out).  ``out``, if
+    given, is written and returned: a contiguous [M, N] tensor of the
+    output's dtype on a's device.  Raises ValueError, before any build or
+    launch, for what the kernel does not take (``_check_gemm``; an ``out``
+    that is not 16-byte aligned or not as above)."""
     m, k = a.shape
     n = b.shape[1]
     _check_gemm("bf16_gemm", a, (b, "b"), n, ((bias, "bias"),), residual)
+    if out is not None:
+        _expect_aligned(out, "bf16_gemm out")
     if mode not in (BF16_GELU_ERF, BF16_GELU_SIGMOID, BF16_RESIDUAL, BF16_F32, BF16_BIAS):
         raise ValueError(f"bf16_gemm: unknown mode {mode}")
     _expect(a, torch.bfloat16, (m, k), "bf16_gemm a")
@@ -324,7 +329,12 @@ def bf16_gemm(
     if mode == BF16_RESIDUAL:
         _expect(residual, torch.bfloat16, (m, n), "bf16_gemm residual")
     out_dtype = torch.float32 if mode == BF16_F32 else torch.bfloat16
-    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    if out is None:
+        out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    else:
+        _expect(out, out_dtype, (m, n), "bf16_gemm out")
+        if out.device != a.device:
+            raise ValueError(f"bf16_gemm out: expected a tensor on {a.device}, got {out.device}")
     lib = build.load()
     err = lib.mocr_bf16_gemm(
         a.data_ptr(), b.data_ptr(), bias.data_ptr(),

@@ -10,8 +10,8 @@ of ``chunk_size`` steps (``"fused_layer"`` over packed cross-K/V, int8 when
 ``cfg.decoder.cross_kv_int8``, the packed cache and the weights of kernels
 J, K and B prepared once).  ``ocr_forward`` under ``"fused_loop"`` with
 ``fuse_cross_kv`` hands kernel C the encoder's raw output instead (C's
-``fuse_kv`` form: the final LN and the cross-K/V projections run inside
-its launch, and no slab is precomputed).
+``fuse_kv`` form: the final LN and the cross-K/V projections run in
+kernel C's own prologue, not through ``precompute_cross_kv_packed``).
 """
 
 from __future__ import annotations

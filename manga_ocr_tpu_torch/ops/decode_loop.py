@@ -13,7 +13,7 @@ in every form of the JAX kernel:
   ``enc_raw`` [B, S_pad, D] before the encoder's final LN, ``s_valid`` real
   rows, ``enc_final_ln``): the final LN with the DECODER's eps, a cast to
   the compute dtype, the cross-K/V projections with f32 sums plus the f32
-  bias and a cast, inside the same launch;
+  bias and a cast, computed once per decode before its first step;
 - ``ablate`` (diagnosis: skip the named stages "self", "cross", "mlp",
   "head" -- under "head" the next token is ``prev + 1``, and a token past
   the vocab embeds as a zero row, as the JAX one-hot does) and
@@ -24,15 +24,18 @@ and ``interpret`` schedule the JAX kernel on the TPU and change no token
 (both head forms keep the first maximum); they are accepted and checked
 (positive ints), and schedule nothing here.
 
-On CUDA tensors the whole loop is one launch: the serving form (bf16
-weights, precomputed slabs, the erf GELU, no ablate) of
-``csrc/decode_cluster.cu`` (a thread-block cluster per tile of rows, one
-decoder head per CTA, tensor-core projections) where ``decode_form`` finds
-the shapes it takes, else of ``csrc/decode_loop.cuh`` (the C entry point in
-``csrc/decode_loop.cu``, one source per form), whose rows per block follow
-the compiled kernel's occupancy.  Each kernel reads its weights in its own
-layout, prepared once per set of params (``loop_weights``,
-``cluster_weights``).  On CPU tensors ``greedy_decode_loop_reference`` runs
+On CUDA tensors the whole loop is one launch of ``csrc/decode_cluster.cu``
+(a thread-block cluster per tile of rows, one decoder head per CTA,
+tensor-core projections) for bf16 weights, the erf GELU and no ablate, at
+the shapes ``decode_form`` finds it takes; under ``fuse_kv`` the
+prologue ``cross_kv_prologue`` first writes the slabs (the final LN's row
+pass and the cross k/v products on the bf16 GEMM, ``csrc/mlp_bf16.cu``).
+Every other form and shape is one launch of ``csrc/decode_loop.cuh`` (the
+C entry point in ``csrc/decode_loop.cu``, one source per form; its
+``fuse_kv`` forms compute the slabs inside the launch), whose rows per
+block follow the compiled kernel's occupancy.  Each kernel reads its
+weights in its own layout, prepared once per set of params
+(``loop_weights``, ``cluster_weights``, ``cross_kv_weights``).  On CPU tensors ``greedy_decode_loop_reference`` runs
 it as a Python loop over steps with the same done-masking: PAD after EOS,
 lengths that count BOS and EOS, and the optional ``stop_lengths``
 instrument (rows behave as if EOS fired at that length).
@@ -377,14 +380,15 @@ def _kernel_layer(lp: dict, l: int, fuse_kv: bool) -> list:
         for name in names:
             out += _kernel_dense(w[name])
         out += [t.contiguous() for t in w[ln]]
-    if fuse_kv:
-        ca = lp["cross_attn"]
-        out += [ca[n]["kernel"][l].to(torch.bfloat16).contiguous() if part == "kernel"
-                else ca[n]["bias"][l].float().contiguous()
-                for n in ("k", "v") for part in ("kernel", "bias")]
-    else:
-        out += [None] * 4
-    return out
+    return out + (_cross_kv_layer(lp["cross_attn"], l) if fuse_kv else [None] * 4)
+
+
+def _cross_kv_layer(ca: dict, l: int) -> list:
+    """Layer ``l``'s cross k and v weights as ``fuse_kv`` reads them: bf16
+    [D, D] and the f32 bias, k then v."""
+    return [ca[n]["kernel"][l].to(torch.bfloat16).contiguous() if part == "kernel"
+            else ca[n]["bias"][l].float().contiguous()
+            for n in ("k", "v") for part in ("kernel", "bias")]
 
 
 def _own(tensors: list) -> list:
@@ -558,18 +562,60 @@ def cluster_smem(rows: int, d: int, heads: int, inter: int, steps: int, s_len: i
 def decode_form(params_decoder: dict, cfg, steps: int, s_len: int, fuse_kv: bool,
                 stages: int, gelu_mode: str) -> str:
     """Which kernel runs a CUDA decode, by form and shape alone, before any
-    launch: "cluster" (``csrc/decode_cluster.cu``) for the serving form --
-    bf16 weights, precomputed slabs, the erf GELU, no ablate -- at the
-    shapes ``cluster_plan`` takes; "loop" (``csrc/decode_loop.cuh``) for
-    every other form and shape."""
-    if fuse_kv or stages or gelu_mode != "erf" or _is_int8_decoder(params_decoder):
+    launch: "cluster" (``csrc/decode_cluster.cu``) for bf16 weights, the
+    erf GELU and no ablate -- over precomputed slabs, or under ``fuse_kv``
+    after ``cross_kv_prologue`` -- at the shapes ``cluster_plan`` and,
+    under ``fuse_kv``, the prologue's GEMM (K = N = D) take; "loop"
+    (``csrc/decode_loop.cuh``) for every other form and shape."""
+    if stages or gelu_mode != "erf" or _is_int8_decoder(params_decoder):
         return "loop"
     d = params_decoder["layers"]["self_ln"]["scale"].shape[1]
     try:
         cluster_plan(d, cfg.num_heads, cfg.intermediate_size, cfg.vocab_size, steps, s_len)
     except ValueError:
         return "loop"
+    if fuse_kv and (d % launch.GEMM_BK or d % 8):
+        return "loop"
     return "cluster"
+
+
+def cross_kv_weights(params_decoder: dict) -> list:
+    """``fuse_kv``'s prologue weights, per layer ``_cross_kv_layer``, once
+    per set of params."""
+    ca = params_decoder["layers"]["cross_attn"]
+    return ew.prepared(params_decoder, ("cross_kv",), lambda: [
+        _own(_cross_kv_layer(ca, l)) for l in range(ca["k"]["kernel"].shape[0])])
+
+
+def cross_kv_prologue(
+    params_decoder: dict, enc_raw: torch.Tensor, s_valid: int, enc_final_ln: dict | None,
+    eps: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``fuse_kv``'s slabs on the card, for the cluster kernel: the first
+    ``s_valid`` rows of ``enc_raw`` [B, S, D] bf16 (copied to be contiguous
+    only where ``s_valid < S``), the final LN's row pass
+    (``launch.ln_rows_bf16``, the decoder's ``eps``; the rows as they are
+    without ``enc_final_ln``), then per layer the cross k and v products on
+    the bf16 GEMM (``launch.bf16_gemm``, bias epilogue) written straight
+    into the slabs -> K, V [L, B, s_valid, D] bf16, ``_fused_cross_slabs``'
+    roundings.  Every launch is on the current stream: the decode that
+    reads the slabs follows them with no host synchronisation."""
+    batch, s_enc, d = enc_raw.shape
+    rows = enc_raw[:, :s_valid]
+    if s_valid < s_enc:
+        rows = rows.contiguous()
+    e = rows.view(batch * s_valid, d)
+    if enc_final_ln is not None:
+        e = launch.ln_rows_bf16(e, tuple(enc_final_ln[n].float().contiguous()
+                                         for n in ("scale", "bias")), eps)
+    layers = cross_kv_weights(params_decoder)
+    k_slab = torch.empty((len(layers), batch, s_valid, d), dtype=torch.bfloat16,
+                         device=enc_raw.device)
+    v_slab = torch.empty_like(k_slab)
+    for l, (wk, bk, wv, bv) in enumerate(layers):
+        launch.bf16_gemm(e, wk, bk, launch.BF16_BIAS, out=k_slab[l].view(batch * s_valid, d))
+        launch.bf16_gemm(e, wv, bv, launch.BF16_BIAS, out=v_slab[l].view(batch * s_valid, d))
+    return k_slab, v_slab
 
 
 def _count(forms: tuple[str, ...]) -> None:
@@ -666,9 +712,9 @@ def greedy_decode_loop(
     s_len = (src.shape[1] if s_valid is None else s_valid) if fuse_kv else src.shape[2]
     form = decode_form(params_decoder, cfg, steps, s_len, fuse_kv, stages, gelu_mode)
     if kernel == "cluster" and form != "cluster":
-        raise ValueError("greedy_decode_loop: the cluster kernel takes the serving form (bf16 "
-                         "weights, precomputed slabs, erf GELU, no ablate) at the shapes of "
-                         "cluster_plan only")
+        raise ValueError("greedy_decode_loop: the cluster kernel takes bf16 weights, the erf "
+                         "GELU and no ablate, at the shapes of cluster_plan (and, under "
+                         "fuse_kv, of the prologue's GEMM) only")
     if kernel == "loop":
         form = "loop"
     if src.device.type == "cpu":
@@ -697,9 +743,6 @@ def greedy_decode_loop(
                 enc_raw.shape[2] != d or not 1 <= s_len <= s_enc:
             raise ValueError(f"greedy_decode_loop: enc_raw must be contiguous bf16 [B, S, {d}] "
                              f"with 1 <= s_valid <= S, got {tuple(enc_raw.shape)}, {s_valid}")
-        # the kernel writes each block's slabs here before its first step
-        k_slab = torch.empty((n_layers, batch, s_len, d), dtype=torch.bfloat16, device=dev)
-        v_slab = torch.empty_like(k_slab)
         final_ln = None
         if enc_final_ln is not None:
             final_ln = [enc_final_ln[n].float().contiguous() for n in ("scale", "bias")]
@@ -719,9 +762,15 @@ def greedy_decode_loop(
     tokens = torch.empty((batch, steps + 1), dtype=torch.int32, device=dev)
     lengths = torch.empty((batch,), dtype=torch.int32, device=dev)
     if form == "cluster":
+        if fuse_kv:
+            k_slab, v_slab = cross_kv_prologue(params_decoder, enc_raw, s_len, enc_final_ln,
+                                               cfg.layer_norm_eps)
         _launch_cluster(params_decoder, cfg, steps, k_slab, v_slab, stops, tokens, lengths)
-        _count(("cluster",))
+        _count(("cluster", "fuse_kv") if fuse_kv else ("cluster",))
         return tokens, lengths
+    if fuse_kv:  # the kernel writes each block's slabs here before its first step
+        k_slab = torch.empty((n_layers, batch, s_len, d), dtype=torch.bfloat16, device=dev)
+        v_slab = torch.empty_like(k_slab)
 
     # the kernels that read ablate / the sigmoid GELU are built for one row
     # per block only (diagnosis forms; compiled apart from the serving ones)
@@ -762,8 +811,9 @@ def greedy_decode_loop(
 
 
 greedy_decode_loop.launches = 0  # launches of a CUDA kernel (CPU calls do not count)
-# launches by form: "cluster" (the serving form's cluster kernel), "int8_w"
-# (int8 decoder weights) and "fuse_kv" (slabs in the launch); the last two
-# run on the present kernel
+# launches by form: "cluster" (every launch of the cluster kernel), "int8_w"
+# (int8 decoder weights, on the present kernel) and "fuse_kv" (every decode
+# from the raw encoder output: the cluster kernel after its prologue, or the
+# present kernel with the slabs in its launch)
 greedy_decode_loop.launches_by_form = {"cluster": 0, "int8_w": 0, "fuse_kv": 0}
 greedy_decode_loop.last_grid = None  # the grid of the last CUDA launch (a record for chip_smoke)

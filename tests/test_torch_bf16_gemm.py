@@ -130,12 +130,12 @@ def _misaligned(shape, dtype):
 
 
 def _gemm_call(m=5, k=64, n=16, mode=launch.BF16_BIAS, a=None, b=None, bias=None,
-               residual=None):
+               residual=None, out=None):
     """launch.bf16_gemm on CPU tensors (any of them may be given instead)."""
     a = torch.zeros((m, k), dtype=torch.bfloat16) if a is None else a
     b = torch.zeros((a.shape[1], n), dtype=torch.bfloat16) if b is None else b
     bias = torch.zeros((b.shape[1],), dtype=torch.float32) if bias is None else bias
-    return launch.bf16_gemm(a, b, bias, mode, residual)
+    return launch.bf16_gemm(a, b, bias, mode, residual, out=out)
 
 
 @pytest.mark.parametrize("case,match", [
@@ -148,9 +148,10 @@ def _gemm_call(m=5, k=64, n=16, mode=launch.BF16_BIAS, a=None, b=None, bias=None
     (dict(mode=launch.BF16_RESIDUAL, residual=_misaligned((5, 16), torch.bfloat16)),
      "bf16_gemm residual: expected a 16-byte aligned"),
     (dict(bias=_misaligned((16,), torch.float32)), "bias: expected an 8-byte aligned"),
+    (dict(out=_misaligned((5, 16), torch.bfloat16)), "bf16_gemm out: expected a 16-byte aligned"),
     (dict(mode=7), "unknown mode 7"),
 ], ids=["K96", "K32", "N12", "M0", "a_misaligned", "b_misaligned", "residual_misaligned",
-        "bias_misaligned", "mode7"])
+        "bias_misaligned", "out_misaligned", "mode7"])
 def test_bf16_gemm_refuses_what_it_does_not_take(case, match, monkeypatch):
     """Each limit of the TMA + wgmma GEMM raises ValueError on the tensors'
     own checks, before any build or launch (here on CPU tensors, where a

@@ -428,9 +428,11 @@ def _live_rel_gap(gaps, top, lengths):
 
 @pytest.mark.parametrize("form", ["int8_w", "fuse_kv", "int8_w+fuse_kv"])
 def test_decode_loop_new_forms_tokens_are_greedy_under_plain_model(device, form):
-    """Kernel C's int8-decoder and in-kernel cross-K/V forms: the kernel's
-    tokens scored by the plain decoder (teacher forcing); under fuse_kv on
-    the slabs of the LN'd real rows (S_valid of a padded raw output)."""
+    """Kernel C's int8-decoder and cross-K/V-from-the-raw-output forms (bf16
+    fuse_kv on the cluster kernel after its prologue, int8_w + fuse_kv on
+    the present kernel): the kernel's tokens scored by the plain decoder
+    (teacher forcing); under fuse_kv on the slabs of the LN'd real rows
+    (S_valid of a padded raw output)."""
     from manga_ocr_tpu_torch.engine.engine import _cast_quantized
     from manga_ocr_tpu_torch.models import decoder as dec
     from manga_ocr_tpu_torch.models.params import init_params
@@ -457,9 +459,85 @@ def test_decode_loop_new_forms_tokens_are_greedy_under_plain_model(device, form)
         tokens, lengths = dl.greedy_decode_loop(params, cross, cfg.decoder, 20)
     for f in ("int8_w", "fuse_kv"):
         assert dl.greedy_decode_loop.launches_by_form[f] == before[f] + (f in form)
+    assert dl.greedy_decode_loop.last_grid["form"] == ("cluster" if form == "fuse_kv" else "loop")
     assert tokens.shape == (5, 21) and bool((tokens[:, 0] == cfg.decoder.bos_token_id).all())
     gaps, top = dl.teacher_forced_gaps(params, cross, cfg.decoder, tokens)
     assert _live_rel_gap(gaps, top, lengths) <= DECODE_GAP_REL
+
+
+@pytest.mark.parametrize("final_ln", [True, False], ids=["final_ln", "no_final_ln"])
+def test_cross_kv_prologue_slabs_match_plain_at_full_width(device, final_ln):
+    """fuse_kv's prologue (the final LN's row pass, the bf16 GEMM into the
+    slabs) at D 768, two layers, B=17 and 197 real rows of 200, against
+    the plain ``_fused_cross_slabs``: the largest difference at most one
+    bf16 ulp of the largest magnitude (the f32 sums differ in order only),
+    the mean relative difference at most 1e-3."""
+    from manga_ocr_tpu_torch.ops import decode_loop as dl
+
+    rng = np.random.default_rng(50)
+    d, n_l, eps = 768, 2, 1e-12
+    cross = {n: {"kernel": 0.02 * _randn(rng, (n_l, d, d), device),
+                 "bias": 0.1 * _randn(rng, (n_l, d), device)} for n in ("k", "v")}
+    params = {"layers": {"cross_attn": cross}}
+    raw = (2 * _randn(rng, (17, 200, d), device) + 0.5).to(torch.bfloat16)
+    fln = ({"scale": 1 + 0.1 * _randn(rng, (d,), device), "bias": 0.1 * _randn(rng, (d,), device)}
+           if final_ln else None)
+    got = dl.cross_kv_prologue(params, raw, 197, fln, eps)
+    want = dl._fused_cross_slabs(params, raw, 197, fln, eps, torch.bfloat16)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == (n_l, 17, 197, d) and g.dtype == torch.bfloat16
+        top = float(w.float().abs().max())
+        err = (g.float() - w.float()).abs()
+        assert float(err.max()) <= 2.0 ** (np.floor(np.log2(top)) - 7)
+        assert float(err.mean()) <= 1e-3 * float(w.float().abs().mean())
+
+
+def test_decode_fuse_kv_runs_the_cluster_route_and_loop_keeps_the_present_kernel(device):
+    """fuse_kv with bf16 weights: by default the prologue and the cluster
+    kernel (counted under "cluster" and "fuse_kv"); kernel="loop" the
+    present kernel's fuse_kv form (counted under "fuse_kv" only); both
+    token matrices greedy under the plain decoder."""
+    from manga_ocr_tpu_torch.models import decoder as dec
+    from manga_ocr_tpu_torch.models import model as mdl
+    from manga_ocr_tpu_torch.models.params import init_params
+    from manga_ocr_tpu_torch.ops import decode_loop as dl
+    from manga_ocr_tpu_torch.ops.common import layer_norm
+
+    cfg = MangaOCRConfig.tiny()
+    params = mdl.cast_params(init_params(cfg, 5, device)["decoder"], torch.bfloat16)
+    s_valid = cfg.encoder.seq_len
+    rng = np.random.default_rng(24)
+    raw = (2 * _randn(rng, (9, s_valid, 64), device) + 0.5).to(torch.bfloat16)
+    fln = {"scale": 1 + 0.1 * _randn(rng, (64,), device), "bias": 0.1 * _randn(rng, (64,), device)}
+    enc = layer_norm(raw, fln["scale"], fln["bias"], cfg.decoder.layer_norm_eps)
+    cross = dec.precompute_cross_kv_packed(params, enc, cfg.decoder)
+    for kernel, form in (("auto", "cluster"), ("loop", "loop")):
+        before = dict(dl.greedy_decode_loop.launches_by_form)
+        tokens, lengths = dl.greedy_decode_loop(params, None, cfg.decoder, 20, enc_raw=raw,
+                                                enc_final_ln=fln, kernel=kernel)
+        assert dl.greedy_decode_loop.last_grid["form"] == form
+        after = dl.greedy_decode_loop.launches_by_form
+        assert after["fuse_kv"] == before["fuse_kv"] + 1
+        assert after["cluster"] == before["cluster"] + (form == "cluster")
+        gaps, top = dl.teacher_forced_gaps(params, cross, cfg.decoder, tokens)
+        assert _live_rel_gap(gaps, top, lengths) <= DECODE_GAP_REL
+
+
+def test_bf16_gemm_refuses_a_wrong_out(device):
+    from manga_ocr_tpu_torch.kernels import launch
+
+    a = torch.zeros((5, 64), dtype=torch.bfloat16, device=device)
+    b = torch.zeros((64, 16), dtype=torch.bfloat16, device=device)
+    bias = torch.zeros((16,), device=device)
+    for out in (torch.empty((5, 8), dtype=torch.bfloat16, device=device),
+                torch.empty((5, 16), dtype=torch.float32, device=device),
+                torch.empty((16, 5), dtype=torch.bfloat16, device=device).t()):
+        with pytest.raises(ValueError, match="bf16_gemm out"):
+            launch.bf16_gemm(a, b, bias, launch.BF16_BIAS, out=out)
+    out = torch.full((5, 16), 7.0, dtype=torch.bfloat16, device=device)
+    assert launch.bf16_gemm(a, b, bias, launch.BF16_BIAS, out=out) is out
+    assert bool((out == 0).all())
 
 
 @pytest.mark.parametrize("options", [dict(ablate="self"), dict(ablate="cross"),

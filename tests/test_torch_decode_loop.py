@@ -9,9 +9,11 @@ projections in the loop, also on JAX's own seq-padded encoder output);
 change no token and must be positive.  Also the ``stop_lengths`` instrument,
 the EOS done-masking, the cross-K/V precompute, and the teacher-forced
 scorer used on the card; and, for the CUDA path, which kernel takes which
-form and shape (the serving form's cluster kernel or the present one), its
-refusals, its split plan, and the decoder weights each kernel reads,
-prepared once per set of params."""
+form and shape (the cluster kernel or the present one), its refusals, its
+split plan, the decoder weights each kernel reads, prepared once per set of
+params, and ``fuse_kv``'s prologue before the cluster kernel (its launchers
+swapped for plain versions of their contracts): its slabs against the plain
+version's bit for bit and against the JAX package's cross-K/V precompute."""
 
 import dataclasses
 
@@ -349,14 +351,17 @@ def _tiny_port(std=0.02, seed=12, **decoder):
 @pytest.mark.parametrize("case,want", [
     (dict(), "cluster"),
     (dict(int8_w=True), "loop"),
-    (dict(fuse_kv=True), "loop"),
+    (dict(fuse_kv=True), "cluster"),  # after cross_kv_prologue
+    (dict(int8_w=True, fuse_kv=True), "loop"),
+    (dict(fuse_kv=True, hidden_size=96, num_heads=2), "loop"),  # K = 96: not a multiple of 64
     (dict(stages=tl._SELF), "loop"),
     (dict(gelu_mode="sigmoid"), "loop"),
     (dict(num_heads=8), "loop"),  # dh = 8: not a multiple of 16
     (dict(num_heads=2), "cluster"),  # dh = 32
     (dict(intermediate_size=80), "loop"),  # I % 32 != 0, 20 columns a CTA
     (dict(steps=4000), "loop"),  # the scores of 4000 steps overflow shared memory
-], ids=["serving", "int8_w", "fuse_kv", "ablate", "sigmoid", "dh8", "dh32", "inter80", "steps"])
+], ids=["serving", "int8_w", "fuse_kv", "int8_w+fuse_kv", "fuse_kv_d96", "ablate", "sigmoid",
+        "dh8", "dh32", "inter80", "steps"])
 def test_decode_form_chooses_cluster_for_the_serving_form_only(case, want):
     case = dict(case)
     int8_w, fuse_kv = case.pop("int8_w", False), case.pop("fuse_kv", False)
@@ -371,9 +376,9 @@ def test_decode_form_chooses_cluster_for_the_serving_form_only(case, want):
 
 @pytest.mark.parametrize("bad", [
     dict(kernel="cluster", ablate="mlp"), dict(kernel="cluster", gelu_mode="sigmoid"),
-    dict(kernel="cluster", int8_w=True), dict(kernel="cluster", fuse_kv=True),
+    dict(kernel="cluster", int8_w=True), dict(kernel="cluster", int8_w=True, fuse_kv=True),
     dict(kernel="cluster", num_heads=8), dict(kernel="tiled"),
-], ids=["ablate", "sigmoid", "int8_w", "fuse_kv", "dh8", "kernel"])
+], ids=["ablate", "sigmoid", "int8_w", "int8_w+fuse_kv", "dh8", "kernel"])
 def test_cluster_refusals_raise_before_any_build(bad):
     """What the cluster kernel does not take raises ValueError in the
     wrapper, before any build (here, with no nvcc, a build would raise
@@ -493,3 +498,81 @@ def test_cluster_plan_covers_every_projection(d, heads, inter, vocab, steps, s_l
     if d == 768:  # B=256 on 15 seated clusters takes tiles of 18 rows
         assert tl.cluster_smem(19, d, heads, inter, steps, s_len) <= 227 * 1024 - 1024
         assert tl.cluster_smem(20, d, heads, inter, steps, s_len) > 227 * 1024
+
+
+# -- fuse_kv on the cluster kernel: the prologue that writes its slabs ---------
+
+
+def _plain_launchers(monkeypatch) -> dict:
+    """``launch.ln_rows_bf16`` and ``launch.bf16_gemm`` swapped for plain
+    torch versions of their contracts (the GEMM writing its ``out``);
+    returns the calls made, by launcher."""
+    from manga_ocr_tpu_torch.kernels import launch
+    from manga_ocr_tpu_torch.ops.fused_mlp import bf16_gemm_reference
+    from manga_ocr_tpu_torch.ops.kernel_utils import ln32
+
+    calls = {"ln_rows_bf16": 0, "bf16_gemm": 0}
+
+    def ln_rows(x, ln, eps):
+        assert x.dtype == torch.bfloat16 and x.is_contiguous() and x.dim() == 2
+        calls["ln_rows_bf16"] += 1
+        return ln32(x, *ln, eps).to(torch.bfloat16)
+
+    def gemm(a, b, bias, mode, residual=None, out=None):
+        assert mode == launch.BF16_BIAS and residual is None
+        assert a.is_contiguous() and out.is_contiguous() and out.shape == (a.shape[0], b.shape[1])
+        calls["bf16_gemm"] += 1
+        return out.copy_(bf16_gemm_reference(a, b, bias, mode))
+
+    monkeypatch.setattr(launch, "ln_rows_bf16", ln_rows)
+    monkeypatch.setattr(launch, "bf16_gemm", gemm)
+    return calls
+
+
+@pytest.mark.parametrize("final_ln", [True, False], ids=["final_ln", "no_final_ln"])
+def test_cross_kv_prologue_slabs_equal_the_plain_version_bit_for_bit(final_ln, monkeypatch):
+    """The prologue (rows S_VALID of S_PAD, the final LN's row pass with
+    the decoder's eps, one GEMM per layer and k/v into the slabs), with
+    its launchers swapped for plain versions of their contracts, gives
+    ``_fused_cross_slabs``' slabs bit for bit: one row pass (none without
+    a final LN), 2L GEMMs."""
+    calls = _plain_launchers(monkeypatch)
+    cfg, tdp = _tiny_port(std=0.1)
+    raw, ln = _raw_encoder(20)
+    raw = torch.from_numpy(raw).bfloat16()
+    ln = {k: torch.from_numpy(a) for k, a in ln.items()} if final_ln else None
+    k, v = tl.cross_kv_prologue(tdp, raw, S_VALID, ln, cfg.layer_norm_eps)
+    want_k, want_v = tl._fused_cross_slabs(tdp, raw, S_VALID, ln, cfg.layer_norm_eps,
+                                           torch.bfloat16)
+    assert k.shape == v.shape == (cfg.num_layers, 4, S_VALID, cfg.hidden_size)
+    assert k.dtype == v.dtype == torch.bfloat16
+    torch.testing.assert_close(k, want_k, atol=0, rtol=0)
+    torch.testing.assert_close(v, want_v, atol=0, rtol=0)
+    assert calls == {"ln_rows_bf16": int(final_ln), "bf16_gemm": 2 * cfg.num_layers}
+    assert tl.cross_kv_weights(tdp) is tl.cross_kv_weights(tdp)  # prepared once
+
+
+@pytest.mark.parametrize("final_ln", [True, False], ids=["final_ln", "no_final_ln"])
+def test_cross_kv_prologue_slabs_match_jax_precompute(final_ln, monkeypatch):
+    """The prologue's slabs (plain launchers) against the JAX package's
+    own: ``precompute_cross_kv_packed(..., int8=False)`` on the real rows
+    after the final LN with the decoder's eps, in bf16, on the same numpy
+    inputs; within one bf16 ulp (the f32 sums differ in order only)."""
+    from manga_ocr_tpu.ops.common import layer_norm as jax_layer_norm
+
+    _plain_launchers(monkeypatch)
+    cfg, np_dec, _ = _setup(0.1, seed=21)
+    raw, ln = _raw_encoder(21)
+    e = jnp.asarray(raw[:, :S_VALID]).astype(jnp.bfloat16)
+    if final_ln:
+        e = jax_layer_norm(e, jnp.asarray(ln["scale"]), jnp.asarray(ln["bias"]),
+                           cfg.decoder.layer_norm_eps)
+    want = jdec.precompute_cross_kv_packed(np_dec, e, cfg.decoder, int8=False)
+    tcfg = port_config(cfg).decoder
+    got = tl.cross_kv_prologue(
+        params_from_jax(np_dec, "cpu"), torch.from_numpy(raw).bfloat16(), S_VALID,
+        {k: torch.from_numpy(a) for k, a in ln.items()} if final_ln else None,
+        tcfg.layer_norm_eps)
+    for g, w in zip(got, (want.k, want.v)):
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(w.astype(jnp.float32)),
+                                   rtol=2**-7, atol=0)
