@@ -9,10 +9,10 @@ times, built and timed from each tree ROOT in turn;
 times at the main paths' shapes, kernel F's device time at B=32 and 256 and
 the times of the step and fused_layer decodes that launch it, kernel C's
 forms at B=256 (serving, fuse_kv with its profiled split, the unfused
-path, int8_w), the three engines' crops/s (int8, bf16, int8 with
-attn_sdpa_int8 + fuse_cross_kv) and a torch.profiler split of one H bf16
-layer, one A int8 and one B call at B=256 and one dispatch of each engine,
-from each tree in turn.)
+path, int8_w, int8_w + fuse_kv), the three engines' crops/s (int8, bf16,
+int8 with attn_sdpa_int8 + fuse_cross_kv) and a torch.profiler split of
+one H bf16 layer, one A int8 and one B call at B=256 and one dispatch of
+each engine, from each tree in turn.)
 
 1. Requires CUDA; prints the card's name and power limit (nvidia-smi).
 2. Builds the kernels of manga_ocr_tpu_torch/csrc with nvcc (sm_90a), one
@@ -88,22 +88,25 @@ from each tree in turn.)
    serving_kernels=False on a merged_layer bf16 config (H and C).
 6. The forms of kernels A and C that complete the port: A's sdpa_int8
    form held against its plain version at B=256 (and sdpa_headpack shown
-   bit-identical to A's default form); C's int8_w form, its fuse_kv form
-   (bf16 weights: the prologue -- the final LN's row pass and the bf16
-   GEMM into the slabs -- then the cluster kernel; int8 weights: the
-   present kernel; both scored by the unfused plain decoder over the slabs
-   of the final LN and timed beside final LN + precompute_cross_kv_packed
-   + the unfused kernel; the bf16 form also held and timed on the present
-   kernel, kernel="loop", with the prologue's own device time and the
-   grid) at B=256, both timed at B=512 with their grids (the present
-   kernel's sized from its compiled occupancy), and C's time with each
-   stage ablated.  Then
+   bit-identical to A's default form); C's int8_w form on the cluster
+   kernel's int8 instance (s8 projections), held and timed beside the
+   present kernel's (kernel="loop") on the same inputs, with both grids
+   and the int8 instance's stage split; its fuse_kv form (the prologue --
+   the final LN's row pass and the bf16 GEMM into the slabs -- then the
+   cluster kernel, with bf16 weights and with int8 ones; both scored by
+   the unfused plain decoder over the slabs of the final LN and timed
+   beside final LN + precompute_cross_kv_packed + the unfused kernel; the
+   bf16 form also held and timed on the present kernel, kernel="loop",
+   with the prologue's own device time and the grid) at B=256, int8_w and
+   fuse_kv timed at B=512 with their grids, and C's time with each stage
+   ablated on the present kernel.  Then
    the slice's paths: the int8 engine with attn_sdpa_int8 and
    fuse_cross_kv through ocr_page (A 12 in the sdpa_int8 form, B 12 and C
    1 in the fuse_kv and the cluster form per dispatch, no slab precompute;
    teacher-forced tokens, crops/s, the stage split), and ocr_forward on 32
    crops with quantize_decoder weights, with and without fuse_cross_kv
-   (C's int8_w form; exact counts, teacher-forced tokens).
+   (C's int8_w form on the cluster kernel; exact counts, teacher-forced
+   tokens).
 7. Prints its total seconds, one JSON line of kernel results, then the
    device line {"ok": true, "device": {...}} last.  Any failed check exits
    non-zero before the device line.
@@ -887,8 +890,9 @@ def decode_times() -> dict:
     of the serving form over precomputed slabs, the fuse_kv form, final LN
     + precompute_cross_kv_packed + the serving form (the unfused path), and
     the int8_w form (quantize_decoder weights) over the same slabs; then one
-    profiled fuse_kv decode, printed as device ms by kernel.  Only entry
-    points every tree shares."""
+    profiled fuse_kv decode, printed as device ms by kernel.  Then int8_w
+    with fuse_kv.  Only entry points every tree shares (each tree routes
+    the int8 forms its own way)."""
     import torch
 
     from manga_ocr_tpu_torch.engine.engine import _cast_quantized
@@ -922,7 +926,8 @@ def decode_times() -> dict:
             "fuse_kv": lambda: dl.greedy_decode_loop(p, None, dcfg, steps, **fuse),
             "unfused (final LN + precompute + serving)":
                 lambda: dl.greedy_decode_loop(p, slabs(p), dcfg, steps),
-            "int8_w": lambda: dl.greedy_decode_loop(q, cross, dcfg, steps)}
+            "int8_w": lambda: dl.greedy_decode_loop(q, cross, dcfg, steps),
+            "int8_w + fuse_kv": lambda: dl.greedy_decode_loop(q, None, dcfg, steps, **fuse)}
     times = {f"C {name} B={batch}": cuda_ms(fn, reps=2) for name, fn in runs.items()}
     traced(f"C fuse_kv B={batch}", runs["fuse_kv"])
     return times
@@ -1396,11 +1401,20 @@ def reread_floor(cfg, lengths, s) -> float:
     return nbytes / H100_BYTES_PER_S * 1e3
 
 
+# The cluster kernels' instances by (mangled) name: bf16 and int8_w, each
+# also profiled (kProf).
+CLUSTER_INSTANCES = {"decode_cluster_kernelILb0E": "serving (bf16)",
+                     "decode_cluster_kernelILb1E": "bf16 profiled",
+                     "decode_cluster_i8_kernelILb0E": "int8_w",
+                     "decode_cluster_i8_kernelILb1E": "int8_w profiled"}
+
+
 def log_cluster_ptxas(build_log: str) -> None:
-    """The cluster kernel's ptxas lines (registers, stack, spill bytes) of
-    its kernels and of the phases it calls apart (projection, vocab argmax,
-    attention).  A record: the body runs at the 128-register cap of its
-    512 threads and spills a little (PERF.md)."""
+    """The cluster kernels' ptxas lines (registers, stack, spill bytes) of
+    their four instances (bf16 and int8_w, each also profiled) and of the
+    phases they call apart (projections bf16 and s8, vocab argmax,
+    attention, the int8 row passes).  A record: the body runs at the
+    128-register cap of its 512 threads and spills a little (PERF.md)."""
     import re
 
     name = ""
@@ -1411,7 +1425,8 @@ def log_cluster_ptxas(build_log: str) -> None:
             continue
         if "decode_cluster_cu" in name and ("spill" in ln or "registers" in ln):
             short = re.sub(r".*decode_cluster_cu_\w{8}", "", name)[:40]
-            log(f"ptxas: cluster kernel {short}: {ln.strip()}")
+            inst = next((v for k, v in CLUSTER_INSTANCES.items() if k in name), "")
+            log(f"ptxas: cluster kernel {short}{f' [{inst}]' if inst else ''}: {ln.strip()}")
 
 
 def check_decode_kernel(params, cfg, results: dict) -> None:
@@ -1460,23 +1475,26 @@ def check_decode_kernel(params, cfg, results: dict) -> None:
             total = sum(clocks.values())
             log(f"greedy_decode_loop[cluster] B={batch} stage split (first CTA's clocks, profiled "
                 f"instance): { {k: round(v / total, 4) for k, v in clocks.items()} }, "
-                f"{total / steps:.0f} clocks a step")
+                f"{total / steps:.0f} clocks a step on {card_line()}")
 
 
 def check_decode_forms(raw, cfg, results: dict) -> None:
     """Kernel C's int8_w and fuse_kv forms (and both together) against
-    their plain versions at B=256, steps=299: fuse_kv on a raw encoder
-    output, scored by the unfused plain decoder over the slabs of its final
-    LN (which is what fuse_kv computes), and timed beside final LN +
-    precompute_cross_kv_packed + the unfused kernel on the same input.
-    With bf16 weights fuse_kv runs the prologue (final LN row pass, the
-    bf16 GEMM into the slabs) and the cluster kernel: it is also held and
-    timed on the present kernel (kernel="loop"), and the prologue's own
-    device time and the grid are printed.  Then C's int8_w and fuse_kv
-    forms at B=512 with their grids (the present kernel's sized from its
-    compiled occupancy), and the ablation split: the present kernel (bf16,
-    slabs) with each stage skipped, every row running all 299 steps (EOS
-    set past the vocab)."""
+    their plain versions at B=256, steps=299.  int8_w over precomputed
+    slabs on the cluster kernel's int8 instance, and on the present kernel
+    (kernel="loop") on the same inputs, both held (teacher-forced within
+    DECODE_GAP_REL) and timed in this process, with both grids and the
+    int8 instance's stage split (its profiled instance).  fuse_kv on a raw
+    encoder output, scored by the unfused plain decoder over the slabs of
+    its final LN (which is what fuse_kv computes), and timed beside final
+    LN + precompute_cross_kv_packed + the unfused kernel on the same input;
+    with bf16 and with int8 weights it runs the prologue (final LN row
+    pass, the bf16 GEMM into the slabs) and the cluster kernel; the bf16
+    form is also held and timed on the present kernel (kernel="loop"), and
+    the prologue's own device time and the grid are printed.  Then C's
+    int8_w and fuse_kv forms at B=512 with their grids, and the ablation
+    split: the present kernel (bf16, slabs) with each stage skipped, every
+    row running all 299 steps (EOS set past the vocab)."""
     import dataclasses
 
     import torch
@@ -1504,12 +1522,30 @@ def check_decode_forms(raw, cfg, results: dict) -> None:
         cross = dec.precompute_cross_kv_packed(p, enc, dcfg, int8=False)
         int8_w = form == "int8_w"
         if int8_w:
-            results["greedy_decode_loop[int8_w]"] = hold_decode(
-                "greedy_decode_loop[int8_w]", f"B={batch}",
-                lambda: dl.greedy_decode_loop(p, cross, dcfg, steps),
-                lambda: dl.greedy_decode_loop_reference(p, cross, dcfg, steps),
-                p, cross, dcfg, lambda lens: cost_decode_loop(dcfg, lens, s, int8_w=True))
-        want_form = "loop" if int8_w else "cluster"
+            recs, grids = {}, {}
+            for kernel in ("auto", "loop"):
+                recs[kernel] = hold_decode(
+                    "greedy_decode_loop[int8_w" + (", kernel=loop]" if kernel == "loop" else "]"),
+                    f"B={batch}",
+                    lambda: dl.greedy_decode_loop(p, cross, dcfg, steps, kernel=kernel),
+                    lambda: dl.greedy_decode_loop_reference(p, cross, dcfg, steps),
+                    p, cross, dcfg, lambda lens: cost_decode_loop(dcfg, lens, s, int8_w=True))
+                grids[kernel] = dict(dl.greedy_decode_loop.last_grid)
+            if grids["auto"]["form"] != "cluster" or grids["loop"]["form"] != "loop":
+                fail(f"greedy_decode_loop[int8_w]: ran the {grids['auto']['form']} kernel by "
+                     f"default and the {grids['loop']['form']} one under kernel=loop")
+            results["greedy_decode_loop[int8_w]"] = recs["auto"]
+            log(f"greedy_decode_loop[int8_w] B={batch}: cluster kernel (int8 instance) "
+                f"{recs['auto']['ms']} ms (grid {grids['auto']}), present kernel "
+                f"{recs['loop']['ms']} ms (grid {grids['loop']}): "
+                f"{recs['loop']['ms'] / recs['auto']['ms']:.3f}x; bound {recs['auto']['bound_ms']} "
+                f"ms ({recs['auto']['bound_by']}) on {card_line()}")
+            clocks = dl.cluster_stage_clocks(p, cross, dcfg, steps)
+            total = sum(clocks.values())
+            log(f"greedy_decode_loop[int8_w] B={batch} stage split (first CTA's clocks, profiled "
+                f"int8 instance): { {k: round(v / total, 4) for k, v in clocks.items()} }, "
+                f"{total / steps:.0f} clocks a step on {card_line()}")
+        want_form = "cluster"
         rec = hold_decode(
             "greedy_decode_loop[fuse_kv]", f"{form} weights B={batch}",
             lambda: dl.greedy_decode_loop(p, None, dcfg, steps, **fuse),
@@ -1549,9 +1585,8 @@ def check_decode_forms(raw, cfg, results: dict) -> None:
             f"[{batch * s}, {d}] x [{d}, {d}] {prologue_ms - ln_ms} ms); bound "
             f"{rec['bound_ms']} ms ({rec['bound_by']}) on {card_line()}")
 
-    # int8_w (the present kernel, its grid from its compiled occupancy) and
-    # fuse_kv (the prologue and the cluster kernel) at B=512 (a bucket of
-    # BATCH_SCHEDULE), a record
+    # int8_w (the cluster kernel's int8 instance) and fuse_kv (the prologue
+    # and the cluster kernel) at B=512 (a bucket of BATCH_SCHEDULE), a record
     wide = 512
     enc_raw2 = enc_raw.repeat(2, 1, 1)
     enc2 = common.layer_norm(enc_raw2, fln["scale"], fln["bias"], dcfg.layer_norm_eps)
@@ -1560,8 +1595,10 @@ def check_decode_forms(raw, cfg, results: dict) -> None:
         p = decs["int8_w" if form == "int8_w" else "bf16"]
         cross = None if kw else dec.precompute_cross_kv_packed(p, enc2, dcfg, int8=False)
         ms = cuda_ms(lambda: dl.greedy_decode_loop(p, cross, dcfg, steps, **kw), reps=1)
-        log(f"greedy_decode_loop[{form}] B={wide}: {ms} ms, grid "
-            f"{dl.greedy_decode_loop.last_grid} on {card_line()}")
+        grid = dl.greedy_decode_loop.last_grid
+        log(f"greedy_decode_loop[{form}] B={wide}: {ms} ms, grid {grid} on {card_line()}")
+        if grid["form"] != "cluster":
+            fail(f"greedy_decode_loop[{form}] B={wide} ran the {grid['form']} kernel")
     del enc_raw2, enc2
 
     # the ablation split of the present kernel's step (a record, not a
@@ -2356,9 +2393,10 @@ def run_int8_decoder_forward(params, crops, results: dict) -> None:
     """Path 2 of this slice: ocr_forward on 32 fixture crops under
     MangaOCRConfig.serving() on quantize_encoder(quantize_attn_proj=True) +
     quantize_decoder params (cast to bf16, int8 weights and f32 scales
-    kept): kernel C in its int8_w form, once over precomputed slabs and
-    once with fuse_cross_kv (int8_w + fuse_kv).  Launch counts exact; the
-    tokens scored by the plain int8 decoder on the plain encoder output."""
+    kept): kernel C in its int8_w form on the cluster kernel, once over
+    precomputed slabs and once with fuse_cross_kv (int8_w + fuse_kv).
+    Launch counts exact; the tokens scored by the plain int8 decoder on the
+    plain encoder output."""
     import dataclasses
 
     import torch
@@ -2401,7 +2439,8 @@ def run_int8_decoder_forward(params, crops, results: dict) -> None:
             n_l = cfg.encoder.num_layers
             want = {name: 0 for name in counts}
             want.update({"fused_attn_layer": n_l, "fused_mlp_block": n_l, "greedy_decode_loop": 1,
-                         "greedy_decode_loop[int8_w]": 1, "greedy_decode_loop[fuse_kv]": int(fuse),
+                         "greedy_decode_loop[int8_w]": 1, "greedy_decode_loop[cluster]": 1,
+                         "greedy_decode_loop[fuse_kv]": int(fuse),
                          "precompute_cross_kv_packed": int(not fuse)})
             if counts != want:
                 fail(f"{label}: launch counts {counts}, expected {want}")
@@ -2626,7 +2665,7 @@ def main() -> int:
                                    "manga_ocr_tpu/ops/encoder_stack.py:190"),
            "encoder_stack[bf16]": ("manga_ocr_tpu_torch/csrc/encoder_layer.cu",
                                    "manga_ocr_tpu/ops/encoder_stack.py:190"),
-           "greedy_decode_loop[int8_w]": ("manga_ocr_tpu_torch/csrc/decode_loop.cu",
+           "greedy_decode_loop[int8_w]": ("manga_ocr_tpu_torch/csrc/decode_cluster.cu",
                                           "manga_ocr_tpu/ops/decode_loop.py:579"),
            # the fuse_kv route: the prologue (mlp_bf16.cu's LN row pass and bf16
            # GEMM) and the cluster kernel

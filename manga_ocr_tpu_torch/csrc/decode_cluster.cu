@@ -1,11 +1,13 @@
-// Kernel C on thread-block clusters: the whole greedy decode (bf16 decoder
-// weights, bf16 cross-K/V slabs, the erf GELU, no ablate) in one launch.  It
-// serves the serving form (slabs precomputed) and the fuse_kv form (slabs
-// written just before by ops/decode_loop.py cross_kv_prologue: the final
-// LN's row pass and the bf16 GEMM of mlp_bf16.cu, on the same stream).  The
-// other forms (int8_w, int8_w + fuse_kv, ablate, the sigmoid GELU) and the
-// shapes this kernel does not take run on decode_loop.cuh; ops/decode_loop.py
-// decode_form chooses before any launch.
+// Kernel C on thread-block clusters: the whole greedy decode (bf16 or int8
+// decoder weights, bf16 cross-K/V slabs, the erf GELU, no ablate) in one
+// launch.  It serves the serving form (bf16 weights, slabs precomputed),
+// the fuse_kv form (slabs written just before by ops/decode_loop.py
+// cross_kv_prologue: the final LN's row pass and the bf16 GEMM of
+// mlp_bf16.cu, on the same stream) and both again with quantize_decoder
+// weights (int8_w, a kernel of its own).  The diagnosis forms (ablate,
+// the sigmoid GELU) and the shapes this kernel does not take run on
+// decode_loop.cuh; ops/decode_loop.py decode_form chooses before any
+// launch.
 //
 // Replaces (Pallas, TPU): manga_ocr_tpu/ops/decode_loop.py greedy_decode_loop
 // -> _loop_call -> _decode_loop_kernel, in its serving form.
@@ -82,9 +84,31 @@
 // - bookkeeping as decode_loop.cuh: PAD after EOS, lengths count BOS and
 //   EOS, stops force done at t + 2 >= stops[b], tokens start BOS | PAD
 //   (written by CTA 0 of the cluster).
+// - int8_w (decode_cluster_i8_kernel, apart from the bf16 kernel: one
+//   kernel for every form slowed the serving form 4-14% on the H100): the
+//   six projections of a layer (self q|k|v, o, cross q, cross o, fc1, fc2)
+//   on mma.sync.m16n8k32 s8, A by ldmatrix from int8 rows in shared memory
+//   (16 bytes a row piece, the byte layout of the bf16 k16 fragment), B
+//   from L2 in the s8 fragment order (pack_fragments of int8 weights: one
+//   16-byte load per lane per tile per two k32 steps), exact int32 sums
+//   (any K split gives the same bits), then (acc * sx) * sw + b with
+//   __fmul_rn/__fadd_rn, as kernel_utils.quant_rows + int8_matmul and
+//   rows.cuh gemv_i8 compute it.  Each input row is quantized unrounded,
+//   as JAX's _proj does, by the pass that already holds it: the residual
+//   rows by the LN pass that writes them (every CTA alike; after the
+//   embedding, by a pass of their own); the f32 attention context
+//   exchanged as f32 (dh * 4 bytes a row) and gathered by a warp per row
+//   straight into registers, quantized whole by every CTA; the f32
+//   GELU(fc1) slice, too wide to gather as f32, by the row's
+//   max over the cluster (each CTA's slice max through distributed shared
+//   memory, one more cluster barrier a layer: a max is exact and
+//   order-free, so every CTA gets the same scale), then exchanged as
+//   int8.  The head, the embedding, the LNs, the attention and the caches
+//   stay as in the bf16 kernel.
 #include <cooperative_groups.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -119,7 +143,9 @@ struct ClusterLayer {
   const uint4* w1; const float* b1;
   const uint4* w2; const float* b2; const float* mlns; const float* mlnb;
 };
-constexpr int COMMON_PTRS = 16, LAYER_PTRS = 18, N_INTS = 12 + 2 * N_PLANS;
+constexpr int N_INT8_PLANS = P_FC2 + 1;  // int8_w's int8 projections: the plans before P_TR
+constexpr int COMMON_PTRS = 16, LAYER_PTRS = 18, INT8_PTRS = N_INT8_PLANS;
+constexpr int N_INTS = 12 + 2 * N_PLANS;
 
 struct ClusterParams {
   const bf16* tok_emb; const bf16* pos_emb; const bf16* tok_type;
@@ -138,8 +164,21 @@ struct ClusterParams {
   long long* prof;  // [N_STAGES] clock sums of CTA 0 (the profiled kernel only)
 };
 
+// The int8_w kernel's parameters: the bf16 kernel's (whose parameter block
+// stays as it is) and the per-column f32 weight scales of each layer's
+// int8 projections, in plan order, per head slice as the biases.
+struct ClusterParamsI8 : ClusterParams {
+  const float* scales[MAX_LAYERS][N_INT8_PLANS];
+};
+
+// k values of one 64-byte pair of k steps (a lane's 16-byte B load): 32
+// bf16 (two k16 steps) or 64 int8 (two k32 steps)
+__host__ __device__ inline int pair_k(bool int8, int plan) {
+  return int8 && plan < N_INT8_PLANS ? 64 : 32;
+}
+
 // The stages a profiled launch times (ops/decode_loop.py CLUSTER_STAGES).
-enum { S_EMBED, S_PROJ, S_SELF, S_CROSS, S_XCH, S_LN, S_VOCAB, S_TOKEN, N_STAGES };
+enum { S_EMBED, S_PROJ, S_SELF, S_CROSS, S_XCH, S_LN, S_VOCAB, S_TOKEN, S_QUANT, N_STAGES };
 
 __device__ __forceinline__ long long clock_now() { return clock64(); }
 
@@ -196,11 +235,12 @@ __host__ __device__ inline long u_bytes(const ClusterParams& p, int R) {
   return imax(imax((long)R * (imax(p.D, p.I) + 8) * 2, (long)R * p.D * 4), attn);
 }
 
-__host__ __device__ inline long smem_bytes(const ClusterParams& p, int R) {
+__host__ __device__ inline long smem_bytes(const ClusterParams& p, int R, bool int8) {
   return (long)R * (p.D + 8) * 2 + u_bytes(p, R) + (long)R * slice_max(p) * 4 +
          (long)2 * R * xch_row(p) + (long)R * imax(p.steps, p.S) * 4 +
-         (long)2 * WARPS * R * 4 + 2 * R * 4 + 3 * R * 4;
+         (long)2 * WARPS * R * 4 + 2 * R * 4 + 3 * R * 4 + (int8 ? 2 * R * 4 : 0);
 }
+
 
 __device__ Smem carve(unsigned char* base, const ClusterParams& p) {
   const int R = p.R;
@@ -232,6 +272,24 @@ __device__ Smem carve(unsigned char* base, const ClusterParams& p) {
   return s;
 }
 
+// The int8_w kernel's buffers beyond carve's, computed where used (no
+// registers held for them across the step): its gathered D-wide bf16 rows
+// sit D + 8 apart at u (carve's ldu is for I-wide rows, which this kernel
+// exchanges as int8); past them the int8 A rows of the next projection
+// (the residual or the context, quantized; (D + 8) * 2 + D + 16 bytes a
+// row, within u's 4 D for f32 rows); the gathered int8 GELU(fc1) rows at
+// u, I + 16 bytes apart; after the row state the A rows' scales, then this
+// CTA's per-row slice max (peers read it).
+__device__ __forceinline__ int ldu_i8(const ClusterParams& p) { return p.D + 8; }
+__device__ __forceinline__ int ldq_i8(const ClusterParams& p) { return p.D + 16; }
+__device__ __forceinline__ int ldh_i8(const ClusterParams& p) { return p.I + 16; }
+__device__ __forceinline__ int8_t* xq_i8(const Smem& s, const ClusterParams& p) {
+  return reinterpret_cast<int8_t*>(s.u + (size_t)p.R * ldu_i8(p) * 2);
+}
+__device__ __forceinline__ float* sx_i8(const Smem& s, const ClusterParams& p) {
+  return reinterpret_cast<float*>(s.lens + p.R);
+}
+
 // L2 policy of the weights (~44 MB, read by every cluster every step):
 // kept (evict_last) while the slabs and the caches stream past.
 __device__ __forceinline__ uint64_t l2_evict_last() {
@@ -254,20 +312,34 @@ __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
 }
 
+// One tensor-core step: bf16 m16n8k16 into f32 sums, or s8 m16n8k32 into
+// exact int32 sums (the same register layouts, byte for byte).
+__device__ __forceinline__ void mma_step(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  mma_bf16(c, a, b);
+}
+__device__ __forceinline__ void mma_step(int (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  mma_s8(c, a, b);
+}
+
 // The product of this warp's tiles over its part of K for MT row tiles of
 // 16: acc[m][i] is row tile m, column tile base + grp + i * groups (a tile
 // past the end loads nothing and is never written).  Rows at or past R read
-// row R - 1 (their sums are never written).
-template <int T, int MT>
-__device__ __forceinline__ void tile_products(const bf16* A, int lda, int R,
+// row R - 1 (their sums are never written).  A is bf16 (f32 sums) or int8
+// (int32 sums); a k pair is 64 bytes of a row either way.
+template <int T, int MT, typename E, typename Acc>
+__device__ __forceinline__ void tile_products(const E* A, int lda, int R,
                                               const uint4* __restrict__ W, int nt, int n_pairs,
                                               int p0, int pp, int base, int grp, int groups,
-                                              float (&acc)[MT][T][4]) {
+                                              Acc (&acc)[MT][T][4]) {
+  constexpr int V = 16 / sizeof(E);  // values of a 16-byte row piece (a k step's half)
   const int lane = threadIdx.x & 31;
   // ldmatrix x4: lanes 0-7 rows 0-7 / k 0-7, 8-15 rows 8-15 / k 0-7,
   // 16-23 rows 0-7 / k 8-15, 24-31 rows 8-15 / k 8-15: the m16k16 A fragment
-  const int lrow = (lane & 7) + 8 * ((lane >> 3) & 1), lcol = 8 * (lane >> 4) + p0 * 32;
-  const bf16* a_row[MT];
+  // (in bytes, also the m16k32 s8 one)
+  const int lrow = (lane & 7) + 8 * ((lane >> 3) & 1), lcol = V * (lane >> 4) + p0 * 4 * V;
+  const E* a_row[MT];
 #pragma unroll
   for (int m = 0; m < MT; ++m) a_row[m] = A + min(16 * m + lrow, R - 1) * lda + lcol;
   const uint4* w0 = W + ((long)(base + grp) * n_pairs + p0) * 32 + lane;
@@ -276,7 +348,7 @@ __device__ __forceinline__ void tile_products(const bf16* A, int lda, int R,
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int i = 0; i < T; ++i) acc[m][i][0] = acc[m][i][1] = acc[m][i][2] = acc[m][i][3] = 0.0f;
+    for (int i = 0; i < T; ++i) acc[m][i][0] = acc[m][i][1] = acc[m][i][2] = acc[m][i][3] = Acc(0);
   const uint64_t pol = l2_evict_last();
   constexpr int kUnroll = T <= 3 ? 4 : 2;  // 8-12 weight loads in flight a lane
 #pragma unroll kUnroll
@@ -289,32 +361,37 @@ __device__ __forceinline__ void tile_products(const bf16* A, int lda, int R,
 #pragma unroll
     for (int m = 0; m < MT; ++m) {
       uint32_t a0[4], a1[4];
-      ldmatrix_x4<false>(a0, a_row[m] + p * 32);
-      ldmatrix_x4<false>(a1, a_row[m] + p * 32 + 16);
+      ldmatrix_x4<false>(a0, a_row[m] + p * 4 * V);
+      ldmatrix_x4<false>(a1, a_row[m] + p * 4 * V + 2 * V);
 #pragma unroll
       for (int i = 0; i < T; ++i) {
         const uint32_t b0[2] = {b[i].x, b[i].y}, b1[2] = {b[i].z, b[i].w};
-        mma_bf16(acc[m][i], a0, b0);
-        mma_bf16(acc[m][i], a1, b1);
+        mma_step(acc[m][i], a0, b0);
+        mma_step(acc[m][i], a1, b1);
       }
     }
   }
 }
 
 // out[r][c] = A[r][:k] . W[:, c] + bias[c] (f32) for the R rows and this
-// CTA's pl.n columns; W and bias already point at the CTA's slice.
-template <int T, int MT>
-__device__ __forceinline__ void project_t(const bf16* A, int lda, int R,
+// CTA's pl.n columns; W, bias (and sw) already point at the CTA's slice.
+// int8 A: out[r][c] = (acc * sx[r]) * sw[c] + bias[c], the parts' exact
+// int32 sums added first.
+template <int T, int MT, typename E>
+__device__ __forceinline__ void project_t(const E* A, int lda, int R,
                                           const uint4* __restrict__ W,
                                           const float* __restrict__ bias, const Plan& pl,
-                                          float* out, int ldo) {
+                                          float* out, int ldo, const float* sx = nullptr,
+                                          const float* __restrict__ sw = nullptr) {
+  constexpr bool kS8 = sizeof(E) == 1;
+  using Acc = typename std::conditional<kS8, int, float>::type;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nt = pl.n / 8, n_pairs = pl.k / 32, kp = pl.kp;
+  const int nt = pl.n / 8, n_pairs = pl.k / (kS8 ? 64 : 32), kp = pl.kp;
   const int groups = WARPS / kp, part = warp / groups, grp = warp % groups;
   const int pp = n_pairs / kp;
   const int g = lane >> 2, q = lane & 3;
   for (int base = 0; base < nt; base += groups * T) {
-    float acc[MT][T][4];
+    Acc acc[MT][T][4];
     tile_products<T, MT>(A, lda, R, W, nt, n_pairs, part * pp, pp, base, grp, groups, acc);
     for (int pt = 0; pt < kp; ++pt) {  // the parts' sums, added in part order
       if (part == pt) {
@@ -328,10 +405,20 @@ __device__ __forceinline__ void project_t(const bf16* A, int lda, int R,
             for (int e = 0; e < 4; ++e) {
               const int r = 16 * m + g + 8 * (e >> 1), c = 8 * j + 2 * q + (e & 1);
               if (r >= R) continue;
-              float v = acc[m][i][e];
-              if (pt) v += out[r * ldo + c];
-              if (pt == kp - 1) v += bias[c];
-              out[r * ldo + c] = v;
+              if constexpr (kS8) {  // int32 partial sums in out until the last part
+                int v = acc[m][i][e];
+                if (pt) v += reinterpret_cast<const int*>(out)[r * ldo + c];
+                if (pt == kp - 1)
+                  out[r * ldo + c] =
+                      __fadd_rn(__fmul_rn(__fmul_rn((float)v, sx[r]), sw[c]), bias[c]);
+                else
+                  reinterpret_cast<int*>(out)[r * ldo + c] = v;
+              } else {
+                float v = acc[m][i][e];
+                if (pt) v += out[r * ldo + c];
+                if (pt == kp - 1) v += bias[c];
+                out[r * ldo + c] = v;
+              }
             }
           }
       }
@@ -340,17 +427,18 @@ __device__ __forceinline__ void project_t(const bf16* A, int lda, int R,
   }
 }
 
-template <int MT>
-__device__ __forceinline__ void project_mt(const bf16* A, int lda, int R, const uint4* W,
+template <int MT, typename E>
+__device__ __forceinline__ void project_mt(const E* A, int lda, int R, const uint4* W,
                                            const float* bias, const Plan& pl, float* out,
-                                           int ldo) {
+                                           int ldo, const float* sx = nullptr,
+                                           const float* sw = nullptr) {
   switch (pl.t) {
-    case 1: project_t<1, MT>(A, lda, R, W, bias, pl, out, ldo); break;
-    case 2: project_t<2, MT>(A, lda, R, W, bias, pl, out, ldo); break;
-    case 3: project_t<3, MT>(A, lda, R, W, bias, pl, out, ldo); break;
-    case 4: project_t<4, MT>(A, lda, R, W, bias, pl, out, ldo); break;
-    case 5: project_t<5, MT>(A, lda, R, W, bias, pl, out, ldo); break;
-    default: project_t<MAX_T, MT>(A, lda, R, W, bias, pl, out, ldo); break;
+    case 1: project_t<1, MT>(A, lda, R, W, bias, pl, out, ldo, sx, sw); break;
+    case 2: project_t<2, MT>(A, lda, R, W, bias, pl, out, ldo, sx, sw); break;
+    case 3: project_t<3, MT>(A, lda, R, W, bias, pl, out, ldo, sx, sw); break;
+    case 4: project_t<4, MT>(A, lda, R, W, bias, pl, out, ldo, sx, sw); break;
+    case 5: project_t<5, MT>(A, lda, R, W, bias, pl, out, ldo, sx, sw); break;
+    default: project_t<MAX_T, MT>(A, lda, R, W, bias, pl, out, ldo, sx, sw); break;
   }
 }
 
@@ -364,6 +452,21 @@ __device__ __noinline__ void project(const bf16* A, int lda, int R, const uint4*
     project_mt<2>(A, lda, R, W, bias, pl, out, ldo);
   else
     project_mt<1>(A, lda, R, W, bias, pl, out, ldo);
+}
+
+// The int8 form of ``project`` (a call of its own too): A the int8 rows
+// (``lda`` bytes apart) with their scales sx, W packed s8, sw and bias the
+// f32 per-column scales and biases.
+__device__ __noinline__ void project_i8(const int8_t* A, int lda, const float* sx, int R,
+                                        const uint4* W, const float* sw, const float* bias,
+                                        Plan pl, int rank, float* out, int ldo) {
+  W += (long)rank * (pl.n / 8) * (pl.k / 64) * 32;
+  sw += rank * pl.n;
+  bias += rank * pl.n;
+  if (R > 16)
+    project_mt<2>(A, lda, R, W, bias, pl, out, ldo, sx, sw);
+  else
+    project_mt<1>(A, lda, R, W, bias, pl, out, ldo, sx, sw);
 }
 
 __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
@@ -533,6 +636,28 @@ __device__ __forceinline__ void warp_ln_row(const In* in, int D, const float* __
   }
 }
 
+// int8_w's row quantization, kernel_utils.quant_rows bit for bit: amax =
+// max(max |x|, 1e-8), inv = 127 / amax, q = rint(x * inv) (no clip), sx =
+// amax * (1/127).  One warp's row of K bf16 values in shared memory -> q
+// (int8) and *sx; a lane takes the pairs d = 2 lane + 64 i, those that
+// warp_ln_row writes, so it may follow it with no barrier.
+__device__ __forceinline__ void quant_row(const bf16* x, int K, int8_t* q, float* sx) {
+  const int lane = threadIdx.x & 31;
+  float m = 0.0f;
+  for (int d = 2 * lane; d < K; d += 64) {
+    const float2 v = to_f32x2(x + d);
+    m = fmaxf(m, fmaxf(fabsf(v.x), fabsf(v.y)));
+  }
+  const float amax = fmaxf(warp_max(m), 1e-8f);
+  const float inv = 127.0f / amax;
+  for (int d = 2 * lane; d < K; d += 64) {
+    const float2 v = to_f32x2(x + d);
+    *reinterpret_cast<char2*>(q + d) = make_char2((signed char)__float2int_rn(__fmul_rn(v.x, inv)),
+                                                  (signed char)__float2int_rn(__fmul_rn(v.y, inv)));
+  }
+  if (lane == 0) *sx = __fmul_rn(amax, kInv127);
+}
+
 // Every row of the tile (warp w: rows w, w + WARPS, ...):
 // x[r] = bf16(LN(bf16(x[r] + add[r]))).
 __device__ __forceinline__ void residual_ln(bf16* x, int ldx, const bf16* add, int lda, int R,
@@ -549,6 +674,34 @@ __device__ __forceinline__ void residual_ln(bf16* x, int ldx, const bf16* add, i
     __syncwarp();
     warp_ln_row(xr, D, scale, bias, eps, xr);
   }
+  __syncthreads();
+}
+
+// int8_w: residual_ln with each new row quantized by the warp that wrote
+// it into q[r] (``ldq`` bytes apart) and sx[r], for the next projection (a
+// call of its own, as ``project``).
+__device__ __noinline__ void residual_ln_quant(bf16* x, int ldx, const bf16* add, int lda, int R,
+                                               int D, const float* scale, const float* bias,
+                                               float eps, int8_t* q, int ldq, float* sx) {
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < R; r += WARPS) {
+    bf16* xr = x + r * ldx;
+    const bf16* ar = add + r * lda;
+    for (int d = 2 * lane; d < D; d += 64) {
+      const float2 a = to_f32x2(xr + d), b = to_f32x2(ar + d);
+      *reinterpret_cast<__nv_bfloat162*>(xr + d) = __floats2bfloat162_rn(a.x + b.x, a.y + b.y);
+    }
+    __syncwarp();
+    warp_ln_row(xr, D, scale, bias, eps, xr);
+    quant_row(xr, D, q + r * ldq, sx + r);
+  }
+  __syncthreads();
+}
+
+// int8_w: the tile's R bf16 rows (``ldx`` apart) quantized, a warp per row.
+__device__ __noinline__ void quant_rows_tile(const bf16* x, int ldx, int R, int D, int8_t* q,
+                                             int ldq, float* sx) {
+  for (int r = threadIdx.x >> 5; r < R; r += WARPS) quant_row(x + r * ldx, D, q + r * ldq, sx + r);
   __syncthreads();
 }
 
@@ -575,7 +728,7 @@ __device__ __forceinline__ void gather(const cg::cluster_group& cl, char* xch, i
 // asking L2 for V two rounds ahead.  No block barrier: the warps run
 // their rows' phases independently.  K/V row b starts at k + b *
 // kv_row_stride (offsets include the head).
-template <int NC>
+template <int NC, bool kF32>
 __device__ __forceinline__ void attend_rows_t(float* pout, int ldp, char* xch, int xrow,
                                               float* sc, int lds, float* u, const bf16* k,
                                               const bf16* v, long kv_row_stride, int n,
@@ -661,7 +814,10 @@ __device__ __forceinline__ void attend_rows_t(float* pout, int ldp, char* xch, i
       float a = 0.0f;
   #pragma unroll
       for (int gg = 0; gg < G; ++gg) a += grp_sum[gg * DH + d];
-      ctx[d] = __float2bfloat16_rn(a);
+      if constexpr (kF32)
+        reinterpret_cast<float*>(xch + r * xrow)[d] = a;
+      else
+        ctx[d] = __float2bfloat16_rn(a);
     }
   }
 }
@@ -676,10 +832,10 @@ __device__ __forceinline__ void attend_rows_t(float* pout, int ldp, char* xch, i
 //   2. softmax: a warp per row;
 //   3. PV: NC lanes cover a key's row, 32 / NC key groups split the unit's
 //      keys; each unit's f32 sum goes to parts[r][chunk];
-//   4. ctx[r] = the sum of its chunks' parts in chunk order, as bf16 rows of
-//      the exchange buffer.
+//   4. ctx[r] = the sum of its chunks' parts in chunk order, as bf16 (or,
+//      kF32, f32) rows of the exchange buffer.
 // K/V row b starts at k + b * kv_row_stride (offsets include the head).
-template <int NC>
+template <int NC, bool kF32>
 __device__ __forceinline__ void attend_tile_t(float* pout, int ldp, char* xch, int xrow,
                                               float* sc, int lds, float* u, const bf16* k,
                                               const bf16* v, long kv_row_stride, int n,
@@ -781,10 +937,16 @@ __device__ __forceinline__ void attend_tile_t(float* pout, int ldp, char* xch, i
     const int r = idx / DH, d = idx % DH;
     float a = 0.0f;
     for (int ch = 0; ch < n_ch; ++ch) a += parts[(r * n_ch + ch) * DH + d];
-    reinterpret_cast<bf16*>(xch + r * xrow)[d] = __float2bfloat16_rn(a);
+    if constexpr (kF32)
+      reinterpret_cast<float*>(xch + r * xrow)[d] = a;
+    else
+      reinterpret_cast<bf16*>(xch + r * xrow)[d] = __float2bfloat16_rn(a);
   }
 }
 
+// kF32 (the int8_w kernel): the context stays f32 in the exchange rows, as
+// JAX's int8 _proj quantizes it unrounded.
+template <bool kF32 = false>
 __device__ __noinline__ void attend_tile(float* pout, int ldp, char* xch, int xrow, float* sc,
                                          int lds, float* u, const bf16* k, const bf16* v,
                                          long kv_row_stride, int n, int nrows, int R, int dh,
@@ -793,11 +955,11 @@ __device__ __noinline__ void attend_tile(float* pout, int ldp, char* xch, int xr
 #define MOCR_ATTEND_CASE(NC)                                                                  \
   case NC:                                                                                    \
     if (R <= WARPS)                                                                           \
-      attend_rows_t<NC>(pout, ldp, xch, xrow, sc, lds, u, k, v, kv_row_stride, n, nrows, D,   \
-                        scale, prefetch);                                                     \
+      attend_rows_t<NC, kF32>(pout, ldp, xch, xrow, sc, lds, u, k, v, kv_row_stride, n, nrows, \
+                              D, scale, prefetch);                                            \
     else                                                                                      \
-      attend_tile_t<NC>(pout, ldp, xch, xrow, sc, lds, u, k, v, kv_row_stride, n, nrows, D,   \
-                        scale, prefetch);                                                     \
+      attend_tile_t<NC, kF32>(pout, ldp, xch, xrow, sc, lds, u, k, v, kv_row_stride, n, nrows, \
+                              D, scale, prefetch);                                            \
     break;
     MOCR_ATTEND_CASE(2)
     MOCR_ATTEND_CASE(4)
@@ -811,8 +973,91 @@ __device__ __noinline__ void attend_tile(float* pout, int ldp, char* xch, int xr
     default: break;
   }
   // padded rows of the tile exchange zeros
-  for (int idx = threadIdx.x; idx < (R - nrows) * dh; idx += blockDim.x)
-    reinterpret_cast<bf16*>(xch + (nrows + idx / dh) * xrow)[idx % dh] = __float2bfloat16_rn(0.0f);
+  for (int idx = threadIdx.x; idx < (R - nrows) * dh; idx += blockDim.x) {
+    char* row = xch + (nrows + idx / dh) * xrow;
+    if constexpr (kF32)
+      reinterpret_cast<float*>(row)[idx % dh] = 0.0f;
+    else
+      reinterpret_cast<bf16*>(row)[idx % dh] = __float2bfloat16_rn(0.0f);
+  }
+}
+
+// -- int8_w: the row quantization (kernel_utils.quant_rows, bit for bit:
+// amax = max(max |x|, 1e-8), inv = 127 / amax, q = rint(x * inv), no clip,
+// sx = amax * (1/127)) -------------------------------------------------------
+
+// The attention context's exchange under int8_w, after the cluster
+// barrier: a warp per row loads the row's H f32 slices (``dh`` values each)
+// from the peers' exchange rows straight into registers (16 bytes a lane
+// at a time), takes its max |value| and quantizes the whole row (as
+// quant_row) into q[r] and sx[r].  Every CTA gathers the same rows, so all
+// make the same bits; the f32 row never lands in shared memory.
+__device__ __noinline__ void gather_quant(const char* xch, int xrow, int dh, int H, int R,
+                                          int8_t* q, int ldq, float* sx) {
+  constexpr int MAXC = MAX_DH * 8 / 4 / 32;  // float4 pieces a lane holds (D <= 8 * MAX_DH)
+  const cg::cluster_group cl = cg::this_cluster();
+  const int lane = threadIdx.x & 31, pieces = H * dh / 4, per_rank = dh / 4;
+  for (int r = threadIdx.x >> 5; r < R; r += WARPS) {
+    float4 v[MAXC];
+    float m = 0.0f;
+#pragma unroll
+    for (int i = 0; i < MAXC; ++i) {
+      const int c = lane + 32 * i;
+      if (c < pieces) {
+        const float4* src = reinterpret_cast<const float4*>(xch + r * xrow) + c % per_rank;
+        v[i] = *cl.map_shared_rank(src, c / per_rank);
+        m = fmaxf(m, fmaxf(fmaxf(fabsf(v[i].x), fabsf(v[i].y)),
+                           fmaxf(fabsf(v[i].z), fabsf(v[i].w))));
+      }
+    }
+    const float amax = fmaxf(warp_max(m), 1e-8f);
+    const float inv = 127.0f / amax;
+#pragma unroll
+    for (int i = 0; i < MAXC; ++i) {
+      const int c = lane + 32 * i;
+      if (c < pieces)
+        *reinterpret_cast<char4*>(q + r * ldq + 4 * c) =
+            make_char4((signed char)__float2int_rn(__fmul_rn(v[i].x, inv)),
+                       (signed char)__float2int_rn(__fmul_rn(v[i].y, inv)),
+                       (signed char)__float2int_rn(__fmul_rn(v[i].z, inv)),
+                       (signed char)__float2int_rn(__fmul_rn(v[i].w, inv)));
+    }
+    if (lane == 0) sx[r] = __fmul_rn(amax, kInv127);
+  }
+  __syncthreads();
+}
+
+// int8_w's GELU(fc1) rows, quantized with each row's max over the whole
+// cluster: this CTA's slice (n f32 columns of pout) through the erf GELU,
+// in place, and its per-row max |value| into amax[r]; after a cluster
+// barrier, each row's max over the H slices (exact and order-free, so
+// every CTA gets the same scale), and the slice quantized with it into the
+// int8 exchange rows; sx[r] the row scale.
+__device__ __noinline__ void gelu_quant_slice(int H, float* pout, int ldp, int R, int n,
+                                              float* amax, char* xch, int xrow, float* sx) {
+  const cg::cluster_group cl = cg::this_cluster();
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < R; r += WARPS) {
+    float m = 0.0f;
+    for (int c = lane; c < n; c += 32) {
+      const float v = gelu_erf(pout[r * ldp + c]);
+      pout[r * ldp + c] = v;
+      m = fmaxf(m, fabsf(v));
+    }
+    m = warp_max(m);
+    if (lane == 0) amax[r] = m;
+  }
+  cl.sync();  // every CTA's slice maxima are written
+  for (int r = threadIdx.x >> 5; r < R; r += WARPS) {
+    const float m = lane < H ? *cl.map_shared_rank(amax + r, lane) : 0.0f;
+    const float a = fmaxf(warp_max(m), 1e-8f);
+    const float inv = 127.0f / a;
+    int8_t* q = reinterpret_cast<int8_t*>(xch + r * xrow);
+    for (int c = lane; c < n; c += 32)
+      q[c] = (int8_t)__float2int_rn(__fmul_rn(pout[r * ldp + c], inv));
+    if (lane == 0) sx[r] = __fmul_rn(a, kInv127);
+  }
+  __syncthreads();
 }
 
 // pout [R][n] -> the exchange buffer as bf16 (GELU first if asked) or f32.
@@ -987,11 +1232,204 @@ decode_cluster_kernel(ClusterParams p, int* __restrict__ tokens, int* __restrict
   cl.sync();  // no CTA leaves while a peer may still read its shared memory
 }
 
+// The int8_w form (quantize_decoder weights): the bf16 kernel's step with
+// the six layer projections on s8 tensor cores and each of their input rows
+// quantized by a call of its own.  A kernel of its own, so the serving
+// kernel above stays as it was: its body runs at the 128-register cap, and
+// one body for both forms moved the serving kernel's spills on the H100
+// (the forms as template flags of one kernel ran it 4-14% slower).
+// Inlined into this body, the LN pass's and the context's quantization
+// spilled it further: 1% and 13% slower at B=256 (the latter with both
+// inlined).
+template <bool kProf>
+__global__ void __launch_bounds__(THREADS, 1)
+decode_cluster_i8_kernel(ClusterParamsI8 p, int* __restrict__ tokens, int* __restrict__ lengths) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)cl.block_rank();
+  const Smem s = carve(smem_raw, p);
+  const int D = p.D, dh = D / p.H, fs = p.I / p.H, T = p.steps, R = p.R;
+  const int lane = threadIdx.x & 31;
+  const int n_clusters = gridDim.x / p.H, n_tiles = (p.B + R - 1) / R;
+  const float eps = p.eps;
+  const bf16* u_bf16 = reinterpret_cast<const bf16*>(s.u);
+  float* u_f32 = reinterpret_cast<float*>(s.u);
+  StageClock<kProf> clk(p.prof);
+  int buf = 0;
+  // every CTA's slice (``w`` bytes a row) of xch[buf] -> full rows of U
+  // (``ld`` bytes apart); the next stage writes the other buffer
+  auto exchange = [&](int w, int ld) {
+    cl.sync();
+    gather(cl, s.xch[buf], s.xrow, w, p.H, R, s.u, ld);
+    buf ^= 1;
+    clk.mark(S_XCH);
+  };
+  // the attention context: every CTA's f32 slice, gathered and quantized
+  // whole into the int8 rows
+  auto exchange_ctx = [&]() {
+    cl.sync();
+    gather_quant(s.xch[buf], s.xrow, dh, p.H, R, xq_i8(s, p), ldq_i8(p), sx_i8(s, p));
+    buf ^= 1;
+    clk.mark(S_XCH);
+  };
+  // layer l's int8 projection k of int8 rows A (``lda`` bytes apart)
+  auto proj8 = [&](const int8_t* A, int lda, const uint4* W, const float* bias, int l, int k) {
+    project_i8(A, lda, sx_i8(s, p), R, W, p.scales[l][k], bias, p.plan[k], rank, s.pout, s.ldp);
+    clk.mark(S_PROJ);
+  };
+  // ... of the int8 residual or context rows
+  auto proj_q = [&](const uint4* W, const float* bias, int l, int k) {
+    proj8(xq_i8(s, p), ldq_i8(p), W, bias, l, k);
+  };
+  // the exchange of D-wide bf16 rows (D + 8 apart here)
+  auto exchange_d = [&]() { exchange(dh * 2, ldu_i8(p) * 2); };
+  // the residual rows' post-LN, quantized for the next projection
+  auto ln_quant = [&](const float* scale, const float* bias) {
+    residual_ln_quant(s.xs, s.ldx, u_bf16, ldu_i8(p), R, D, scale, bias, eps, xq_i8(s, p),
+                      ldq_i8(p), sx_i8(s, p));
+    clk.mark(S_LN);
+  };
+
+  for (int tile = blockIdx.x / p.H; tile < n_tiles; tile += n_clusters) {
+    const int row0 = tile * R, nrows = min(R, p.B - row0);
+    if (threadIdx.x < R) {
+      const int r = threadIdx.x;
+      s.prev[r] = p.bos;
+      s.done[r] = r < nrows ? 0 : 1;
+      s.lens[r] = 1;
+    }
+    if (rank == 0)
+      for (int idx = threadIdx.x; idx < nrows * (T + 1); idx += blockDim.x) {
+        const int r = idx / (T + 1), c = idx % (T + 1);
+        tokens[(long)(row0 + r) * (T + 1) + c] = c == 0 ? p.bos : p.pad;
+      }
+    __syncthreads();
+
+    for (int t = 0; t < T; ++t) {
+      bool all_done = true;
+      for (int r = 0; r < R; ++r) all_done = all_done && s.done[r];
+      if (all_done) break;  // the same flags in every CTA of the cluster
+
+      // -- embedding + LN (every CTA; warp w: rows w, w + WARPS, ...) --------
+      for (int r = threadIdx.x >> 5; r < R; r += WARPS) {
+        bf16* x = s.xs + r * s.ldx;
+        const bf16* te = p.tok_emb + (long)s.prev[r] * D;
+        const bf16* pe = p.pos_emb + (long)t * D;
+        for (int d = 2 * lane; d < D; d += 64) {
+          const float2 a = to_f32x2(te + d), b = to_f32x2(pe + d), c = to_f32x2(p.tok_type + d);
+          const float e0 = bf16_round(a.x + b.x), e1 = bf16_round(a.y + b.y);
+          *reinterpret_cast<__nv_bfloat162*>(x + d) = __floats2bfloat162_rn(e0 + c.x, e1 + c.y);
+        }
+        __syncwarp();
+        warp_ln_row(x, D, p.elns, p.elnb, eps, x);
+      }
+      __syncthreads();
+      clk.mark(S_EMBED);
+      quant_rows_tile(s.xs, s.ldx, R, D, xq_i8(s, p), ldq_i8(p), sx_i8(s, p));
+      clk.mark(S_QUANT);
+
+      for (int l = 0; l < p.L; ++l) {
+        const ClusterLayer& w = p.layers[l];
+        // -- self-attention: head ``rank``'s q|k|v, its cache slice ---------
+        proj_q(w.wqkv, w.bqkv, l, P_QKV);
+        const long cache0 = ((long)l * p.B + row0) * T * D + rank * dh;
+        for (int idx = threadIdx.x; idx < nrows * dh; idx += blockDim.x) {
+          const int r = idx / dh, d = idx % dh;
+          const long o = cache0 + ((long)r * T + t) * D + d;
+          p.cache_k[o] = __float2bfloat16_rn(s.pout[r * s.ldp + dh + d]);
+          p.cache_v[o] = __float2bfloat16_rn(s.pout[r * s.ldp + 2 * dh + d]);
+        }
+        __syncthreads();
+        attend_tile<true>(s.pout, s.ldp, s.xch[buf], s.xrow, s.sc, s.lds, u_f32,
+                          p.cache_k + cache0, p.cache_v + cache0, (long)T * D, t + 1, nrows, R,
+                          dh, D, p.scale, p.prefetch);
+        clk.mark(S_SELF);
+        exchange_ctx();
+        proj_q(w.wo, w.bo, l, P_O);
+        to_exchange<0>(s, s.xch[buf], R, dh);
+        exchange_d();
+        ln_quant(w.slns, w.slnb);
+
+        // -- cross-attention over head ``rank``'s slice of the slabs --------
+        proj_q(w.wcq, w.bcq, l, P_CQ);
+        const long slab0 = ((long)l * p.B + row0) * p.S * D + rank * dh;
+        attend_tile<true>(s.pout, s.ldp, s.xch[buf], s.xrow, s.sc, s.lds, u_f32,
+                          p.cross_k + slab0, p.cross_v + slab0, (long)p.S * D, p.S, nrows, R,
+                          dh, D, p.scale, p.prefetch);
+        clk.mark(S_CROSS);
+        exchange_ctx();
+        proj_q(w.wco, w.bco, l, P_CO);
+        to_exchange<0>(s, s.xch[buf], R, dh);
+        exchange_d();
+        ln_quant(w.clns, w.clnb);
+
+        // -- MLP: 1/H of fc1 + erf GELU, quantized with the row's max over
+        //    the cluster and gathered as int8; 1/H of fc2 ------------------
+        proj_q(w.w1, w.b1, l, P_FC1);
+        gelu_quant_slice(p.H, s.pout, s.ldp, R, fs, sx_i8(s, p) + R, s.xch[buf], s.xrow,
+                         sx_i8(s, p));
+        clk.mark(S_QUANT);
+        exchange(fs, ldh_i8(p));
+        proj8(reinterpret_cast<const int8_t*>(s.u), ldh_i8(p), w.w2, w.b2, l, P_FC2);
+        to_exchange<0>(s, s.xch[buf], R, dh);
+        exchange_d();
+        ln_quant(w.mlns, w.mlnb);
+      }
+
+      // -- head (bf16, as quantize_decoder leaves it): transform + erf GELU
+      //    (f32, gathered), LN, vocab argmax ---------------------------------
+      project(s.xs, s.ldx, R, p.wt, p.bt, p.plan[P_TR], rank, s.pout, s.ldp);
+      clk.mark(S_PROJ);
+      to_exchange<2>(s, s.xch[buf], R, dh);
+      exchange(dh * 4, D * 4);
+      for (int r = threadIdx.x >> 5; r < R; r += WARPS)
+        warp_ln_row(u_f32 + r * D, D, p.hlns, p.hlnb, eps, s.xs + r * s.ldx);
+      __syncthreads();
+      clk.mark(S_LN);
+      vocab_argmax(s.xs, s.ldx, R, p.wp, p.bp, p.plan[P_VOCAB], rank, p.V, s.red_v, s.red_i,
+                   s.cand_v, s.cand_i);
+      clk.mark(S_VOCAB);
+      cl.sync();
+
+      // -- the cluster's argmax (ranks in order) and the bookkeeping ---------
+      if (threadIdx.x < R) {
+        const int r = threadIdx.x;
+        float v = -INFINITY;
+        int i = 0x7fffffff;
+        for (int k = 0; k < p.H; ++k) {
+          const float kv = *cl.map_shared_rank(s.cand_v + r, k);
+          const int ki = *cl.map_shared_rank(s.cand_i + r, k);
+          if (better(kv, ki, v, i)) {
+            v = kv;
+            i = ki;
+          }
+        }
+        if (r < nrows) {
+          const int row = row0 + r;
+          const int nxt = s.done[r] ? p.pad : i;
+          if (rank == 0) tokens[(long)row * (T + 1) + t + 1] = nxt;
+          if (!s.done[r]) s.lens[r] += 1;
+          s.prev[r] = nxt;
+          bool newly = nxt == p.eos;
+          if (p.stops) newly = newly || (t + 2 >= p.stops[row]);
+          s.done[r] = s.done[r] || newly;
+        }
+      }
+      __syncthreads();
+      clk.mark(S_TOKEN);
+    }
+    if (rank == 0 && threadIdx.x < nrows) lengths[row0 + threadIdx.x] = s.lens[threadIdx.x];
+    __syncthreads();
+  }
+  cl.sync();  // no CTA leaves while a peer may still read its shared memory
+}
+
 // The launch configuration of ``kernel`` at ``rows`` rows a tile -> the
 // clusters the card seats at once (0 if none).
-int seated_clusters(void (*kernel)(ClusterParams, int*, int*), const ClusterParams& p, int rows,
-                    cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, cudaStream_t stream) {
-  const long smem = smem_bytes(p, rows);
+template <class P>
+int seated_clusters(void (*kernel)(P, int*, int*), const P& p, int rows, cudaLaunchConfig_t* cfg,
+                    cudaLaunchAttribute* attr, cudaStream_t stream) {
+  const long smem = smem_bytes(p, rows, std::is_same<P, ClusterParamsI8>::value);
   if (smem > 232448) return 0;  // the per-block opt-in limit
   if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
       cudaSuccess)
@@ -1012,75 +1450,11 @@ int seated_clusters(void (*kernel)(ClusterParams, int*, int*), const ClusterPara
   return seated;
 }
 
-}  // namespace
-
-extern "C" {
-
-// ptrs: COMMON_PTRS pointers (tok_emb, pos_emb, tok_type, elns, elnb, wt, bt,
-// hlns, hlnb, wp, bp, cross_k, cross_v, cache_k, cache_v, stops-or-null),
-// then LAYER_PTRS per layer in ClusterLayer order (weights packed per head,
-// ops/decode_loop.py pack_fragments).  ints: B, D, H, I, V, Vs (vocab
-// columns of one CTA), L, S, steps, bos, eos, pad, then (kp, t) of each
-// projection in plan order.  A tile has 16 rows, or, where that takes more
-// clusters than the card seats at once, the fewest rows (up to MAX_ROWS and
-// what shared memory holds) that let one wave of clusters hold the batch.  clusters[0..2] get the clusters launched, the count the card
-// seats at once and the rows of a tile.  ``prof`` (a device array of
-// N_STAGES int64 zeros, or null) asks for the profiled instance, which adds
-// its first CTA's clocks per stage there.
-int mocr_decode_cluster(void** ptrs, int n_ptrs, int* ints, int n_ints, float scale, float eps,
-                        void* tokens, void* lengths, int* clusters, void* prof, void* stream) {
-  if (n_ints != N_INTS) return (int)cudaErrorInvalidValue;
-  ClusterParams p = {};
-  p.B = ints[0]; p.D = ints[1]; p.H = ints[2]; p.I = ints[3]; p.V = ints[4]; p.Vs = ints[5];
-  p.L = ints[6]; p.S = ints[7]; p.steps = ints[8]; p.bos = ints[9]; p.eos = ints[10];
-  p.pad = ints[11];
-  if (p.L < 1 || p.L > MAX_LAYERS || n_ptrs != COMMON_PTRS + LAYER_PTRS * p.L || p.B < 1)
-    return (int)cudaErrorInvalidValue;
-  if ((p.H != 1 && p.H != 2 && p.H != 4 && p.H != 8) || p.D % 64 || p.D % p.H)
-    return (int)cudaErrorInvalidValue;
-  const int dh = p.D / p.H;
-  if (dh % 16 || dh > MAX_DH || p.I % 32 || (p.I / p.H) % 8 || p.I % p.H || p.Vs % 8 ||
-      p.Vs * p.H < p.V)
-    return (int)cudaErrorInvalidValue;
-  const int shapes[N_PLANS][2] = {{p.D, 3 * dh}, {p.D, dh}, {p.D, dh}, {p.D, dh},
-                                  {p.D, p.I / p.H}, {p.I, dh}, {p.D, dh}, {p.D, p.Vs}};
-  for (int k = 0; k < N_PLANS; ++k) {
-    Plan& pl = p.plan[k];
-    pl.k = shapes[k][0];
-    pl.n = shapes[k][1];
-    pl.kp = ints[12 + 2 * k];
-    pl.t = ints[13 + 2 * k];
-    if (pl.kp < 1 || WARPS % pl.kp || (pl.k / 32) % pl.kp || pl.t < 1 || pl.t > MAX_T ||
-        (k == P_VOCAB && pl.kp != 1))
-      return (int)cudaErrorInvalidValue;
-  }
-  p.scale = scale;
-  p.eps = eps;
-  p.tok_emb = (const bf16*)ptrs[0]; p.pos_emb = (const bf16*)ptrs[1];
-  p.tok_type = (const bf16*)ptrs[2]; p.elns = (const float*)ptrs[3];
-  p.elnb = (const float*)ptrs[4]; p.wt = (const uint4*)ptrs[5]; p.bt = (const float*)ptrs[6];
-  p.hlns = (const float*)ptrs[7]; p.hlnb = (const float*)ptrs[8]; p.wp = (const uint4*)ptrs[9];
-  p.bp = (const float*)ptrs[10]; p.cross_k = (const bf16*)ptrs[11];
-  p.cross_v = (const bf16*)ptrs[12]; p.cache_k = (bf16*)ptrs[13]; p.cache_v = (bf16*)ptrs[14];
-  p.stops = (const int*)ptrs[15];
-  for (int l = 0; l < p.L; ++l) {
-    void** q = ptrs + COMMON_PTRS + LAYER_PTRS * l;
-    ClusterLayer& w = p.layers[l];
-    w.wqkv = (const uint4*)q[0]; w.bqkv = (const float*)q[1];
-    w.wo = (const uint4*)q[2]; w.bo = (const float*)q[3];
-    w.slns = (const float*)q[4]; w.slnb = (const float*)q[5];
-    w.wcq = (const uint4*)q[6]; w.bcq = (const float*)q[7];
-    w.wco = (const uint4*)q[8]; w.bco = (const float*)q[9];
-    w.clns = (const float*)q[10]; w.clnb = (const float*)q[11];
-    w.w1 = (const uint4*)q[12]; w.b1 = (const float*)q[13];
-    w.w2 = (const uint4*)q[14]; w.b2 = (const float*)q[15];
-    w.mlns = (const float*)q[16]; w.mlnb = (const float*)q[17];
-  }
-  p.prof = static_cast<long long*>(prof);
-  // a profiled launch runs the instance with the stage marks
-  void (*kernel)(ClusterParams, int*, int*) =
-      prof ? decode_cluster_kernel<true> : decode_cluster_kernel<false>;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+// The tile's rows, the grid and the launch of ``kernel`` on ``p`` (see
+// mocr_decode_cluster).
+template <class P>
+int launch_cluster(void (*kernel)(P, int*, int*), P& p, void* tokens, void* lengths,
+                   int* clusters, cudaStream_t st) {
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
   p.R = 16;
@@ -1113,6 +1487,91 @@ int mocr_decode_cluster(void** ptrs, int n_ptrs, int* ints, int n_ints, float sc
                                        static_cast<int*>(lengths));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// ptrs: COMMON_PTRS pointers (tok_emb, pos_emb, tok_type, elns, elnb, wt, bt,
+// hlns, hlnb, wp, bp, cross_k, cross_v, cache_k, cache_v, stops-or-null),
+// then per layer LAYER_PTRS in ClusterLayer order (weights packed per head,
+// ops/decode_loop.py pack_fragments), followed, under ``int8`` (int8_w:
+// the six projections' weights packed s8), by its INT8_PTRS scales in plan
+// order.  ints: B, D, H, I, V, Vs (vocab columns of one CTA), L,
+// S, steps, bos, eos, pad, then (kp, t) of each projection in plan order.
+// A tile has 16 rows, or, where that takes more clusters than the card
+// seats at once, the fewest rows (up to MAX_ROWS and what shared memory
+// holds) that let one wave of clusters hold the batch.  clusters[0..2] get
+// the clusters launched, the count the card seats at once and the rows of
+// a tile.  ``prof`` (a device array of N_STAGES int64 zeros, or null) asks
+// for the profiled instance, which adds its first CTA's clocks per stage
+// there.
+int mocr_decode_cluster(void** ptrs, int n_ptrs, int* ints, int n_ints, float scale, float eps,
+                        int int8, void* tokens, void* lengths, int* clusters, void* prof,
+                        void* stream) {
+  if (n_ints != N_INTS) return (int)cudaErrorInvalidValue;
+  ClusterParamsI8 p = {};  // the bf16 instances take its ClusterParams part
+  p.B = ints[0]; p.D = ints[1]; p.H = ints[2]; p.I = ints[3]; p.V = ints[4]; p.Vs = ints[5];
+  p.L = ints[6]; p.S = ints[7]; p.steps = ints[8]; p.bos = ints[9]; p.eos = ints[10];
+  p.pad = ints[11];
+  const int layer_ptrs = LAYER_PTRS + (int8 ? INT8_PTRS : 0);
+  if (p.L < 1 || p.L > MAX_LAYERS || n_ptrs != COMMON_PTRS + layer_ptrs * p.L || p.B < 1)
+    return (int)cudaErrorInvalidValue;
+  if ((p.H != 1 && p.H != 2 && p.H != 4 && p.H != 8) || p.D % 64 || p.D % p.H)
+    return (int)cudaErrorInvalidValue;
+  const int dh = p.D / p.H;
+  if (dh % 16 || dh > MAX_DH || p.I % 32 || (p.I / p.H) % 8 || p.I % p.H || p.Vs % 8 ||
+      p.Vs * p.H < p.V)
+    return (int)cudaErrorInvalidValue;
+  // int8: fc2's K in whole k32 pairs, the int8 hidden slices in 16-byte pieces
+  if (int8 && (p.I % 64 || (p.I / p.H) % 16)) return (int)cudaErrorInvalidValue;
+  const int shapes[N_PLANS][2] = {{p.D, 3 * dh}, {p.D, dh}, {p.D, dh}, {p.D, dh},
+                                  {p.D, p.I / p.H}, {p.I, dh}, {p.D, dh}, {p.D, p.Vs}};
+  for (int k = 0; k < N_PLANS; ++k) {
+    Plan& pl = p.plan[k];
+    pl.k = shapes[k][0];
+    pl.n = shapes[k][1];
+    pl.kp = ints[12 + 2 * k];
+    pl.t = ints[13 + 2 * k];
+    if (pl.kp < 1 || WARPS % pl.kp || (pl.k / pair_k(int8, k)) % pl.kp || pl.t < 1 ||
+        pl.t > MAX_T || (k == P_VOCAB && pl.kp != 1))
+      return (int)cudaErrorInvalidValue;
+  }
+  p.scale = scale;
+  p.eps = eps;
+  p.tok_emb = (const bf16*)ptrs[0]; p.pos_emb = (const bf16*)ptrs[1];
+  p.tok_type = (const bf16*)ptrs[2]; p.elns = (const float*)ptrs[3];
+  p.elnb = (const float*)ptrs[4]; p.wt = (const uint4*)ptrs[5]; p.bt = (const float*)ptrs[6];
+  p.hlns = (const float*)ptrs[7]; p.hlnb = (const float*)ptrs[8]; p.wp = (const uint4*)ptrs[9];
+  p.bp = (const float*)ptrs[10]; p.cross_k = (const bf16*)ptrs[11];
+  p.cross_v = (const bf16*)ptrs[12]; p.cache_k = (bf16*)ptrs[13]; p.cache_v = (bf16*)ptrs[14];
+  p.stops = (const int*)ptrs[15];
+  for (int l = 0; l < p.L; ++l) {
+    void** q = ptrs + COMMON_PTRS + layer_ptrs * l;
+    ClusterLayer& w = p.layers[l];
+    w.wqkv = (const uint4*)q[0]; w.bqkv = (const float*)q[1];
+    w.wo = (const uint4*)q[2]; w.bo = (const float*)q[3];
+    w.slns = (const float*)q[4]; w.slnb = (const float*)q[5];
+    w.wcq = (const uint4*)q[6]; w.bcq = (const float*)q[7];
+    w.wco = (const uint4*)q[8]; w.bco = (const float*)q[9];
+    w.clns = (const float*)q[10]; w.clnb = (const float*)q[11];
+    w.w1 = (const uint4*)q[12]; w.b1 = (const float*)q[13];
+    w.w2 = (const uint4*)q[14]; w.b2 = (const float*)q[15];
+    w.mlns = (const float*)q[16]; w.mlnb = (const float*)q[17];
+    if (int8)
+      for (int k = 0; k < N_INT8_PLANS; ++k) p.scales[l][k] = (const float*)q[LAYER_PTRS + k];
+  }
+  p.prof = static_cast<long long*>(prof);
+  // a profiled launch runs the instance with the stage marks
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (int8)
+    return launch_cluster(prof ? decode_cluster_i8_kernel<true>
+                               : decode_cluster_i8_kernel<false>,
+                          p, tokens, lengths, clusters, st);
+  ClusterParams& bf16_params = p;
+  return launch_cluster(prof ? decode_cluster_kernel<true> : decode_cluster_kernel<false>,
+                        bf16_params, tokens, lengths, clusters, st);
 }
 
 }  // extern "C"

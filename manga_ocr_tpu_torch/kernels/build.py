@@ -55,9 +55,9 @@ _SIGNATURES = {
     "mocr_decode_loop": (_PP, _I, ctypes.POINTER(_I), _I, _F, _F, _P, _P, _P),
     # int8_w, fuse_kv, opts, rows_per_block, smem bytes, blocks (out)
     "mocr_decode_loop_blocks_per_sm": (_I, _I, _I, _I, _I, ctypes.POINTER(_I)),
-    # ptrs, n_ptrs, ints, n_ints, scale, eps, tokens, lengths, clusters (out),
-    # stage clocks (device, or null), stream
-    "mocr_decode_cluster": (_PP, _I, ctypes.POINTER(_I), _I, _F, _F, _P, _P,
+    # ptrs, n_ptrs, ints, n_ints, scale, eps, int8, tokens, lengths, clusters
+    # (out), stage clocks (device, or null), stream
+    "mocr_decode_cluster": (_PP, _I, ctypes.POINTER(_I), _I, _F, _F, _I, _P, _P,
                             ctypes.POINTER(_I), _P, _P),
     # x, ln_scale, ln_bias, eps, y, M, K, stream
     "mocr_ln_rows_bf16": (_P, _P, _P, _F, _P, _I, _I, _P),

@@ -263,18 +263,21 @@ _BLOCKS_PER_SM: dict = {}
 def decode_cluster(
     ptrs: list[int], ints: list[int], scale: float, eps: float,
     tokens: torch.Tensor, lengths: torch.Tensor, prof: torch.Tensor | None = None,
+    int8: bool = False,
 ) -> tuple[int, int, int]:
-    """Launch the serving form's cluster kernel on pointers the caller
-    validated -> (clusters launched, clusters the card seats at once
-    (``cudaOccupancyMaxActiveClusters``), rows of a tile).  ``prof`` (int64 zeros on the
-    card, one per stage) runs the profiled instance, which adds its first
-    CTA's clocks per stage there."""
+    """Launch kernel C's cluster kernel on pointers the caller validated
+    -> (clusters launched, clusters the card seats at once
+    (``cudaOccupancyMaxActiveClusters``), rows of a tile).  ``int8`` runs
+    its int8_w kernel (s8 projections; each layer's pointers then end with
+    the six projections' scales).  ``prof`` (int64 zeros on the card,
+    one per stage) runs the profiled instance, which adds its first CTA's
+    clocks per stage there."""
     lib = build.load()
     c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
     c_ints = (ctypes.c_int * len(ints))(*ints)
     clusters = (ctypes.c_int * 3)()
     err = lib.mocr_decode_cluster(
-        c_ptrs, len(ptrs), c_ints, len(ints), float(scale), float(eps),
+        c_ptrs, len(ptrs), c_ints, len(ints), float(scale), float(eps), int(int8),
         tokens.data_ptr(), lengths.data_ptr(), clusters, 0 if prof is None else prof.data_ptr(),
         build.stream_ptr(tokens.device),
     )

@@ -26,19 +26,22 @@ and ``interpret`` schedule the JAX kernel on the TPU and change no token
 
 On CUDA tensors the whole loop is one launch of ``csrc/decode_cluster.cu``
 (a thread-block cluster per tile of rows, one decoder head per CTA,
-tensor-core projections) for bf16 weights, the erf GELU and no ablate, at
-the shapes ``decode_form`` finds it takes; under ``fuse_kv`` the
-prologue ``cross_kv_prologue`` first writes the slabs (the final LN's row
-pass and the cross k/v products on the bf16 GEMM, ``csrc/mlp_bf16.cu``).
-Every other form and shape is one launch of ``csrc/decode_loop.cuh`` (the
-C entry point in ``csrc/decode_loop.cu``, one source per form; its
-``fuse_kv`` forms compute the slabs inside the launch), whose rows per
-block follow the compiled kernel's occupancy.  Each kernel reads its
-weights in its own layout, prepared once per set of params
-(``loop_weights``, ``cluster_weights``, ``cross_kv_weights``).  On CPU tensors ``greedy_decode_loop_reference`` runs
-it as a Python loop over steps with the same done-masking: PAD after EOS,
-lengths that count BOS and EOS, and the optional ``stop_lengths``
-instrument (rows behave as if EOS fired at that length).
+tensor-core projections: bf16, or s8 in its int8_w kernel) for bf16 or
+int8 weights, the erf GELU and no ablate, at the shapes ``decode_form``
+finds it takes; under ``fuse_kv`` the prologue ``cross_kv_prologue``
+first writes the slabs (the final LN's row pass and the cross k/v
+products on the bf16 GEMM, ``csrc/mlp_bf16.cu``; ``quantize_decoder``
+leaves the cross k/v weights float).  The diagnosis forms (ablate, the
+sigmoid GELU), the other shapes and ``kernel="loop"`` are one launch of
+``csrc/decode_loop.cuh`` (the C entry point in ``csrc/decode_loop.cu``,
+one source per form; its ``fuse_kv`` forms compute the slabs inside the
+launch), whose rows per block follow the compiled kernel's occupancy.
+Each kernel reads its weights in its own layout, prepared once per set of
+params (``loop_weights``, ``cluster_weights``, ``cross_kv_weights``).  On
+CPU tensors ``greedy_decode_loop_reference`` runs it as a Python loop over
+steps with the same done-masking: PAD after EOS, lengths that count BOS
+and EOS, and the optional ``stop_lengths`` instrument (rows behave as if
+EOS fired at that length).
 """
 
 from __future__ import annotations
@@ -414,7 +417,7 @@ def loop_weights(params_decoder: dict, fuse_kv: bool) -> tuple[dict, list]:
                        lambda: _loop_weights(params_decoder, fuse_kv))
 
 
-# -- the serving form's cluster kernel (csrc/decode_cluster.cu) ---------------
+# -- the cluster kernel (csrc/decode_cluster.cu) -------------------------------
 CLUSTER_ROWS = 16  # decoder rows of one cluster's tile
 CLUSTER_WARPS = 16  # warps of one CTA (one per row in attention)
 _CLUSTER_SIZES = (1, 2, 4, 8)  # heads = CTAs of a cluster (8: the portable maximum)
@@ -424,29 +427,30 @@ _PLAN_ORDER = ("qkv", "o", "cq", "co", "fc1", "fc2", "tr", "vocab")
 
 
 def pack_fragments(w: torch.Tensor, heads: int) -> torch.Tensor:
-    """bf16 [K, N] -> [heads, N/heads/8, K/32, 32, 8]: CTA h's column slice
-    h * N/heads ... in the order the cluster kernel reads its ``mma.sync``
-    B fragments.  Entry [h, j, p, lane, 2r + e] is W[k, n] with n = h *
-    N/heads + 8j + lane/4 and k = 32p + 16(r/2) + 8(r%2) + 2(lane%4) + e:
-    one 16-byte load gives a lane its two k16 steps' fragments of tile j,
-    and a warp's load reads 512 contiguous bytes."""
+    """bf16 or int8 [K, N] -> [heads, N/heads/8, K/(16v), 32, 4v] with v
+    the values of one 32-bit fragment register (2 bf16, 4 int8): CTA h's
+    column slice h * N/heads ... in the order the cluster kernel reads its
+    ``mma.sync`` B fragments (m16n8k16 bf16, m16n8k32 s8).  Entry [h, j,
+    p, lane, v r + e] is W[k, n] with n = h * N/heads + 8j + lane/4 and k =
+    16v p + 8v (r/2) + 4v (r%2) + v (lane%4) + e: one 16-byte load gives a
+    lane its two k steps' fragments of tile j (bf16: k = 32p + 16(r/2) +
+    8(r%2) + 2(lane%4) + e), and a warp's load reads 512 contiguous bytes."""
     k, n = w.shape
+    v = 4 // w.element_size()
     nt = n // heads // 8
-    t = w.reshape(k // 32, 2, 2, 4, 2, heads, nt, 8)  # [p, kk, half, q, e, h, j, g]
+    t = w.reshape(k // (16 * v), 2, 2, 4, v, heads, nt, 8)  # [p, kk, half, q, e, h, j, g]
     t = t.permute(5, 6, 0, 7, 3, 1, 2, 4)  # [h, j, p, g, q, kk, half, e]
-    return t.reshape(heads, nt, k // 32, 32, 8).contiguous()
+    return t.reshape(heads, nt, k // (16 * v), 32, 4 * v).contiguous()
 
 
-def _head_major_qkv(sa: dict, l: int, heads: int, dt) -> tuple[torch.Tensor, torch.Tensor]:
-    """Self q|k|v of layer ``l`` with columns ordered per head: [q_h | k_h |
-    v_h] for h = 0 .. heads-1, so CTA h's slice is its own head's three."""
-    ws = [sa[n]["kernel"][l].to(dt) for n in ("q", "k", "v")]
-    bs = [sa[n]["bias"][l].float() for n in ("q", "k", "v")]
-    d = ws[0].shape[1]
-    dh = d // heads
+def _head_major_qkv(sa: dict, l: int, heads: int, dt) -> dict:
+    """Self q|k|v of layer ``l`` as one ``_dense`` (weight, bias and, int8,
+    the scales) with columns ordered per head: [q_h | k_h | v_h] for h = 0
+    .. heads-1, so CTA h's slice is its own head's three."""
+    qkv = [_dense(sa[n], l, dt) for n in ("q", "k", "v")]
+    dh = qkv[0]["w"].shape[1] // heads
     cols = [slice(h * dh, (h + 1) * dh) for h in range(heads)]
-    return (torch.cat([w[:, c] for c in cols for w in ws], 1),
-            torch.cat([b[c] for c in cols for b in bs]))
+    return {key: torch.cat([p[key][..., c] for c in cols for p in qkv], -1) for key in qkv[0]}
 
 
 def vocab_slice(vocab: int, heads: int) -> int:
@@ -457,9 +461,12 @@ def vocab_slice(vocab: int, heads: int) -> int:
 
 def _cluster_weights(params_decoder: dict, heads: int) -> tuple[list, list]:
     """The cluster kernel's weights in its pointer order: the common
-    tensors, then per layer (qkv, o, cq, co, fc1, fc2: packed weight and
-    per-head f32 bias; the three LNs after their stage)."""
+    tensors, then per layer (qkv, o, cq, co, fc1, fc2: packed weight --
+    bf16, or int8 under ``quantize_decoder`` -- and per-head f32 bias; the
+    three LNs after their stage; int8: the six f32 per-column scales
+    last)."""
     dt = torch.bfloat16
+    int8 = _is_int8_decoder(params_decoder)
     lp = params_decoder["layers"]
     c = _common_weights(params_decoder, params_decoder["pos_embed"].shape[0], dt)
     d, vocab = c["wp"].shape
@@ -474,32 +481,36 @@ def _cluster_weights(params_decoder: dict, heads: int) -> tuple[list, list]:
     layers = []
     for l in range(lp["self_ln"]["scale"].shape[0]):
         w = _layer_weights(lp, l, dt)
-        qkv_w, qkv_b = _head_major_qkv(lp["self_attn"], l, heads, dt)
-        out = [pack_fragments(qkv_w, heads), qkv_b.contiguous()]
-        out += [pack_fragments(w["o"]["w"], heads), w["o"]["b"].contiguous(), *w["self_ln"]]
-        out += [pack_fragments(w["cq"]["w"], heads), w["cq"]["b"].contiguous()]
-        out += [pack_fragments(w["co"]["w"], heads), w["co"]["b"].contiguous(), *w["cross_ln"]]
-        out += [pack_fragments(w["fc1"]["w"], heads), w["fc1"]["b"].contiguous()]
-        out += [pack_fragments(w["fc2"]["w"], heads), w["fc2"]["b"].contiguous(), *w["mlp_ln"]]
+        w["qkv"] = _head_major_qkv(lp["self_attn"], l, heads, dt)
+        out = []
+        for name, ln in (("qkv", None), ("o", "self_ln"), ("cq", None), ("co", "cross_ln"),
+                         ("fc1", None), ("fc2", "mlp_ln")):
+            out += [pack_fragments(w[name]["w"], heads), w[name]["b"].contiguous()]
+            out += list(w[ln]) if ln else []
+        if int8:
+            out += [w[name]["s"].contiguous() for name in _PLAN_ORDER[:6]]
         layers.append(_own(out))
     return _own(common), layers
 
 
 def cluster_weights(params_decoder: dict, heads: int) -> tuple[list, list]:
-    """``_cluster_weights`` once per set of params and head count."""
-    return ew.prepared(params_decoder, ("decode_cluster", heads),
+    """``_cluster_weights`` once per set of params and head count (the
+    int8 form under a key of its own)."""
+    key = "decode_cluster_int8" if _is_int8_decoder(params_decoder) else "decode_cluster"
+    return ew.prepared(params_decoder, (key, heads),
                        lambda: _cluster_weights(params_decoder, heads))
 
 
-def _proj_plan(k: int, n_slice: int, argmax: bool = False) -> tuple[int, int]:
+def _proj_plan(k: int, n_slice: int, argmax: bool = False, pair: int = 32) -> tuple[int, int]:
     """How a CTA's 16 warps split one projection of K inputs onto its
-    ``n_slice`` columns (n8 tiles): ``kp`` parts along K (each of whole k32
-    pairs; their f32 sums are added in part order) times 16/kp groups of
-    tiles, each warp holding up to ``t`` tiles at once; the least k-pairs a
-    warp walks, then the fewest parts.  The vocab takes no K split (its
-    argmax is read from the accumulators).  Each part adds one pass over
-    the slice, behind a barrier, counted as one k-pair."""
-    nt, n_pairs = n_slice // 8, k // 32
+    ``n_slice`` columns (n8 tiles): ``kp`` parts along K (each of whole
+    k-pairs of ``pair`` values, 32 bf16 or 64 int8; their sums are added
+    in part order) times 16/kp groups of tiles, each warp holding up to
+    ``t`` tiles at once; the least k-pairs a warp walks, then the fewest
+    parts.  The vocab takes no K split (its argmax is read from the
+    accumulators).  Each part adds one pass over the slice, behind a
+    barrier, counted as one k-pair."""
+    nt, n_pairs = n_slice // 8, k // pair
     best = None
     for kp in (1, 2, 4, 8, 16):
         if n_pairs % kp or (argmax and kp > 1):
@@ -513,12 +524,15 @@ def _proj_plan(k: int, n_slice: int, argmax: bool = False) -> tuple[int, int]:
     return best[1], best[2]
 
 
-def cluster_plan(d: int, heads: int, inter: int, vocab: int, steps: int, s_len: int) -> dict:
+def cluster_plan(d: int, heads: int, inter: int, vocab: int, steps: int, s_len: int,
+                 int8: bool = False) -> dict:
     """The cluster kernel's split of one decode at these widths: per
     projection (K, N slice, kp, t) in ``_PLAN_ORDER`` and the dynamic shared
     memory of one CTA at 16 rows a tile (``cluster_smem``; the kernel widens
-    a tile only where that fits).  Raises ``ValueError`` for a shape the
-    kernel does not take."""
+    a tile only where that fits).  ``int8``: the int8_w kernel, whose six
+    layer projections walk K in pairs of k32 steps (64 values) and whose
+    int8 GELU(fc1) slices are exchanged in 16-byte pieces.  Raises
+    ``ValueError`` for a shape the kernel does not take."""
     dh = d // heads if heads else 0
     why = None
     if heads not in _CLUSTER_SIZES:
@@ -528,27 +542,33 @@ def cluster_plan(d: int, heads: int, inter: int, vocab: int, steps: int, s_len: 
     elif d % 64 or inter % 32 or inter % heads or (inter // heads) % 8:
         why = (f"D={d} or I={inter} (D a multiple of 64, I of 32, split into slices of "
                f"multiples of 8)")
+    elif int8 and (inter % 64 or (inter // heads) % 16):
+        why = f"I={inter} under int8_w (a multiple of 64, split into slices of multiples of 16)"
     if why is not None:
         raise ValueError(f"greedy_decode_loop: the cluster kernel does not take {why}")
     ds, fs, vs = d // heads, inter // heads, vocab_slice(vocab, heads)
     shapes = {"qkv": (d, 3 * dh), "o": (d, ds), "cq": (d, dh), "co": (d, ds), "fc1": (d, fs),
               "fc2": (inter, ds), "tr": (d, ds), "vocab": (d, vs)}
-    plans = {name: (*shapes[name], *_proj_plan(*shapes[name], argmax=name == "vocab"))
-             for name in _PLAN_ORDER}
-    smem = cluster_smem(CLUSTER_ROWS, d, heads, inter, steps, s_len)
+    plans = {name: (*shapes[name], *_proj_plan(*shapes[name], argmax=name == "vocab",
+                                               pair=64 if int8 and i < 6 else 32))
+             for i, name in enumerate(_PLAN_ORDER)}
+    smem = cluster_smem(CLUSTER_ROWS, d, heads, inter, steps, s_len, int8)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"greedy_decode_loop: the cluster kernel needs {smem} bytes of shared "
                          f"memory per CTA")
     return {"plans": plans, "smem": smem, "vocab_slice": vs}
 
 
-def cluster_smem(rows: int, d: int, heads: int, inter: int, steps: int, s_len: int) -> int:
+def cluster_smem(rows: int, d: int, heads: int, inter: int, steps: int, s_len: int,
+                 int8: bool = False) -> int:
     """Dynamic shared memory of one CTA of the cluster kernel at ``rows``
     rows a tile (``csrc/decode_cluster.cu`` ``smem_bytes``): the residual
     rows, the gathered rows (bf16 [rows, max(D, I)], f32 [rows, D], or the
-    attention's per-(row, 32-key chunk) f32 sums and per-warp scratch), the
-    projection output, two exchange buffers, the scores, the argmax
-    candidates and the row state."""
+    attention's per-(row, 32-key chunk) f32 sums and per-warp scratch;
+    int8: in it, the D-wide bf16 rows followed by the int8 rows [rows, D +
+    16], 3D + 32 bytes a row within the f32 rows' 4D), the projection
+    output, two exchange buffers, the scores, the argmax candidates and the
+    row state (int8: and the row scales and slice maxima)."""
     dh = d // heads
     fs = inter // heads
     keys = max(steps, s_len)
@@ -556,22 +576,25 @@ def cluster_smem(rows: int, d: int, heads: int, inter: int, steps: int, s_len: i
     u = max(rows * (max(d, inter) + 8) * 2, rows * d * 4,
             rows * n_ch * dh * 4 + CLUSTER_WARPS * 32 * 8 * 4)
     return (rows * (d + 8) * 2 + u + rows * max(3 * dh, fs, dh) * 4 + 2 * rows * max(2 * fs, 4 * dh)
-            + rows * keys * 4 + 2 * CLUSTER_WARPS * rows * 4 + 2 * rows * 4 + 3 * rows * 4)
+            + rows * keys * 4 + 2 * CLUSTER_WARPS * rows * 4 + 2 * rows * 4 + 3 * rows * 4
+            + (2 * rows * 4 if int8 else 0))
 
 
 def decode_form(params_decoder: dict, cfg, steps: int, s_len: int, fuse_kv: bool,
                 stages: int, gelu_mode: str) -> str:
     """Which kernel runs a CUDA decode, by form and shape alone, before any
-    launch: "cluster" (``csrc/decode_cluster.cu``) for bf16 weights, the
-    erf GELU and no ablate -- over precomputed slabs, or under ``fuse_kv``
-    after ``cross_kv_prologue`` -- at the shapes ``cluster_plan`` and,
-    under ``fuse_kv``, the prologue's GEMM (K = N = D) take; "loop"
-    (``csrc/decode_loop.cuh``) for every other form and shape."""
-    if stages or gelu_mode != "erf" or _is_int8_decoder(params_decoder):
+    launch: "cluster" (``csrc/decode_cluster.cu``) for bf16 or int8
+    (``quantize_decoder``) weights, the erf GELU and no ablate -- over
+    precomputed slabs, or under ``fuse_kv`` after ``cross_kv_prologue`` --
+    at the shapes ``cluster_plan`` and, under ``fuse_kv``, the prologue's
+    GEMM (K = N = D) take; "loop" (``csrc/decode_loop.cuh``) for the
+    diagnosis forms and every other shape."""
+    if stages or gelu_mode != "erf":
         return "loop"
     d = params_decoder["layers"]["self_ln"]["scale"].shape[1]
     try:
-        cluster_plan(d, cfg.num_heads, cfg.intermediate_size, cfg.vocab_size, steps, s_len)
+        cluster_plan(d, cfg.num_heads, cfg.intermediate_size, cfg.vocab_size, steps, s_len,
+                     _is_int8_decoder(params_decoder))
     except ValueError:
         return "loop"
     if fuse_kv and (d % launch.GEMM_BK or d % 8):
@@ -636,11 +659,13 @@ def _ptr(t) -> int:
 
 def _launch_cluster(params_decoder, cfg, steps, k_slab, v_slab, stops, tokens, lengths,
                     prof=None) -> None:
-    """The serving form on the cluster kernel (shapes checked by the caller
-    through ``decode_form``; ``prof`` as ``launch.decode_cluster`` takes it)."""
+    """The decode on the cluster kernel, bf16 or int8 weights (shapes
+    checked by the caller through ``decode_form``; ``prof`` as
+    ``launch.decode_cluster`` takes it)."""
     n_layers, batch, s_len, d = k_slab.shape
     heads = cfg.num_heads
-    plan = cluster_plan(d, heads, cfg.intermediate_size, cfg.vocab_size, steps, s_len)
+    int8 = _is_int8_decoder(params_decoder)
+    plan = cluster_plan(d, heads, cfg.intermediate_size, cfg.vocab_size, steps, s_len, int8)
     common, layers = cluster_weights(params_decoder, heads)
     _check_ptrs([*common, *(t for w in layers for t in w)], k_slab.device)
     cache_k = torch.empty((n_layers, batch, steps, d), dtype=torch.bfloat16, device=k_slab.device)
@@ -655,15 +680,19 @@ def _launch_cluster(params_decoder, cfg, steps, k_slab, v_slab, stops, tokens, l
     for name in _PLAN_ORDER:
         ints += plan["plans"][name][2:]
     clusters, seated, rows = launch.decode_cluster(ptrs, ints, 1.0 / ((d // heads) ** 0.5),
-                                                   cfg.layer_norm_eps, tokens, lengths, prof)
+                                                   cfg.layer_norm_eps, tokens, lengths, prof,
+                                                   int8)
     greedy_decode_loop.last_grid = {"form": "cluster", "clusters": clusters, "seated": seated,
                                     "rows_per_tile": rows, "tiles": -(-batch // rows),
                                     "ctas_per_cluster": heads}
 
 
-# the stages of a profiled cluster launch (csrc/decode_cluster.cu N_STAGES)
+# the stages of a profiled cluster launch (csrc/decode_cluster.cu N_STAGES;
+# "row quantization" only under int8_w: GELU(fc1)'s slice max and int8
+# slice, around the cluster barrier of its row max, which counts under
+# "exchanges"; the other rows are quantized inside the LN and exchange passes)
 CLUSTER_STAGES = ("embed", "projections", "self attention", "cross attention", "exchanges",
-                  "LN", "vocab argmax", "token exchange")
+                  "LN", "vocab argmax", "token exchange", "row quantization")
 
 
 def cluster_stage_clocks(params_decoder: dict, cross, cfg, steps: int) -> dict:
@@ -712,8 +741,8 @@ def greedy_decode_loop(
     s_len = (src.shape[1] if s_valid is None else s_valid) if fuse_kv else src.shape[2]
     form = decode_form(params_decoder, cfg, steps, s_len, fuse_kv, stages, gelu_mode)
     if kernel == "cluster" and form != "cluster":
-        raise ValueError("greedy_decode_loop: the cluster kernel takes bf16 weights, the erf "
-                         "GELU and no ablate, at the shapes of cluster_plan (and, under "
+        raise ValueError("greedy_decode_loop: the cluster kernel takes bf16 or int8 weights, "
+                         "the erf GELU and no ablate, at the shapes of cluster_plan (and, under "
                          "fuse_kv, of the prologue's GEMM) only")
     if kernel == "loop":
         form = "loop"
@@ -761,12 +790,13 @@ def greedy_decode_loop(
             raise ValueError(f"greedy_decode_loop: stop_lengths must be [{batch}]")
     tokens = torch.empty((batch, steps + 1), dtype=torch.int32, device=dev)
     lengths = torch.empty((batch,), dtype=torch.int32, device=dev)
+    forms = tuple(f for f, on in (("int8_w", int8_w), ("fuse_kv", fuse_kv)) if on)
     if form == "cluster":
         if fuse_kv:
             k_slab, v_slab = cross_kv_prologue(params_decoder, enc_raw, s_len, enc_final_ln,
                                                cfg.layer_norm_eps)
         _launch_cluster(params_decoder, cfg, steps, k_slab, v_slab, stops, tokens, lengths)
-        _count(("cluster", "fuse_kv") if fuse_kv else ("cluster",))
+        _count(("cluster",) + forms)
         return tokens, lengths
     if fuse_kv:  # the kernel writes each block's slabs here before its first step
         k_slab = torch.empty((n_layers, batch, s_len, d), dtype=torch.bfloat16, device=dev)
@@ -806,14 +836,14 @@ def greedy_decode_loop(
     greedy_decode_loop.last_grid = {
         "form": "loop", "rows_per_block": rows, "blocks": -(-batch // rows),
         "blocks_per_sm": launch.decode_loop_blocks_per_sm(dev, int8_w, fuse_kv, opts, rows, smem)}
-    _count(tuple(f for f, on in (("int8_w", int8_w), ("fuse_kv", fuse_kv)) if on))
+    _count(forms)
     return tokens, lengths
 
 
 greedy_decode_loop.launches = 0  # launches of a CUDA kernel (CPU calls do not count)
 # launches by form: "cluster" (every launch of the cluster kernel), "int8_w"
-# (int8 decoder weights, on the present kernel) and "fuse_kv" (every decode
-# from the raw encoder output: the cluster kernel after its prologue, or the
+# (int8 decoder weights, on either kernel) and "fuse_kv" (every decode from
+# the raw encoder output: the cluster kernel after its prologue, or the
 # present kernel with the slabs in its launch)
 greedy_decode_loop.launches_by_form = {"cluster": 0, "int8_w": 0, "fuse_kv": 0}
 greedy_decode_loop.last_grid = None  # the grid of the last CUDA launch (a record for chip_smoke)

@@ -421,6 +421,71 @@ def test_decode_cluster_and_present_kernel_agree_under_teacher_forcing(device):
         assert _live_rel_gap(gaps, top, lengths) <= DECODE_GAP_REL
 
 
+def _int8_decoder(seed, device):
+    """The tiny decoder under quantize_decoder (int8 weights and f32 scales
+    kept, the rest bf16)."""
+    from manga_ocr_tpu_torch.engine.engine import _cast_quantized
+    from manga_ocr_tpu_torch.models.params import init_params
+    from manga_ocr_tpu_torch.models.quantize import quantize_decoder
+
+    cfg = MangaOCRConfig.tiny()
+    params = init_params(cfg, seed, device)["decoder"]
+    return cfg, _cast_quantized(quantize_decoder(params), torch.bfloat16)
+
+
+def test_decode_cluster_int8_and_present_kernel_agree_under_teacher_forcing(device):
+    """int8_w on the cluster kernel's int8 instance (by default and under
+    kernel="cluster") and on the present kernel (kernel="loop"), on the
+    same inputs: each launch counted under its kernel and "int8_w", both
+    token matrices greedy under the plain int8 decoder."""
+    from manga_ocr_tpu_torch.models import decoder as dec
+    from manga_ocr_tpu_torch.ops import decode_loop as dl
+
+    cfg, params = _int8_decoder(6, device)
+    enc = _randn(np.random.default_rng(41), (9, cfg.encoder.seq_len, 64), device, torch.bfloat16)
+    cross = dec.precompute_cross_kv_packed(params, enc, cfg.decoder)
+    for kernel, form in (("auto", "cluster"), ("cluster", "cluster"), ("loop", "loop")):
+        before = dict(dl.greedy_decode_loop.launches_by_form)
+        tokens, lengths = dl.greedy_decode_loop(params, cross, cfg.decoder, 20, kernel=kernel)
+        assert dl.greedy_decode_loop.last_grid["form"] == form
+        after = dl.greedy_decode_loop.launches_by_form
+        assert after["int8_w"] == before["int8_w"] + 1
+        assert after["cluster"] == before["cluster"] + (form == "cluster")
+        gaps, top = dl.teacher_forced_gaps(params, cross, cfg.decoder, tokens)
+        assert _live_rel_gap(gaps, top, lengths) <= DECODE_GAP_REL
+
+
+@pytest.mark.parametrize("batch", [17, 40])
+def test_decode_cluster_int8_with_stop_lengths_and_a_ragged_tile(device, batch):
+    """The int8 instance at H = 4 (clusters of 4 CTAs, the cluster-wide
+    row max over four slices) with a ragged last tile of 16 rows and stop
+    lengths ending rows at different steps: tokens greedy under the plain
+    int8 decoder, PAD past each length, lengths within the stops."""
+    from manga_ocr_tpu_torch.models import decoder as dec
+    from manga_ocr_tpu_torch.ops import decode_loop as dl
+
+    cfg, params = _int8_decoder(7, device)
+    assert cfg.decoder.num_heads == 4
+    rng = np.random.default_rng(50 + batch)
+    enc = _randn(rng, (batch, cfg.encoder.seq_len, 64), device, torch.bfloat16)
+    cross = dec.precompute_cross_kv_packed(params, enc, cfg.decoder)
+    stops = torch.from_numpy(rng.integers(2, 24, size=batch).astype(np.int32)).to(device)
+    for stop_lengths in (None, stops):
+        tokens, lengths = dl.greedy_decode_loop(params, cross, cfg.decoder, 20,
+                                                stop_lengths=stop_lengths, kernel="cluster")
+        grid = dl.greedy_decode_loop.last_grid
+        assert grid["form"] == "cluster" and grid["ctas_per_cluster"] == 4
+        assert grid["rows_per_tile"] == 16 and batch % 16  # a ragged last tile
+        assert tokens.shape == (batch, 21)
+        assert bool((tokens[:, 0] == cfg.decoder.bos_token_id).all())
+        gaps, top = dl.teacher_forced_gaps(params, cross, cfg.decoder, tokens)
+        assert _live_rel_gap(gaps, top, lengths) <= DECODE_GAP_REL
+        past = torch.arange(21, device=device)[None, :] >= lengths[:, None]
+        assert bool((tokens[past] == cfg.decoder.pad_token_id).all())
+        if stop_lengths is not None:
+            assert bool((lengths <= stops).all())
+
+
 def _live_rel_gap(gaps, top, lengths):
     live = torch.arange(gaps.shape[1], device=gaps.device)[None, :] + 1 < lengths[:, None]
     return float((gaps[live] / top[live].abs()).max())
@@ -428,11 +493,11 @@ def _live_rel_gap(gaps, top, lengths):
 
 @pytest.mark.parametrize("form", ["int8_w", "fuse_kv", "int8_w+fuse_kv"])
 def test_decode_loop_new_forms_tokens_are_greedy_under_plain_model(device, form):
-    """Kernel C's int8-decoder and cross-K/V-from-the-raw-output forms (bf16
-    fuse_kv on the cluster kernel after its prologue, int8_w + fuse_kv on
-    the present kernel): the kernel's tokens scored by the plain decoder
-    (teacher forcing); under fuse_kv on the slabs of the LN'd real rows
-    (S_valid of a padded raw output)."""
+    """Kernel C's int8-decoder and cross-K/V-from-the-raw-output forms, all
+    on the cluster kernel (int8_w on its int8 instance; fuse_kv after its
+    prologue): the kernel's tokens scored by the plain decoder (teacher
+    forcing); under fuse_kv on the slabs of the LN'd real rows (S_valid of
+    a padded raw output)."""
     from manga_ocr_tpu_torch.engine.engine import _cast_quantized
     from manga_ocr_tpu_torch.models import decoder as dec
     from manga_ocr_tpu_torch.models.params import init_params
@@ -459,7 +524,8 @@ def test_decode_loop_new_forms_tokens_are_greedy_under_plain_model(device, form)
         tokens, lengths = dl.greedy_decode_loop(params, cross, cfg.decoder, 20)
     for f in ("int8_w", "fuse_kv"):
         assert dl.greedy_decode_loop.launches_by_form[f] == before[f] + (f in form)
-    assert dl.greedy_decode_loop.last_grid["form"] == ("cluster" if form == "fuse_kv" else "loop")
+    assert dl.greedy_decode_loop.launches_by_form["cluster"] == before["cluster"] + 1
+    assert dl.greedy_decode_loop.last_grid["form"] == "cluster"
     assert tokens.shape == (5, 21) and bool((tokens[:, 0] == cfg.decoder.bos_token_id).all())
     gaps, top = dl.teacher_forced_gaps(params, cross, cfg.decoder, tokens)
     assert _live_rel_gap(gaps, top, lengths) <= DECODE_GAP_REL

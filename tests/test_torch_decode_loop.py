@@ -350,9 +350,9 @@ def _tiny_port(std=0.02, seed=12, **decoder):
 
 @pytest.mark.parametrize("case,want", [
     (dict(), "cluster"),
-    (dict(int8_w=True), "loop"),
+    (dict(int8_w=True), "cluster"),  # the int8 instance
     (dict(fuse_kv=True), "cluster"),  # after cross_kv_prologue
-    (dict(int8_w=True, fuse_kv=True), "loop"),
+    (dict(int8_w=True, fuse_kv=True), "cluster"),  # the prologue, then the int8 instance
     (dict(fuse_kv=True, hidden_size=96, num_heads=2), "loop"),  # K = 96: not a multiple of 64
     (dict(stages=tl._SELF), "loop"),
     (dict(gelu_mode="sigmoid"), "loop"),
@@ -360,9 +360,12 @@ def _tiny_port(std=0.02, seed=12, **decoder):
     (dict(num_heads=2), "cluster"),  # dh = 32
     (dict(intermediate_size=80), "loop"),  # I % 32 != 0, 20 columns a CTA
     (dict(steps=4000), "loop"),  # the scores of 4000 steps overflow shared memory
+    (dict(intermediate_size=96), "cluster"),  # bf16: 24 columns a CTA
+    (dict(int8_w=True, intermediate_size=96), "loop"),  # int8: I % 64 != 0
+    (dict(int8_w=True, stages=tl._MLP), "loop"),
 ], ids=["serving", "int8_w", "fuse_kv", "int8_w+fuse_kv", "fuse_kv_d96", "ablate", "sigmoid",
-        "dh8", "dh32", "inter80", "steps"])
-def test_decode_form_chooses_cluster_for_the_serving_form_only(case, want):
+        "dh8", "dh32", "inter80", "steps", "inter96", "int8_w_inter96", "int8_w+ablate"])
+def test_decode_form_chooses_cluster_for_all_but_the_diagnosis_forms(case, want):
     case = dict(case)
     int8_w, fuse_kv = case.pop("int8_w", False), case.pop("fuse_kv", False)
     stages, gelu = case.pop("stages", 0), case.pop("gelu_mode", "erf")
@@ -376,9 +379,10 @@ def test_decode_form_chooses_cluster_for_the_serving_form_only(case, want):
 
 @pytest.mark.parametrize("bad", [
     dict(kernel="cluster", ablate="mlp"), dict(kernel="cluster", gelu_mode="sigmoid"),
-    dict(kernel="cluster", int8_w=True), dict(kernel="cluster", int8_w=True, fuse_kv=True),
+    dict(kernel="cluster", int8_w=True, ablate="cross"),
+    dict(kernel="cluster", int8_w=True, gelu_mode="sigmoid"),
     dict(kernel="cluster", num_heads=8), dict(kernel="tiled"),
-], ids=["ablate", "sigmoid", "int8_w", "int8_w+fuse_kv", "dh8", "kernel"])
+], ids=["ablate", "sigmoid", "int8_w+ablate", "int8_w+sigmoid", "dh8", "kernel"])
 def test_cluster_refusals_raise_before_any_build(bad):
     """What the cluster kernel does not take raises ValueError in the
     wrapper, before any build (here, with no nvcc, a build would raise
@@ -410,13 +414,19 @@ def test_cluster_choice_runs_the_plain_version_on_the_cpu():
 
 def _unpack_fragments(packed: torch.Tensor) -> torch.Tensor:
     """The [K, N] matrix the cluster kernel multiplies by, read from a
-    ``pack_fragments`` layout by the kernel's own index formulas."""
+    ``pack_fragments`` layout by the kernel's own index formulas: the
+    m16n8k16 bf16 B fragment (two values a register), or the m16n8k32 s8
+    one (four; int8 weights)."""
     heads, nt, n_pairs, _, _ = packed.shape
     h, j, p, lane, x = torch.meshgrid(*(torch.arange(s) for s in packed.shape), indexing="ij")
-    r, e = x // 2, x % 2
-    kk = 32 * p + 16 * (r // 2) + 8 * (r % 2) + 2 * (lane % 4) + e
+    if packed.dtype == torch.int8:  # k = 64p + 32 (r/2) + 16 (r%2) + 4 (lane%4) + e
+        r, e = x // 4, x % 4
+        kk = 64 * p + 32 * (r // 2) + 16 * (r % 2) + 4 * (lane % 4) + e
+    else:
+        r, e = x // 2, x % 2
+        kk = 32 * p + 16 * (r // 2) + 8 * (r % 2) + 2 * (lane % 4) + e
     nn = h * nt * 8 + 8 * j + lane // 4
-    w = torch.zeros((32 * n_pairs, heads * nt * 8), dtype=packed.dtype)
+    w = torch.zeros((int(kk.max()) + 1, heads * nt * 8), dtype=packed.dtype)
     w[kk.reshape(-1), nn.reshape(-1)] = packed.reshape(-1).cpu()
     return w
 
@@ -465,6 +475,82 @@ def test_cluster_layout_reproduces_the_plain_projections():
     check(common[9], common[10], wp, bp)
 
 
+def test_int8_cluster_layout_reproduces_the_int8_products_per_head_slice():
+    """The int8 instance's weights (quantize_decoder), unpacked by the
+    kernel's s8 fragment formulas, are each projection's int8 weight with
+    its scales and bias in CTA h's column order; per head slice, the exact
+    int32 product of quant_rows(x) with the unpacked slice equals
+    ``int8_matmul(hq, w)``'s columns, and the epilogue (acc * sx) * s + b
+    gives the plain ``_proj`` bit for bit.  Prepared once, under a key of
+    its own beside the bf16 weights."""
+    from manga_ocr_tpu_torch.models.quantize import quantize_decoder
+    from manga_ocr_tpu_torch.ops.kernel_utils import int8_matmul, quant_rows
+
+    cfg, tdp = _tiny_port(std=0.1)
+    qdp = quantize_decoder(tdp)
+    heads, d = cfg.num_heads, cfg.hidden_size
+    dh = d // heads
+    common, layers = tl.cluster_weights(qdp, heads)
+    assert tl.cluster_weights(qdp, heads)[1] is layers
+    assert tl.cluster_weights(tdp, heads)[1] is not layers  # the bf16 form's own key
+    x = torch.from_numpy(np.random.default_rng(6).normal(size=(16, 2 * d)).astype(np.float32))
+    lp = qdp["layers"]
+    for l, w in enumerate(layers):
+        assert len(w) == 24  # 18 as the bf16 form's, then the six scales
+        sa = lp["self_attn"]
+        qkv = {k: torch.cat([sa[n][k][l][..., h * dh:(h + 1) * dh] for h in range(heads)
+                             for n in ("q", "k", "v")], -1) for k in ("w_q", "scale", "bias")}
+        denses = [qkv] + [{k: lp[a][n][k][l] for k in ("w_q", "scale", "bias")}
+                          for a, n in (("self_attn", "o"), ("cross_attn", "q"),
+                                       ("cross_attn", "o"), ("mlp", "fc1"), ("mlp", "fc2"))]
+        for i, (wi, dense) in enumerate(zip((0, 2, 6, 8, 12, 14), denses)):
+            packed, bias, scale = w[wi], w[wi + 1], w[18 + i]
+            assert packed.dtype == torch.int8
+            assert torch.equal(_unpack_fragments(packed), dense["w_q"])
+            assert torch.equal(scale, dense["scale"].float())
+            assert torch.equal(bias, dense["bias"].float())
+            k, n = dense["w_q"].shape
+            hq, sx = quant_rows(x[:, :k])
+            ws = n // heads
+            for h in range(heads):  # CTA h's slice, as the kernel reads it
+                cols = slice(h * ws, (h + 1) * ws)
+                acc = int8_matmul(hq, _unpack_fragments(packed[h:h + 1]))
+                assert torch.equal(acc, int8_matmul(hq, dense["w_q"])[:, cols])
+                got = acc.float() * sx * scale[cols] + bias[cols]
+                want = tl._proj(x[:, :k], {"w": dense["w_q"], "s": dense["scale"].float(),
+                                           "b": dense["bias"].float()}, torch.bfloat16)
+                torch.testing.assert_close(got, want[:, cols], atol=0, rtol=0)
+
+
+def test_cluster_wide_row_quantization_equals_quant_rows_bit_for_bit():
+    """The int8 instance's GELU(fc1) rows live in H slices, one per CTA:
+    each CTA's slice max, the max of the H maxima (exact and order-free),
+    then each slice quantized with that amax (numpy f32, the kernel's
+    order of operations) equal ``quant_rows`` of the whole row bit for
+    bit, in the port and in the JAX package; zero rows included."""
+    from manga_ocr_tpu.ops.kernel_utils import quant_rows as jax_quant_rows
+    from manga_ocr_tpu_torch.ops.kernel_utils import quant_rows
+
+    rng = np.random.default_rng(8)
+    rows = (rng.normal(size=(64, 3072)) * rng.lognormal(size=(64, 1))).astype(np.float32)
+    rows[3] = 0.0
+    rows[5, 100] = 1e4  # one outlier sets its row's scale
+    for heads in (1, 2, 4, 8):
+        slices = np.split(rows, heads, axis=1)
+        amax = np.max([np.abs(sl).max(axis=1) for sl in slices], axis=0)
+        amax = np.maximum(amax, np.float32(1e-8))
+        inv = np.float32(127.0) / amax
+        q = np.concatenate([np.rint(sl * inv[:, None]).astype(np.int8) for sl in slices], 1)
+        sx = amax * np.float32(1.0 / 127.0)
+        assert inv.dtype == sx.dtype == np.float32
+        want_q, want_sx = quant_rows(torch.from_numpy(rows))
+        np.testing.assert_array_equal(q, want_q.numpy())
+        np.testing.assert_array_equal(sx, want_sx.numpy()[:, 0])
+        jq, jsx = jax_quant_rows(jnp.asarray(rows))
+        np.testing.assert_array_equal(q, np.asarray(jq))
+        np.testing.assert_array_equal(sx, np.asarray(jsx)[:, 0])
+
+
 def test_prepared_decoder_weights_are_made_once_and_anew_after_an_inplace_write():
     cfg, tdp = _tiny_port()
     loop, cluster = tl.loop_weights(tdp, False), tl.cluster_weights(tdp, cfg.num_heads)
@@ -483,21 +569,36 @@ def test_prepared_decoder_weights_are_made_once_and_anew_after_an_inplace_write(
     assert not torch.equal(cluster2[1][0][12], cluster[1][0][12])
 
 
-@pytest.mark.parametrize("d,heads,inter,vocab,steps,s_len", [
-    (768, 8, 3072, 6144, 299, 197), (64, 4, 128, 100, 20, 5), (64, 2, 128, 100, 11, 5)],
-    ids=["base", "tiny", "tiny_h2"])
-def test_cluster_plan_covers_every_projection(d, heads, inter, vocab, steps, s_len):
-    plan = tl.cluster_plan(d, heads, inter, vocab, steps, s_len)
-    for name, (k, n, kp, t) in plan["plans"].items():
-        n_pairs, nt = k // 32, n // 8
-        assert n % 8 == 0 and k % 32 == 0 and n_pairs % kp == 0
+@pytest.mark.parametrize("d,heads,inter,vocab,steps,s_len,int8", [
+    (768, 8, 3072, 6144, 299, 197, False), (64, 4, 128, 100, 20, 5, False),
+    (64, 2, 128, 100, 11, 5, False), (768, 8, 3072, 6144, 299, 197, True),
+    (64, 4, 128, 100, 20, 5, True), (64, 2, 128, 100, 11, 5, True)],
+    ids=["base", "tiny", "tiny_h2", "base_int8", "tiny_int8", "tiny_h2_int8"])
+def test_cluster_plan_covers_every_projection(d, heads, inter, vocab, steps, s_len, int8):
+    """Every projection's split walks whole k pairs (64 int8 values for the
+    int8_w kernel's six layer projections, 32 bf16 otherwise); the int8_w
+    kernel's shared memory adds two floats a row (its int8 rows live in
+    the gathered-rows buffer, after its D-wide bf16 rows), and keeps the
+    tile rule: 16 rows, up to 19 at full width."""
+    plan = tl.cluster_plan(d, heads, inter, vocab, steps, s_len, int8)
+    for i, (name, (k, n, kp, t)) in enumerate(plan["plans"].items()):
+        pair = 64 if int8 and i < 6 else 32
+        n_pairs, nt = k // pair, n // 8
+        assert n % 8 == 0 and k % pair == 0 and n_pairs % kp == 0
         assert tl.CLUSTER_WARPS % kp == 0 and 1 <= t <= tl._MAX_TILES
         assert name != "vocab" or kp == 1
         assert nt >= 1
-    assert plan["smem"] == tl.cluster_smem(16, d, heads, inter, steps, s_len) <= tl._SMEM_LIMIT
+    assert plan["smem"] == tl.cluster_smem(16, d, heads, inter, steps, s_len, int8) \
+        <= tl._SMEM_LIMIT
+    extra = tl.cluster_smem(16, d, heads, inter, steps, s_len, True) - \
+        tl.cluster_smem(16, d, heads, inter, steps, s_len)
+    assert extra == 2 * 16 * 4  # the row scales and slice maxima
+    if int8:  # bf16 rows (D + 8 apart) and int8 rows within the head's f32 rows
+        assert (inter // heads) % 16 == 0 and inter % 64 == 0
+        assert (d + 8) * 2 + d + 16 <= 4 * d
     if d == 768:  # B=256 on 15 seated clusters takes tiles of 18 rows
-        assert tl.cluster_smem(19, d, heads, inter, steps, s_len) <= 227 * 1024 - 1024
-        assert tl.cluster_smem(20, d, heads, inter, steps, s_len) > 227 * 1024
+        assert tl.cluster_smem(19, d, heads, inter, steps, s_len, int8) <= 227 * 1024 - 1024
+        assert tl.cluster_smem(20, d, heads, inter, steps, s_len, int8) > 227 * 1024
 
 
 # -- fuse_kv on the cluster kernel: the prologue that writes its slabs ---------
