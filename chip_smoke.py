@@ -6,8 +6,10 @@ stack's own noise floor, which sets ENC_STACK_MEAN_REL;
 ``python3 chip_smoke.py --core-times ROOT...`` only the attention core's
 times, built and timed from each tree ROOT in turn;
 ``python3 chip_smoke.py --gemm-times ROOT...`` the bf16 and the int8 GEMM's
-times at the main paths' shapes, kernel F's device time at B=32 and 256 and
-the times of the step and fused_layer decodes that launch it, kernel C's
+times at the main paths' shapes, kernels J's and K's attention cores alone
+at B=32 and 256, kernel F's device time at B=32 and 256 and the times and
+profiler splits of the step decode (B=32) and the fused_layer decode (B=32
+and 256) that launch it, kernel C's
 forms at B=256 (serving, fuse_kv with its profiled split, the unfused
 path, int8_w, int8_w + fuse_kv), the three engines' crops/s (int8, bf16,
 int8 with attn_sdpa_int8 + fuse_cross_kv) and a torch.profiler split of
@@ -43,10 +45,15 @@ each engine, from each tree in turn.)
    vocab product, row pass and reduce, a spill failing; each id within
    HEAD_GAP_REL of the plain top logit and planted ties at their lowest
    id; one torch.addmm of its vocab product as a yardstick); the
-   decode-step kernels J
-   (steps 0, 150 and 303 of a 305-row cache, and the cache row it writes),
-   K and B's post-LN step form on a quantize_decoder decoder (and, at batch
-   32, on the bf16 decoder).  Each kernel's bound (the least time the card
+   decode-step kernels J (steps 0, 1, 150 and 303 of a 305-row cache and
+   both sides of its core's first two chunk edges, and the cache row it
+   writes), K (s_valid 197 and 150) and B's post-LN step form on a
+   quantize_decoder decoder with int8 slabs and on the bf16 decoder with
+   bf16 slabs, at batch 32 and 256, J's and K's int8 context (their cores'
+   output for the int8 out projection) bit for bit against ln_quant_rows
+   of the same core's f32 context; their cores alone (CUDA-graph device
+   time beside the bytes bound, one scaled_dot_product_attention call as
+   a yardstick) and their ptxas lines (a spill fails).  Each kernel's bound (the least time the card
    could take: bytes over the memory rate or operations over the peak rate
    of their type, the larger) is computed from the same shapes, and E is
    also timed as one scaled_dot_product_attention call.  Kernel C's
@@ -305,6 +312,35 @@ def log_head_ptxas(build_log: str) -> None:
     for form, n in found.items():
         if not n:
             fail(f"no ptxas line of kernel F's {form} in the build log")
+
+
+def log_step_ptxas(build_log: str) -> None:
+    """The ptxas lines (registers, stack, spill bytes) of kernels J's and
+    K's attention cores (csrc/decode_layer.cu) for each copy width and K/V
+    type; fails if any spills or either core has none."""
+    import re
+
+    name, found = "", {"self": 0, "cross": 0}
+    for ln in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+            continue
+        core = re.search(r"(self|cross)_attn_coreI(a|13__nv_bfloat16)?Li(\d+)E", name)
+        if core is None or not ("spill" in ln or "registers" in ln):
+            continue
+        kind, kv, width = core.groups()
+        kv = {"a": " int8", "13__nv_bfloat16": " bf16"}.get(kv, "")
+        label = (f"{'J' if kind == 'self' else 'K'} core{kv}, "
+                 f"{f'{width}-byte cp.async' if width != '0' else 'plain loads'}")
+        log(f"ptxas: {label}: {ln.strip()}")
+        if "spill" in ln:
+            found[kind] += 1
+            if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln)):
+                fail(f"the {label} spills: {ln.strip()}")
+    for kind, n in found.items():
+        if not n:
+            fail(f"no ptxas line of the {kind}-attention core in the build log")
 
 
 def cuda_ms(fn, reps: int = 5, warm: bool = True) -> float:
@@ -745,12 +781,12 @@ def cost_int8_gemm(m, n, k, mode):  # a, b_t, scales, bias (and residual) in, ou
 
 
 def device_ms_by_kernel(prof) -> list:
-    """(kernel name, device ms) of a torch.profiler run, largest first: the
-    device's own events only (kernels, copies), not the host operators
-    that launched them."""
+    """(kernel name, device ms, launches) of a torch.profiler run, largest
+    first: the device's own events only (kernels, copies), not the host
+    operators that launched them."""
     from torch.autograd import DeviceType
 
-    rows = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     return sorted(rows, key=lambda r: -r[1])
 
@@ -760,10 +796,11 @@ def log_profile(label: str, prof) -> None:
     if not rows:
         log(f"profile {label}: the trace shows no device time")
         return
-    total = sum(ms for _, ms in rows)
-    log(f"profile {label}: device ms {total} in {len(rows)} kernels; by kernel:")
-    for name, ms in rows[:12]:
-        log(f"  {ms:10.4f} ms  {ms / total:6.1%}  {name[:110]}")
+    total = sum(ms for _, ms, _ in rows)
+    log(f"profile {label}: device ms {total} in {len(rows)} kernels; by kernel (ms, share, "
+        f"launches):")
+    for name, ms, n in rows[:12]:
+        log(f"  {ms:10.4f} ms  {ms / total:6.1%}  {n:6d}  {name[:110]}")
 
 
 def traced(label: str, fn) -> None:
@@ -936,13 +973,14 @@ def decode_times() -> dict:
 def head_decode_times() -> dict:
     """Kernel F alone at B=32 and 256 (CUDA-graph device ms, and one
     torch.profiler split by kernel, printed), on the bf16 head of the random
-    model; then the two decodes that launch it at B=32 on a random encoder
-    output: the step-by-step decode (F and D, 100 steps) and the fused_layer
+    model; then the two decodes that launch it on a random encoder output:
+    the step-by-step decode (F and D, 100 steps) at B=32 and the fused_layer
     decode (J, K, B's step form and F; 299 steps, quantize_decoder
-    weights), each after a warm run: the median of three CUDA-event times
-    (host-bound: eager launches) and the device ms of one profiled run (the
-    kernels' own time, also printed by kernel).  Only entry points every
-    tree shares."""
+    weights) at B=32 and 256 (the B=32 rows repeated), each after a warm
+    run: the median of three CUDA-event times
+    (host-bound: eager launches), the device ms of one profiled run (the
+    kernels' own time, also printed by kernel) and its ln_quant_rows
+    launches.  Only entry points every tree shares."""
     import dataclasses
     import statistics
 
@@ -972,17 +1010,20 @@ def head_decode_times() -> dict:
         traced(f"F B={batch}", lambda: fh.fused_greedy_head(h, *head_w, eps=dcfg.layer_norm_eps))
     enc = torch.randn((32, cfg.encoder.seq_len, cfg.encoder.hidden_size), generator=gen,
                       device="cuda").to(torch.bfloat16)
+    enc256 = enc.repeat(8, 1, 1)
     step = dataclasses.replace(cfg, decoder=dataclasses.replace(
         dcfg, step_kernel="xla", head_kernel="fused", step_mlp_kernel="fused",
         cross_kv_int8=True, head_phased=False))
     fused = dataclasses.replace(cfg, decoder=dataclasses.replace(
         dcfg, step_kernel="fused_layer", head_kernel="fused", cross_kv_int8=True))
     qdec = _cast_quantized(quantize_decoder(raw), torch.bfloat16)
-    for label, params, c, max_len in (("step decode B=32", dec, step, STEP_DECODE_LEN),
-                                      ("fused_layer decode B=32", qdec, fused, cfg.max_length)):
+    for label, params, c, max_len, e in (
+            ("step decode B=32", dec, step, STEP_DECODE_LEN, enc),
+            ("fused_layer decode B=32", qdec, fused, cfg.max_length, enc),
+            ("fused_layer decode B=256", qdec, fused, cfg.max_length, enc256)):
         def run():
             with torch.inference_mode():
-                return mdl.greedy_decode({"decoder": params}, enc, c, max_len, 8)
+                return mdl.greedy_decode({"decoder": params}, e, c, max_len, 8)
 
         run()  # warm
         wall = []
@@ -998,22 +1039,28 @@ def head_decode_times() -> dict:
             torch.cuda.synchronize()
         log_profile(label, prof)
         times[label] = statistics.median(wall)
-        times[label + " device"] = sum(ms for _, ms in device_ms_by_kernel(prof))
+        rows = device_ms_by_kernel(prof)
+        times[label + " device"] = sum(ms for _, ms, _ in rows)
+        times[label + " ln_quant_rows launches"] = sum(n for name, _, n in rows
+                                                       if "ln_quant_rows" in name)
         times[label + " mean length"] = float(out.lengths.float().mean())
     return times
 
 
 def compare_child() -> dict:
-    """What ``--gemm-times`` reads of one tree: both GEMMs' times, kernel F's
-    and its decodes' times, kernel C's forms' times, the three engines'
-    page rates, and the profiler split (printed)."""
+    """What ``--gemm-times`` reads of one tree: both GEMMs' times, kernels
+    J's and K's cores alone, kernel F's and its decodes' times, kernel C's
+    forms' times, the three engines' page rates, and the profiler split
+    (printed)."""
     times = gemm_times()
     int8_times = int8_gemm_times()
+    core_ms = step_core_times()
     head_times = head_decode_times()
     c_times = decode_times()
     rates = engine_rates()
     profile_split()
-    return {"gemm_ms": times, "int8_gemm_ms": int8_times, "head_ms": head_times,
+    return {"gemm_ms": times, "int8_gemm_ms": int8_times, "step_core_ms": core_ms,
+            "head_ms": head_times,
             "decode_ms": c_times, "crops_per_s": rates}
 
 
@@ -1075,12 +1122,23 @@ def cost_self_step(b, d, step, int8_w):  # J at ``step``: the live cache rows
             {**proj, "bf16": proj.get("bf16", 0) + attn})
 
 
-def cost_cross_step(b, s, d, int8_w, int8_kv):  # K: the slabs once
+def cost_cross_step(b, s, d, int8_w, int8_kv):  # K: the slabs' s live keys once
     kv = 2 * b * s * d * (1 if int8_kv else 2) + ((b * s + b * d) * 4 if int8_kv else 0)
     proj = {"int8" if int8_w else "bf16": 2 * b * 2 * d * d}
     attn = 2 * 2 * b * s * d
     return (2 * b * d * 2 + kv + 2 * d * d * (1 if int8_w else 2),
             {**proj, "bf16": proj.get("bf16", 0) + attn})
+
+
+def cost_self_core(b, d, step, out_row):  # J's core: q|k|v in, live rows, new rows, ctx out
+    return (b * 3 * d * 4 + 2 * step * b * d * 2 + 2 * b * d * 2 + b * out_row,
+            {"bf16": 2 * 2 * b * (step + 1) * d})
+
+
+def cost_cross_core(b, n, d, kv_bytes, out_row):  # K's core: q, the n live keys, ctx out
+    scales = (b * n + b * d) * 4 if kv_bytes == 1 else 0
+    return (b * d * 4 + 2 * b * n * d * kv_bytes + scales + b * out_row,
+            {"bf16": 2 * 2 * b * n * d})
 
 
 def cost_decode_loop(cfg, lengths, s, int8_w=False, fuse_kv=False):
@@ -1265,15 +1323,25 @@ def check_head(h, head_w, dcfg) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
+# Kernel J's steps held on the card (j_steps): the first two, both sides
+# of its core's first two chunk edges (its ring of two stages wraps at the
+# second), the middle and the last of a 299-step decode's 305-row cache.
+J_TIMED_STEPS = (0, 150, 303)  # the kernels line's J: the mean over these
+K_RAGGED = 150  # K's ragged s_valid (of 197)
+
+
 def check_step_kernels(params, params_bf16, cfg, results: dict) -> None:
     """Kernels J, K and B's post-LN step form against their plain versions
-    at batch 32 and 256 on the int8 decoder (quantize_decoder) with int8
-    cross-K/V, and at batch 32 also on the bf16 decoder with bf16 slabs.
-    J at steps 0, 150 and 303 of the 305-row cache of a 299-step decode in
-    chunks of 8 (rows past ``step`` hold noise, which must weigh nothing),
-    with the cache row it writes held against the plain version's."""
+    at batch 32 and 256, on the int8 decoder (quantize_decoder) with int8
+    cross-K/V and on the bf16 decoder with bf16 slabs.  J at j_steps of the
+    305-row cache of a 299-step decode in chunks of 8 (rows past ``step``
+    hold noise, which must weigh nothing), with the cache row it writes
+    held against the plain version's; K at s_valid 197 and K_RAGGED.  On
+    the int8 decoder each core's int8 context (the out projection's input)
+    equals ln_quant_rows of the same core's f32 context bit for bit."""
     import torch
 
+    from manga_ocr_tpu_torch.kernels import launch
     from manga_ocr_tpu_torch.models import decoder as dec
     from manga_ocr_tpu_torch.ops import common
     from manga_ocr_tpu_torch.ops import decode_layer as dl
@@ -1282,54 +1350,78 @@ def check_step_kernels(params, params_bf16, cfg, results: dict) -> None:
     dcfg = cfg.decoder
     d, heads, eps, inter = dcfg.hidden_size, dcfg.num_heads, dcfg.layer_norm_eps, \
         dcfg.intermediate_size
-    s_enc = cfg.encoder.seq_len
+    s_enc, scale = cfg.encoder.seq_len, (d // heads) ** -0.5
     t_len = 1 + -(-(cfg.max_length - 1) // 8) * 8
+    if t_len - 2 != J_TIMED_STEPS[-1]:
+        fail(f"J's last step {t_len - 2} is not J_TIMED_STEPS' {J_TIMED_STEPS[-1]}")
+    c = launch.attn_step_plan(32, heads, d // heads, t_len, 2, True)["chunk"]
+    j_steps = sorted({s for s in (0, 1, c - 1, c, c + 1, 2 * c - 1, 2 * c, 2 * c + 1)
+                      if s <= t_len - 2} | set(J_TIMED_STEPS))
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     one, zero = torch.ones(d, device="cuda"), torch.zeros(d, device="cuda")
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
 
+    def int8_epilogue(label, core, *args):
+        ctx = core(*args, torch.float32)
+        hq, sx = core(*args, torch.int8)
+        want_q, want_sx = launch.ln_quant_rows(ctx)
+        if not (torch.equal(hq, want_q) and torch.equal(sx, want_sx)):
+            fail(f"{label}: the int8 context differs from ln_quant_rows of the f32 context")
+
     for batch in (32, 256):
         enc = torch.randn((batch, s_enc, d), generator=gen, device="cuda")
         enc = common.layer_norm(enc, one, zero, 1e-12).to(torch.bfloat16)
-        forms = (("int8", params), ("bf16", params_bf16)) if batch == 32 else (("int8", params),)
-        for form, p in forms:
+        for form, p in (("int8", params), ("bf16", params_bf16)):
             int8 = form == "int8"
             tag = f"{form} B={batch}"
             w = dec.prepare_fused_layer(p["decoder"], dcfg, torch.bfloat16)[0]
             ck, cv = randn(t_len, batch, d), randn(t_len, batch, d)
             pck, pcv = ck.clone(), cv.clone()
-            recs = []
-            for step in (0, 150, t_len - 2):
+            recs = {}
+            for step in j_steps:
                 x = randn(batch, d)
-                recs.append(hold(
+                recs[step] = hold(
                     "fused_self_attn_step", f"{tag} step={step}",
                     lambda: dl.fused_self_attn_step(x, w["self"], w["self_ln"], ck, cv, step,
                                                     heads, eps)[0],
                     lambda: dl.fused_self_attn_step_reference(x, w["self"], w["self_ln"], pck,
                                                               pcv, step, heads, eps)[0],
-                    cost_self_step(batch, d, step, int8)))
+                    cost_self_step(batch, d, step, int8))
                 row_err = [compare("fused_self_attn_step", f"{tag} cache {n} row {step}", a[step],
                                    b[step])[0] for n, a, b in (("k", ck, pck), ("v", cv, pcv))]
                 log(f"fused_self_attn_step {tag} step={step}: written cache rows k/v max_abs_err "
                     f"{row_err}")
-            j = {key: sum(r[key] for r in recs) / len(recs)
-                 for key in ("ms", "plain_ms", "bound_ms")}  # mean over the three steps
-            j.update(max_abs_err=max(r["max_abs_err"] for r in recs),
-                     bound_by=recs[-1]["bound_by"], library_ms=None)
-            log(f"fused_self_attn_step {tag}: mean over steps 0, 150, {t_len - 2}: {j}")
+                if int8:
+                    int8_epilogue(f"J core {tag} step={step}", launch.self_attn_step,
+                                  dl._proj_in(x, w["self"]["qkv"]), ck.clone(), cv.clone(),
+                                  heads, step, scale)
+            timed = [recs[step] for step in J_TIMED_STEPS]
+            j = {key: sum(r[key] for r in timed) / len(timed)
+                 for key in ("ms", "plain_ms", "bound_ms")}
+            j.update(max_abs_err=max(r["max_abs_err"] for r in recs.values()),
+                     bound_by=timed[-1]["bound_by"], library_ms=None)
+            log(f"fused_self_attn_step {tag}: mean over steps {J_TIMED_STEPS}: {j}")
 
             cross = dec.precompute_cross_kv_packed(p["decoder"], enc, dcfg, int8=int8)
             ks, vs = (cross.k_scale[0], cross.v_scale[0]) if int8 else (None, None)
             x = randn(batch, d)
-            k = hold("fused_cross_attn_step", tag,
-                     lambda: dl.fused_cross_attn_step(x, w["cross"], w["cross_ln"], cross.k[0],
-                                                      cross.v[0], ks, vs, heads, eps, s_enc),
-                     lambda: dl.fused_cross_attn_step_reference(
-                         x, w["cross"], w["cross_ln"], cross.k[0], cross.v[0], ks, vs, heads,
-                         eps, s_enc),
-                     cost_cross_step(batch, s_enc, d, int8, int8))
+            for s_valid in (s_enc, K_RAGGED):
+                k = hold("fused_cross_attn_step", f"{tag} s_valid={s_valid}",
+                         lambda: dl.fused_cross_attn_step(x, w["cross"], w["cross_ln"],
+                                                          cross.k[0], cross.v[0], ks, vs, heads,
+                                                          eps, s_valid),
+                         lambda: dl.fused_cross_attn_step_reference(
+                             x, w["cross"], w["cross_ln"], cross.k[0], cross.v[0], ks, vs, heads,
+                             eps, s_valid),
+                         cost_cross_step(batch, s_valid, d, int8, int8))
+                if int8:
+                    int8_epilogue(f"K core {tag} s_valid={s_valid}", launch.cross_attn_step,
+                                  dl._proj_in(x, w["cross"]["q"]), cross.k[0], cross.v[0], ks, vs,
+                                  heads, s_valid, scale)
+                if s_valid == s_enc:
+                    k_full = k
 
             rows = randn(batch, d)
             args = (rows, w["mlp_ln"]["scale"], w["mlp_ln"]["bias"], w["w1"], w["b1"], w["w2"],
@@ -1340,8 +1432,87 @@ def check_step_kernels(params, params_bf16, cfg, results: dict) -> None:
                        lambda: fm.fused_mlp_block(*args, **kw), lambda: plain(*args, **kw),
                        (cost_mlp_int8 if int8 else cost_mlp_bf16)(batch, d, inter))
             if int8:
-                results["fused_self_attn_step"], results["fused_cross_attn_step"] = j, k
+                results["fused_self_attn_step"], results["fused_cross_attn_step"] = j, k_full
                 results["fused_mlp_block[step]"] = mlp
+    log("J and K cores: every int8 context equal to ln_quant_rows of the f32 context, bit for "
+        "bit")
+
+
+def step_core_times() -> dict:
+    """Kernels J's and K's attention cores alone at full width (8 heads of
+    dh 96, D 768) at B=32 and 256: CUDA-graph device ms through the
+    launchers every tree shares (launch.self_attn_step, cross_attn_step),
+    J the mean over J_TIMED_STEPS of a 305-row cache, K over the 197 keys
+    of int8 and of bf16 slabs, by output: f32 (every tree), the int8
+    context (None where the tree's core has no such output) and bf16.
+    Each beside its bytes bound; as a yardstick, one
+    scaled_dot_product_attention call on the bf16 form's inputs (it rounds
+    q to bf16: not the same function).  Printed; returns the ms."""
+    import statistics
+
+    import torch
+    import torch.nn.functional as F
+
+    from manga_ocr_tpu_torch.kernels import launch
+    from manga_ocr_tpu_torch.models.config import MangaOCRConfig
+
+    cfg = MangaOCRConfig.base()
+    d, heads, s = cfg.decoder.hidden_size, cfg.decoder.num_heads, cfg.encoder.seq_len
+    dh, t_len = d // heads, 1 + -(-(cfg.max_length - 1) // 8) * 8
+    scale = dh**-0.5
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    outs = (("f32", torch.float32, 4 * d), ("int8", torch.int8, d + 4),
+            ("bf16", torch.bfloat16, 2 * d))
+
+    def device_ms(fn):
+        try:
+            return graph_ms(fn, 20)
+        except ValueError:  # a tree whose core does not write this output
+            return None
+
+    times = {}
+    for b in (32, 256):
+        qkv = torch.randn((b, 3 * d), generator=gen, device="cuda")
+        ck, cv = (torch.randn((t_len, b, d), generator=gen, device="cuda").to(torch.bfloat16)
+                  for _ in range(2))
+        for out, dtype, row in outs:
+            ms = [device_ms(lambda: launch.self_attn_step(qkv, ck, cv, heads, step, scale, dtype))
+                  for step in J_TIMED_STEPS]
+            bnd = statistics.mean(bound(*cost_self_core(b, d, step, row))[0]
+                                  for step in J_TIMED_STEPS)
+            times[f"J core {out} B={b}"] = None if None in ms else statistics.mean(ms)
+            log(f"J core alone, {out} context, B={b}: device ms {ms} (mean "
+                f"{times[f'J core {out} B={b}']}), bound {bnd} (bytes)")
+        q = qkv[:, :d].to(torch.bfloat16).view(b, heads, 1, dh)
+        sdpa = [graph_ms(lambda: F.scaled_dot_product_attention(
+            q, *(c[:step + 1].view(step + 1, b, heads, dh).permute(1, 2, 0, 3)
+                 for c in (ck, cv))), 20) for step in J_TIMED_STEPS]
+        times[f"J yardstick SDPA B={b}"] = statistics.mean(sdpa)
+        log(f"J yardstick: one scaled_dot_product_attention call (q rounded to bf16, the cache "
+            f"rows t <= step), B={b}: device ms {sdpa}")
+
+        qf = torch.randn((b, d), generator=gen, device="cuda")
+        k8, v8 = (torch.randint(-127, 128, (b, s, d), generator=gen, device="cuda",
+                                dtype=torch.int8) for _ in range(2))
+        ks = torch.rand((b, s), generator=gen, device="cuda") * 0.02
+        vs = torch.rand((b, d), generator=gen, device="cuda") * 0.02
+        kb, vb = (torch.randn((b, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+                  for _ in range(2))
+        for slab, k, v, scales in (("int8", k8, v8, (ks, vs)), ("bf16", kb, vb, (None, None))):
+            for out, dtype, row in outs:
+                ms = device_ms(lambda: launch.cross_attn_step(qf, k, v, *scales, heads, s, scale,
+                                                              dtype))
+                times[f"K core {slab} slabs {out} B={b}"] = ms
+                bnd = bound(*cost_cross_core(b, s, d, k.element_size(), row))[0]
+                log(f"K core alone, {slab} slabs, {out} context, B={b}: device ms {ms}, bound "
+                    f"{bnd} (bytes)")
+        kt, vt = (t.view(b, s, heads, dh).transpose(1, 2) for t in (kb, vb))
+        qb = qf.to(torch.bfloat16).view(b, heads, 1, dh)
+        times[f"K yardstick SDPA B={b}"] = graph_ms(
+            lambda: F.scaled_dot_product_attention(qb, kt, vt), 20)
+        log(f"K yardstick: one scaled_dot_product_attention call on the bf16 slabs (q rounded to "
+            f"bf16), B={b}: device ms {times[f'K yardstick SDPA B={b}']}")
+    return times
 
 
 def live_gap_stats(gaps, top, lengths) -> dict:
@@ -2600,6 +2771,7 @@ def main() -> int:
     log_cluster_ptxas(build.last_build_log)
     log_core_ptxas(build.last_build_log)
     log_gemm_ptxas(build.last_build_log)
+    log_step_ptxas(build.last_build_log)
     phase("build")
     check_attention_core()
     log(f"attention core alone, B=256: ms {json.dumps(core_times())} on {card}")
@@ -2632,6 +2804,7 @@ def main() -> int:
                        {"decoder": mdl.cast_params(raw["decoder"], torch.bfloat16)}, cfg, results)
     del raw
     torch.cuda.empty_cache()
+    log(f"J and K cores alone: device ms {json.dumps(step_core_times())} on {card}")
     phase("bf16 and step kernels")
     rates = run_engines(results)
 

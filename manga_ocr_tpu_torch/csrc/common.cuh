@@ -26,6 +26,17 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// The per-row int8 quantization (kernel_utils.quant_rows) in pieces, for
+// kernels that take a row's max |x| across threads, warps or a cluster:
+// amax = max(max |x|, 1e-8), inv = 127 / amax (one IEEE division), a value
+// rint(x * inv) (half to even, no clip), sx = amax * (1/127).
+__device__ __forceinline__ float quant_amax(float max_abs) { return fmaxf(max_abs, 1e-8f); }
+__device__ __forceinline__ float quant_inv(float amax) { return 127.0f / amax; }
+__device__ __forceinline__ float quant_sx(float amax) { return __fmul_rn(amax, kInv127); }
+__device__ __forceinline__ signed char quant_i8(float x, float inv) {
+  return (signed char)__float2int_rn(__fmul_rn(x, inv));
+}
+
 // c += a . b on the tensor cores: a 16x16 bf16 A fragment (row), a 16x8
 // B fragment (col), f32 accumulators (the m16n8k16 register layouts).
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
@@ -59,6 +70,19 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
                "r"(bytes)
                : "memory");
+}
+
+// ``W`` bytes (4, 8 or 16) global -> shared; both addresses W-aligned.
+template <int W>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  static_assert(W == 4 || W == 8 || W == 16, "cp.async copies 4, 8 or 16 bytes");
+  if constexpr (W == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+                 "n"(W)
+                 : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -648,14 +648,13 @@ __device__ __forceinline__ void quant_row(const bf16* x, int K, int8_t* q, float
     const float2 v = to_f32x2(x + d);
     m = fmaxf(m, fmaxf(fabsf(v.x), fabsf(v.y)));
   }
-  const float amax = fmaxf(warp_max(m), 1e-8f);
-  const float inv = 127.0f / amax;
+  const float amax = quant_amax(warp_max(m));
+  const float inv = quant_inv(amax);
   for (int d = 2 * lane; d < K; d += 64) {
     const float2 v = to_f32x2(x + d);
-    *reinterpret_cast<char2*>(q + d) = make_char2((signed char)__float2int_rn(__fmul_rn(v.x, inv)),
-                                                  (signed char)__float2int_rn(__fmul_rn(v.y, inv)));
+    *reinterpret_cast<char2*>(q + d) = make_char2(quant_i8(v.x, inv), quant_i8(v.y, inv));
   }
-  if (lane == 0) *sx = __fmul_rn(amax, kInv127);
+  if (lane == 0) *sx = quant_sx(amax);
 }
 
 // Every row of the tile (warp w: rows w, w + WARPS, ...):
@@ -1010,19 +1009,17 @@ __device__ __noinline__ void gather_quant(const char* xch, int xrow, int dh, int
                            fmaxf(fabsf(v[i].z), fabsf(v[i].w))));
       }
     }
-    const float amax = fmaxf(warp_max(m), 1e-8f);
-    const float inv = 127.0f / amax;
+    const float amax = quant_amax(warp_max(m));
+    const float inv = quant_inv(amax);
 #pragma unroll
     for (int i = 0; i < MAXC; ++i) {
       const int c = lane + 32 * i;
       if (c < pieces)
         *reinterpret_cast<char4*>(q + r * ldq + 4 * c) =
-            make_char4((signed char)__float2int_rn(__fmul_rn(v[i].x, inv)),
-                       (signed char)__float2int_rn(__fmul_rn(v[i].y, inv)),
-                       (signed char)__float2int_rn(__fmul_rn(v[i].z, inv)),
-                       (signed char)__float2int_rn(__fmul_rn(v[i].w, inv)));
+            make_char4(quant_i8(v[i].x, inv), quant_i8(v[i].y, inv), quant_i8(v[i].z, inv),
+                       quant_i8(v[i].w, inv));
     }
-    if (lane == 0) sx[r] = __fmul_rn(amax, kInv127);
+    if (lane == 0) sx[r] = quant_sx(amax);
   }
   __syncthreads();
 }
@@ -1050,12 +1047,12 @@ __device__ __noinline__ void gelu_quant_slice(int H, float* pout, int ldp, int R
   cl.sync();  // every CTA's slice maxima are written
   for (int r = threadIdx.x >> 5; r < R; r += WARPS) {
     const float m = lane < H ? *cl.map_shared_rank(amax + r, lane) : 0.0f;
-    const float a = fmaxf(warp_max(m), 1e-8f);
-    const float inv = 127.0f / a;
+    const float a = quant_amax(warp_max(m));
+    const float inv = quant_inv(a);
     int8_t* q = reinterpret_cast<int8_t*>(xch + r * xrow);
     for (int c = lane; c < n; c += 32)
-      q[c] = (int8_t)__float2int_rn(__fmul_rn(pout[r * ldp + c], inv));
-    if (lane == 0) sx[r] = __fmul_rn(a, kInv127);
+      q[c] = quant_i8(pout[r * ldp + c], inv);
+    if (lane == 0) sx[r] = quant_sx(a);
   }
   __syncthreads();
 }

@@ -68,11 +68,13 @@ _SIGNATURES = {
     # x, wt, bt, lns, lnb, wp, bp, B, D, V, eps, h32, hb, part_v, part_i,
     # ids, stream
     "mocr_fused_head": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P),
-    # qkv, cache_k, cache_v, ctx, ctx_bf16, B, T, H, dh, step, scale, stream
-    "mocr_self_attn_step": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
-    # q, k, v, k_scale, v_scale, kv_int8, ctx, ctx_bf16, B, S, H, dh, s_valid,
-    # scale, stream
-    "mocr_cross_attn_step": (_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    # qkv, cache_k, cache_v, out, sx, mode, B, T, H, dh, step, scale, cluster,
+    # width, chunk, smem, stream
+    "mocr_self_attn_step": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P),
+    # q, k, v, k_scale, v_scale, kv_int8, out, sx, mode, B, S, H, dh, s_valid,
+    # scale, cluster, width, chunk, smem, stream
+    "mocr_cross_attn_step": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+                             _I, _I, _P),
     # weights, n_weights, scratch, n_scratch, x, out, n_layers, int8,
     # gelu_sigmoid, divide, B, S, D, H, I, eps, scale, stream
     "mocr_encoder_layers": (_PP, _I, _PP, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,

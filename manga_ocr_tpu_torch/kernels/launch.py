@@ -530,6 +530,73 @@ def fused_head(
     return ids
 
 
+# Kernels J's and K's attention cores (csrc/decode_layer.cu): J streams
+# its keys through a ring of STEP_STAGES stages of up to STEP_CHUNK keys
+# (within STEP_RING_BYTES), and K stages a head's K and V whole (a stage
+# each) where they take at most STEP_WHOLE_BYTES, else through the same
+# ring.  Ring rows lie an odd number of 16-byte pieces apart
+# (``_ring_stride``).
+STEP_MAX_CLUSTER, STEP_STAGES = 8, 2
+STEP_CHUNK, STEP_RING_BYTES, STEP_WHOLE_BYTES = 128, 96 * 1024, 128 * 1024
+SMEM_LIMIT = 232448  # a block's shared memory, opted in
+_STEP_MODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _ring_stride(row_bytes: int) -> int:
+    return 16 * (-(-row_bytes // 16) | 1)
+
+
+def attn_step_plan(batch: int, heads: int, dh: int, keys: int, kv_bytes: int,
+                   self_attn: bool, align: int = 16) -> dict:
+    """How a J (``self_attn``; ``keys`` the cache length T) or K (``keys``
+    = S) attention core runs on ``batch`` rows: ``cluster`` CTAs a row (the
+    largest of 8, 4, 2, 1 dividing ``heads``; ``grid`` CTAs in all; one
+    thread-block cluster under the int8 output), ``heads_per_cta``, the
+    cp.async ``width`` (the largest of 16, 8, 4 bytes dividing both the
+    head's row of ``dh`` values of ``kv_bytes`` each and ``align``, the K/V
+    bases' alignment; 0: plain loads), the ``chunk`` of keys a ring stage
+    holds (K: all S where K and V fit whole), and the CTA's dynamic shared
+    memory ``smem`` (``step_layout`` in the source).
+    Raises ValueError for what no plan fits."""
+    if batch < 1 or heads < 1 or dh < 1 or keys < 1 or kv_bytes not in (1, 2):
+        raise ValueError(f"attn_step_plan: B={batch}, heads={heads}, dh={dh}, keys={keys}, "
+                         f"kv_bytes={kv_bytes}")
+    cluster = next(c for c in (8, 4, 2, 1) if heads % c == 0)
+    hpc, row = heads // cluster, dh * kv_bytes
+    width = next((w for w in (16, 8, 4) if row % w == 0 and align % w == 0), 0)
+    rs = _ring_stride(row)
+    if not self_attn and STEP_STAGES * keys * rs <= STEP_WHOLE_BYTES:
+        chunk = keys
+    else:
+        chunk = max(1, min(STEP_CHUNK, STEP_RING_BYTES // (STEP_STAGES * rs)))
+    scales = (_align16(keys * 4) + _align16(dh * 4)) if not self_attn and kv_bytes == 1 else 0
+    smem = (_align16(STEP_STAGES * chunk * rs) + _align16((3 if self_attn else 1) * dh * 4)
+            + _align16(keys * 4) + scales + _align16(dh * 4) + _align16(hpc * dh * 4)
+            + (32 + STEP_MAX_CLUSTER) * 4)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"attn_step_plan: {keys} keys of dh={dh} need {smem} bytes of shared "
+                         f"memory, over {SMEM_LIMIT}")
+    return {"cluster": cluster, "grid": batch * cluster, "heads_per_cta": hpc, "width": width,
+            "chunk": chunk, "smem": smem}
+
+
+def _base_align(*ts: torch.Tensor) -> int:
+    """The largest power of two up to 16 dividing every tensor's address."""
+    return min(16, *(t.data_ptr() & -t.data_ptr() or 16 for t in ts))
+
+
+def _step_out(b: int, d: int, ctx_dtype: torch.dtype, device, name: str):
+    if ctx_dtype not in _STEP_MODES:
+        raise ValueError(f"{name}: ctx dtype {ctx_dtype}")
+    out = torch.empty((b, d), dtype=ctx_dtype, device=device)
+    sx = torch.empty((b,), dtype=torch.float32, device=device) if ctx_dtype == torch.int8 else None
+    return out, sx
+
+
 def self_attn_step(
     qkv: torch.Tensor,
     cache_k: torch.Tensor,
@@ -538,10 +605,11 @@ def self_attn_step(
     step: int,
     scale: float,
     ctx_dtype: torch.dtype,
-) -> torch.Tensor:
-    """qkv [B, 3D] f32 (q | k | v) -> ctx [B, D] in ``ctx_dtype`` (f32 or
-    bf16); writes k and v (rounded to bf16) into row ``step`` of the bf16
-    caches [T, B, D] in place."""
+):
+    """qkv [B, 3D] f32 (q | k | v) -> ctx [B, D] in ``ctx_dtype``: f32,
+    bf16, or int8, then (q [B, D], sx [B] f32): ``quant_rows`` of the f32
+    context, bit for bit.  Writes k and v (rounded to bf16) into row
+    ``step`` of the bf16 caches [T, B, D] in place."""
     t_len, b, d = cache_k.shape
     dh = d // heads
     if dh * heads != d or not 0 <= step < t_len:
@@ -549,17 +617,17 @@ def self_attn_step(
     _expect(qkv, torch.float32, (b, 3 * d), "self_attn_step qkv")
     _expect(cache_k, torch.bfloat16, (t_len, b, d), "self_attn_step cache_k")
     _expect(cache_v, torch.bfloat16, (t_len, b, d), "self_attn_step cache_v")
-    if ctx_dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"self_attn_step: ctx dtype {ctx_dtype}")
-    ctx = torch.empty((b, d), dtype=ctx_dtype, device=qkv.device)
+    out, sx = _step_out(b, d, ctx_dtype, qkv.device, "self_attn_step")
+    plan = attn_step_plan(b, heads, dh, t_len, 2, True, _base_align(cache_k, cache_v))
     lib = build.load()
     err = lib.mocr_self_attn_step(
-        qkv.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), ctx.data_ptr(),
-        int(ctx_dtype == torch.bfloat16), b, t_len, heads, dh, int(step), float(scale),
+        qkv.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), out.data_ptr(),
+        sx.data_ptr() if sx is not None else None, _STEP_MODES[ctx_dtype], b, t_len, heads, dh,
+        int(step), float(scale), plan["cluster"], plan["width"], plan["chunk"], plan["smem"],
         build.stream_ptr(qkv.device),
     )
     build.check(err, "self_attn_step")
-    return ctx
+    return (out, sx) if sx is not None else out
 
 
 def cross_attn_step(
@@ -572,10 +640,10 @@ def cross_attn_step(
     s_valid: int,
     scale: float,
     ctx_dtype: torch.dtype,
-) -> torch.Tensor:
+):
     """q [B, D] f32 against K/V [B, S, D] (int8 with k_scale [B, S] and
     v_scale [B, D] f32, or bf16 without scales) -> ctx [B, D] in
-    ``ctx_dtype`` (f32 or bf16)."""
+    ``ctx_dtype`` (f32, bf16, or int8 as ``self_attn_step``'s)."""
     b, s, d = k.shape
     dh = d // heads
     if dh * heads != d:
@@ -589,15 +657,15 @@ def cross_attn_step(
         _expect(v_scale, torch.float32, (b, d), "cross_attn_step v_scale")
     elif k_scale is not None or v_scale is not None:
         raise ValueError("cross_attn_step: scales come with int8 K/V only")
-    if ctx_dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"cross_attn_step: ctx dtype {ctx_dtype}")
-    ctx = torch.empty((b, d), dtype=ctx_dtype, device=q.device)
+    out, sx = _step_out(b, d, ctx_dtype, q.device, "cross_attn_step")
+    plan = attn_step_plan(b, heads, dh, s, k.element_size(), False, _base_align(k, v))
     lib = build.load()
     err = lib.mocr_cross_attn_step(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr() if int8 else None, v_scale.data_ptr() if int8 else None, int(int8),
-        ctx.data_ptr(), int(ctx_dtype == torch.bfloat16), b, s, heads, dh, int(s_valid),
-        float(scale), build.stream_ptr(q.device),
+        out.data_ptr(), sx.data_ptr() if sx is not None else None, _STEP_MODES[ctx_dtype], b, s,
+        heads, dh, int(s_valid), float(scale), plan["cluster"], plan["width"], plan["chunk"],
+        plan["smem"], build.stream_ptr(q.device),
     )
     build.check(err, "cross_attn_step")
-    return ctx
+    return (out, sx) if sx is not None else out

@@ -16,8 +16,10 @@ and ``prepare_cross_attn`` build a layer's weights once (the q|k|v
 concatenation and the int8 GEMM's [N, K] copies), so no step concatenates or
 transposes.  On CUDA tensors each half is a chain of the kernels of
 ``csrc/``: the q|k|v (J) or q (K) projection with an f32-out epilogue, the
-attention core of ``csrc/decode_layer.cu``, the out projection with the bf16
-residual epilogue and ``ln_rows_bf16``.  On CPU tensors each runs its plain
+attention core of ``csrc/decode_layer.cu`` (one thread-block cluster per
+batch row; ``launch.attn_step_plan``), which hands an int8 out projection
+its input row-quantized, the out projection with the bf16 residual
+epilogue and ``ln_rows_bf16``.  On CPU tensors each runs its plain
 version.  ``fused_self_attn_step.launches`` and
 ``fused_cross_attn_step.launches`` count the CUDA launches.
 
@@ -62,6 +64,31 @@ def _post_ln_reference(x: torch.Tensor, out: torch.Tensor, ln: dict, eps: float)
     return ln32((x + out.to(x.dtype)).float(), ln["scale"], ln["bias"], eps).to(x.dtype)
 
 
+def self_attn_core_reference(
+    qkv: torch.Tensor,  # [B, 3D] f32: q | k | v
+    cache_k: torch.Tensor,  # [T, B, D], row ``step`` written in place
+    cache_v: torch.Tensor,
+    step: int,
+    num_heads: int,
+) -> torch.Tensor:
+    """Plain version of kernel J's attention core: k and v rounded to the
+    cache dtype into row ``step``, then softmax(q . K / sqrt(dh)) V over
+    the keys t <= step, in f32 -> the f32 context [B, D]."""
+    t_len, b, d = cache_k.shape
+    dh = d // num_heads
+    q = qkv[:, :d].reshape(b, num_heads, dh)
+    cache_k[step] = qkv[:, d : 2 * d].to(cache_k.dtype)
+    cache_v[step] = qkv[:, 2 * d :].to(cache_v.dtype)
+    ck = cache_k.float().reshape(t_len, b, num_heads, dh)
+    cv = cache_v.float().reshape(t_len, b, num_heads, dh)
+    scores = torch.einsum("bhd,tbhd->tbh", q, ck) * (1.0 / (dh**0.5))
+    keep = (torch.arange(t_len, device=qkv.device) <= step)[:, None, None]
+    scores = torch.where(keep, scores, torch.full_like(scores, NEG_INF))
+    p = torch.exp(scores - scores.amax(0, keepdim=True))
+    p = p / p.sum(0, keepdim=True)
+    return torch.einsum("tbh,tbhd->bhd", p, cv).reshape(b, d)
+
+
 def fused_self_attn_step_reference(
     x: torch.Tensor,  # [B, D]
     w: dict,  # prepare_self_attn
@@ -73,24 +100,42 @@ def fused_self_attn_step_reference(
     eps: float,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of kernel J (the JAX ``_self_attn_kernel``)."""
-    dt = x.dtype
-    b, d = x.shape
-    t_len = cache_k.shape[0]
-    dh = d // num_heads
-    qkv = _proj_reference(x.float(), w["qkv"], dt)
-    q = qkv[:, :d].reshape(b, num_heads, dh)
-    cache_k[step] = qkv[:, d : 2 * d].to(dt)
-    cache_v[step] = qkv[:, 2 * d :].to(dt)
-    ck = cache_k.float().reshape(t_len, b, num_heads, dh)
-    cv = cache_v.float().reshape(t_len, b, num_heads, dh)
-    scores = torch.einsum("bhd,tbhd->tbh", q, ck) * (1.0 / (dh**0.5))
-    keep = (torch.arange(t_len, device=x.device) <= step)[:, None, None]
-    scores = torch.where(keep, scores, torch.full_like(scores, NEG_INF))
-    p = torch.exp(scores - scores.amax(0, keepdim=True))
-    p = p / p.sum(0, keepdim=True)
-    ctx = torch.einsum("tbh,tbhd->bhd", p, cv).reshape(b, d)
-    out = _proj_reference(ctx, w["o"], dt)
+    qkv = _proj_reference(x.float(), w["qkv"], x.dtype)
+    ctx = self_attn_core_reference(qkv, cache_k, cache_v, step, num_heads)
+    out = _proj_reference(ctx, w["o"], x.dtype)
     return _post_ln_reference(x, out, ln, eps), cache_k, cache_v
+
+
+def cross_attn_core_reference(
+    q: torch.Tensor,  # [B, D] f32
+    cross_k: torch.Tensor,  # [B, S, D] int8 or float
+    cross_v: torch.Tensor,
+    k_scale: torch.Tensor | None,  # [B, S] f32 (int8 K/V)
+    v_scale: torch.Tensor | None,  # [B, D] f32 (int8 K/V)
+    num_heads: int,
+    s_valid: int,
+) -> torch.Tensor:
+    """Plain version of kernel K's attention core: softmax((q . K) *
+    k_scale / sqrt(dh)) over the keys s < s_valid, times V, times v_scale,
+    in f32 -> the f32 context [B, D]."""
+    b, s_len, d = cross_k.shape
+    dh = d // num_heads
+    int8_kv = cross_k.dtype == torch.int8
+    kf = cross_k.float().reshape(b, s_len, num_heads, dh)
+    scores = torch.einsum("bhd,bshd->bsh", q.reshape(b, num_heads, dh), kf)
+    if int8_kv:
+        scores = scores * k_scale.float()[:, :, None]
+    scores = scores * (1.0 / (dh**0.5))
+    if s_valid < s_len:
+        keep = (torch.arange(s_len, device=q.device) < s_valid)[None, :, None]
+        scores = torch.where(keep, scores, torch.full_like(scores, NEG_INF))
+    p = torch.exp(scores - scores.amax(1, keepdim=True))
+    p = p / p.sum(1, keepdim=True)
+    ctx = torch.einsum("bsh,bshd->bhd", p, cross_v.float().reshape(b, s_len, num_heads, dh))
+    ctx = ctx.reshape(b, d)
+    if int8_kv:
+        ctx = ctx * v_scale.float()
+    return ctx
 
 
 def fused_cross_attn_step_reference(
@@ -106,27 +151,9 @@ def fused_cross_attn_step_reference(
     s_valid: int,
 ) -> torch.Tensor:
     """Plain version of kernel K (the JAX ``_cross_attn_kernel``)."""
-    dt = x.dtype
-    b, d = x.shape
-    s_len = cross_k.shape[1]
-    dh = d // num_heads
-    int8_kv = cross_k.dtype == torch.int8
-    q = _proj_reference(x.float(), w["q"], dt).reshape(b, num_heads, dh)
-    kf = cross_k.float().reshape(b, s_len, num_heads, dh)
-    scores = torch.einsum("bhd,bshd->bsh", q, kf)
-    if int8_kv:
-        scores = scores * k_scale.float()[:, :, None]
-    scores = scores * (1.0 / (dh**0.5))
-    if s_valid < s_len:
-        keep = (torch.arange(s_len, device=x.device) < s_valid)[None, :, None]
-        scores = torch.where(keep, scores, torch.full_like(scores, NEG_INF))
-    p = torch.exp(scores - scores.amax(1, keepdim=True))
-    p = p / p.sum(1, keepdim=True)
-    ctx = torch.einsum("bsh,bshd->bhd", p, cross_v.float().reshape(b, s_len, num_heads, dh))
-    ctx = ctx.reshape(b, d)
-    if int8_kv:
-        ctx = ctx * v_scale.float()
-    out = _proj_reference(ctx, w["o"], dt)
+    q = _proj_reference(x.float(), w["q"], x.dtype)
+    ctx = cross_attn_core_reference(q, cross_k, cross_v, k_scale, v_scale, num_heads, s_valid)
+    out = _proj_reference(ctx, w["o"], x.dtype)
     return _post_ln_reference(x, out, ln, eps)
 
 
@@ -139,15 +166,17 @@ def _proj_in(x: torch.Tensor, proj: Proj) -> torch.Tensor:
 
 
 def _ctx_dtype(proj: Proj) -> torch.dtype:
-    """The attention core writes f32 context for an int8 out projection
-    (row-quantized from f32) and bf16 context for a bf16 one."""
-    return torch.float32 if isinstance(proj.w, Int8Weight) else torch.bfloat16
+    """The attention core writes the context row-quantized (int8 values and
+    f32 row scales, ``quant_rows`` of the f32 context) for an int8 out
+    projection and in bf16 for a bf16 one."""
+    return torch.int8 if isinstance(proj.w, Int8Weight) else torch.bfloat16
 
 
-def _proj_out_ln(ctx: torch.Tensor, x: torch.Tensor, proj: Proj, ln: dict, eps: float):
-    """CUDA: LN(x + bf16(O(ctx))) in bf16."""
+def _proj_out_ln(ctx, x: torch.Tensor, proj: Proj, ln: dict, eps: float):
+    """CUDA: LN(x + bf16(O(ctx))) in bf16; ``ctx`` is the core's output in
+    ``_ctx_dtype(proj)``: (int8 [B, D], f32 [B]) or bf16 [B, D]."""
     if isinstance(proj.w, Int8Weight):
-        hq, sx = launch.ln_quant_rows(ctx)
+        hq, sx = ctx
         y = launch.int8_gemm(hq, proj.w.w_t, sx, proj.w.scale, proj.bias,
                              launch.GEMM_RESIDUAL_BF16, residual=x)
     else:

@@ -717,23 +717,47 @@ def _step_ln(rng, d, device):
             "bias": torch.from_numpy(0.1 * rng.normal(size=(d,))).float().to(device)}
 
 
-@pytest.mark.parametrize("heads", [2, 4], ids=["dh96", "dh48"])
+# D 192 split into 8, 4, 2, 6 and 16 heads: the attention cores' clusters
+# of 8, 4, 2, 2 (three heads a CTA) and 8 (two) CTAs; J's bf16 rows of 48,
+# 96, 192, 64 and 24 bytes, K's int8 rows of 24, 48, 96, 32 and 12 (cp.async
+# of 16, 8 and 4 bytes).
+_STEP_HEADS = dict(argvalues=[8, 4, 2, 6, 16],
+                   ids=["h8_dh24", "h4_dh48", "h2_dh96", "h6_dh32", "h16_dh12"])
+
+
+def _int8_context_is_quant_rows(core, *args):
+    """The core's int8 context (q, sx) equals ln_quant_rows of the same
+    core's f32 context on the same inputs, bit for bit."""
+    from manga_ocr_tpu_torch.kernels import launch
+
+    ctx = core(*args, torch.float32)
+    hq, sx = core(*args, torch.int8)
+    want_q, want_sx = launch.ln_quant_rows(ctx)
+    return torch.equal(hq, want_q) and torch.equal(sx, want_sx)
+
+
+@pytest.mark.parametrize("heads", **_STEP_HEADS)
 @pytest.mark.parametrize("int8_w", [True, False], ids=["int8_w", "bf16_w"])
 def test_self_attn_step_kernel_matches_plain(device, int8_w, heads):
-    """Kernel J at steps 0, 5 and T-1 of a cache whose later rows hold
-    noise (they must weigh nothing); the written row against the plain
-    version's."""
+    """Kernel J on both sides of the core's first two chunk edges (its ring
+    of two stages wraps at the second), at step 0 and T-1, on a cache whose
+    later rows hold noise (they must weigh nothing); the written row
+    against the plain version's; the int8 context against ln_quant_rows."""
+    from manga_ocr_tpu_torch.kernels import launch
     from manga_ocr_tpu_torch.ops import decode_layer as dl
 
     rng = np.random.default_rng(8)
-    d, t_len, b = 192, 12, 5
+    d, b = 192, 5
+    chunk = launch.attn_step_plan(b, heads, d // heads, 1, 2, True)["chunk"]
+    t_len = 2 * chunk + 6
+    steps = (0, chunk - 1, chunk, chunk + 1, 2 * chunk - 1, 2 * chunk, 2 * chunk + 1, t_len - 1)
     w = dl.prepare_self_attn({n: _step_dense(rng, d, d, device, int8_w) for n in "qkvo"},
                              torch.bfloat16)
     ln = _step_ln(rng, d, device)
     ck = torch.from_numpy(rng.normal(size=(t_len, b, d))).to(device, torch.bfloat16)
     cv = torch.from_numpy(rng.normal(size=(t_len, b, d))).to(device, torch.bfloat16)
     pck, pcv = ck.clone(), cv.clone()
-    for step in (0, 5, t_len - 1):
+    for step in steps:
         x = torch.from_numpy(rng.normal(size=(b, d))).to(device, torch.bfloat16)
         before = dl.fused_self_attn_step.launches
         got, _, _ = dl.fused_self_attn_step(x, w, ln, ck, cv, step, heads, 1e-12)
@@ -741,16 +765,22 @@ def test_self_attn_step_kernel_matches_plain(device, int8_w, heads):
         assert dl.fused_self_attn_step.launches == before + 1
         assert got.dtype == torch.bfloat16 and _within(got, want)
         assert _within(ck[step], pck[step]) and _within(cv[step], pcv[step])
+        if int8_w:
+            qkv = _randn(rng, (b, 3 * d), device)
+            assert _int8_context_is_quant_rows(launch.self_attn_step, qkv, ck.clone(),
+                                               cv.clone(), heads, step, (d // heads) ** -0.5)
 
 
+@pytest.mark.parametrize("heads", **_STEP_HEADS)
 @pytest.mark.parametrize("s_valid", [37, 30])
 @pytest.mark.parametrize("int8_kv", [True, False], ids=["int8_kv", "bf16_kv"])
 @pytest.mark.parametrize("int8_w", [True, False], ids=["int8_w", "bf16_w"])
-def test_cross_attn_step_kernel_matches_plain(device, int8_w, int8_kv, s_valid):
+def test_cross_attn_step_kernel_matches_plain(device, int8_w, int8_kv, s_valid, heads):
+    from manga_ocr_tpu_torch.kernels import launch
     from manga_ocr_tpu_torch.ops import decode_layer as dl
 
     rng = np.random.default_rng(9)
-    d, heads, s_len, b = 192, 2, 37, 5
+    d, s_len, b = 192, 37, 5
     w = dl.prepare_cross_attn({n: _step_dense(rng, d, d, device, int8_w) for n in "qo"},
                               torch.bfloat16)
     ln = _step_ln(rng, d, device)
@@ -769,6 +799,59 @@ def test_cross_attn_step_kernel_matches_plain(device, int8_w, int8_kv, s_valid):
     want = dl.fused_cross_attn_step_reference(x, w, ln, k, v, ks, vs, heads, 1e-12, s_valid)
     assert dl.fused_cross_attn_step.launches == before + 1
     assert got.dtype == torch.bfloat16 and _within(got, want)
+    if int8_w:
+        assert _int8_context_is_quant_rows(launch.cross_attn_step, _randn(rng, (b, d), device),
+                                           k, v, ks, vs, heads, s_valid, (d // heads) ** -0.5)
+
+
+@pytest.mark.parametrize("d,heads", [(144, 4), (96, 16), (60, 4), (192, 1), (261, 1)],
+                         ids=["dh36", "dh6", "dh15", "dh192", "dh261"])
+@pytest.mark.parametrize("form", ["self", "cross_int8", "cross_bf16"])
+def test_step_attention_cores_match_plain_at_any_head_dim(device, form, d, heads):
+    """The attention cores alone against their plain versions where the
+    chains' GEMMs (K % 64) cannot run: head rows of 72, 12 and 30 bytes
+    (bf16) or 36, 6 and 15 (int8) -- cp.async of 8 and 4 bytes, and plain
+    loads --, one head on one CTA, a row of 261 values read value by value
+    (more vectors than threads: the context sums in shared memory), K's
+    ring where a head's K and V do not fit whole, K with no valid key (a
+    uniform softmax); every output form (the int8 one against quant_rows
+    of the core's own f32 context, bit for bit)."""
+    from manga_ocr_tpu_torch.kernels import launch
+    from manga_ocr_tpu_torch.ops import decode_layer as dl
+    from manga_ocr_tpu_torch.ops.kernel_utils import quant_rows
+
+    rng = np.random.default_rng(14)
+    b, keys = 3, 141
+    scale = (d // heads) ** -0.5
+    if form == "self":
+        ck = _randn(rng, (keys, b, d), device, torch.bfloat16)
+        cv = _randn(rng, (keys, b, d), device, torch.bfloat16)
+        q = _randn(rng, (b, 3 * d), device)
+        cases = [(lambda dt, s=s, c=(ck.clone(), cv.clone()): launch.self_attn_step(
+                      q, *c, heads, s, scale, dt),
+                  lambda s=s, c=(ck.clone(), cv.clone()): dl.self_attn_core_reference(
+                      q, *c, s, heads)) for s in (0, 129, keys - 1)]
+    else:
+        if form == "cross_int8":
+            k, v = (torch.from_numpy(rng.integers(-127, 128, size=(b, keys, d))).to(
+                device, torch.int8) for _ in range(2))
+            ks = torch.from_numpy(rng.uniform(0.005, 0.02, size=(b, keys))).float().to(device)
+            vs = torch.from_numpy(rng.uniform(0.005, 0.02, size=(b, d))).float().to(device)
+        else:
+            k, v = (_randn(rng, (b, keys, d), device, torch.bfloat16) for _ in range(2))
+            ks = vs = None
+        q = _randn(rng, (b, d), device)
+        cases = [(lambda dt, n=n: launch.cross_attn_step(q, k, v, ks, vs, heads, n, scale, dt),
+                  lambda n=n: dl.cross_attn_core_reference(q, k, v, ks, vs, heads, n))
+                 for n in (keys, 129, 0)]
+    for core, plain in cases:
+        want = plain()
+        ctx = core(torch.float32)
+        assert _within(ctx, want)
+        assert _within(core(torch.bfloat16), want)
+        hq, sx = core(torch.int8)
+        want_q, want_sx = quant_rows(ctx)
+        assert torch.equal(hq, want_q) and torch.equal(sx, want_sx[:, 0])
 
 
 @pytest.mark.parametrize("rows", [5, 70])

@@ -267,3 +267,149 @@ def test_reference_engine_on_fused_layer_config_matches_jax_engine():
     got = torch_engine.ocr_page(crops)
     assert got == jax_engine.ocr_page(crops)
     assert len(set(got)) > 1
+
+
+# The attention cores' plans (kernels/launch.py attn_step_plan, mirroring
+# csrc/decode_layer.cu step_layout): heads -> cluster size and heads a CTA;
+# the head's row bytes -> the cp.async width; the ring or K's whole-head
+# staging; the shared memory a CTA needs.
+@pytest.mark.parametrize("heads,dh,cluster", [
+    (8, 96, 8), (4, 96, 4), (2, 96, 2), (6, 32, 2), (4, 36, 4), (16, 12, 8), (4, 15, 4),
+    (3, 64, 1), (12, 64, 4), (1, 768, 1)])
+@pytest.mark.parametrize("form", ["self_bf16", "cross_int8", "cross_bf16"])
+def test_attn_step_plan_across_head_counts_and_dims(form, heads, dh, cluster):
+    from manga_ocr_tpu_torch.kernels import launch
+
+    self_attn = form.startswith("self")
+    kv_bytes = 1 if form.endswith("int8") else 2
+    keys = 305 if self_attn else 197
+    plan = launch.attn_step_plan(32, heads, dh, keys, kv_bytes, self_attn)
+    assert plan["cluster"] == cluster and plan["grid"] == 32 * cluster
+    assert plan["heads_per_cta"] * cluster == heads
+    row = dh * kv_bytes
+    width = plan["width"]
+    assert width in (0, 4, 8, 16) and (width == 0 or row % width == 0)
+    assert all(row % w for w in (16, 8, 4) if w > width)  # the largest that divides
+    rs = launch._ring_stride(row)  # an odd number of 16-byte pieces, at least the row
+    assert rs >= row and rs % 16 == 0 and (rs // 16) % 2 == 1
+    stage = plan["chunk"] * rs
+    if self_attn or 2 * keys * rs > launch.STEP_WHOLE_BYTES:  # the ring
+        assert 1 <= plan["chunk"] <= launch.STEP_CHUNK
+        assert plan["chunk"] == 1 or launch.STEP_STAGES * stage <= launch.STEP_RING_BYTES
+    else:  # K and V of a head whole, a stage (and a commit group) each
+        assert plan["chunk"] == keys
+    assert plan["smem"] % 16 == 0 and plan["smem"] <= launch.SMEM_LIMIT
+    assert plan["smem"] >= launch.STEP_STAGES * stage + keys * 4
+
+
+def test_attn_step_plan_at_full_width_and_its_limits():
+    from manga_ocr_tpu_torch.kernels import launch
+
+    # MangaOCRConfig.base(): 8 heads of dh 96, a 305-row cache, 197 keys; ring
+    # rows of 192 bf16 bytes 208 apart, of 96 int8 bytes 112 apart
+    j = launch.attn_step_plan(32, 8, 96, 305, 2, True)
+    assert j == {"cluster": 8, "grid": 256, "heads_per_cta": 1, "width": 16, "chunk": 128,
+                 "smem": 2 * 128 * 208 + 1152 + 1232 + 384 + 384 + 160}
+    k8 = launch.attn_step_plan(256, 8, 96, 197, 1, False)
+    assert k8 == {"cluster": 8, "grid": 2048, "heads_per_cta": 1, "width": 16, "chunk": 197,
+                  "smem": 2 * 197 * 112 + 384 + 800 + 800 + 384 + 384 + 384 + 160}
+    kb = launch.attn_step_plan(256, 8, 96, 197, 2, False)
+    assert (kb["chunk"], kb["smem"]) == (197, 2 * 197 * 208 + 384 + 800 + 384 + 384 + 160)
+    # the K/V bases' alignment caps the copy width; rows of odd bytes take plain loads
+    assert launch.attn_step_plan(32, 8, 96, 305, 2, True, align=8)["width"] == 8
+    assert launch.attn_step_plan(32, 8, 96, 305, 2, True, align=2)["width"] == 0
+    assert launch.attn_step_plan(32, 4, 15, 197, 1, False)["width"] == 0
+    # a head too wide for K's whole staging streams through the ring
+    assert launch.attn_step_plan(4, 1, 8192, 197, 2, False)["chunk"] == 2
+    with pytest.raises(ValueError, match="shared memory"):
+        launch.attn_step_plan(1, 8, 96, 60000, 2, True)  # the scores of 60000 keys
+    with pytest.raises(ValueError):
+        launch.attn_step_plan(1, 0, 96, 305, 2, True)
+
+
+class _Recorder:
+    """Stands in for ``kernels.launch`` on the CUDA route: records each
+    call (name, args, kwargs, result) and returns tensors of the shapes the
+    launcher would (on the meta device)."""
+
+    def __init__(self, launch, monkeypatch):
+        self.calls = []
+        for name in ("ln_quant_rows", "int8_gemm", "bf16_gemm", "ln_rows_bf16", "self_attn_step",
+                     "cross_attn_step"):
+            monkeypatch.setattr(launch, name, self._record(name))
+
+    def _record(self, name):
+        def empty(*shape, dtype=torch.float32):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        def fn(*args, **kw):
+            a = args[0]
+            b = a.shape[0]
+            if name == "ln_quant_rows":
+                out = empty(*a.shape, dtype=torch.int8), empty(b)
+            elif name in ("self_attn_step", "cross_attn_step"):
+                d = a.shape[1] // (3 if name == "self_attn_step" else 1)
+                dtype = args[-1]
+                out = (empty(b, d, dtype=dtype), empty(b)) if dtype == torch.int8 else \
+                    empty(b, d, dtype=dtype)
+            elif name == "ln_rows_bf16":
+                out = empty(*a.shape, dtype=torch.bfloat16)
+            else:  # the GEMMs: f32 out (mode 3 in both) or bf16
+                n = args[1].shape[0] if name == "int8_gemm" else args[1].shape[1]
+                mode = args[5] if name == "int8_gemm" else args[3]
+                out = empty(b, n, dtype=torch.float32 if mode == 3 else torch.bfloat16)
+            self.calls.append((name, args, kw, out))
+            return out
+        return fn
+
+
+@pytest.mark.parametrize("half", ["self", "cross"])
+def test_int8_out_projection_takes_the_cores_row_quantization(half, monkeypatch):
+    """On the CUDA route (a non-CPU x, launchers recorded), an int8 J or K
+    call asks its core for the int8 context and hands the core's (q, sx)
+    to int8_gemm as they are: one ln_quant_rows (the input projection's),
+    none for the context."""
+    from manga_ocr_tpu_torch.kernels import launch
+
+    cfg = _cfg()
+    np_params, _ = _setup(cfg, seed=12, quantized=True)
+    tlp = layer_params(params_from_jax(np_params["decoder"], "cpu")["layers"], 0)
+    d, heads = cfg.decoder.hidden_size, cfg.decoder.num_heads
+    rec = _Recorder(launch, monkeypatch)
+    x = torch.empty((BATCH, d), dtype=torch.bfloat16, device="meta")
+    if half == "self":
+        w = tdl.prepare_self_attn(tlp["self_attn"], torch.bfloat16)
+        cache = torch.empty((8, BATCH, d), dtype=torch.bfloat16, device="meta")
+        tdl.fused_self_attn_step(x, w, tlp["self_ln"], cache, cache, 3, heads, 1e-12)
+    else:
+        w = tdl.prepare_cross_attn(tlp["cross_attn"], torch.bfloat16)
+        kv = torch.empty((BATCH, 5, d), dtype=torch.int8, device="meta")
+        scales = torch.empty((BATCH, 5), device="meta"), torch.empty((BATCH, d), device="meta")
+        tdl.fused_cross_attn_step(x, w, tlp["cross_ln"], kv, kv, *scales, heads, 1e-12, 5)
+    assert [c[0] for c in rec.calls] == ["ln_quant_rows", "int8_gemm", f"{half}_attn_step",
+                                         "int8_gemm", "ln_rows_bf16"]
+    assert rec.calls[0][1][0] is x  # the input projection's row quantization
+    core, out_proj = rec.calls[2], rec.calls[3]
+    assert core[1][-1] == torch.int8
+    hq, sx = core[3]
+    assert out_proj[1][0] is hq and out_proj[1][2] is sx
+    assert out_proj[1][5] == launch.GEMM_RESIDUAL_BF16 and out_proj[2]["residual"] is x
+    assert out_proj[1][1] is w["o"].w.w_t
+
+
+def test_bf16_out_projection_takes_the_cores_bf16_context(monkeypatch):
+    """On bf16 weights the core writes the bf16 context for bf16_gemm."""
+    from manga_ocr_tpu_torch.kernels import launch
+
+    cfg = _cfg()
+    np_params, _ = _setup(cfg, seed=13, quantized=False)
+    tlp = layer_params(params_from_jax(np_params["decoder"], "cpu")["layers"], 0)
+    d, heads = cfg.decoder.hidden_size, cfg.decoder.num_heads
+    rec = _Recorder(launch, monkeypatch)
+    x = torch.empty((BATCH, d), dtype=torch.bfloat16, device="meta")
+    w = tdl.prepare_self_attn(tlp["self_attn"], torch.bfloat16)
+    cache = torch.empty((8, BATCH, d), dtype=torch.bfloat16, device="meta")
+    tdl.fused_self_attn_step(x, w, tlp["self_ln"], cache, cache, 0, heads, 1e-12)
+    assert [c[0] for c in rec.calls] == ["bf16_gemm", "self_attn_step", "bf16_gemm",
+                                         "ln_rows_bf16"]
+    assert rec.calls[1][1][-1] == torch.bfloat16 and rec.calls[2][1][0] is rec.calls[1][3]

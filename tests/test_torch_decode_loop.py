@@ -522,20 +522,33 @@ def test_int8_cluster_layout_reproduces_the_int8_products_per_head_slice():
                 torch.testing.assert_close(got, want[:, cols], atol=0, rtol=0)
 
 
-def test_cluster_wide_row_quantization_equals_quant_rows_bit_for_bit():
-    """The int8 instance's GELU(fc1) rows live in H slices, one per CTA:
-    each CTA's slice max, the max of the H maxima (exact and order-free),
-    then each slice quantized with that amax (numpy f32, the kernel's
-    order of operations) equal ``quant_rows`` of the whole row bit for
-    bit, in the port and in the JAX package; zero rows included."""
+@pytest.mark.parametrize("layout", ["int8_w_gelu", "self_attn_ctx", "cross_attn_ctx"])
+def test_cluster_wide_row_quantization_equals_quant_rows_bit_for_bit(layout):
+    """Rows that live in slices, one per CTA of a cluster: the int8
+    instance's GELU(fc1) rows (3072 wide, H slices), and the int8 context
+    rows of kernels J and K (768 wide, one slice of H / c heads per CTA of
+    the core's cluster, ``launch.attn_step_plan``).  Each CTA's slice max,
+    the max of the maxima (exact and order-free), then each slice
+    quantized with that amax (numpy f32, the kernels' order of operations)
+    equal ``quant_rows`` of the whole row bit for bit, in the port and in
+    the JAX package; zero rows included."""
     from manga_ocr_tpu.ops.kernel_utils import quant_rows as jax_quant_rows
+    from manga_ocr_tpu_torch.kernels import launch
     from manga_ocr_tpu_torch.ops.kernel_utils import quant_rows
 
     rng = np.random.default_rng(8)
-    rows = (rng.normal(size=(64, 3072)) * rng.lognormal(size=(64, 1))).astype(np.float32)
+    if layout == "int8_w_gelu":
+        width, splits = 3072, (1, 2, 4, 8)
+    else:
+        width, cross = 768, layout.startswith("cross")
+        splits = sorted({launch.attn_step_plan(1, h, width // h, 197 if cross else 305,
+                                               1 if cross else 2, not cross)["cluster"]
+                         for h in (1, 2, 3, 4, 6, 8, 12, 16)})
+        assert splits == [1, 2, 4, 8]
+    rows = (rng.normal(size=(64, width)) * rng.lognormal(size=(64, 1))).astype(np.float32)
     rows[3] = 0.0
     rows[5, 100] = 1e4  # one outlier sets its row's scale
-    for heads in (1, 2, 4, 8):
+    for heads in splits:
         slices = np.split(rows, heads, axis=1)
         amax = np.max([np.abs(sl).max(axis=1) for sl in slices], axis=0)
         amax = np.maximum(amax, np.float32(1e-8))
