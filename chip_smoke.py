@@ -114,7 +114,20 @@ each engine, from each tree in turn.)
    crops with quantize_decoder weights, with and without fuse_cross_kv
    (C's int8_w form on the cluster kernel; exact counts, teacher-forced
    tokens).
-7. Prints its total seconds, one JSON line of kernel results, then the
+7. The dual pass: ocr_preprocess at B=256 (the fixture crops cycled and
+   bucketed, one call per bucket) for each orientation on the card, held
+   against the port's own host run of the same calls (NONE, HORIZONTAL
+   and VERTICAL byte for byte; AUTO within PRE_MAX_PIXEL_SHARE differing
+   pixels and PRE_ANGLE_ATOL_DEG), with CUDA-event ms per orientation and
+   the largest bucket's shape; then ocr_page_dual through the int8
+   serving engine on the fixture crops (one ocr_page of the raw and the
+   binarized crops: A 12, B 12, C 1 per dispatch exactly; both rows'
+   tokens teacher-forced by the plain path; crops/s of a 128-crop dual
+   page); then the CER harness as a user runs it, ``python -m
+   manga_ocr_tpu_torch.eval tests/fixtures/eval --checkpoint
+   tests/fixtures/tiny_random_seed0 --device cuda`` in a subprocess, whose
+   report must equal the host's (20 crops, 22 strings, exact match 1.0).
+8. Prints its total seconds, one JSON line of kernel results, then the
    device line {"ok": true, "device": {...}} last.  Any failed check exits
    non-zero before the device line.
 """
@@ -1788,10 +1801,11 @@ def check_decode_forms(raw, cfg, results: dict) -> None:
         f"full per step {times['none'] / steps} on {card_line()}")
 
 
-def check_page_tokens(engine, crops) -> None:
-    """End to end: per bucket of a page, the kernel path's encoder output
-    against the plain path's, and the kernel path's tokens scored by the
-    plain decoder on the plain encoder output (teacher-forced gaps)."""
+def check_page_tokens(engine, crops, orientation: int = 1) -> None:
+    """End to end: per bucket of a page (prepared as ``ocr_page`` prepares it
+    under ``orientation``, Vertical by default), the kernel path's encoder
+    output against the plain path's, and the kernel path's tokens scored by
+    the plain decoder on the plain encoder output (teacher-forced gaps)."""
     import torch
 
     from manga_ocr_tpu_torch.parallel import batching
@@ -1800,7 +1814,7 @@ def check_page_tokens(engine, crops) -> None:
     from manga_ocr_tpu_torch.ops import decode_loop as dl
     from manga_ocr_tpu_torch.ops import preprocess as pp
 
-    texts_k, texts_p, batches = [], [], batching.prep_page_gray(crops, pp.ORIENT_VERTICAL)
+    texts_k, texts_p, batches = [], [], batching.prep_page_gray(crops, orientation)
     with torch.inference_mode():
         for b in batches:
             px = pp.model_preprocess(torch.from_numpy(b.crops).cuda(),
@@ -2651,6 +2665,158 @@ def run_reference_engine(params, crops) -> None:
         fail("reference path: every crop decoded to the same text")
 
 
+# ocr_preprocess on the card against the port's own CPU run of the same call,
+# with the tolerances of tests/test_torch_ocr_preprocess.py (which holds the
+# CPU run against the JAX package): NONE, HORIZONTAL and VERTICAL byte for
+# byte; AUTO's f32 moment sums (another reduction order) and the cos/sin of
+# its f32 angle may differ in the last bit.
+PRE_ANGLE_ATOL_DEG = 1e-3
+PRE_MAX_PIXEL_SHARE = 1e-3
+PRE_BATCH = 256
+
+
+def check_ocr_preprocess(crops) -> dict:
+    """ocr_preprocess at B=256 (the fixture crops cycled, bucketed by
+    ``batching.bucket_crops``, one call per bucket) for each orientation:
+    the card against the host, and the card's CUDA-event ms per page."""
+    import numpy as np
+    import torch
+
+    from manga_ocr_tpu_torch.ops import preprocess as pp
+    from manga_ocr_tpu_torch.parallel import batching
+
+    page = [crops[i % len(crops)] for i in range(PRE_BATCH)]
+    batches = batching.bucket_crops(page)
+    big = max(range(len(batches)), key=lambda i: batches[i].crops.size)
+    largest = batches[big]
+    log(f"ocr_preprocess page: {PRE_BATCH} crops in {len(batches)} buckets "
+        f"{[b.crops.shape for b in batches]}; largest bucket {largest.crops.shape}")
+    on_card = [(torch.from_numpy(b.crops).cuda(), torch.from_numpy(b.sizes).cuda())
+               for b in batches]
+    times = {}
+    for orient, name in ((pp.ORIENT_NONE, "none"), (pp.ORIENT_HORIZONTAL, "horizontal"),
+                         (pp.ORIENT_VERTICAL, "vertical"), (pp.ORIENT_AUTO, "auto")):
+        def run():
+            return [pp.ocr_preprocess(c, orient, s) for c, s in on_card]
+
+        with torch.inference_mode():
+            outs = [(o.cpu().numpy(), a.cpu().numpy()) for o, a in run()]
+            times[name] = cuda_ms(run, reps=5, warm=False)
+            largest_ms = cuda_ms(lambda: pp.ocr_preprocess(on_card[big][0], orient,
+                                                           on_card[big][1]), reps=5)
+        n_px = n_diff = 0
+        angle_err = 0.0
+        for b, (out, ang) in zip(batches, outs):
+            want, want_ang = pp.ocr_preprocess(torch.from_numpy(b.crops), orient,
+                                               torch.from_numpy(b.sizes))
+            n_px += out.size
+            n_diff += int((out != want.numpy()).sum())
+            angle_err = max(angle_err, float(np.abs(ang - want_ang.numpy()).max()))
+        share = n_diff / n_px
+        log(f"ocr_preprocess {name}: card vs host {n_diff} of {n_px} pixels differ "
+            f"(share {share}), largest angle difference {angle_err} deg; "
+            f"{times[name]} ms for the page's {len(batches)} calls, {largest_ms} ms for the "
+            f"largest bucket {largest.crops.shape} (CUDA events) on {card_line()}")
+        exact = orient != pp.ORIENT_AUTO
+        if exact and (n_diff or angle_err):
+            fail(f"ocr_preprocess {name}: the card differs from the host ({n_diff} pixels, "
+                 f"angles {angle_err}); must be byte for byte")
+        if share > PRE_MAX_PIXEL_SHARE or angle_err > PRE_ANGLE_ATOL_DEG:
+            fail(f"ocr_preprocess {name}: pixel share {share} / angle {angle_err} over "
+                 f"{PRE_MAX_PIXEL_SHARE} / {PRE_ANGLE_ATOL_DEG}")
+    return times
+
+
+def run_dual_engine(params, crops, results: dict) -> float:
+    """This slice's path: ocr_page_dual through the int8 serving engine at
+    full width on the fixture crops -- ocr_preprocess (Auto-Detect) per
+    bucket on the card, then one ocr_page of the raw and the binarized
+    crops.  Per dispatch exactly A 12, B 12, C 1 (cluster form) and one slab
+    precompute; both rows' tokens scored by teacher forcing against the
+    plain path; crops/s of a 128-crop dual page (each crop two rows)."""
+    import torch
+
+    from manga_ocr_tpu_torch.engine import TorchMangaOcrEngine
+    from manga_ocr_tpu_torch.models.config import MangaOCRConfig
+    from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
+    from manga_ocr_tpu_torch.ops import preprocess as pp
+    from manga_ocr_tpu_torch.parallel import batching
+
+    engine = TorchMangaOcrEngine(params, MangaOCRConfig.base(), CharTokenizer.synthetic(),
+                                 device="cuda")
+    engine.ocr_page_dual(crops[:2])  # first call: library load, allocator growth
+    pairs, counts = counted(lambda: engine.ocr_page_dual(crops))
+    pre = engine._binarized_variants(crops)
+    n_dispatch = len(batching.prep_page_gray(crops + pre, pp.ORIENT_AUTO))
+    per_dispatch = {"fused_attn_layer": 12, "fused_mlp_block": 12, "greedy_decode_loop": 1,
+                    "greedy_decode_loop[cluster]": 1, "precompute_cross_kv_packed": 1}
+    log(f"dual engine: ocr_page_dual over {len(crops)} crops ({2 * len(crops)} rows) in "
+        f"{n_dispatch} dispatches: launches {counts}")
+    want = {name: per_dispatch.get(name, 0) * n_dispatch for name in counts}
+    if counts != want:
+        fail(f"dual engine: launch counts {counts}, expected {want}")
+    if len(pairs) != len(crops) or not all(
+            len(p) == 2 and all(isinstance(t, str) for t in p) for p in pairs):
+        fail("dual engine: ocr_page_dual returned malformed pairs")
+    if len({p[0] for p in pairs}) < 2:
+        fail("dual engine: every crop decoded to the same text")
+    log(f"dual engine pairs: {pairs}")
+    check_page_tokens(engine, crops + pre, pp.ORIENT_AUTO)
+    page = [crops[i % len(crops)] for i in range(128)]
+    engine.ocr_page_dual(page)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reps = 2
+    for _ in range(reps):
+        engine.ocr_page_dual(page)
+    rate = reps * len(page) / (time.perf_counter() - t0)
+    log(f"dual engine ocr_page_dual 128 crops: {rate} crops/s on {card_line()}")
+    # its two halves by the host clock (each ends in a readback)
+    t0 = time.perf_counter()
+    pre = engine._binarized_variants(page)
+    t1 = time.perf_counter()
+    engine.ocr_page(page + pre, pp.ORIENT_AUTO)
+    t2 = time.perf_counter()
+    log(f"dual engine, the same page by halves: binarized variants (bucket, ocr_preprocess, "
+        f"readback, crop) {(t1 - t0) * 1e3} ms, ocr_page of the {2 * len(page)} rows "
+        f"{(t2 - t1) * 1e3} ms (host clock) on {card_line()}")
+    return rate
+
+
+def check_eval_harness() -> None:
+    """The CER harness on the card, as a user runs it (a subprocess of
+    ``python -m manga_ocr_tpu_torch.eval``, the fixtures' checkpoint): its
+    report must equal the host's (the one tests/test_torch_eval.py holds to
+    the JAX harness) and score every string exactly."""
+    import contextlib
+
+    from manga_ocr_tpu_torch import eval as ev
+
+    args = [os.path.join("tests", "fixtures", "eval"), "--checkpoint",
+            os.path.join("tests", "fixtures", "tiny_random_seed0")]
+    t0 = time.time()
+    out = subprocess.run([sys.executable, "-m", "manga_ocr_tpu_torch.eval", *args,
+                          "--device", "cuda"], cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    if out.returncode:
+        fail(f"eval harness on the card exited {out.returncode}: {out.stderr[-2000:]}")
+    card = json.loads(out.stdout)
+    log(f"eval harness on the card in {time.time() - t0:.1f} s: n {card['n']}, n_scored "
+        f"{card['n_scored']}, mean_cer {card['mean_cer']}, exact_match {card['exact_match']}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ev.main([os.path.join(ROOT, a) if not a.startswith("--") else a for a in args]
+                + ["--device", "cpu"])
+    host = json.loads(buf.getvalue())
+    if card != host:
+        diff = [(c["name"], c["hyp"], h["hyp"], c.get("dual_hyp"), h.get("dual_hyp"))
+                for c, h in zip(card["items"], host["items"]) if c != h]
+        fail(f"eval harness: the card's report differs from the host's: {diff}")
+    if (card["n"], card["n_scored"], card["exact_match"]) != (20, 22, 1.0):
+        fail(f"eval harness: n {card['n']}, n_scored {card['n_scored']}, exact_match "
+             f"{card['exact_match']}; expected 20, 22, 1.0")
+
+
 def phase(label: str) -> None:
     """The seconds since the last phase mark (where the run's time goes)."""
     now = time.time()
@@ -2727,6 +2893,16 @@ def run_engines(results: dict) -> dict:
     phase("sdpa_int8 + fuse_kv engine")
     run_int8_decoder_forward(params, crops, results)
     phase("int8 decoder ocr_forward")
+
+    # -- the dual pass: ocr_preprocess on the card; A, B, C; the CER harness -----
+    torch.cuda.empty_cache()
+    pre_ms = check_ocr_preprocess(crops)
+    log(f"ocr_preprocess B={PRE_BATCH} ms by orientation {json.dumps(pre_ms)} on {card_line()}")
+    phase("ocr_preprocess")
+    rates["int8 dual"] = run_dual_engine(params, crops, results)
+    phase("dual engine")
+    check_eval_harness()
+    phase("eval harness")
     return rates
 
 

@@ -14,9 +14,14 @@ The three single-device configurations of the JAX engine: int8 serving
 (``serving_kernels=False``: reference attention and MLP, the step-by-step
 decode with the reference head).
 
-Not ported (each raises or is absent, see ROADMAP.md): the packed and fused
-multi-bucket wire formats, meshes, the AOT executable store,
-``ocr_page_dual`` (needs ``ocr_preprocess``), and CUDA graph capture.
+``ocr_page_dual(crops)`` is the reference's enhanced dual pass: each raw
+crop and its ``ocr_preprocess`` variant (skew-corrected, equalized, Otsu
+binarized), both through one ``ocr_page``, or the variant through a second
+engine.
+
+Not ported (each is absent, see ROADMAP.md): the packed and fused
+multi-bucket wire formats, meshes, the AOT executable store, and CUDA graph
+capture.
 """
 
 from __future__ import annotations
@@ -208,10 +213,57 @@ class TorchMangaOcrEngine:
                 texts.append(self.tokenizer.decode_batch(packed[:, 1:], packed[:, 0]))
         return batching.scatter_results([b for b, _ in outs], texts)
 
-    def ocr_page_dual(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ocr_page_dual needs ops.preprocess.ocr_preprocess, which is not ported yet"
-        )
+    def ocr_page_dual(
+        self,
+        crops: Sequence[np.ndarray],
+        orientation: int = pp.ORIENT_AUTO,
+        second_engine=None,
+        settings: dict | None = None,
+    ) -> list[tuple[str, str]]:
+        """Enhanced dual pass (``workers.py:383-420``): the raw crop goes to
+        this model under ``orientation``, and a skew-corrected, equalized,
+        Otsu-binarized variant (``ocr_preprocess`` with Auto-Detect, on
+        ``self.device``, one call per shape bucket) goes to ``second_engine``
+        (any ``perform_ocr(img, settings)`` object; the reference uses
+        Tesseract(jpn)) with the caller's ``settings`` under the Tesseract/jpn
+        overrides.  Without one, both variants go through one ``ocr_page``
+        of this model.  Returns (raw_text, second_text) per crop."""
+        if not len(crops):
+            return []
+        crops = [np.asarray(c, np.uint8) for c in crops]
+        pre = self._binarized_variants(crops)
+        if second_engine is not None:
+            raw_texts = self.ocr_page(crops, orientation)
+            # the reference forces Tesseract(jpn) on top of the caller's
+            # settings ({**settings, ...}, workers.py:399-403)
+            second_settings = {
+                **(settings or {}),
+                "ocr_engine": "Tesseract",
+                "ocr_lang": "jpn",
+                "tesseract_lang": "jpn",
+            }
+            second = [second_engine.perform_ocr(p, second_settings) for p in pre]
+        else:
+            both = self.ocr_page(crops + pre, orientation)
+            raw_texts, second = both[: len(crops)], both[len(crops):]
+        return list(zip(raw_texts, second))
+
+    def _binarized_variants(self, crops: list[np.ndarray]) -> list[np.ndarray]:
+        """Each crop's ``ocr_preprocess`` (Auto-Detect) variant, [h, w, 3]
+        uint8: one call per shape bucket on ``self.device``, the statistics
+        over each crop's valid extent, the output cropped back to it."""
+        batches = batching.bucket_crops(crops)
+        results = []
+        with torch.inference_mode():
+            for b in batches:
+                out, _ = pp.ocr_preprocess(
+                    torch.from_numpy(b.crops).to(self.device),
+                    pp.ORIENT_AUTO,
+                    torch.from_numpy(b.sizes).to(self.device),
+                )
+                out = out[: b.valid].cpu().numpy()
+                results.append([img[: hw[0], : hw[1]] for img, hw in zip(out, b.sizes[: b.valid])])
+        return batching.scatter_results(batches, results)
 
     # -- reference-compatible single-crop entry -------------------------------------
 

@@ -5,7 +5,9 @@ serving (JAX's CPU engine turns it on by itself), unquantized serving
 (``quantize_int8=False``) and the exact reference path
 (``serving_kernels=False``); the int8 serving engine with kernel A's int8
 SDPA and kernel C's ``fuse_kv`` form; and ``serving_kernels=False`` on a
-``fused_loop`` + ``fuse_cross_kv`` config.  The strings must be IDENTICAL.  Weights use
+``fused_loop`` + ``fuse_cross_kv`` config; and ``ocr_page_dual`` on the
+int8 serving engine and the reference path, with and without a second
+engine.  The strings must be IDENTICAL.  Weights use
 std 0.1 so the texts differ from crop to crop (and some rows end at EOS)."""
 
 import dataclasses
@@ -43,16 +45,32 @@ def _random_crop(h, w, seed):
 
 
 @pytest.fixture(scope="module")
-def engines():
-    cfg = MangaOCRConfig.tiny()
-    np_params = init_params_numpy(cfg, 0, std=0.1)
-    tok = CharTokenizer.synthetic()
-    jax_engine = TpuMangaOcrEngine(np_params, cfg, tok, max_length=MAX_LEN, dtype=jnp.float32)
-    torch_engine = TorchMangaOcrEngine(
-        params_from_jax(np_params, "cpu"), port_config(cfg), PortTokenizer.synthetic(),
-        max_length=MAX_LEN, dtype=torch.float32, device="cpu",
-    )
-    return jax_engine, torch_engine
+def engine_pair():
+    """``engine_pair(cfg, **kw)``: the JAX and the port's engine on the same
+    std-0.1 weights, built once per configuration in this module, so a JAX
+    engine keeps the programs it compiled for earlier tests."""
+    built = {}
+
+    def get(cfg=None, **kw):
+        cfg = cfg or MangaOCRConfig.tiny()
+        key = (repr(cfg), tuple(sorted(kw.items())))
+        if key not in built:
+            np_params = init_params_numpy(cfg, 0, std=0.1)
+            jax_engine = TpuMangaOcrEngine(np_params, cfg, CharTokenizer.synthetic(),
+                                           max_length=MAX_LEN, dtype=jnp.float32, **kw)
+            torch_engine = TorchMangaOcrEngine(
+                params_from_jax(np_params, "cpu"), port_config(cfg), PortTokenizer.synthetic(),
+                max_length=MAX_LEN, dtype=torch.float32, device="cpu", **kw,
+            )
+            built[key] = jax_engine, torch_engine
+        return built[key]
+
+    return get
+
+
+@pytest.fixture(scope="module")
+def engines(engine_pair):
+    return engine_pair()
 
 
 @pytest.fixture(scope="module")
@@ -122,17 +140,10 @@ def test_cuda_device_raises_without_cuda(monkeypatch):
                 ({"serving_kernels": False}, {"step_kernel": "fused_loop", "fuse_cross_kv": True})],
     ids=["unquantized_serving", "reference_path", "fused_loop_fuse_cross_kv"],
 )
-def test_other_configurations_identical_to_jax_engine(kw, dec, page):
+def test_other_configurations_identical_to_jax_engine(engine_pair, kw, dec, page):
     cfg = MangaOCRConfig.tiny()
     cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, **dec))
-    np_params = init_params_numpy(cfg, 0, std=0.1)
-    tok = CharTokenizer.synthetic()
-    jax_engine = TpuMangaOcrEngine(np_params, cfg, tok, max_length=MAX_LEN, dtype=jnp.float32,
-                                   **kw)
-    torch_engine = TorchMangaOcrEngine(
-        params_from_jax(np_params, "cpu"), port_config(cfg), PortTokenizer.synthetic(),
-        max_length=MAX_LEN, dtype=torch.float32, device="cpu", **kw,
-    )
+    jax_engine, torch_engine = engine_pair(cfg, **kw)
     assert torch_engine.cfg == port_config(jax_engine.cfg)
     assert all(v.dtype != torch.int8 for v in _leaves(torch_engine.params))
     got = torch_engine.ocr_page(page)
@@ -140,7 +151,8 @@ def test_other_configurations_identical_to_jax_engine(kw, dec, page):
     assert len(set(got)) > 3
 
 
-def test_int8_engine_with_sdpa_int8_and_fuse_cross_kv_identical_to_jax_engine(page):
+def test_int8_engine_with_sdpa_int8_and_fuse_cross_kv_identical_to_jax_engine(
+        engine_pair, page):
     """The slice's serving path: the int8 engine with kernel A's int8 SDPA
     in the encoder and kernel C's fuse_kv form for the decode (JAX's
     ``with_serving_kernels`` keeps both flags, and so does the port's)."""
@@ -148,13 +160,7 @@ def test_int8_engine_with_sdpa_int8_and_fuse_cross_kv_identical_to_jax_engine(pa
     cfg = dataclasses.replace(
         cfg, encoder=dataclasses.replace(cfg.encoder, attn_sdpa_int8=True),
         decoder=dataclasses.replace(cfg.decoder, fuse_cross_kv=True))
-    np_params = init_params_numpy(cfg, 0, std=0.1)
-    jax_engine = TpuMangaOcrEngine(np_params, cfg, CharTokenizer.synthetic(), max_length=MAX_LEN,
-                                   dtype=jnp.float32)
-    torch_engine = TorchMangaOcrEngine(
-        params_from_jax(np_params, "cpu"), port_config(cfg), PortTokenizer.synthetic(),
-        max_length=MAX_LEN, dtype=torch.float32, device="cpu",
-    )
+    jax_engine, torch_engine = engine_pair(cfg)
     assert torch_engine.cfg == port_config(jax_engine.cfg)
     assert torch_engine.cfg.encoder.attn_sdpa_int8 and torch_engine.cfg.decoder.fuse_cross_kv
     got = torch_engine.ocr_page(page)
@@ -168,6 +174,70 @@ def _leaves(tree):
     return [tree]
 
 
-def test_dual_pass_not_ported(engines, page):
-    with pytest.raises(NotImplementedError):
-        engines[1].ocr_page_dual(page[:2])
+def _dual_page():
+    """The crops of JAX's dual-pass tests: three shape buckets (one of them
+    wide, which Auto-Detect keeps wide), a 2-D and a [h, w, 1] grayscale
+    crop and a flat one.  Four crops in the 128 x 128 bucket, so the raw
+    and binarized rows fill the batch of 8 that ``page`` already compiled."""
+    gray = np.random.default_rng(3).integers(0, 255, size=(50, 60)).astype(np.uint8)
+    return [_random_crop(40, 60, 91), _random_crop(300, 90, 92), _random_crop(100, 400, 93),
+            gray, gray[..., None], np.full((40, 50), 180, np.uint8)]
+
+
+@pytest.fixture(scope="module")
+def reference_engines(engine_pair):
+    """The exact reference path (``serving_kernels=False``) in both packages."""
+    return engine_pair(serving_kernels=False)
+
+
+@pytest.mark.parametrize("which", ["int8_serving", "reference_path"])
+def test_ocr_page_dual_pairs_identical_to_jax_engine(engines, reference_engines, which):
+    """Both variants of every crop through one ``ocr_page`` (JAX
+    ``tests/test_engine.py`` dual-pass cases: multi-bucket, grayscale)."""
+    jax_engine, torch_engine = engines if which == "int8_serving" else reference_engines
+    crops = _dual_page()
+    got = torch_engine.ocr_page_dual(crops)
+    assert got == jax_engine.ocr_page_dual(crops)
+    assert len(got) == len(crops) and all(len(p) == 2 for p in got)
+    assert got[:3] == torch_engine.ocr_page_dual(crops[:3])  # a crop alone = in the page
+    assert torch_engine.ocr_page_dual([]) == jax_engine.ocr_page_dual([]) == []
+
+
+class _Second:
+    """A stand-in second engine that records what it is given."""
+
+    def __init__(self):
+        self.calls = []
+
+    def perform_ocr(self, img, settings=None):
+        self.calls.append((img, dict(settings or {})))
+        return "second"
+
+
+def test_ocr_page_dual_routes_the_second_engine_like_jax(engines):
+    """With a second engine, it gets the binarized crops (byte-identical to
+    JAX's, cropped to each crop's extent) with the caller's settings under
+    the Tesseract(jpn) overrides; the raw crops go through ``ocr_page``."""
+    jax_engine, torch_engine = engines
+    crops = _dual_page()
+    settings = {"orientation": "Vertical", "custom_knob": 7, "ocr_engine": "Manga-OCR"}
+    got_second, want_second = _Second(), _Second()
+    got = torch_engine.ocr_page_dual(crops, second_engine=got_second, settings=settings)
+    want = jax_engine.ocr_page_dual(crops, second_engine=want_second, settings=settings)
+    assert got == want
+    assert [p[1] for p in got] == ["second"] * len(crops)
+    assert [p[0] for p in got] == torch_engine.ocr_page(crops, 0)
+    assert len(got_second.calls) == len(want_second.calls) == len(crops)
+    for (img, s), (jimg, js), crop in zip(got_second.calls, want_second.calls, crops):
+        assert img.dtype == np.uint8 and img.shape == crop.shape[:2] + (3,)
+        np.testing.assert_array_equal(img, jimg)
+        assert set(np.unique(img)) <= {0, 255}
+        assert s == js
+        assert s["ocr_engine"] == "Tesseract" and s["ocr_lang"] == "jpn"
+        assert s["tesseract_lang"] == "jpn"
+        assert s["orientation"] == "Vertical" and s["custom_knob"] == 7
+    # no settings: the overrides alone
+    only = _Second()
+    torch_engine.ocr_page_dual(crops[:1], second_engine=only)
+    assert only.calls[0][1] == {"ocr_engine": "Tesseract", "ocr_lang": "jpn",
+                                "tesseract_lang": "jpn"}

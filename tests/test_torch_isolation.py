@@ -5,7 +5,8 @@ and ``chip_smoke`` and then reads ``sys.modules``); and the port's own
 copies of the shared modules agree with the JAX package's: the config
 (fields, defaults, constructors), the tokenizer (encodes and decodes) and
 ``prep_page_gray`` (byte-identical batches on the fixture crops, for each
-orientation, by the native pass and by NumPy)."""
+orientation, by the native pass and by NumPy) and ``core/files.py``
+(decoded fixture images, natural sort, folder listing)."""
 
 import ast
 import dataclasses
@@ -18,10 +19,12 @@ import textwrap
 import numpy as np
 import pytest
 
+from manga_ocr_tpu.core import files as jfiles
 from manga_ocr_tpu.models import config as jcfg
 from manga_ocr_tpu.models import tokenizer as jtok
 from manga_ocr_tpu.parallel import batching as jbatch
 from manga_ocr_tpu_torch import native
+from manga_ocr_tpu_torch.core import files as tfiles
 from manga_ocr_tpu_torch.models import config as tcfg
 from manga_ocr_tpu_torch.models import tokenizer as ttok
 from manga_ocr_tpu_torch.parallel import batching as tbatch
@@ -60,6 +63,9 @@ def test_engine_server_and_chip_smoke_import_neither():
         """
         import sys
         import manga_ocr_tpu_torch.engine, manga_ocr_tpu_torch.serve, chip_smoke
+        import manga_ocr_tpu_torch.eval, manga_ocr_tpu_torch.models.checkpoint
+        from manga_ocr_tpu_torch.core import files
+        from manga_ocr_tpu_torch.ops import image, preprocess
         from manga_ocr_tpu_torch.parallel import batching
         from manga_ocr_tpu_torch.models import decoder, model
         bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "manga_ocr_tpu"))
@@ -159,3 +165,28 @@ def test_batch_schedule_and_buckets_match_jax():
     assert tbatch.BATCH_SCHEDULE == jbatch.BATCH_SCHEDULE
     for n in (0, 1, 8, 9, 300, 600, 1500):
         assert tbatch.pad_batch_size(n) == jbatch.pad_batch_size(n)
+
+
+def test_safe_open_image_decodes_as_jax():
+    paths = sorted(glob.glob(os.path.join(REPO, "tests", "fixtures", "eval", "*.png")))
+    assert len(paths) == 20
+    for p in paths:
+        got, want = tfiles.safe_open_image(p), jfiles.safe_open_image(p)
+        assert got.dtype == want.dtype == np.uint8 and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+    missing = os.path.join(REPO, "tests", "fixtures", "no_such_image.png")
+    assert tfiles.safe_open_image(missing) is None and jfiles.safe_open_image(missing) is None
+
+
+def test_natural_sort_and_list_images_as_jax(tmp_path):
+    names = ["page10.png", "page2.PNG", "Page1.jpg", "notes.txt", "a.webp", "scan.tiff",
+             "x.pdf", "page2b.png", "10.bmp", "9.gif"]
+    for n in names:
+        (tmp_path / n).write_bytes(b"")
+    assert sorted(names, key=tfiles.natural_sort_key) == sorted(names, key=jfiles.natural_sort_key)
+    assert tfiles.list_images(str(tmp_path)) == jfiles.list_images(str(tmp_path))
+    assert tfiles.list_images(str(tmp_path / "missing")) == []
+    assert tfiles.IMAGE_EXTENSIONS == jfiles.IMAGE_EXTENSIONS
+    key = tfiles.pdf_page_key("a/b.pdf", 3)
+    assert key == jfiles.pdf_page_key("a/b.pdf", 3)
+    assert tfiles.parse_pdf_page_key(key) == jfiles.parse_pdf_page_key(key) == ("a/b.pdf", 3)
