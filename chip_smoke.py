@@ -127,7 +127,20 @@ each engine, from each tree in turn.)
    manga_ocr_tpu_torch.eval tests/fixtures/eval --checkpoint
    tests/fixtures/tiny_random_seed0 --device cuda`` in a subprocess, whose
    report must equal the host's (20 crops, 22 strings, exact match 1.0).
-8. Prints its total seconds, one JSON line of kernel results, then the
+8. The user's entry points on an HF checkpoint directory at full width:
+   the seed-0 base params written by save_hf_checkpoint (write time, file
+   size) and read back by load_hf_checkpoint, every leaf bit-equal;
+   MangaOcr(dir) on the card called once per fixture crop (A 12, B 12, C 1
+   in its cluster form per call, each string equal to ocr_page([crop]) of
+   an int8 engine built in-process from the same bf16-loaded params), then
+   from 8 threads on all the crops (fewer dispatches than calls; the
+   strings of crops dispatched at their single-call shape exact, the
+   others teacher-forced by the plain path within ENGINE_GAP_REL); and
+   ``python -m manga_ocr_tpu_torch.cli --checkpoint DIR --device cuda ocr``
+   on the fixture pngs in a subprocess, its lines equal to an in-process
+   f32-loaded engine's; MangaOcr's first-call latency and the command
+   line's wall time beside the card's name and power limit.
+9. Prints its total seconds, one JSON line of kernel results, then the
    device line {"ok": true, "device": {...}} last.  Any failed check exits
    non-zero before the device line.
 """
@@ -2817,6 +2830,163 @@ def check_eval_harness() -> None:
              f"{card['exact_match']}; expected 20, 22, 1.0")
 
 
+def same_tree(got, want) -> list:
+    """The leaf paths where two parameter trees differ (bit for bit)."""
+    import torch
+
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or sorted(got) != sorted(want):
+            return ["<keys>"]
+        return [f"{k}/{p}" for k in want for p in same_tree(got[k], want[k])]
+    return [] if got.dtype == want.dtype and torch.equal(got, want) else [""]
+
+
+def run_hf_entry_points() -> None:
+    """The entry points a user calls, on an HF checkpoint directory at full
+    width: the seed-0 base params written by ``save_hf_checkpoint`` and read
+    back bit for bit by ``load_hf_checkpoint``; ``MangaOcr(dir)`` on the card
+    called once per fixture crop (A 12, B 12 and C 1 in its cluster form per
+    dispatch; each string that of an int8 engine built here from the same
+    bf16-loaded params), then from 8 threads (fewer dispatches than calls;
+    a crop dispatched at its single-call shape gives its single-call string;
+    a batch holding others runs again at the same shapes, reads the same
+    strings and is teacher-forced by the plain path); and ``python -m
+    manga_ocr_tpu_torch.cli ocr`` in a subprocess, whose lines must equal an
+    in-process f32-loaded engine's."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from manga_ocr_tpu_torch.compat import MangaOcr
+    from manga_ocr_tpu_torch.core.files import safe_open_image
+    from manga_ocr_tpu_torch.engine import TorchMangaOcrEngine
+    from manga_ocr_tpu_torch.models.config import MangaOCRConfig
+    from manga_ocr_tpu_torch.models.convert import load_hf_checkpoint, save_hf_checkpoint
+    from manga_ocr_tpu_torch.models.params import init_params
+    from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
+    from manga_ocr_tpu_torch.parallel import batching
+
+    cfg = MangaOCRConfig.base()
+    params = init_params(cfg, SEED, "cpu", std=WEIGHT_STD)
+    tok = CharTokenizer.synthetic()
+    crops = load_crops()
+    paths = sorted(glob.glob(os.path.join(ROOT, "tests", "fixtures", "eval", "*.png")))
+    per_dispatch = {"fused_attn_layer": 12, "fused_mlp_block": 12, "greedy_decode_loop": 1,
+                    "greedy_decode_loop[cluster]": 1, "precompute_cross_kv_packed": 1}
+    with tempfile.TemporaryDirectory() as d:
+        # -- (a) write, (b) read back ---------------------------------------------
+        t0 = time.perf_counter()
+        save_hf_checkpoint(d, params, cfg, tokenizer=tok)
+        write_s = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(d, "model.safetensors"))
+        t0 = time.perf_counter()
+        loaded, cfg2 = load_hf_checkpoint(d)
+        load_s = time.perf_counter() - t0
+        log(f"HF checkpoint: save_hf_checkpoint {write_s:.3f} s, model.safetensors {size} "
+            f"bytes; load_hf_checkpoint {load_s:.3f} s (host clock) on {card_line()}")
+        diff = same_tree(loaded, params)
+        if cfg2 != cfg or diff:
+            fail(f"HF checkpoint round trip: config equal {cfg2 == cfg}, leaves differ {diff}")
+        log("HF checkpoint round trip: every leaf bit-equal, config equal")
+
+        # -- (c) MangaOcr: one call a crop, then 8 threads ----------------------------
+        t0 = time.perf_counter()
+        reader = MangaOcr(d)
+        build_s = time.perf_counter() - t0
+        try:
+            t0 = time.perf_counter()
+            reader(crops[0])
+            first_s = time.perf_counter() - t0
+            single = []
+            for i, crop in enumerate(crops):
+                text, counts = counted(lambda: reader(crop))
+                want = {name: per_dispatch.get(name, 0) for name in counts}
+                if counts != want:
+                    fail(f"MangaOcr call {i}: launch counts {counts}, expected {want}")
+                single.append(text)
+            ref = TorchMangaOcrEngine(load_hf_checkpoint(d, torch.bfloat16)[0], cfg, tok,
+                                      device="cuda")
+            ref_texts = [ref.ocr_page([c])[0] for c in crops]
+            if single != ref_texts:
+                fail(f"MangaOcr strings differ from the in-process int8 engine's: "
+                     f"{[(i, a, b) for i, (a, b) in enumerate(zip(single, ref_texts)) if a != b]}")
+            log(f"MangaOcr: {len(crops)} single calls, each A 12, B 12, C 1 (cluster form); "
+                f"strings equal the in-process int8 engine's; {len(set(single))} distinct")
+            del ref
+            # record what the microbatcher hands the engine, to know each crop's
+            # dispatch shape in the threaded run
+            batches = []
+            engine_call = reader._batcher.batch_fn
+
+            def recording(batch):
+                out = engine_call(batch)
+                batches.append(list(batch))
+                return out
+
+            reader._batcher.batch_fn = recording
+            with ThreadPoolExecutor(8) as ex:
+                threaded, counts = counted(lambda: list(ex.map(reader, crops)))
+            reader._batcher.batch_fn = engine_call
+            n_dispatch = counts["greedy_decode_loop"]
+            want = {name: per_dispatch.get(name, 0) * n_dispatch for name in counts}
+            planned = sum(len(batching.prep_page_gray(b, 1)) for b in batches)
+            log(f"MangaOcr from 8 threads: {len(crops)} calls in {len(batches)} batches of "
+                f"{[len(b) for b in batches]} crops, {n_dispatch} dispatches; launches {counts}")
+            if counts != want or planned != n_dispatch:
+                fail(f"MangaOcr threaded: launch counts {counts}, expected {want} "
+                     f"({planned} dispatches planned)")
+            if n_dispatch >= len(crops):
+                fail(f"MangaOcr threaded: {n_dispatch} dispatches for {len(crops)} calls: "
+                     f"the calls did not coalesce")
+            index = {id(c): i for i, c in enumerate(crops)}
+            exact = scored = 0
+            for b in batches:
+                shape = {}
+                for bb in batching.prep_page_gray(b, 1):
+                    for j in bb.indices:
+                        shape[index[id(b[j])]] = (bb.bucket_hw, bb.crops.shape[0])
+                alone = {i: batching.prep_page_gray([crops[i]], 1)[0] for i in shape}
+                differ = [i for i in shape
+                          if shape[i] != (alone[i].bucket_hw, alone[i].crops.shape[0])]
+                for i in shape:
+                    if i not in differ and threaded[i] != single[i]:
+                        fail(f"MangaOcr threaded: crop {i} at its single-call shape "
+                             f"{shape[i]} read {threaded[i]!r}, alone {single[i]!r}")
+                exact += len(shape) - len(differ)
+                if differ:  # the batch again, at the shapes it ran at: scored
+                    rerun = dict(zip((index[id(c)] for c in b), reader.engine.ocr_page(b)))
+                    if any(threaded[i] != rerun[i] for i in differ):
+                        fail(f"MangaOcr threaded: a batch run again reads otherwise: "
+                             f"{[(threaded[i], rerun[i]) for i in differ]}")
+                    check_page_tokens(reader.engine, b)
+                    scored += len(differ)
+            log(f"MangaOcr threaded: {exact} crops at their single-call shape, strings "
+                f"exact; {scored} at another shape, teacher-forced within {ENGINE_GAP_REL}")
+        finally:
+            reader.close()
+
+        # -- (d) the command line in a subprocess -----------------------------------
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "manga_ocr_tpu_torch.cli", "--checkpoint", d,
+                              "--device", "cuda", "ocr", *paths], cwd=ROOT, capture_output=True,
+                             text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        if out.returncode:
+            fail(f"cli ocr on the card exited {out.returncode}: {out.stderr[-2000:]}")
+        engine = TorchMangaOcrEngine(loaded, cfg2, CharTokenizer.from_vocab_file(
+            os.path.join(d, "vocab.txt")), device="cuda")
+        texts = engine.ocr_page([safe_open_image(p) for p in paths])
+        want_lines = [f"{p}\t{t}" for p, t in zip(paths, texts)]
+        if out.stdout.splitlines() != want_lines:
+            fail(f"cli ocr lines differ from the in-process engine's: {out.stdout[-2000:]}")
+        log(f"cli ocr: {len(paths)} lines equal the in-process f32-loaded engine's; "
+            f"its own timing {out.stderr.strip().splitlines()[-1]}")
+    # -- (e) --------------------------------------------------------------------------
+    log(f"HF entry points: MangaOcr built in {build_s:.3f} s, first call {first_s:.3f} s; "
+        f"cli ocr subprocess wall {cli_s:.3f} s (host clock) on {card_line()}")
+
+
 def phase(label: str) -> None:
     """The seconds since the last phase mark (where the run's time goes)."""
     now = time.time()
@@ -2903,6 +3073,11 @@ def run_engines(results: dict) -> dict:
     phase("dual engine")
     check_eval_harness()
     phase("eval harness")
+
+    # -- the user's entry points on an HF checkpoint directory: A, B, C ----------
+    torch.cuda.empty_cache()
+    run_hf_entry_points()
+    phase("HF checkpoint entry points")
     return rates
 
 
@@ -2941,7 +3116,7 @@ def main() -> int:
     from manga_ocr_tpu_torch.models.quantize import quantize_decoder, quantize_encoder
 
     t0 = time.time()
-    build.load(verbose=True)
+    build.load()
     log(f"kernels built in {time.time() - t0:.1f} s")
     log_ptxas(build.last_build_log)
     log_cluster_ptxas(build.last_build_log)

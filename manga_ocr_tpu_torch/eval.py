@@ -11,7 +11,9 @@ Fixture format (a directory):
                        engine the expected outputs came from
 Run:  python -m manga_ocr_tpu_torch.eval fixtures/ --checkpoint DIR [--device cpu]
 
-``DIR`` is a checkpoint of ``models/checkpoint.py`` (either package's).
+``DIR`` is an HF checkpoint directory (``config.json`` and
+``model.safetensors`` or ``pytorch_model.bin``, ``models/convert.py``) or a
+checkpoint of ``models/checkpoint.py`` (either package's).
 Where the manifest names the ``tiny-random`` engine, the engine takes the
 manifest's ``max_length``, ``dtype`` and ``serving_kernels``; otherwise
 ``--max-length``, ``--dtype`` and ``--serving-kernels``.
@@ -166,18 +168,24 @@ def evaluate(engine, fixtures: list) -> dict:
 
 
 def build_engine(checkpoint: str, device, max_length: int, dtype: str, serving_kernels: str):
-    """A ``TorchMangaOcrEngine`` on ``device`` from a checkpoint directory
-    (its ``vocab.txt`` if present, else the synthetic vocab).  ``dtype`` is
-    "float32" or "bfloat16"; ``serving_kernels`` "on", "off" or "auto"."""
+    """A ``TorchMangaOcrEngine`` on ``device`` from a checkpoint directory:
+    an HF checkpoint (``config.json``, ``models/convert.py``) or the npz
+    store of ``models/checkpoint.py``; its ``vocab.txt`` if present, else the
+    synthetic vocab.  ``dtype`` is "float32" or "bfloat16";
+    ``serving_kernels`` "on", "off" or "auto"."""
     import torch
 
     from manga_ocr_tpu_torch.engine import TorchMangaOcrEngine
     from manga_ocr_tpu_torch.models.checkpoint import load_checkpoint
+    from manga_ocr_tpu_torch.models.convert import load_hf_checkpoint
     from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
 
     # f32 weights: the engine casts to the compute dtype itself and takes its
     # int8 scales from the original weights
-    params, cfg = load_checkpoint(checkpoint, torch.float32, device)
+    if os.path.exists(os.path.join(checkpoint, "config.json")):
+        params, cfg = load_hf_checkpoint(checkpoint, torch.float32)
+    else:
+        params, cfg = load_checkpoint(checkpoint, torch.float32, device)
     vocab = os.path.join(checkpoint, "vocab.txt")
     tok = (CharTokenizer.from_vocab_file(vocab) if os.path.exists(vocab)
            else CharTokenizer.synthetic())
@@ -194,7 +202,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="python -m manga_ocr_tpu_torch.eval")
     p.add_argument("fixtures")
     p.add_argument("--checkpoint", required=True,
-                   help="checkpoint directory (models/checkpoint.py format)")
+                   help="checkpoint directory: an HF checkpoint (config.json) or the "
+                   "models/checkpoint.py format")
     p.add_argument("--device", default="cuda")
     p.add_argument("--max-length", type=int, default=300)
     p.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"),

@@ -26,10 +26,14 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "manga_ocr_tpu_torch")
 
+# ``-Xptxas -v`` only prints each kernel's registers, shared memory and
+# spills into the build's log; every build takes it, so one library serves
+# every process, whoever built it.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo",
     "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -90,13 +94,13 @@ def _sources() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
-def _key(extra_flags: tuple[str, ...]) -> str:
+def _key() -> str:
     h = hashlib.sha256()
     for path in sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu*"))):
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS + extra_flags).encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
@@ -107,14 +111,13 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (needs the CUDA toolkit, e.g. /usr/local/cuda)")
 
 
-def build(verbose: bool = False) -> str:
+def build() -> str:
     """Compile the library if no library for the current sources exists;
-    return its path.  ``verbose`` adds ``-Xptxas -v`` (registers, shared
-    memory and spills per kernel) to the build's log, which is kept beside
-    the library and read into ``last_build_log`` when it is reused."""
+    return its path.  The build's log (ptxas's registers, shared memory and
+    spills per kernel) is kept beside the library and read into
+    ``last_build_log`` when it is reused."""
     global last_build_log
-    extra = ("-Xptxas", "-v") if verbose else ()
-    path = os.path.join(BUILD_DIR, f"libmocr_cuda_{_key(extra)}.so")
+    path = os.path.join(BUILD_DIR, f"libmocr_cuda_{_key()}.so")
     log_path = path + ".log"  # the build's nvcc output, kept beside it
     if os.path.exists(path):
         if os.path.exists(log_path):
@@ -130,7 +133,7 @@ def build(verbose: bool = False) -> str:
         procs = []
         for src in _sources():
             obj = os.path.join(work, os.path.basename(src) + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, *extra, "-I", CSRC_DIR, "-c", "-o", obj, src]
+            cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c", "-o", obj, src]
             procs.append((obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
         logs, failed = [], []
@@ -157,12 +160,12 @@ def build(verbose: bool = False) -> str:
     return path
 
 
-def load(verbose: bool = False) -> ctypes.CDLL:
+def load() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build(verbose))
+            lib = ctypes.CDLL(build())
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)

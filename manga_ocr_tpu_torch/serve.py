@@ -8,7 +8,8 @@ page-size dispatches.
 - ``GET  /healthz``   — liveness + the torch device
 - ``GET  /stats``     — throughput + stage timing counters
 
-Run: python -m manga_ocr_tpu_torch.serve --port 8080 --seed 0
+Run: python -m manga_ocr_tpu_torch.serve --port 8080 --checkpoint DIR
+(without a checkpoint: random weights from ``--seed``)
 """
 
 from __future__ import annotations
@@ -24,6 +25,10 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
+# the engine is built as the command line builds it: the HF checkpoint
+# --checkpoint, else random weights from --seed
+from manga_ocr_tpu_torch.cli import _build_engine as build_engine
+from manga_ocr_tpu_torch.cli import add_engine_options
 from manga_ocr_tpu_torch.runtime.pipeline import MicroBatcher
 from manga_ocr_tpu_torch.utils.metrics import GLOBAL_TIMER, OCR_COUNTER
 
@@ -143,44 +148,14 @@ def serve(
     return httpd
 
 
-def build_engine(args):
-    """A ``TorchMangaOcrEngine`` from command-line arguments: random weights
-    from ``--seed`` at ``MangaOCRConfig.base()`` width (no checkpoint loader
-    is ported yet), the synthetic tokenizer, ``--dtype`` and
-    ``--serving-kernels`` as in the JAX server (``auto`` leaves the choice
-    to the engine; ``off`` is the exact reference path)."""
-    from manga_ocr_tpu_torch.engine import TorchMangaOcrEngine
-    from manga_ocr_tpu_torch.models.config import MangaOCRConfig
-    from manga_ocr_tpu_torch.models.params import init_params
-    from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
-
-    cfg = MangaOCRConfig.base()
-    flag = args.serving_kernels
-    return TorchMangaOcrEngine(
-        init_params(cfg, args.seed, "cpu"), cfg, CharTokenizer.synthetic(),
-        max_length=args.max_length, device=args.device,
-        dtype=torch.float32 if args.dtype == "float32" else torch.bfloat16,
-        serving_kernels=None if flag == "auto" else flag == "on",
-    )
-
-
 def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--host", default="127.0.0.1")
-    p.add_argument("--device", default="cuda")
-    p.add_argument("--seed", type=int, default=0, help="seed of the random weights")
-    p.add_argument("--max-length", type=int, default=300)
+    add_engine_options(p)
+    p.add_argument("--seed", type=int, default=0,
+                   help="seed of the random weights used without a checkpoint")
     p.add_argument("--window-ms", type=float, default=10.0)
-    p.add_argument(
-        "--dtype", default="bfloat16", choices=("bfloat16", "float32"),
-        help="compute dtype (the CUDA kernels take bfloat16)",
-    )
-    p.add_argument(
-        "--serving-kernels", default="auto", choices=("auto", "on", "off"),
-        help="int8 serving kernels: auto (engine default), on, or off (exact "
-        "reference math)",
-    )
     return p
 
 

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``manga_ocr_tpu_torch/``, no
 ``chip_smoke.py`` and no card test imports ``jax`` or anything of the JAX
-package (an AST scan, and a subprocess that imports the engine, the server
-and ``chip_smoke`` and then reads ``sys.modules``); and the port's own
+package (an AST scan, and a subprocess that imports the engine, the server,
+the command line, ``MangaOcr``, the HF converter and ``chip_smoke`` and then
+reads ``sys.modules``); and the port's own
 copies of the shared modules agree with the JAX package's: the config
 (fields, defaults, constructors), the tokenizer (encodes and decodes) and
 ``prep_page_gray`` (byte-identical batches on the fixture crops, for each
@@ -64,6 +65,8 @@ def test_engine_server_and_chip_smoke_import_neither():
         import sys
         import manga_ocr_tpu_torch.engine, manga_ocr_tpu_torch.serve, chip_smoke
         import manga_ocr_tpu_torch.eval, manga_ocr_tpu_torch.models.checkpoint
+        import manga_ocr_tpu_torch.compat, manga_ocr_tpu_torch.cli
+        import manga_ocr_tpu_torch.models.convert, manga_ocr_tpu_torch.models.safetensors_io
         from manga_ocr_tpu_torch.core import files
         from manga_ocr_tpu_torch.ops import image, preprocess
         from manga_ocr_tpu_torch.parallel import batching
