@@ -140,7 +140,18 @@ each engine, from each tree in turn.)
    on the fixture pngs in a subprocess, its lines equal to an in-process
    f32-loaded engine's; MangaOcr's first-call latency and the command
    line's wall time beside the card's name and power limit.
-9. Prints its total seconds, one JSON line of kernel results, then the
+9. Training at full width (manga_ocr_tpu_torch.train on MangaOCRConfig.base(),
+   f32): one B=2 step's loss and every leaf's gradient on the card against
+   the host's (TRAIN_LOSS_REL, TRAIN_GRAD_REL), and the same step with TF32
+   products and under bf16 autocast, each of which must fail those bounds
+   (the controls); train() at B=32, T=32 for
+   30 steps (warmup 5, a train state saved every 15) with the median step
+   time by CUDA events, crops/s and the peak device memory, every logged
+   loss finite, then resumed to step 32; and ``main --steps 2 --export-hf
+   DIR`` in-process, its directory read by MangaOcr on the fixture crops (A
+   12, B 12, C 1 per call; the page teacher-forced by the plain path
+   within DECODE_GAP_REL).
+10. Prints its total seconds, one JSON line of kernel results, then the
    device line {"ok": true, "device": {...}} last.  Any failed check exits
    non-zero before the device line.
 """
@@ -1814,11 +1825,13 @@ def check_decode_forms(raw, cfg, results: dict) -> None:
         f"full per step {times['none'] / steps} on {card_line()}")
 
 
-def check_page_tokens(engine, crops, orientation: int = 1) -> None:
+def check_page_tokens(engine, crops, orientation: int = 1,
+                      gap_rel: float = ENGINE_GAP_REL) -> None:
     """End to end: per bucket of a page (prepared as ``ocr_page`` prepares it
     under ``orientation``, Vertical by default), the kernel path's encoder
     output against the plain path's, and the kernel path's tokens scored by
-    the plain decoder on the plain encoder output (teacher-forced gaps)."""
+    the plain decoder on the plain encoder output (teacher-forced gaps
+    within ``gap_rel`` of the top logit)."""
     import torch
 
     from manga_ocr_tpu_torch.parallel import batching
@@ -1848,9 +1861,9 @@ def check_page_tokens(engine, crops, orientation: int = 1) -> None:
             )
             log(f"bucket {b.bucket_hw} x{b.crops.shape[0]}: encoder max rel err {enc_rel}; "
                 f"kernel tokens teacher-forced by the plain path {stats}")
-            if enc_rel > ENC_STACK_MAX_REL or stats["max_rel_gap"] > ENGINE_GAP_REL:
+            if enc_rel > ENC_STACK_MAX_REL or stats["max_rel_gap"] > gap_rel:
                 fail(f"bucket {b.bucket_hw}: encoder {enc_rel} / gap {stats['max_rel_gap']} "
-                     f"over {ENC_STACK_MAX_REL} / {ENGINE_GAP_REL}")
+                     f"over {ENC_STACK_MAX_REL} / {gap_rel}")
             for texts, o in ((texts_k, out), (texts_p, plain)):
                 texts.append(engine.tokenizer.decode_batch(o.tokens.cpu().numpy()[: b.valid],
                                                            o.lengths.cpu().numpy()[: b.valid]))
@@ -2987,6 +3000,211 @@ def run_hf_entry_points() -> None:
         f"cli ocr subprocess wall {cli_s:.3f} s (host clock) on {card_line()}")
 
 
+# Training at full width: the card's loss and gradient against the host's on
+# the same step (f32 both; the summation order differs), each leaf's gradient
+# within GRAD_REL of its largest |g| plus GRAD_ATOL (the attention key biases'
+# gradient is 0 up to summation noise on both devices).  A step with TF32
+# products, or under bf16 autocast, must fall outside these bounds: on an H100
+# the f32 step's loss is bit-equal and its worst leaf within 0.03 of the
+# gradient bound, while TF32 reads a loss gap of 1.3e-5 and a leaf gap of
+# 1.2e-3 of its max |g| (10x the bound), so 1e-4 and 1e-3 would let TF32 by.
+TRAIN_LOSS_REL = 1e-6
+TRAIN_GRAD_REL, TRAIN_GRAD_ATOL = 1e-4, 1e-7
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARMUP = 32, 32, 30, 5
+H100_F32_FLOPS = 67e12  # float32 outside the tensor cores (TF32 is off)
+
+
+def train_step_flops(cfg, b: int, t: int) -> float:
+    """The products of one training step (forward, and twice that for the
+    backward), from the shapes: the encoder's patch embedding, projections,
+    attention and MLP over S tokens; the decoder's over the T - 1 inputs,
+    its cross K/V over S and the head's vocab product."""
+    e, d = cfg.encoder, cfg.decoder
+    s, t = e.seq_len, t - 1
+    enc = 2 * (s - 1) * e.patch_size ** 2 * e.num_channels * e.hidden_size + e.num_layers * (
+        2 * s * e.hidden_size * 4 * e.hidden_size + 4 * s * s * e.hidden_size
+        + 4 * s * e.hidden_size * e.intermediate_size)
+    dec = d.num_layers * (
+        2 * t * d.hidden_size * 6 * d.hidden_size + 4 * t * t * d.hidden_size
+        + 2 * s * e.hidden_size * 2 * d.hidden_size + 4 * t * s * d.hidden_size
+        + 4 * t * d.hidden_size * d.intermediate_size
+    ) + 2 * t * d.hidden_size * (d.hidden_size + d.vocab_size)
+    return 3.0 * b * (enc + dec)
+
+
+def run_training() -> None:
+    """The training path (``manga_ocr_tpu_torch.train``) at full width on the
+    card: (a) one B=2 step's loss and every leaf's gradient against the
+    host's on the same numpy seed-0 weights and ``synthetic_dataset`` batch,
+    and the same step in TF32 and under bf16 autocast outside the bounds;
+    (b) ``train()`` at B=32, T=32 for 30 steps (warmup 5, a train state
+    saved every 15) with each step's CUDA-event time, crops/s and the peak
+    device memory, every logged loss finite, then resumed to step 32; (c)
+    ``main --steps 2 --export-hf DIR`` in-process, and ``MangaOcr(DIR)`` on
+    the fixture crops: A 12, B 12, C 1 per dispatch, the page's tokens
+    teacher-forced by the plain path within DECODE_GAP_REL."""
+    import contextlib
+    import math
+    import statistics
+    import tempfile
+
+    import torch
+    from torch.optim.optimizer import register_optimizer_step_post_hook
+
+    from manga_ocr_tpu_torch import train as trainlib
+    from manga_ocr_tpu_torch.compat import MangaOcr
+    from manga_ocr_tpu_torch.models.config import MangaOCRConfig
+    from manga_ocr_tpu_torch.models.params import init_params
+    from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
+
+    cfg = MangaOCRConfig.base()
+    tok = CharTokenizer.synthetic()
+
+    # -- (a) one step, card against host; a TF32 and a bf16 step as controls ------
+    batch = next(trainlib.synthetic_dataset(cfg, tok, 2, TRAIN_SEQ, seed=SEED))
+    tree = init_params(cfg, SEED, "cpu", std=WEIGHT_STD)
+    adamw = trainlib.make_optimizer(1e-4)
+
+    def grads_of(node, prefix=""):
+        if isinstance(node, dict):
+            return {name: g for k, v in node.items()
+                    for name, g in grads_of(v, f"{prefix}/{k}" if prefix else k).items()}
+        return {prefix: node.grad.cpu()} if node.is_floating_point() else {}
+
+    def loss_and_grads(dev: str, label: str):
+        params, _ = trainlib.init_train_state(cfg, adamw, device=dev, init_params=tree)
+        t0 = time.perf_counter()
+        loss = trainlib.loss_fn(params, trainlib.TrainBatch(*(t.to(dev) for t in batch)), cfg)
+        loss.backward()
+        log(f"training (a): {label} loss and backward in {time.perf_counter() - t0:.3f} s")
+        return loss.item(), grads_of(params)
+
+    ref_loss, ref_grads = loss_and_grads("cpu", "host f32")
+
+    def gaps(label: str, run) -> bool:
+        """Logs the run's gaps to the host's; True where both are within bounds."""
+        loss, grads = run
+        loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+        shares = {name: float((grads[name] - g).abs().max())
+                  / (TRAIN_GRAD_REL * float(g.abs().max()) + TRAIN_GRAD_ATOL)
+                  for name, g in ref_grads.items()}
+        worst_leaf = max(shares, key=shares.get)
+        g = ref_grads[worst_leaf]
+        rel = float((grads[worst_leaf] - g).abs().max() / g.abs().max().clamp_min(1e-30))
+        log(f"training (a): {label}: loss {loss!r} against the host's {ref_loss!r}, relative gap "
+            f"{loss_rel:.3e} (bound {TRAIN_LOSS_REL}); {len(ref_grads)} gradient leaves, the "
+            f"worst {worst_leaf} at {shares[worst_leaf]:.3f} of its bound (gap / max|g| "
+            f"{rel:.3e}, bound {TRAIN_GRAD_REL} + {TRAIN_GRAD_ATOL} / max|g|)")
+        return loss_rel <= TRAIN_LOSS_REL and shares[worst_leaf] <= 1.0
+
+    if not gaps("card f32", loss_and_grads("cuda", "card f32")):
+        fail("training (a): the card's f32 loss or gradient is outside its bound")
+    # the controls: a step whose products are not f32 must fail the same bounds
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        controls = {"card TF32 (control)": loss_and_grads("cuda", "card TF32")}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        controls["card bf16 autocast (control)"] = loss_and_grads("cuda", "card bf16 autocast")
+    passed = [label for label, run in controls.items() if gaps(label, run)]
+    if passed:
+        fail(f"training (a): {passed} within the f32 bounds: they do not tell f32 from it")
+    del ref_grads, controls, tree
+
+    # -- (b) train() at full width, each step timed by CUDA events --------------
+    # an event after each optimizer step: step i's time is from the end of step
+    # i - 1's update to the end of its own, on the card's clock (the host's
+    # batch and loss read between two steps included)
+    events = []
+
+    def mark(*_):
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+
+    hook = register_optimizer_step_post_hook(mark)
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            data = trainlib.synthetic_dataset(cfg, tok, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            params, logged = trainlib.train(cfg, data, TRAIN_STEPS, warmup_steps=TRAIN_WARMUP,
+                                            checkpoint_dir=d, checkpoint_every=15, log_every=1,
+                                            seed=SEED, device="cuda")
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]  # steps 2..30
+            del params
+            events.clear()
+            t0 = time.perf_counter()
+            _, resumed = trainlib.train(cfg, data, TRAIN_STEPS + 2, warmup_steps=TRAIN_WARMUP,
+                                        checkpoint_dir=d, checkpoint_every=15, resume=True,
+                                        log_every=1, device="cuda")
+            resume_s = time.perf_counter() - t0
+            with open(os.path.join(d, "train_state.json")) as f:
+                saved_step = json.load(f)["step"]
+    finally:
+        hook.remove()
+    # where a step's device time goes: one step under the profiler, by kernel
+    torch.cuda.empty_cache()
+    params, opt_state = trainlib.init_train_state(cfg, adamw, SEED)
+    step = trainlib.make_train_step(cfg)
+    one = trainlib.TrainBatch(*(t.to("cuda") for t in next(data)))
+    traced(f"training step B={TRAIN_BATCH} T={TRAIN_SEQ}", lambda: step(params, opt_state, one))
+    # the same steps back to back on that one batch: no data thread, no loss read
+    alone = cuda_ms(lambda: step(params, opt_state, one), reps=5, warm=False)
+    del params, opt_state
+    median = statistics.median(ms[2:])
+    flops = train_step_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    log(f"training (b): base() B={TRAIN_BATCH} T={TRAIN_SEQ}, {len(ms) + 1} steps: median step "
+        f"{median:.3f} ms by CUDA events after step 3 (min {min(ms[2:]):.3f}, max "
+        f"{max(ms[2:]):.3f}; second {ms[0]:.3f}), {TRAIN_BATCH * 1e3 / median:.1f} crops/s; "
+        f"{flops / 1e12:.3f} TFLOP a step, {flops / median / 1e9:.2f} TFLOP/s "
+        f"({flops / median / 1e9 / (H100_F32_FLOPS / 1e12):.1%} of the f32 peak); peak device "
+        f"memory {peak} bytes; train() wall {wall:.3f} s with 2 train-state saves (host "
+        f"clock); back to back on one device batch {alone:.3f} ms a step, on {card_line()}")
+    log(f"training (b): losses {logged}")
+    log(f"training (b): resumed to step {saved_step} in {resume_s:.3f} s, losses {resumed}")
+    if (len(logged) != TRAIN_STEPS or len(ms) != TRAIN_STEPS - 1 or len(resumed) != 2
+            or saved_step != TRAIN_STEPS + 2 or not all(math.isfinite(x) for x in logged + resumed)):
+        fail(f"training (b): {len(logged)} + {len(resumed)} losses, {len(ms)} step times, step "
+             f"read back {saved_step}, finite {all(math.isfinite(x) for x in logged + resumed)}")
+
+    # -- (c) the command line with --export-hf, then MangaOcr on its output -----
+    crops = load_crops()
+    per_dispatch = {"fused_attn_layer": 12, "fused_mlp_block": 12, "greedy_decode_loop": 1,
+                    "greedy_decode_loop[cluster]": 1, "precompute_cross_kv_packed": 1}
+    with tempfile.TemporaryDirectory() as d:
+        out_dir = os.path.join(d, "hf")
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            rc = trainlib.main(["--steps", "2", "--seed", str(SEED), "--export-hf", out_dir])
+        main_s = time.perf_counter() - t0
+        lines = printed.getvalue().splitlines()
+        log(f"training (c): main --steps 2 --export-hf in {main_s:.3f} s: {lines}")
+        if rc or not any(x.startswith("log[0] loss=") for x in lines) or \
+                f"exported HF-format checkpoint to {out_dir}" not in lines:
+            fail(f"training (c): main returned {rc}, printed {lines}")
+        reader = MangaOcr(out_dir)
+        try:
+            texts = []
+            for i, crop in enumerate(crops):
+                text, counts = counted(lambda: reader(crop))
+                want = {name: per_dispatch.get(name, 0) for name in counts}
+                if counts != want:
+                    fail(f"training (c): MangaOcr call {i}: launch counts {counts}, expected {want}")
+                texts.append(text)
+            log(f"training (c): MangaOcr on the exported directory, {len(crops)} calls, each "
+                f"A 12, B 12, C 1 (cluster form); {len(set(texts))} distinct strings: {texts}")
+            check_page_tokens(reader.engine, crops, gap_rel=DECODE_GAP_REL)
+        finally:
+            reader.close()
+
+
 def phase(label: str) -> None:
     """The seconds since the last phase mark (where the run's time goes)."""
     now = time.time()
@@ -3078,6 +3296,11 @@ def run_engines(results: dict) -> dict:
     torch.cuda.empty_cache()
     run_hf_entry_points()
     phase("HF checkpoint entry points")
+
+    # -- training at full width; its export served by MangaOcr: A, B, C ---------
+    torch.cuda.empty_cache()
+    run_training()
+    phase("training")
     return rates
 
 

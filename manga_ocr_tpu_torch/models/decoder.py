@@ -2,7 +2,8 @@
 
 Post-LN blocks: x = LN(x + SelfAttn(x)); x = LN(x + CrossAttn(x));
 x = LN(x + MLP(x)); the LM head is dense + GELU + LN, then the vocab
-projection.  Two decode forms:
+projection.  ``forward_full`` runs the blocks over whole teacher-forced
+sequences (training's forward, plain and differentiable).  The decode forms:
 
 - the serving decode (``step_kernel="fused_loop"``) reads the packed cross
   K/V slabs ``precompute_cross_kv_packed`` makes; the loop itself is kernel
@@ -34,7 +35,7 @@ import torch
 from manga_ocr_tpu_torch.models.config import DecoderConfig
 from manga_ocr_tpu_torch.models.params import layer_params
 from manga_ocr_tpu_torch.ops import decode_layer
-from manga_ocr_tpu_torch.ops.common import NEG_INF, dense, gelu, layer_norm, softmax
+from manga_ocr_tpu_torch.ops.common import NEG_INF, dense, gelu, layer_norm, mha, softmax
 from manga_ocr_tpu_torch.ops.fused_head import fused_greedy_head, fused_greedy_head_reference
 from manga_ocr_tpu_torch.ops.fused_mlp import (
     Int8Weight,
@@ -193,6 +194,41 @@ def prepare_fused_layer(params: dict, cfg: DecoderConfig, dtype) -> list[dict]:
             "mlp_ln": ln(lp["mlp_ln"]),
         })
     return layers
+
+
+def _post_ln_block(x, residual, ln, eps):
+    return layer_norm(x + residual, ln["scale"], ln["bias"], eps)
+
+
+def forward_full(
+    params: dict,
+    tokens: torch.Tensor,
+    enc_out: torch.Tensor,
+    cfg: DecoderConfig,
+    attention_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Teacher-forced forward over whole sequences -> logits [B, S, V] f32.
+
+    ``tokens`` [B, S] int; causal self-attention, ANDed with the optional key
+    mask ``attention_mask`` [B, S] (nonzero = attend); full cross-attention
+    over ``enc_out`` [B, S_enc, D].  Plain ops only, so autograd runs through
+    it (training's loss)."""
+    s = tokens.shape[1]
+    x = embed(params, tokens, 0, cfg).to(enc_out.dtype)
+    mask = torch.ones((s, s), dtype=torch.bool, device=enc_out.device).tril()[None, None]
+    if attention_mask is not None:
+        mask = mask & (attention_mask != 0)[:, None, None, :]
+    eps = cfg.layer_norm_eps
+    for l in range(cfg.num_layers):
+        lp = layer_params(params["layers"], l)
+        x = _post_ln_block(mha(x, x, lp["self_attn"], cfg.num_heads, mask=mask), x,
+                           lp["self_ln"], eps)
+        x = _post_ln_block(mha(x, enc_out, lp["cross_attn"], cfg.num_heads), x,
+                           lp["cross_ln"], eps)
+        fc1, fc2 = lp["mlp"]["fc1"], lp["mlp"]["fc2"]
+        h = dense(gelu(dense(x, fc1["kernel"], fc1["bias"])), fc2["kernel"], fc2["bias"])
+        x = _post_ln_block(h, x, lp["mlp_ln"], eps)
+    return lm_head(params, x, cfg)
 
 
 def lm_head(params: dict, x: torch.Tensor, cfg: DecoderConfig) -> torch.Tensor:

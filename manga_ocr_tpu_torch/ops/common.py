@@ -13,6 +13,7 @@ default).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -79,8 +80,9 @@ def attention_scores(
     ``mask`` boolean, broadcastable to [B, H, S_q, S_k] (True = attend).
     f32 logits and softmax; probabilities cast to the compute dtype before
     PV; output in the compute dtype."""
-    # 1/sqrt(dh) in f32, rounded as JAX computes it
-    scale = 1.0 / torch.sqrt(torch.tensor(float(q.shape[-1]), device=q.device))
+    # 1/sqrt(dh) in f32, rounded as JAX computes it; a host scalar, since a
+    # device tensor made from a Python number waits for the stream
+    scale = float(np.float32(1) / np.sqrt(np.float32(q.shape[-1])))
     logits = (q.float() @ k.float().transpose(-1, -2)) * scale
     if mask is not None:
         logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))

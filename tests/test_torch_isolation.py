@@ -1,13 +1,14 @@
 """The port stands alone: no module of ``manga_ocr_tpu_torch/``, no
-``chip_smoke.py`` and no card test imports ``jax`` or anything of the JAX
-package (an AST scan, and a subprocess that imports the engine, the server,
-the command line, ``MangaOcr``, the HF converter and ``chip_smoke`` and then
-reads ``sys.modules``); and the port's own
+``chip_smoke.py`` and no card test imports ``jax``, ``optax`` or anything of
+the JAX package (an AST scan, and a subprocess that imports the engine, the
+server, the command line, ``MangaOcr``, the HF converter, the trainer and
+``chip_smoke`` and then reads ``sys.modules``); and the port's own
 copies of the shared modules agree with the JAX package's: the config
 (fields, defaults, constructors), the tokenizer (encodes and decodes) and
 ``prep_page_gray`` (byte-identical batches on the fixture crops, for each
 orientation, by the native pass and by NumPy) and ``core/files.py``
-(decoded fixture images, natural sort, folder listing)."""
+(decoded fixture images, natural sort, folder listing) and the trainer's
+synthetic glyphs and crops (``pattern_glyph``, ``render_text_crop``)."""
 
 import ast
 import dataclasses
@@ -20,18 +21,20 @@ import textwrap
 import numpy as np
 import pytest
 
+from manga_ocr_tpu import train as jtrain
 from manga_ocr_tpu.core import files as jfiles
 from manga_ocr_tpu.models import config as jcfg
 from manga_ocr_tpu.models import tokenizer as jtok
 from manga_ocr_tpu.parallel import batching as jbatch
 from manga_ocr_tpu_torch import native
+from manga_ocr_tpu_torch import train as ttrain
 from manga_ocr_tpu_torch.core import files as tfiles
 from manga_ocr_tpu_torch.models import config as tcfg
 from manga_ocr_tpu_torch.models import tokenizer as ttok
 from manga_ocr_tpu_torch.parallel import batching as tbatch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "manga_ocr_tpu")
+FORBIDDEN = ("jax", "jaxlib", "manga_ocr_tpu", "optax")
 
 
 def _standalone_files():
@@ -67,11 +70,13 @@ def test_engine_server_and_chip_smoke_import_neither():
         import manga_ocr_tpu_torch.eval, manga_ocr_tpu_torch.models.checkpoint
         import manga_ocr_tpu_torch.compat, manga_ocr_tpu_torch.cli
         import manga_ocr_tpu_torch.models.convert, manga_ocr_tpu_torch.models.safetensors_io
+        import manga_ocr_tpu_torch.train
         from manga_ocr_tpu_torch.core import files
         from manga_ocr_tpu_torch.ops import image, preprocess
         from manga_ocr_tpu_torch.parallel import batching
         from manga_ocr_tpu_torch.models import decoder, model
-        bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "manga_ocr_tpu"))
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "manga_ocr_tpu", "optax"))
         print("LOADED", bad)
         """
     )
@@ -193,3 +198,21 @@ def test_natural_sort_and_list_images_as_jax(tmp_path):
     key = tfiles.pdf_page_key("a/b.pdf", 3)
     assert key == jfiles.pdf_page_key("a/b.pdf", 3)
     assert tfiles.parse_pdf_page_key(key) == jfiles.parse_pdf_page_key(key) == ("a/b.pdf", 3)
+
+
+@pytest.mark.parametrize("size", [4, 5, 12, 16])
+def test_pattern_glyphs_as_jax(size):
+    chars = "あいう漫画読ABCz0" + "".join(chr(c) for c in range(0x4E00, 0x4E40))
+    for ch in chars:
+        got, want = ttrain.pattern_glyph(ch, size), jtrain.pattern_glyph(ch, size)
+        assert got.dtype == want.dtype == np.uint8
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("hw", [None, (58, 40), (30, 90), (224, 224)], ids=str)
+def test_render_text_crop_as_jax(hw):
+    for seed, text in enumerate(["あ", "いうえお", "漫画を読む" * 4, ""]):
+        got = ttrain.render_text_crop(text, np.random.default_rng(seed), 64, hw=hw)
+        want = jtrain.render_text_crop(text, np.random.default_rng(seed), 64, hw=hw)
+        assert got.dtype == want.dtype == np.uint8 and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
