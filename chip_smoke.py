@@ -151,7 +151,30 @@ each engine, from each tree in turn.)
    DIR`` in-process, its directory read by MangaOcr on the fixture crops (A
    12, B 12, C 1 per call; the page teacher-forced by the plain path
    within DECODE_GAP_REL).
-10. Prints its total seconds, one JSON line of kernel results, then the
+10. Detection (no kernel of its own; plain PyTorch on the card, host
+   contours on the machine's own tier -- cv2 where OpenCV is installed,
+   else the native tracer -- never the NumPy fallback; the native tracer
+   is built, timed and held against cv2's findContours on (a)'s masks
+   wherever OpenCV is there): (a)
+   the full-width bubble segmenter (DetectorConfig(): input 512, base 32,
+   depth 4) on numpy seed-0 weights over 8 pages of 1700x1200, card against
+   host on two of them (probabilities within DET_PROB_ATOL, masks equal
+   except where the host's probability is within DET_MASK_EPS of the
+   threshold, with the process's TF32 flags on, which segment_pages
+   overrides; a TF32 run printed beside it), segment_pages at B=1, 2, 4, 6
+   and 8 by CUDA events with the peak device memory of each, a chapter of 32
+   pages through detect_bubble_masks (DISPATCH_PAGES a dispatch) with its
+   ms a page and peak memory, the host contour time a page by tier, and
+   detect_pages' pages/s; (b) the JAX package's detection closed loop trained
+   on the card from its initial weights
+   (tests/fixtures/detector_closed_loop_init.npz) and held to its bounds on
+   6 held-out pages; (c) PagePipeline(engine.ocr_page).process_pages over 8
+   drawn pages with glyph text in their bubbles, (b)'s detector and the int8
+   engine (A 12, B 12, C 1 a dispatch exactly; every job's text equal to
+   engine.ocr_page on the same crops; a TypesetArea on every JobResult;
+   crops/s); (d) detect_text_regions on a page of glyph-text columns: every
+   proposal read in one ocr_page call.
+11. Prints its total seconds, one JSON line of kernel results, then the
    device line {"ok": true, "device": {...}} last.  Any failed check exits
    non-zero before the device line.
 """
@@ -3205,6 +3228,365 @@ def run_training() -> None:
             reader.close()
 
 
+# -- the detection phase ---------------------------------------------------------
+
+DET_PAGES = 8
+DET_CHAPTER = 32  # a chapter folder's pages of one scan size
+DET_PAGE_HW = (1700, 1200)  # a common scan size for manga raws
+# The segmenter runs f32 with TF32 off on both devices: its probabilities
+# differ by summation order only.  A mask pixel may flip where the host's
+# probability lies this close to the threshold; elsewhere masks are equal.
+DET_PROB_ATOL = 1e-4
+DET_MASK_EPS = 1e-3
+DET_INIT = os.path.join("tests", "fixtures", "detector_closed_loop_init.npz")
+
+
+def unet_flops(cfg) -> float:
+    """2 x the multiply-adds of the U-Net's convolutions on one page."""
+    from manga_ocr_tpu_torch.models.detector import _channels
+
+    total = 0.0
+    # paths: ("down" | "up", level, conv), ("mid", conv), ("head",)
+    for path, cin, cout, k in _channels(cfg):
+        level = cfg.depth if path[0] == "mid" else path[1] if len(path) == 3 else 0
+        side = cfg.input_size >> level
+        total += 2.0 * side * side * cin * cout * k * k
+    return total
+
+
+def paste_text(page, rng, y0: int, x0: int, h: int, w: int, chars: list) -> None:
+    """Ink of a ``train.render_text_crop`` column of random characters, drawn
+    at 3x into ``page`` [y0:y0+h, x0:x0+w] (its paper and border left out)."""
+    import numpy as np
+
+    from manga_ocr_tpu_torch.train import render_text_crop
+
+    text = "".join(rng.choice(chars, size=int(rng.integers(3, 9))))
+    crop = render_text_crop(text, rng, 64, hw=(max(8, h // 3), max(8, w // 3)))[..., 0]
+    crop = np.repeat(np.repeat(crop, 3, axis=0), 3, axis=1)[:h, :w]
+    region = page[y0 : y0 + crop.shape[0], x0 : x0 + crop.shape[1]]
+    ink = crop < 128
+    region[ink] = crop[ink][:, None]
+
+
+def detection_pages(n: int, seed: int) -> tuple[list, list]:
+    """``n`` bubble pages of DET_PAGE_HW (the closed loop's drawer, numpy
+    only) with a column of glyph text in each bubble; and the bubble counts."""
+    import numpy as np
+
+    from manga_ocr_tpu_torch.core.geometry import polygon_bounding_rect
+    from manga_ocr_tpu_torch.detect import contours as cont
+    from manga_ocr_tpu_torch.detect import synthetic
+    from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
+
+    chars = [t for t in CharTokenizer.synthetic().id_to_token[4:] if len(t) == 1]
+    rng = np.random.default_rng(seed)
+    pages, drawn = [], []
+    while len(pages) < n:
+        page, gt, k = synthetic.draw_page(rng, *DET_PAGE_HW)
+        if k == 0:
+            continue
+        for poly in cont.mask_to_polygons(gt):
+            r = polygon_bounding_rect(poly)
+            h, w = int(r.h * 0.6), 60
+            paste_text(page, rng, r.top + (r.h - h) // 2, r.left + (r.w - w) // 2, h, w, chars)
+        pages.append(page)
+        drawn.append(k)
+    return pages, drawn
+
+
+def text_page(seed: int):
+    """A white DET_PAGE_HW page with eight columns of glyph text: the
+    text-mode detector's input."""
+    import numpy as np
+
+    from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
+
+    chars = [t for t in CharTokenizer.synthetic().id_to_token[4:] if len(t) == 1]
+    rng = np.random.default_rng(seed)
+    page = np.full((*DET_PAGE_HW, 3), 255, np.uint8)
+    for col in range(8):
+        h = int(rng.integers(240, 600))
+        paste_text(page, rng, int(rng.integers(60, DET_PAGE_HW[0] - h - 60)), 80 + col * 135,
+                   h, 60, chars)
+    return page
+
+
+def tracer_matches_cv2(got: list, ref: list) -> bool:
+    """The native tracer's polygons against cv2's external contours of the
+    same mask, by bounding box: every cv2 component of three or more pixels
+    is found with its box, and every other traced component lies inside a
+    cv2 component's box (the tracer also traces islands in holes, which
+    RETR_EXTERNAL leaves out, and drops one- and two-pixel components)."""
+    from manga_ocr_tpu_torch.core.geometry import polygon_bounding_rect
+
+    def box(p):
+        r = polygon_bounding_rect(p)
+        return (r.left, r.top, r.right, r.bottom)
+
+    def inside(b):
+        return any(o != b and o[0] <= b[0] and o[1] <= b[1] and b[2] <= o[2] and b[3] <= o[3]
+                   for o in outer)
+
+    def small(b):
+        return (b[2] - b[0] + 1) * (b[3] - b[1] + 1) <= 2
+
+    traced = {box(p) for p in got}
+    outer = [box(p) for p in ref]
+    return (all(b in traced for b in outer if not small(b))
+            and all(b in outer or inside(b) for b in traced))
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def iou(a, b) -> float:
+    import numpy as np
+
+    union = np.logical_or(a > 0, b > 0).sum()
+    return float(np.logical_and(a > 0, b > 0).sum() / union) if union else 1.0
+
+
+def run_detection() -> None:
+    """The detection path on the card (no kernel: plain PyTorch on the
+    device; host contours on the machine's default tier, cv2 where OpenCV is
+    installed, else the native tracer; the native tracer must build, and is
+    timed and held against cv2's findContours on (a)'s masks where OpenCV
+    is there).  (a) The
+    full-width segmenter (DetectorConfig(): 512, base 32, depth 4) on numpy
+    seed-0 weights over DET_PAGES pages of DET_PAGE_HW: card against host
+    (f32) on two pages -- probabilities within
+    DET_PROB_ATOL, masks equal except where the host's probability is within
+    DET_MASK_EPS of the threshold -- with the process's TF32 flags on, which
+    segment_pages must override (a TF32 run is printed beside it, not held);
+    segment_pages at B=1, 2, DISPATCH_PAGES, DISPATCH_PAGES + 2 and
+    DET_PAGES by CUDA events with each one's peak device memory;
+    DET_CHAPTER pages through detect_bubble_masks; the host contour time a
+    page by tier and detect_pages' pages/s.  (b) The JAX closed
+    loop on the card: its config trained from its initial weights
+    (DET_INIT) for 150 steps, then detect_pages on 6 held-out 96x128 pages:
+    exact bubble counts, IoU >= 0.6 a page and >= 0.75 on average.  (c)
+    PagePipeline(engine.ocr_page).process_pages over DET_PAGES pages with
+    (b)'s detector and the int8 engine at base() width: A 12, B 12, C 1 a
+    dispatch exactly, every job's text equal to engine.ocr_page on the same
+    crops, every JobResult with its TypesetArea.  (d) detect_text_regions on
+    one page through the engine: every proposal read in one ocr_page call."""
+    import numpy as np
+    import torch
+
+    from manga_ocr_tpu_torch import native
+    from manga_ocr_tpu_torch.detect import contours as cont
+    from manga_ocr_tpu_torch.detect import synthetic
+    from manga_ocr_tpu_torch.detect.detector import DISPATCH_PAGES, BubbleDetector
+    from manga_ocr_tpu_torch.detect.text_detect import detect_text_regions
+    from manga_ocr_tpu_torch.engine import TorchMangaOcrEngine
+    from manga_ocr_tpu_torch.models import detector as seg
+    from manga_ocr_tpu_torch.models.config import MangaOCRConfig
+    from manga_ocr_tpu_torch.models.params import init_params
+    from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
+    from manga_ocr_tpu_torch.ops.image import resize_bilinear
+    from manga_ocr_tpu_torch.parallel import batching
+    from manga_ocr_tpu_torch.runtime.pipeline import PagePipeline
+    from manga_ocr_tpu_torch.typeset.area import TypesetArea
+
+    card = card_line()
+    if native.load() is None:
+        fail("detection: the native mask library did not build")
+    cv2 = cont.cv2 if cont.HAS_CV2 else None
+    default_tier = "cv2" if cv2 is not None else "native"
+    log(f"detection: OpenCV {cv2.__version__ + ' present' if cv2 else 'absent'}; host contours "
+        f"on the {default_tier} tier")
+    for tier in cont.TIER_COUNTS:
+        cont.TIER_COUNTS[tier] = 0
+    h, w = DET_PAGE_HW
+
+    # -- (a) full width: card against host, times -----------------------------------
+    cfg = seg.DetectorConfig()
+    tree = seg.init_params(cfg, SEED, "cpu")
+    det = BubbleDetector(tree, cfg, device="cuda")
+    flops = unet_flops(cfg)
+    t0 = time.time()
+    chapter, drawn = detection_pages(DET_CHAPTER, SEED)
+    pages = chapter[:DET_PAGES]
+    log(f"detection (a): {DET_CHAPTER} pages of {h}x{w} drawn in {time.time() - t0:.1f} s, "
+        f"{sum(drawn[:DET_PAGES])} bubbles on the first {DET_PAGES}; U-Net {cfg}: "
+        f"{sum(p.numel() for p in det._net.parameters())} parameters, "
+        f"{flops / 1e9:.2f} GFLOP a page")
+    rgb = np.ascontiguousarray(np.stack(pages)[..., ::-1])
+    t0 = time.time()
+    host = seg.segment_probs(tree, rgb[:2], cfg, h, w).numpy()  # the tree is on the host
+    host_s = time.time() - t0
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        prob = seg.segment_probs(det._net, rgb[:2], cfg, h, w).cpu().numpy()
+        mask = seg.segment_pages(det._net, rgb[:2], cfg, h, w).cpu().numpy()
+        flags_after = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        with torch.no_grad():  # the control: the same graph with TF32 products
+            x = resize_bilinear(torch.from_numpy(rgb[:2]).cuda(), cfg.input_size,
+                                cfg.input_size, channels_last=True)
+            p32 = seg.forward(det._net, (x / 255.0).permute(0, 3, 1, 2).contiguous(), cfg)
+            tf32 = resize_bilinear(p32, h, w, channels_last=False).cpu().numpy()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    if flags_after != (True, True):
+        fail(f"detection (a): segment_pages left the TF32 flags at {flags_after}")
+    err = float(np.abs(prob - host).max())
+    near = np.abs(host - cfg.threshold) <= DET_MASK_EPS
+    host_mask = (host > cfg.threshold).astype(np.uint8) * 255
+    flipped = int(((mask != host_mask) & ~near).sum())
+    log(f"detection (a): card vs host on 2 pages (host {host_s:.1f} s): max |p| diff {err:.3e} "
+        f"(bound {DET_PROB_ATOL}); mask share {float((mask > 0).mean()):.4f}; "
+        f"{int(near.sum())} of {near.size} pixels within {DET_MASK_EPS} of the threshold, "
+        f"{int((mask != host_mask).sum())} differ, {flipped} of them outside; TF32 control "
+        f"(not held): max |p| diff {float(np.abs(tf32 - host).max()):.3e}")
+    if err > DET_PROB_ATOL or flipped:
+        fail(f"detection (a): card and host disagree: {err} > {DET_PROB_ATOL} or {flipped} "
+             f"mask pixels flipped away from the threshold")
+    dev_pages = torch.from_numpy(rgb).cuda()
+    ms, peak = {}, {}
+    for b in sorted({1, 2, DISPATCH_PAGES, DISPATCH_PAGES + 2, DET_PAGES}):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ms[b] = cuda_ms(lambda: seg.segment_pages(det._net, dev_pages[:b], cfg, h, w)) / b
+        peak[b] = torch.cuda.max_memory_allocated() / 2**30
+    traced(f"segment_pages B={DISPATCH_PAGES}",
+           lambda: seg.segment_pages(det._net, dev_pages[:DISPATCH_PAGES], cfg, h, w))
+    del dev_pages
+    torch.cuda.empty_cache()
+    det.detect_bubble_masks(chapter[:DISPATCH_PAGES])  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    chapter_masks = det.detect_bubble_masks(chapter)
+    chapter_ms = (time.perf_counter() - t0) * 1e3 / len(chapter)
+    chapter_peak = torch.cuda.max_memory_allocated() / 2**30
+    masks = chapter_masks[:DET_PAGES]
+    t0 = time.perf_counter()
+    polys = [cont.mask_to_polygons(m, min_area=det.min_area) for m in masks]
+    contour_ms = (time.perf_counter() - t0) * 1e3 / len(masks)
+    t0 = time.perf_counter()
+    traced_polys = [native.trace_external_contours(m) for m in masks]
+    native_ms = (time.perf_counter() - t0) * 1e3 / len(masks)
+    if cv2 is not None:
+        for m, got in zip(masks, traced_polys):
+            ref, _ = cv2.findContours(m, cv2.RETR_EXTERNAL, cv2.CHAIN_APPROX_SIMPLE)
+            if not tracer_matches_cv2(got, [c.reshape(-1, 2) for c in ref]):
+                fail("detection (a): the native tracer's components differ from cv2's")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    det.detect_pages(chapter)
+    torch.cuda.synchronize()
+    rate = len(chapter) / (time.perf_counter() - t0)
+    log(f"detection (a): segment_pages from device-resident uint8 pages, ms a page (peak device "
+        f"memory): " + ", ".join(f"B={b} {ms[b]:.3f} ({peak[b]:.2f} GiB)" for b in ms)
+        + f"; at B={DISPATCH_PAGES} {flops / ms[DISPATCH_PAGES] / 1e9:.1f} TFLOP/s, "
+        f"{flops / ms[DISPATCH_PAGES] / 1e9 / (H100_F32_FLOPS / 1e12):.1%} of the f32 peak; "
+        f"a chapter of {len(chapter)} pages through detect_bubble_masks ({DISPATCH_PAGES} a "
+        f"dispatch) {chapter_ms:.3f} ms a page by the host clock, peak {chapter_peak:.2f} GiB; "
+        f"host contours on the {default_tier} tier {contour_ms:.2f} ms a page, the native tracer "
+        f"{native_ms:.2f} ms a page{' (its components = cv2 components)' if cv2 else ''}, "
+        f"regions {[len(p) for p in polys]}; detect_pages over the chapter {rate:.2f} pages/s "
+        f"on {card}")
+    del det
+    torch.cuda.empty_cache()
+
+    # -- (b) the closed loop on the card ---------------------------------------------
+    cl_cfg = synthetic.CLOSED_LOOP_CFG
+    t0 = time.time()
+    net, losses = synthetic.train_segmenter(
+        seg.load_params(os.path.join(ROOT, DET_INIT), cl_cfg, "cuda"), cl_cfg, device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    if not all(np.isfinite(losses)) or losses[-1] >= 0.15:
+        fail(f"detection (b): the segmenter did not train: losses {losses[0]} .. {losses[-1]}")
+    cl_det = BubbleDetector(net, cl_cfg, min_area=80.0, device="cuda")
+    rng = np.random.default_rng(42)
+    held, gts, counts = [], [], []
+    while len(held) < 6:
+        bgr, gt, n = synthetic.draw_page(rng, *synthetic.CLOSED_LOOP_PAGE_HW)
+        if n:
+            held.append(bgr)
+            gts.append(gt)
+            counts.append(n)
+    ious, got_counts = [], []
+    for dets, gt in zip(cl_det.detect_pages(held), gts):
+        pred = np.zeros_like(gt)
+        for d in dets:
+            cont.fill_polygon(pred, np.asarray(d["polygon"]), 255)
+        ious.append(iou(pred, gt))
+        got_counts.append(len(dets))
+    log(f"detection (b): closed loop trained in {train_s:.1f} s ({len(losses)} steps, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}); held-out bubbles {got_counts} of {counts}, "
+        f"IoU {[round(v, 4) for v in ious]} (mean {float(np.mean(ious)):.4f}) on {card}")
+    if got_counts != counts or min(ious) < 0.6 or float(np.mean(ious)) < 0.75:
+        fail("detection (b): the closed loop missed JAX's bounds (exact counts, IoU >= 0.6 "
+             "a page, >= 0.75 on average)")
+
+    # -- (c) the page path: detect -> crop -> OCR --------------------------------------
+    ocfg = MangaOCRConfig.base()
+    engine = TorchMangaOcrEngine(init_params(ocfg, SEED, "cpu", std=WEIGHT_STD), ocfg,
+                                 CharTokenizer.synthetic(), device="cuda")
+    engine.ocr_page(load_crops()[:2])  # first call: allocator growth
+    tpages, drawn = detection_pages(DET_PAGES, SEED + 1)
+    items = [(f"page{i:02d}.png", p) for i, p in enumerate(tpages)]
+    pipe = PagePipeline(engine.ocr_page)
+    t0 = time.perf_counter()
+    out, launch = counted(lambda: pipe.process_pages(items, cl_det.detect_bubbles))
+    wall = time.perf_counter() - t0
+    pipe.close()
+    per_page = [out[p] for p, _ in items]
+    n_jobs = sum(len(rs) for rs in per_page)
+    n_dispatch = sum(len(batching.prep_page_gray([r.job.cropped_image for r in rs], 1))
+                     for rs in per_page if rs)
+    per = {"fused_attn_layer": 12, "fused_mlp_block": 12, "greedy_decode_loop": 1,
+           "greedy_decode_loop[cluster]": 1, "precompute_cross_kv_packed": 1}
+    want = {name: per.get(name, 0) * n_dispatch for name in launch}
+    log(f"detection (c): process_pages over {len(items)} pages: {n_jobs} regions found against "
+        f"{sum(drawn)} bubbles drawn ({[len(rs) for rs in per_page]} / {drawn}), "
+        f"{n_dispatch} dispatches, launches {nonzero(launch)}; {n_jobs / wall:.2f} crops/s "
+        f"({wall:.2f} s) on {card}")
+    if not n_jobs:
+        fail("detection (c): no region found on any page")
+    if launch != want:
+        fail(f"detection (c): launch counts {launch}, expected {want}")
+    if not all(isinstance(r.area, TypesetArea) and r.error is None for rs in per_page for r in rs):
+        fail("detection (c): a JobResult without its TypesetArea")
+    for rs in per_page:
+        if rs and engine.ocr_page([r.job.cropped_image for r in rs]) != [r.original_text
+                                                                         for r in rs]:
+            fail("detection (c): a page's texts differ from engine.ocr_page on its crops")
+    log(f"detection (c): every job's text equals engine.ocr_page on its page's crops; "
+        f"texts {[r.original_text for r in per_page[0]]}")
+
+    # -- (d) text mode ----------------------------------------------------------------
+    page = text_page(SEED)
+    calls = []
+
+    def ocr_page(crops):
+        calls.append(list(crops))
+        return engine.ocr_page(crops)
+
+    t0 = time.perf_counter()
+    regions, launch = counted(lambda: detect_text_regions(page, ocr_page))
+    text_s = time.perf_counter() - t0
+    if len(calls) != 1:
+        fail(f"detection (d): {len(calls)} ocr_page calls, expected one")
+    n_dispatch = len(batching.prep_page_gray(calls[0], 1))
+    want = {name: per.get(name, 0) * n_dispatch for name in launch}
+    log(f"detection (d): detect_text_regions: {len(calls[0])} proposals read in one ocr_page "
+        f"call ({n_dispatch} dispatches, launches {nonzero(launch)}), {len(regions)} regions kept, "
+        f"{text_s * 1e3:.1f} ms on {card}")
+    if launch != want:
+        fail(f"detection (d): launch counts {launch}, expected {want}")
+    ran = nonzero(cont.TIER_COUNTS)
+    if list(ran) != [default_tier]:
+        fail(f"detection: host contours ran on tiers {ran}, not the {default_tier} one")
+    log(f"detection: host contour tier {default_tier} ({ran})")
+
+
 def phase(label: str) -> None:
     """The seconds since the last phase mark (where the run's time goes)."""
     now = time.time()
@@ -3301,6 +3683,11 @@ def run_engines(results: dict) -> dict:
     torch.cuda.empty_cache()
     run_training()
     phase("training")
+
+    # -- detection: the U-Net on the card, native contours; A, B, C ---------------
+    torch.cuda.empty_cache()
+    run_detection()
+    phase("detection")
     return rates
 
 

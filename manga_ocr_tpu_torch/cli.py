@@ -7,7 +7,12 @@ Usage:
 ``TorchMangaOcrEngine.ocr_page`` and prints ``path<TAB>text`` per crop.  The
 JAX command line's ``process`` and ``bench`` subcommands, and its
 ``--wire``, ``--no-coalesce``, ``--mesh-data`` and ``--no-aot`` options, are
-not ported: the command line rejects them.
+not ported: the command line rejects them.  The port has ``process``'s
+detect → crop → OCR path (``detect.detector.BubbleDetector`` and
+``runtime.pipeline.PagePipeline``); the subcommand still needs the project
+and settings files (``core/project.py``, ``core/settings.py``), the export
+(``runtime/export.py``), the translators (``translate/``) and the engine
+registry (``engine/registry.py``).
 """
 
 from __future__ import annotations

@@ -1,12 +1,13 @@
-"""ctypes binding of the native host-side page prep (``prep.cpp``).
+"""ctypes bindings of the native host ops: the page prep (``prep.cpp``) and
+the detection's mask ops (``contours.cpp``).
 
-The port's copy of the gray-wire pass of ``manga_ocr_tpu/native``.  The
-library is compiled on first use with the host's C++ compiler into the
-git-ignored ``build/manga_ocr_tpu_torch/`` directory beside the CUDA
-library, keyed by a hash of the source and flags, so an edited source is
-rebuilt and a stale library never loaded.  ``load()`` returns None when no
-compiler or library is available; callers then take the NumPy path, which
-gives byte-identical batches.
+The port's copy of ``manga_ocr_tpu/native``.  Both sources are compiled on
+first use with the host's C++ compiler into one library in the git-ignored
+``build/manga_ocr_tpu_torch/`` directory beside the CUDA library, keyed by a
+hash of the sources and flags, so an edited source is rebuilt and a stale
+library never loaded.  ``load()`` returns None when no compiler or library is
+available; callers then take the NumPy path (byte-identical batches for the
+prep; ``detect/contours.py``'s tracer and fill for the mask ops).
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ import numpy as np
 
 from manga_ocr_tpu_torch.kernels.build import BUILD_DIR
 
-_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "prep.cpp")
+_SRCS = tuple(os.path.join(os.path.dirname(os.path.abspath(__file__)), name)
+              for name in ("prep.cpp", "contours.cpp"))
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 _lock = threading.Lock()
@@ -33,10 +35,11 @@ _tried = False
 
 def _library_path() -> str:
     h = hashlib.sha256()
-    with open(_SRC, "rb") as f:
-        h.update(f.read())
+    for src in _SRCS:
+        with open(src, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(CXX_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libmocr_prep_{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"libmocr_native_{h.hexdigest()[:16]}.so")
 
 
 def build() -> str | None:
@@ -54,7 +57,7 @@ def build() -> str | None:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        out = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, _SRC], capture_output=True, timeout=120)
+        out = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, *_SRCS], capture_output=True, timeout=120)
         if out.returncode != 0:
             return None
         os.replace(tmp, path)
@@ -86,6 +89,33 @@ def load() -> ctypes.CDLL | None:
             ctypes.POINTER(ctypes.c_int32),
             ctypes.c_int32,
             ctypes.POINTER(ctypes.c_uint8),
+            ctypes.c_int32,
+            ctypes.c_int32,
+        ]
+        lib.trace_external_contours.restype = ctypes.c_int32
+        lib.trace_external_contours.argtypes = [
+            ctypes.POINTER(ctypes.c_uint8),
+            ctypes.c_int32,
+            ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.c_int32,
+        ]
+        lib.fill_polygon.restype = None
+        lib.fill_polygon.argtypes = [
+            ctypes.POINTER(ctypes.c_uint8),
+            ctypes.c_int32,
+            ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.c_int32,
+            ctypes.c_uint8,
+        ]
+        lib.dilate_box.restype = None
+        lib.dilate_box.argtypes = [
+            ctypes.POINTER(ctypes.c_uint8),
+            ctypes.POINTER(ctypes.c_uint8),
+            ctypes.c_int32,
             ctypes.c_int32,
             ctypes.c_int32,
         ]
@@ -132,3 +162,62 @@ def prep_gray_batch(crops: list[np.ndarray], rots: np.ndarray, dst: np.ndarray) 
         _u8ptr(dst), dst.shape[1], dst.shape[2],
     )
     return True
+
+
+def trace_external_contours(mask: np.ndarray) -> list[np.ndarray] | None:
+    """External contours of a 0/nonzero [h, w] mask as [N, 2] int32 (x, y)
+    arrays; None when the library is unavailable or its buffers overflow."""
+    lib = load()
+    if lib is None:
+        return None
+    mask = np.ascontiguousarray(mask, np.uint8)
+    if mask.ndim != 2:
+        raise ValueError(f"trace_external_contours: mask must be [h, w], got {mask.shape}")
+    h, w = mask.shape
+    max_pts = h * w + 16
+    max_contours = 4096
+    xy = np.empty((max_pts, 2), np.int32)
+    sizes = np.empty((max_contours,), np.int32)
+    n = lib.trace_external_contours(
+        _u8ptr(mask), h, w, _i32ptr(xy), max_pts, _i32ptr(sizes), max_contours
+    )
+    if n < 0:
+        return None  # buffer overflow: the caller falls back
+    polys, off = [], 0
+    for i in range(n):
+        cnt = int(sizes[i])
+        polys.append(xy[off : off + cnt].copy())
+        off += cnt
+    return polys
+
+
+def fill_polygon(mask: np.ndarray, poly: np.ndarray, value: int = 255) -> bool:
+    """Scanline even-odd fill of ``poly`` into the contiguous uint8 ``mask``
+    in place; False when the library is unavailable."""
+    lib = load()
+    if lib is None:
+        return False
+    if not (mask.flags["C_CONTIGUOUS"] and mask.dtype == np.uint8 and mask.ndim == 2):
+        raise ValueError("fill_polygon: mask must be a contiguous uint8 [h, w] array")
+    pts = np.ascontiguousarray(poly, np.int32)
+    if pts.ndim != 2 or pts.shape[1] != 2:
+        raise ValueError(f"fill_polygon: poly must be [n, 2] points, got {pts.shape}")
+    lib.fill_polygon(
+        _u8ptr(mask), mask.shape[0], mask.shape[1], _i32ptr(pts), len(pts), value
+    )
+    return True
+
+
+def dilate_box(mask: np.ndarray, radius: int) -> np.ndarray | None:
+    """Box dilation of a uint8 [h, w] mask by ``radius``; None when the
+    library is unavailable."""
+    lib = load()
+    if lib is None:
+        return None
+    mask = np.ascontiguousarray(mask, np.uint8)
+    if mask.ndim != 2 or radius < 0:
+        raise ValueError(f"dilate_box: mask must be [h, w] and radius >= 0, got {mask.shape}, "
+                         f"{radius}")
+    out = np.empty_like(mask)
+    lib.dilate_box(_u8ptr(mask), _u8ptr(out), mask.shape[0], mask.shape[1], radius)
+    return out

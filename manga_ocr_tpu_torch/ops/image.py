@@ -297,17 +297,28 @@ def _resize_mats(in_h: int, in_w: int, out_h: int, out_w: int):
     )
 
 
-def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+@functools.lru_cache(maxsize=64)
+def _resize_mats_on(in_h: int, in_w: int, out_h: int, out_w: int, device: torch.device):
+    """``_resize_mats`` as f32 tensors on ``device``, copied there once per
+    (sizes, device): a page batch does not wait on a host copy per call."""
+    mh, mw = _resize_mats(in_h, in_w, out_h, out_w)
+    return (torch.from_numpy(mh).to(device),
+            torch.from_numpy(np.ascontiguousarray(mw)).to(device))
+
+
+def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int,
+                    channels_last: bool | None = None) -> torch.Tensor:
     """Antialiased bilinear resize (PIL-convention triangle filter), batched
-    over leading dims, as two separable matmuls.  Input [..., H, W] or
-    [..., H, W, C]; returns float32."""
+    over leading dims, as two separable matmuls.  Input [..., H, W, C] when
+    ``channels_last``, else [..., H, W]; returns float32.  ``channels_last``
+    None guesses from the shape (a last dim of at most 4 is channels), which
+    misreads a map of width 4 or less: callers that know the layout pass it."""
     x = img.to(torch.float32)
-    channels_last = x.ndim >= 3 and img.shape[-1] <= 4
+    if channels_last is None:
+        channels_last = x.ndim >= 3 and img.shape[-1] <= 4
     if channels_last:
         x = torch.movedim(x, -1, -3)  # [..., C, H, W]
-    mh_np, mw_np = _resize_mats(x.shape[-2], x.shape[-1], out_h, out_w)
-    mh = torch.from_numpy(mh_np).to(img.device)
-    mw = torch.from_numpy(np.ascontiguousarray(mw_np)).to(img.device)
+    mh, mw = _resize_mats_on(x.shape[-2], x.shape[-1], out_h, out_w, img.device)
     x = torch.matmul(mh, x)  # [out_h, H] @ [..., H, W]
     x = torch.matmul(x, mw)  # [..., out_h, W] @ [W, out_w]
     if channels_last:

@@ -8,7 +8,12 @@ copies of the shared modules agree with the JAX package's: the config
 ``prep_page_gray`` (byte-identical batches on the fixture crops, for each
 orientation, by the native pass and by NumPy) and ``core/files.py``
 (decoded fixture images, natural sort, folder listing) and the trainer's
-synthetic glyphs and crops (``pattern_glyph``, ``render_text_crop``)."""
+synthetic glyphs and crops (``pattern_glyph``, ``render_text_crop``); and
+the detection's copies: ``core/geometry.py``, ``mask_to_polygons`` in each
+tier (cv2, the native tracer, NumPy), ``fill_polygon`` (cv2, NumPy),
+``dilate`` (cv2, native, NumPy), the adaptive threshold, the classical
+bubble finder, ``detect/postprocess.py``, ``detect/craft_boxes.py`` and
+``TypesetArea``'s payloads."""
 
 import ast
 import dataclasses
@@ -75,6 +80,12 @@ def test_engine_server_and_chip_smoke_import_neither():
         from manga_ocr_tpu_torch.ops import image, preprocess
         from manga_ocr_tpu_torch.parallel import batching
         from manga_ocr_tpu_torch.models import decoder, model
+        from manga_ocr_tpu_torch.models import detector
+        from manga_ocr_tpu_torch.detect import (contours, craft_boxes, detector, postprocess,
+                                                synthetic, text_detect)
+        from manga_ocr_tpu_torch.runtime import pipeline
+        from manga_ocr_tpu_torch.typeset import area, cleanup
+        from manga_ocr_tpu_torch.core import geometry
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "manga_ocr_tpu", "optax"))
         print("LOADED", bad)
@@ -216,3 +227,248 @@ def test_render_text_crop_as_jax(hw):
         want = jtrain.render_text_crop(text, np.random.default_rng(seed), 64, hw=hw)
         assert got.dtype == want.dtype == np.uint8 and got.shape == want.shape
         np.testing.assert_array_equal(got, want)
+
+
+# -- the detection's copies -------------------------------------------------------
+
+from manga_ocr_tpu import native as jnative  # noqa: E402
+from manga_ocr_tpu.core import geometry as jgeo  # noqa: E402
+from manga_ocr_tpu.detect import contours as jcont  # noqa: E402
+from manga_ocr_tpu.detect import craft_boxes as jcraft  # noqa: E402
+from manga_ocr_tpu.detect import postprocess as jpost  # noqa: E402
+from manga_ocr_tpu.typeset import area as jarea  # noqa: E402
+from manga_ocr_tpu.typeset import cleanup as jclean  # noqa: E402
+from manga_ocr_tpu_torch.core import geometry as tgeo  # noqa: E402
+from manga_ocr_tpu_torch.detect import contours as tcont  # noqa: E402
+from manga_ocr_tpu_torch.detect import craft_boxes as tcraft  # noqa: E402
+from manga_ocr_tpu_torch.detect import postprocess as tpost  # noqa: E402
+from manga_ocr_tpu_torch.typeset import area as tarea  # noqa: E402
+from manga_ocr_tpu_torch.typeset import cleanup as tclean  # noqa: E402
+
+
+def _blobs(seed, h=70, w=90, speck=True):
+    """A 0/255 mask of a few filled ellipses, a corner block and (``speck``)
+    a one-pixel component."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    mask = np.zeros((h, w), np.uint8)
+    for _ in range(4):
+        cy, cx = rng.integers(5, h - 5), rng.integers(5, w - 5)
+        ry, rx = rng.integers(2, 14), rng.integers(2, 18)
+        mask[((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1] = 255
+    if speck:
+        mask[rng.integers(0, h), rng.integers(0, w)] = 255
+    mask[h - 6:, :7] = 255  # touching two borders
+    return mask
+
+
+@pytest.fixture()
+def tier(request, monkeypatch):
+    """Force one tier of the mask ops in both packages."""
+    if request.param != "cv2":
+        for mod in (jcont, tcont, jclean, tclean):
+            monkeypatch.setattr(mod, "HAS_CV2", False)
+    if request.param == "numpy":
+        for mod in (jnative, tnative):
+            monkeypatch.setattr(mod, "trace_external_contours", lambda mask: None)
+            monkeypatch.setattr(mod, "dilate_box", lambda mask, radius: None)
+    return request.param
+
+
+TIERS = ["cv2", "native", "numpy"]
+tnative = native
+
+
+@pytest.mark.parametrize("tier", TIERS, indirect=True)
+def test_mask_to_polygons_as_jax(tier):
+    for seed in range(4):
+        mask = _blobs(seed)
+        before = tcont.TIER_COUNTS[tier]
+        for min_area in (0.0, 30.0):
+            got = tcont.mask_to_polygons(mask, min_area=min_area)
+            want = jcont.mask_to_polygons(mask, min_area=min_area)
+            assert len(got) == len(want) > 0
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype == np.int32
+                np.testing.assert_array_equal(g, w)
+        assert tcont.TIER_COUNTS[tier] == before + 2
+
+
+def test_native_tier_against_cv2():
+    """As the JAX package's native tests hold its library: the tracer finds
+    cv2's components with cv2's bounding boxes (cv2 compresses straight
+    runs, the tracer keeps every border pixel, and drops components of one
+    or two pixels), the fill is cv2's within a boundary pixel, the dilation
+    is cv2's exactly."""
+    cv2 = pytest.importorskip("cv2")
+    assert native.load() is not None, "the native library did not build"
+
+    def rects(polys):
+        return sorted(tuple(tgeo.polygon_bounding_rect(p).to_dict().values()) for p in polys)
+
+    for seed in range(4):
+        mask = _blobs(seed, speck=False)
+        ref, _ = cv2.findContours(mask, cv2.RETR_EXTERNAL, cv2.CHAIN_APPROX_SIMPLE)
+        assert rects(native.trace_external_contours(mask)) == rects(
+            c.reshape(-1, 2) for c in ref)
+        k = cv2.getStructuringElement(cv2.MORPH_RECT, (2 * seed + 3, 2 * seed + 3))
+        np.testing.assert_array_equal(native.dilate_box(mask, seed + 1), cv2.dilate(mask, k))
+    poly = np.array([[5, 5], [45, 10], [40, 35], [10, 30]], np.int32)
+    got, ref = np.zeros((40, 50), np.uint8), np.zeros((40, 50), np.uint8)
+    assert native.fill_polygon(got, poly)
+    cv2.drawContours(ref, [poly.reshape(-1, 1, 2)], -1, 255, -1)
+    assert np.mean(got != ref) < 0.03
+    assert native.trace_external_contours(np.zeros((10, 10), np.uint8)) == []
+    assert len(native.trace_external_contours(np.full((10, 10), 255, np.uint8))) == 1
+
+
+@pytest.mark.parametrize("tier", TIERS, indirect=True)
+def test_fill_polygon_and_dilate_as_jax(tier):
+    rng = np.random.default_rng(9)
+    polys = [np.array([[5, 5], [40, 8], [35, 30], [8, 25]], np.int32),
+             np.array([[-5, 10], [70, -3], [60, 50]], np.int32),
+             rng.integers(0, 60, (9, 2)).astype(np.int32)]
+    for poly in polys:
+        got, want = np.zeros((45, 60), np.uint8), np.zeros((45, 60), np.uint8)
+        tcont.fill_polygon(got, poly, 200)
+        jcont.fill_polygon(want, poly, 200)  # without cv2: JAX's NumPy loop
+        np.testing.assert_array_equal(got, want)
+        assert got.any()
+    for radius in (1, 2, 6):
+        mask = _blobs(radius)
+        np.testing.assert_array_equal(tclean.dilate(mask, radius), jclean.dilate(mask, radius))
+    poly = polys[0]
+    bubble = _blobs(3, 45, 60)
+    for pad in (0, 2):
+        np.testing.assert_array_equal(
+            tclean.build_cleanup_mask((45, 60, 3), poly, bubble, pad),
+            jclean.build_cleanup_mask((45, 60, 3), poly, bubble, pad))
+
+
+@pytest.mark.parametrize("tier", ["cv2", "numpy"], indirect=True)
+def test_threshold_and_classical_finder_as_jax(tier):
+    rng = np.random.default_rng(2)
+    gray = rng.integers(0, 256, (80, 100), dtype=np.uint8)
+    for block, c in ((41, 5.0), (25, 15), (7, 0)):
+        np.testing.assert_array_equal(tcont.adaptive_threshold_mean_inv(gray, block, c),
+                                      jcont.adaptive_threshold_mean_inv(gray, block, c))
+    img = np.full((120, 120, 3), 200, np.uint8)
+    yy, xx = np.mgrid[0:120, 0:120]
+    d = ((yy - 60) / 30.0) ** 2 + ((xx - 60) / 30.0) ** 2
+    img[d <= 1.2] = 0
+    img[d <= 1.0] = 255
+    for rect in ((48, 50, 24, 20), (0, 0, 10, 10), (100, 100, 30, 30)):
+        got = tcont.find_speech_bubble_mask_contour(img, tgeo.Rect(*rect))
+        want = jcont.find_speech_bubble_mask_contour(img, jgeo.Rect(*rect))
+        assert (got is None) == (want is None)
+        if got is not None:
+            np.testing.assert_array_equal(got, want)
+    poly = np.array([[5, 5], [40, 8], [35, 30], [8, 25]], np.int32)
+    for x, y in ((20, 15), (1, 1), (39, 9), (20.5, 29.0)):
+        assert tcont._point_in_polygon(x, y, poly) == jcont._point_in_polygon(x, y, poly)
+
+
+def test_geometry_as_jax():
+    pairs = [((3, 4, 10, 6), (12, 9, 5, 5)), ((0, 0, 1, 1), (50, 60, 2, 3)),
+             ((-4, 5, 30, 2), (0, 0, 8, 8))]
+    for a, b in pairs:
+        ta, tb, ja, jb = tgeo.Rect(*a), tgeo.Rect(*b), jgeo.Rect(*a), jgeo.Rect(*b)
+        assert (ta.left, ta.top, ta.right, ta.bottom, ta.area, ta.center()) == (
+            ja.left, ja.top, ja.right, ja.bottom, ja.area, ja.center())
+        assert ta.intersects(tb) == ja.intersects(jb)
+        assert ta.united(tb).to_dict() == ja.united(jb).to_dict()
+        assert ta.adjusted(-2, 1, 3, -1).to_dict() == ja.adjusted(-2, 1, 3, -1).to_dict()
+        assert ta.clamped(20, 10).to_dict() == ja.clamped(20, 10).to_dict()
+        assert tgeo.rect_distance(ta, tb) == jgeo.rect_distance(ja, jb)
+        assert tgeo.Rect.from_dict(ta.to_dict()) == ta
+        np.testing.assert_array_equal(tgeo.polygon_from_rect(ta), jgeo.polygon_from_rect(ja))
+    assert tgeo.axis_overlap_ratio(0, 10, 5, 20) == jgeo.axis_overlap_ratio(0, 10, 5, 20)
+    poly = np.array([[5, -3], [40, 8], [35, 90]], np.int32)
+    assert tgeo.polygon_bounding_rect(poly).to_dict() == jgeo.polygon_bounding_rect(poly).to_dict()
+    np.testing.assert_array_equal(tgeo.clamp_polygon(poly, 30, 50),
+                                  jgeo.clamp_polygon(poly, 30, 50))
+    assert tgeo.polygon_to_list(poly) == jgeo.polygon_to_list(poly)
+    pts = [[1, 2], ["3.6", 4], [5], [None, 1]]
+    np.testing.assert_array_equal(tgeo.list_to_polygon(pts), jgeo.list_to_polygon(pts))
+    for v in ("7.5", None, "x", float("nan"), 3, "-2.5"):
+        assert tgeo.coerce_int(v, -1) == jgeo.coerce_int(v, -1)
+    for v in ("7.5", None, "x", float("nan"), float("inf"), 3):
+        assert tgeo.coerce_float(v, -1.0) == jgeo.coerce_float(v, -1.0)
+    assert tgeo.Rect.from_dict({"x": "2", "w": -3}) == tgeo.Rect(2, 0, 0, 0)
+
+
+def test_postprocess_as_jax():
+    rng = np.random.default_rng(4)
+    texts = ["hello world", "", "!!!", "ok", "ａｂｃ", "aaaaa", "~~~", "x", "数字 12", "?!",
+             "#", "line two", "...."]
+    items = []
+    for i, t in enumerate(texts):
+        x, y = int(rng.integers(0, 400)), int(rng.integers(0, 400))
+        w, h = int(rng.integers(2, 160)), int(rng.integers(2, 60))
+        items.append((t, jgeo.polygon_from_rect(jgeo.Rect(x, y, w, h))))
+    items.append(("whole page", jgeo.polygon_from_rect(jgeo.Rect(0, 0, 499, 499))))
+    for advanced in (False, True):
+        got = tpost.filter_detection_noise(items, (500, 500), advanced)
+        want = jpost.filter_detection_noise(items, (500, 500), advanced)
+        assert [t for t, _ in got] == [t for t, _ in want]
+        for (_, g), (_, w) in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    boxes = [(t or "t", p) for t, p in items] + [("none", None)]
+    for strict in (False, True):
+        got = tpost.merge_text_boxes_to_blocks(boxes, (500, 500), strict)
+        want = jpost.merge_text_boxes_to_blocks(boxes, (500, 500), strict)
+        assert [t for t, _ in got] == [t for t, _ in want]
+        for (_, g), (_, w) in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    assert tpost.clean_detected_text("  a \n b ") == jpost.clean_detected_text("  a \n b ")
+    assert tpost.combine_texts(["a ", "", " b"]) == jpost.combine_texts(["a ", "", " b"])
+
+
+def test_craft_boxes_as_jax():
+    rng = np.random.default_rng(6)
+    region = rng.random((40, 60)).astype(np.float32) ** 3
+    affinity = rng.random((40, 60)).astype(np.float32) ** 4
+    binary = region > 0.5
+    gl, gn = tcraft.label_components(binary)
+    wl, wn = jcraft.label_components(binary)
+    assert gn == wn > 1
+    np.testing.assert_array_equal(gl, wl)
+    for kw in ({}, {"text_threshold": 0.5, "low_text": 0.2, "min_area": 2}):
+        got = tcraft.extract_boxes(region, affinity, **kw)
+        assert got == jcraft.extract_boxes(region, affinity, **kw)
+    boxes = [(40, 40, 100, 24), (150, 42, 110, 22), (200, 250, 90, 24), (0, 44, 20, 10)]
+    assert tcraft.group_lines(boxes) == jcraft.group_lines(boxes)
+    assert tcraft.group_lines(boxes, overlap=0.9) == jcraft.group_lines(boxes, overlap=0.9)
+
+
+def test_typeset_area_payloads_as_jax():
+    rect = (10, 20, 30, 40)
+    kw = dict(text="t", polygon=np.array([[1, 2], [3, 4], [5, 9]], np.int32),
+              orientation="vertical", effect="wavy", effect_intensity=3.0,
+              bubble_outline_width=0.0, margins={"top": 1, "left": "2"},
+              overrides={"use_inpaint": False}, font={"family": "X", "size": "14"},
+              color="bad", gradient_colors=["#000000"])
+    got = tarea.TypesetArea(rect=tgeo.Rect(*rect), **kw)
+    want = jarea.TypesetArea(rect=jgeo.Rect(*rect), **kw)
+    assert got.to_payload() == want.to_payload()
+    payload = want.to_payload()
+    assert tarea.TypesetArea.from_payload(payload).to_payload() == \
+        jarea.TypesetArea.from_payload(payload).to_payload()
+    for odd in (None, {}, {"rect": {"x": "5"}, "polygon": [], "cleanup_rect": {"w": 3}}):
+        assert tarea.TypesetArea.from_payload(odd).to_payload() == \
+            jarea.TypesetArea.from_payload(odd).to_payload()
+    assert [f.name for f in dataclasses.fields(tarea.TypesetArea)] == \
+        [f.name for f in dataclasses.fields(jarea.TypesetArea)]
+
+
+def test_native_mask_ops_refuse_bad_shapes():
+    """Shapes are checked before a pointer reaches the library."""
+    assert native.load() is not None
+    with pytest.raises(ValueError, match="mask"):
+        native.trace_external_contours(np.zeros((4, 4, 3), np.uint8))
+    with pytest.raises(ValueError, match="poly"):
+        native.fill_polygon(np.zeros((4, 4), np.uint8), np.arange(6, dtype=np.int32))
+    with pytest.raises(ValueError, match="mask"):
+        native.fill_polygon(np.zeros((4, 4), np.int32), np.zeros((3, 2), np.int32))
+    with pytest.raises(ValueError, match="radius"):
+        native.dilate_box(np.zeros((4, 4), np.uint8), -1)
