@@ -174,7 +174,24 @@ each engine, from each tree in turn.)
    engine.ocr_page on the same crops; a TypesetArea on every JobResult;
    crops/s); (d) detect_text_regions on a page of glyph-text columns: every
    proposal read in one ocr_page call.
-11. Prints its total seconds, one JSON line of kernel results, then the
+11. The other detector and recognizer families (no kernel of their own;
+   plain PyTorch on the card, f32 with TF32 off), seed-0 numpy weights on
+   (10)'s pages: "onnx", the full-width U-Net written as an ONNX graph and
+   opened by BubbleDetector.from_checkpoint, its executor held against the
+   port's UNet on the card and against the host, page masks card against
+   host, ms a page; "yolo", YoloSegConfig() at 640 held card against host,
+   its forward and host postprocess timed, its OR-ed masks (cls bias
+   lowered until YOLO_CANDIDATES anchors a page pass) cropped and read by
+   (10)'s int8 engine (A 12, B 12, C 1 a dispatch exactly); "latin",
+   TorchLatinEngine at the published CRAFT and CRNN widths held card against
+   host (a 768 and a 1024 bucket, a 64- and a 512-wide line batch),
+   detect_boxes_batch timed over (10)'s pages and its chapter (peak memory
+   held to one dispatch's), each bucket's CRAFT dispatch swept over pages;
+   then its last conv refitted to a glyph page's ink (CRAFT_PEAK_SHARE):
+   boxes on glyph pages, recognize_lines timed, readtext and text mode on
+   craft_proposer (regions required, text mode's proposals read by the int8
+   engine: A 12, B 12, C 1 a dispatch exactly).
+12. Prints its total seconds, one JSON line of kernel results, then the
    device line {"ok": true, "device": {...}} last.  Any failed check exits
    non-zero before the device line.
 """
@@ -3241,6 +3258,25 @@ DET_MASK_EPS = 1e-3
 DET_INIT = os.path.join("tests", "fixtures", "detector_closed_loop_init.npz")
 
 
+# The int8 engine's launches per ocr_page dispatch (kernels A, B, C).
+INT8_PER_DISPATCH = {"fused_attn_layer": 12, "fused_mlp_block": 12, "greedy_decode_loop": 1,
+                     "greedy_decode_loop[cluster]": 1, "precompute_cross_kv_packed": 1}
+
+
+def ocr_engine():
+    """The int8 engine at base() width (kernels A, B, C), after its first call."""
+    from manga_ocr_tpu_torch.engine import TorchMangaOcrEngine
+    from manga_ocr_tpu_torch.models.config import MangaOCRConfig
+    from manga_ocr_tpu_torch.models.params import init_params
+    from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
+
+    cfg = MangaOCRConfig.base()
+    engine = TorchMangaOcrEngine(init_params(cfg, SEED, "cpu", std=WEIGHT_STD), cfg,
+                                 CharTokenizer.synthetic(), device="cuda")
+    engine.ocr_page(load_crops()[:2])  # first call: library load, allocator growth
+    return engine
+
+
 def unet_flops(cfg) -> float:
     """2 x the multiply-adds of the U-Net's convolutions on one page."""
     from manga_ocr_tpu_torch.models.detector import _channels
@@ -3348,7 +3384,7 @@ def iou(a, b) -> float:
     return float(np.logical_and(a > 0, b > 0).sum() / union) if union else 1.0
 
 
-def run_detection() -> None:
+def run_detection():
     """The detection path on the card (no kernel: plain PyTorch on the
     device; host contours on the machine's default tier, cv2 where OpenCV is
     installed, else the native tracer; the native tracer must build, and is
@@ -3371,7 +3407,8 @@ def run_detection() -> None:
     (b)'s detector and the int8 engine at base() width: A 12, B 12, C 1 a
     dispatch exactly, every job's text equal to engine.ocr_page on the same
     crops, every JobResult with its TypesetArea.  (d) detect_text_regions on
-    one page through the engine: every proposal read in one ocr_page call."""
+    one page through the engine: every proposal read in one ocr_page call.
+    Returns (c)'s engine."""
     import numpy as np
     import torch
 
@@ -3380,11 +3417,7 @@ def run_detection() -> None:
     from manga_ocr_tpu_torch.detect import synthetic
     from manga_ocr_tpu_torch.detect.detector import DISPATCH_PAGES, BubbleDetector
     from manga_ocr_tpu_torch.detect.text_detect import detect_text_regions
-    from manga_ocr_tpu_torch.engine import TorchMangaOcrEngine
     from manga_ocr_tpu_torch.models import detector as seg
-    from manga_ocr_tpu_torch.models.config import MangaOCRConfig
-    from manga_ocr_tpu_torch.models.params import init_params
-    from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
     from manga_ocr_tpu_torch.ops.image import resize_bilinear
     from manga_ocr_tpu_torch.parallel import batching
     from manga_ocr_tpu_torch.runtime.pipeline import PagePipeline
@@ -3526,10 +3559,7 @@ def run_detection() -> None:
              "a page, >= 0.75 on average)")
 
     # -- (c) the page path: detect -> crop -> OCR --------------------------------------
-    ocfg = MangaOCRConfig.base()
-    engine = TorchMangaOcrEngine(init_params(ocfg, SEED, "cpu", std=WEIGHT_STD), ocfg,
-                                 CharTokenizer.synthetic(), device="cuda")
-    engine.ocr_page(load_crops()[:2])  # first call: allocator growth
+    engine = ocr_engine()
     tpages, drawn = detection_pages(DET_PAGES, SEED + 1)
     items = [(f"page{i:02d}.png", p) for i, p in enumerate(tpages)]
     pipe = PagePipeline(engine.ocr_page)
@@ -3541,8 +3571,7 @@ def run_detection() -> None:
     n_jobs = sum(len(rs) for rs in per_page)
     n_dispatch = sum(len(batching.prep_page_gray([r.job.cropped_image for r in rs], 1))
                      for rs in per_page if rs)
-    per = {"fused_attn_layer": 12, "fused_mlp_block": 12, "greedy_decode_loop": 1,
-           "greedy_decode_loop[cluster]": 1, "precompute_cross_kv_packed": 1}
+    per = INT8_PER_DISPATCH
     want = {name: per.get(name, 0) * n_dispatch for name in launch}
     log(f"detection (c): process_pages over {len(items)} pages: {n_jobs} regions found against "
         f"{sum(drawn)} bubbles drawn ({[len(rs) for rs in per_page]} / {drawn}), "
@@ -3585,6 +3614,491 @@ def run_detection() -> None:
     if list(ran) != [default_tier]:
         fail(f"detection: host contours ran on tiers {ran}, not the {default_tier} one")
     log(f"detection: host contour tier {default_tier} ({ran})")
+    return engine
+
+
+# -- the other detector and recognizer families: ONNX, YOLOv8-seg, CRAFT + CRNN -----
+
+# The ONNX executor against the port's own UNet on the card: one function
+# (the same convolutions, bias added apart) through two routes, f32 with TF32
+# off in both; they differ by cuDNN's algorithm choice only.
+ONNX_ROUTES_ATOL = 1e-5
+# The executor's page mask goes through uint8 and PIL before its threshold: a
+# pixel may flip card against host where the uint8 maps differ by one step and
+# the host's resized value lies this close to 0.5.
+ONNX_MASK_EPS = 2.0 / 255
+# YOLO, CRAFT and CRNN card against host, f32 with TF32 off on both: the
+# largest difference relative to the host output's largest magnitude.
+FAMILY_REL = 1e-5
+# Random YOLO heads put sigmoid(cls) near 0.5 (their cls logits lie within
+# ~0.03 of 0), so every anchor passes conf_threshold 0.25 and the host's O(n^2)
+# NMS and page-sized masks dominate.  A trained model's scores pass on few
+# anchors: the stand-in lowers the cls branches' output bias so that this many
+# anchors a page pass (the median over the pages; the bias is read off this
+# run's logits, and the counts at the biases around it are printed).
+YOLO_CANDIDATES = 8
+# Random CRAFT maps are near flat (within ~0.003 of 0.048 over a page) and
+# peak along the padded page's edges: no box, or one page-sized one.  The
+# stand-in for a trained model's maps refits the last 1x1 conv as a
+# least-squares probe of the head's features onto the ink of phase
+# "detection"'s glyph page, scaled so that the probe's top ink share of that
+# page's pixels reach low_text, and this fraction of it text_threshold.
+CRAFT_PEAK_SHARE = 0.25
+# A chapter through detect_boxes_batch may take this many times the peak
+# device memory of one page's CRAFT dispatch (DISPATCH_PAGES and DISPATCH_PIXELS
+# bound it).
+LATIN_CHAPTER_PEAK = 1.25
+LATIN_LINES = 320
+
+
+def family_err(got, want) -> float:
+    """max |got - want| over the largest |want| (both moved to the host)."""
+    import numpy as np
+
+    got, want = (np.asarray(v.detach().float().cpu() if hasattr(v, "detach") else v)
+                 for v in (got, want))
+    return float(np.abs(got - want).max() / max(float(np.abs(want).max()), 1e-30))
+
+
+def flops_of(fn) -> float:
+    """The FLOPs torch's counter attributes to ``fn`` (2 per multiply-add)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        fn()
+    return float(counter.get_total_flops())
+
+
+def peak_gib(fn):
+    """``fn()`` and the peak device memory it allocated, in GiB."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() / 2**30
+
+
+def run_onnx() -> None:
+    """The ONNX executor on the card (no kernel: plain PyTorch).  The
+    full-width DetectorConfig() U-Net on phase "detection"'s seed-0 weights,
+    written as an ONNX graph by the port's writer (convert_onnx.unet_graph)
+    to a temporary file and opened by BubbleDetector.from_checkpoint: the
+    executor's [512, 512] probability map on the card against the port's own
+    UNet forward on the card (ONNX_ROUTES_ATOL) and against the executor on
+    the host (DET_PROB_ATOL); detect_bubble_masks over DET_PAGES pages of
+    DET_PAGE_HW (one page at a time, the PIL resizes on the host) with ms a
+    page by CUDA events (the graph) and by the host clock (the page), the
+    peak device memory, and the mask pixels flipped card against host on
+    those pages (none outside ONNX_MASK_EPS of the threshold)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from manga_ocr_tpu_torch.detect.detector import BubbleDetector, OnnxWrappedDetector
+    from manga_ocr_tpu_torch.models import convert_onnx, onnx_lite
+    from manga_ocr_tpu_torch.models import detector as seg
+
+    card = card_line()
+    cfg = seg.DetectorConfig()
+    tree = seg.init_params(cfg, SEED, "cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "unet.onnx")
+        t0 = time.perf_counter()
+        onnx_lite.save_model(convert_onnx.unet_graph(tree, cfg), path)
+        write_s, size = time.perf_counter() - t0, os.path.getsize(path)
+        t0 = time.perf_counter()
+        det = BubbleDetector.from_checkpoint(path)
+        load_s = time.perf_counter() - t0
+    if not isinstance(det, OnnxWrappedDetector) or det._onnx.device.type != "cuda":
+        fail(f"onnx: from_checkpoint gave {type(det).__name__} on {det._onnx.device}")
+    onnx = det._onnx
+    ops = sorted({n.op_type for n in onnx.graph.nodes})
+    x = torch.from_numpy(np.random.default_rng(SEED).random((1, 3, 512, 512), dtype=np.float32))
+    card_prob = onnx.probabilities(x)[0, 0]
+    net = BubbleDetector(tree, cfg, device="cuda")._net
+    with seg.fp32_products(), torch.no_grad():
+        direct = seg.forward(net, x.cuda(), cfg)[0]
+    routes = float((card_prob - direct).abs().max())
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        host_prob = convert_onnx.run_graph(onnx.graph, {onnx.input_name: x})[0][0, 0]
+    host_s = time.perf_counter() - t0
+    host_err = float((card_prob.cpu() - host_prob).abs().max())
+    log(f"onnx: U-Net {cfg} as a graph of {len(onnx.graph.nodes)} nodes ({', '.join(ops)}), "
+        f"{size / 2**20:.1f} MiB written in {write_s:.2f} s, from_checkpoint {load_s:.2f} s; "
+        f"[512, 512] map: executor vs UNet on the card max |p| diff {routes:.3e} (bound "
+        f"{ONNX_ROUTES_ATOL}), card vs host executor {host_err:.3e} (bound {DET_PROB_ATOL}; host "
+        f"{host_s:.1f} s)")
+    if routes > ONNX_ROUTES_ATOL or host_err > DET_PROB_ATOL:
+        fail("onnx: the executor disagrees with the UNet forward or with the host")
+    pages, _ = detection_pages(DET_PAGES, SEED)
+    det.detect_bubble_masks(pages[:1])  # warm
+    t0 = time.perf_counter()
+    masks, peak = peak_gib(lambda: det.detect_bubble_masks(pages))
+    page_ms = (time.perf_counter() - t0) * 1e3 / len(pages)
+    graph_ms = cuda_ms(lambda: onnx.probabilities(x))
+    host_det = convert_onnx.OnnxBubbleDetector(onnx.graph, device="cpu")
+    flipped = near = differ = 0
+    t0 = time.perf_counter()
+    for page, mask in zip(pages, masks):
+        host_map = host_det.page_probabilities(page)
+        band = np.abs(host_map - 0.5) <= ONNX_MASK_EPS
+        diff = mask != (host_map > 0.5).astype(np.uint8) * 255
+        near += int(band.sum())
+        differ += int(diff.sum())
+        flipped += int((diff & ~band).sum())
+    host_page_s = (time.perf_counter() - t0) / len(pages)
+    log(f"onnx: detect_bubble_masks over {len(pages)} pages of {DET_PAGE_HW[0]}x{DET_PAGE_HW[1]}, "
+        f"one a call: {page_ms:.3f} ms a page by the host clock, the graph {graph_ms:.3f} ms by "
+        f"CUDA events, peak {peak:.2f} GiB; mask share {[round(float((m > 0).mean()), 4) for m in masks]}; "
+        f"card vs host on the {len(pages)} pages (host {host_page_s:.1f} s a page): {differ} mask "
+        f"pixels differ, {flipped} of them outside {ONNX_MASK_EPS:.4f} of the threshold ({near} "
+        f"within); on {card}")
+    if flipped:
+        fail(f"onnx: {flipped} mask pixels flipped card against host away from the threshold")
+
+
+def run_yolo(engine=None) -> None:
+    """YOLOv8-seg on the card (no kernel: plain PyTorch).  YoloSegConfig()
+    (n-scale, 640) on numpy seed-0 weights over DET_PAGES pages of
+    DET_PAGE_HW: infer's preds and protos on the card against the host's on
+    one page (FAMILY_REL); the forward by CUDA events at B=1 and B=8 with
+    the peak memory and TFLOP/s; the host postprocess on one page as drawn
+    (random heads: every anchor passes conf_threshold), then with the cls
+    branches' output bias lowered so that YOLO_CANDIDATES anchors pass on
+    the median page (read off the pages' logits, the counts at the biases
+    around it printed), YoloBubbleDetector on every page (candidates past
+    conf_threshold, instances kept, host-clock ms a page) and its OR-ed
+    masks through mask_to_polygons(min_area=200), crops_from_detections and
+    the int8 engine's ocr_page (``engine``, else built here): A 12, B 12, C 1
+    a dispatch exactly."""
+    import numpy as np
+    import torch
+
+    from manga_ocr_tpu_torch.detect import contours as cont
+    from manga_ocr_tpu_torch.detect.detector import crops_from_detections
+    from manga_ocr_tpu_torch.models import yolo_seg as ys
+    from manga_ocr_tpu_torch.parallel import batching
+
+    card = card_line()
+    cfg = ys.YoloSegConfig()
+    tree = ys.init_params_numpy(cfg, SEED)
+    params, host = ys.params_from_jax(tree, "cuda"), ys.params_from_jax(tree, "cpu")
+    pages, drawn = detection_pages(DET_PAGES, SEED)
+    h, w = DET_PAGE_HW
+    rgb = np.ascontiguousarray(np.stack(pages)[..., ::-1])
+    cp, cq = ys.infer(params, rgb[:1], cfg)
+    t0 = time.perf_counter()
+    hp, hq = ys.infer(host, rgb[:1], cfg)
+    host_s = time.perf_counter() - t0
+    errs = family_err(cp, hp), family_err(cq, hq)
+    dev = torch.from_numpy(rgb).cuda()
+    flops = flops_of(lambda: ys.infer(params, dev[:1], cfg))
+    ms, peak = {}, {}
+    for b in (1, DET_PAGES):
+        ms[b], peak[b] = peak_gib(lambda: cuda_ms(lambda: ys.infer(params, dev[:b], cfg)) / b)
+    cp_all = ys.infer(params, dev, cfg)[0].cpu().numpy()
+    log(f"yolo: {cfg} ({sum(p.numel() for p in tree_tensors(params))} parameters, "
+        f"{flops / 1e9:.2f} GFLOP a page at {cfg.input_size}); card vs host on one page (host "
+        f"{host_s:.1f} s): preds {errs[0]:.3e}, protos {errs[1]:.3e} of the largest (bound "
+        f"{FAMILY_REL}); infer (resize + forward) ms a page: "
+        + ", ".join(f"B={b} {ms[b]:.3f} ({peak[b]:.2f} GiB)" for b in ms)
+        + f"; at B={DET_PAGES} {flops / ms[DET_PAGES] / 1e9:.1f} TFLOP/s, "
+        f"{flops / ms[DET_PAGES] / 1e9 / (H100_F32_FLOPS / 1e12):.1%} of the f32 peak; on {card}")
+    if max(errs) > FAMILY_REL:
+        fail("yolo: card and host disagree")
+    rm, nc = cfg.reg_max, cfg.num_classes
+
+    def passing(preds):
+        return int((1 / (1 + np.exp(-preds[:, 4 * rm: 4 * rm + nc].max(-1)))
+                    >= cfg.conf_threshold).sum())
+
+    preds, protos = cp[0].cpu().numpy(), cq[0].cpu().numpy()
+    cls = preds[:, 4 * rm: 4 * rm + nc]
+    t0 = time.perf_counter()
+    inst = ys.postprocess(preds, protos, cfg, h, w)
+    post_s = time.perf_counter() - t0
+    log(f"yolo: random heads, one page: cls logits {np.percentile(cls, [0, 50, 99, 100]).round(4)}, "
+        f"{passing(preds)} of {len(preds)} anchors past {cfg.conf_threshold}, {len(inst)} instances "
+        f"kept; host postprocess {post_s:.2f} s")
+    del inst
+    # the stand-in: the bias that puts conf_threshold between the k-th and
+    # (k+1)-th largest cls logit of the median page
+    top = -np.sort(-cp_all[..., 4 * rm: 4 * rm + nc].max(-1), -1)  # [pages, anchors], falling
+    floor = float(np.log(cfg.conf_threshold / (1 - cfg.conf_threshold)))
+    biases = {k: floor - float(np.median((top[:, k - 1] + top[:, k]) / 2))
+              for k in (1, 2, 4, YOLO_CANDIDATES, 32, 128, 1024)}
+    cls_bias = biases[YOLO_CANDIDATES]
+    log(f"yolo: the stand-in's sweep, cls bias: anchors past {cfg.conf_threshold} a page: "
+        + "; ".join(f"{b:+.6f}: {[int((t + b >= floor).sum()) for t in top]}"
+                    for b in biases.values()))
+    for branch in tree["heads"]["cls"]:
+        branch["out"]["bias"] += np.float32(cls_bias)
+    det = ys.YoloBubbleDetector(ys.params_from_jax(tree, "cpu"), cfg)
+    det.detect_bubble_mask(pages[0])  # warm
+    t0 = time.perf_counter()
+    masks = [det.detect_bubble_mask(p) for p in pages]
+    page_ms = (time.perf_counter() - t0) * 1e3 / len(pages)
+    bp, bq = ys.infer(det.params, rgb, cfg)
+    bp, bq = bp.cpu().numpy(), bq.cpu().numpy()
+    cand = [passing(p) for p in bp]
+    t0 = time.perf_counter()
+    kept = [len(ys.postprocess(p, q, cfg, h, w)) for p, q in zip(bp, bq)]
+    post_ms = (time.perf_counter() - t0) * 1e3 / len(pages)
+    crops = []
+    for page, mask in zip(pages, masks):
+        dets = [{"polygon": p, "text": None} for p in cont.mask_to_polygons(mask, min_area=200)]
+        crops.append(crops_from_detections(page, dets)[0])
+    engine = engine or ocr_engine()
+    t0 = time.perf_counter()
+    texts, launch = counted(lambda: [engine.ocr_page(c) for c in crops if c])
+    ocr_s = time.perf_counter() - t0
+    n_dispatch = sum(len(batching.prep_page_gray(c, 1)) for c in crops if c)
+    want = {name: INT8_PER_DISPATCH.get(name, 0) * n_dispatch for name in launch}
+    log(f"yolo: cls bias {cls_bias:+.6f} (YOLO_CANDIDATES {YOLO_CANDIDATES}): candidates {cand}, "
+        f"instances kept {kept}, bubbles drawn {drawn}; YoloBubbleDetector {page_ms:.1f} ms a "
+        f"page by the host clock (host postprocess {post_ms:.1f} of it); mask share "
+        f"{[round(float((m > 0).mean()), 4) for m in masks]}; crops {[len(c) for c in crops]} "
+        f"read in {n_dispatch} dispatches ({ocr_s:.2f} s), launches {nonzero(launch)}; on {card}")
+    if not sum(len(c) for c in crops):
+        fail("yolo: no crop reached the OCR engine")
+    if launch != want:
+        fail(f"yolo: launch counts {launch}, expected {want}")
+    if not all(isinstance(t, str) for page in texts for t in page):
+        fail("yolo: the OCR engine returned a non-string")
+
+
+def tree_tensors(tree):
+    """The tensors of a parameter tree."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tree_tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tree_tensors(v)]
+    return [tree]
+
+
+def line_crops(n: int, seed: int) -> list:
+    """``n`` gray line crops of glyph text, 24-48 high and 2-14 glyphs wide."""
+    import numpy as np
+
+    from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
+    from manga_ocr_tpu_torch.train import render_text_crop
+
+    chars = [t for t in CharTokenizer.synthetic().id_to_token[4:] if len(t) == 1]
+    rng = np.random.default_rng(seed)
+    crops = []
+    for _ in range(n):
+        k, hgt = int(rng.integers(2, 15)), int(rng.integers(24, 49))
+        text = "".join(rng.choice(chars, size=k))
+        crop = render_text_crop(text, rng, 64, hw=(k * hgt, hgt))[..., 0]
+        crops.append(np.ascontiguousarray(np.rot90(crop)))  # the column laid down as a line
+    return crops
+
+
+def run_latin(engine=None) -> None:
+    """The Latin engine on the card (no kernel: plain PyTorch; cuDNN's
+    convolutions and LSTM, TF32 off).  TorchLatinEngine with CraftConfig()
+    and CrnnConfig() at their published widths on the port's numpy seed-0
+    weights: craft_forward on the card against the host on one 768 and one
+    1024 bucket, crnn_forward on a 64-wide and a 512-wide batch
+    (FAMILY_REL); detect_boxes_batch on the random maps over DET_PAGES pages
+    of DET_PAGE_HW (one 1024 bucket: ms a page, peak device memory, TFLOP/s
+    against the f32 peak) and over a chapter of DET_CHAPTER pages (ms a page;
+    its peak held to LATIN_CHAPTER_PEAK times one page's dispatch); each
+    bucket's CRAFT dispatch at page counts around the engine's
+    (DISPATCH_PAGES, DISPATCH_PIXELS; ms a page, peak memory: cuDNN's
+    algorithm choice) and a profile of the 1024 bucket at B = 2 and
+    DET_PAGES; then the stand-in for a trained model's score maps (the last
+    conv refitted to the ink of phase "detection"'s page of glyph columns,
+    CRAFT_PEAK_SHARE) and detect_boxes_batch over DET_PAGES such pages
+    (boxes required); recognize_lines over LATIN_LINES line crops
+    (lines/s); readtext on the glyph page (regions required); and text mode
+    (detect_text_regions with craft_proposer(engine)) on that page, its
+    proposals read in one ocr_page call of the int8 engine (``engine``,
+    else built here): A 12, B 12, C 1 a dispatch exactly."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from manga_ocr_tpu_torch.detect.text_detect import craft_proposer, detect_text_regions
+    from manga_ocr_tpu_torch.engine.latin import (DISPATCH_PAGES, DISPATCH_PIXELS,
+                                                  TorchLatinEngine, _round_up)
+    from manga_ocr_tpu_torch.models import craft as craft_mod
+    from manga_ocr_tpu_torch.models import crnn as crnn_mod
+    from manga_ocr_tpu_torch.models.detector import fp32_products
+    from manga_ocr_tpu_torch.parallel import batching
+
+    card = card_line()
+    t0 = time.perf_counter()
+    latin = TorchLatinEngine(device="cuda")
+    n_craft = sum(t.numel() for t in tree_tensors(latin.craft_params))
+    n_crnn = sum(t.numel() for t in tree_tensors(latin.crnn_params))
+    init_s = time.perf_counter() - t0
+    host_craft = craft_mod.init_craft_params(latin.craft_cfg, 0, "cpu")
+    host_crnn = crnn_mod.Crnn(crnn_mod.init_crnn_params(latin.crnn_cfg, 0, "cpu"))
+    chapter, _ = detection_pages(DET_CHAPTER, SEED)
+    pages = chapter[:DET_PAGES]
+    errs, host_s = {}, {}
+    for side, page in ((768, pages[0][:700, :560]), (1024, pages[0])):
+        rgb, got_side, ph, pw, _ = latin._prep_for_detection(np.ascontiguousarray(page[..., ::-1]))
+        if got_side != side:
+            fail(f"latin: a {page.shape[:2]} page went to the {got_side} bucket, not {side}")
+        batch = np.zeros((1, side, side, 3), np.uint8)
+        batch[0, :ph, :pw] = rgb
+        card_maps = craft_mod.detect_maps(latin.craft_params, batch)
+        t0 = time.perf_counter()
+        host_maps = craft_mod.detect_maps(host_craft, batch)
+        host_s[f"craft {side}"] = time.perf_counter() - t0
+        errs[f"craft {side}"] = max(family_err(c, h) for c, h in zip(card_maps, host_maps))
+    rng = np.random.default_rng(SEED)
+    for width in (64, 512):
+        x = torch.from_numpy(rng.uniform(-1, 1, (32, 1, 32, width)).astype(np.float32))
+        with torch.no_grad():
+            with fp32_products():
+                card_logits = crnn_mod.crnn_forward(latin.crnn, x.cuda())
+            t0 = time.perf_counter()
+            host_logits = crnn_mod.crnn_forward(host_crnn, x)
+            host_s[f"crnn {width}"] = time.perf_counter() - t0
+        errs[f"crnn {width}"] = family_err(card_logits, host_logits)
+    log(f"latin: CRAFT {latin.craft_cfg.vgg_channels} ({n_craft} parameters), CRNN "
+        f"{latin.crnn_cfg} ({n_crnn} parameters), built on the card in {init_s:.1f} s; card vs "
+        f"host (largest-relative, bound {FAMILY_REL}): "
+        + ", ".join(f"{k} {v:.3e} (host {host_s[k]:.1f} s)" for k, v in errs.items()))
+    if max(errs.values()) > FAMILY_REL:
+        fail("latin: card and host disagree")
+
+    rgbs = [np.ascontiguousarray(p[..., ::-1]) for p in chapter]
+    latin.detect_boxes_batch(rgbs[:1])  # warm
+    t0 = time.perf_counter()
+    boxes, peak = peak_gib(lambda: latin.detect_boxes_batch(rgbs[:DET_PAGES]))
+    det_ms = (time.perf_counter() - t0) * 1e3 / DET_PAGES
+    side = latin._prep_for_detection(rgbs[0])[1]
+
+    def step(s):  # the engine's pages a dispatch in the bucket of side s
+        return max(1, min(DISPATCH_PAGES, DISPATCH_PIXELS // s**2))
+
+    dev = {s: torch.zeros((max(DET_PAGES, 16), s, s, 3), dtype=torch.uint8,
+                          device="cuda") for s in latin.det_buckets}
+    flops = flops_of(lambda: craft_mod.detect_maps(latin.craft_params, dev[side][:1]))
+    sweep = {}  # (bucket, B pages a dispatch): ms a page, peak GiB (cuDNN's choice)
+    for s in latin.det_buckets:
+        more = {2, 4, DET_PAGES} if s == side else {16} if s == min(latin.det_buckets) else set()
+        for b in sorted({1, step(s), 2 * step(s)} | more):
+            sweep[s, b] = peak_gib(lambda: cuda_ms(
+                lambda: craft_mod.detect_maps(latin.craft_params, dev[s][:b])) / b)
+    maps_ms = sweep[side, 1][0]
+    for b in (2, DET_PAGES):  # which convolutions cuDNN picked at each batch
+        traced(f"CRAFT {side} B={b}", lambda: craft_mod.detect_maps(latin.craft_params,
+                                                                    dev[side][:b]))
+    del dev
+    t0 = time.perf_counter()
+    chapter_boxes, chapter_peak = peak_gib(lambda: latin.detect_boxes_batch(rgbs))
+    chapter_ms = (time.perf_counter() - t0) * 1e3 / len(rgbs)
+    log(f"latin: detect_boxes_batch over {DET_PAGES} pages of {DET_PAGE_HW[0]}x{DET_PAGE_HW[1]} "
+        f"(the {side} bucket, {step(side)} a dispatch; random maps): {det_ms:.2f} ms a "
+        f"page by the host clock, CRAFT {maps_ms:.2f} ms a page by CUDA events ({flops / 1e9:.1f} "
+        f"GFLOP a page, {flops / maps_ms / 1e9:.1f} TFLOP/s, "
+        f"{flops / maps_ms / 1e9 / (H100_F32_FLOPS / 1e12):.1%} of the f32 peak), peak "
+        f"{peak:.2f} GiB; boxes {[len(b) for b in boxes]}; a chapter of {len(rgbs)} pages "
+        f"{chapter_ms:.2f} ms a page, peak {chapter_peak:.2f} GiB; each bucket's CRAFT at B pages "
+        f"a dispatch, ms a page (peak GiB): " + ", ".join(f"{s}: B={b} {m:.2f} ({g:.2f})"
+                                                         for (s, b), (m, g) in sweep.items())
+        + f"; on {card}")
+    if chapter_boxes[:DET_PAGES] != boxes:
+        fail("latin: the chapter's first pages' boxes differ from the same pages' alone")
+    if chapter_peak > LATIN_CHAPTER_PEAK * sweep[side, 1][1]:
+        fail(f"latin: the chapter's peak {chapter_peak:.2f} GiB passes {LATIN_CHAPTER_PEAK} x "
+             f"one page's dispatch ({sweep[side, 1][1]:.2f} GiB)")
+
+    glyphs = text_page(SEED)
+    # the stand-in for a trained model's maps: the last 1x1 conv refitted as
+    # a least-squares probe of the head's features onto the glyph page's ink
+    last = latin.craft_params["conv_cls"][4]
+    hc2 = last["kernel"].shape[1]
+    last["kernel"] = torch.eye(hc2, device="cuda")[:, :, None, None].contiguous()
+    last["bias"] = torch.zeros(hc2, device="cuda")
+    scaled, gside, ph, pw, _ = latin._prep_for_detection(np.ascontiguousarray(glyphs[..., ::-1]))
+    batch = np.zeros((1, gside, gside, 3), np.uint8)
+    batch[0, :ph, :pw] = scaled
+    with fp32_products(), torch.no_grad():
+        x = craft_mod.normalize_images(torch.from_numpy(batch).cuda()).permute(0, 3, 1, 2)
+        feats = craft_mod.craft_forward(latin.craft_params, x.contiguous())[0]
+    mh, mw = (ph + 1) // 2, (pw + 1) // 2
+    dark = np.zeros((2 * mh, 2 * mw), bool)
+    dark[:ph, :pw] = scaled.mean(-1) < 128
+    ink = dark.reshape(mh, 2, mw, 2).any((1, 3)).ravel()  # at the maps' half resolution
+    a = np.concatenate([feats[:, :mh, :mw].reshape(hc2, -1).T.double().cpu().numpy(),
+                        np.ones((mh * mw, 1))], 1)
+    w = np.linalg.lstsq(a, ink.astype(np.float64), rcond=None)[0]
+    probe, share = a @ w, float(ink.mean())
+    cfg = latin.craft_cfg
+    lo, hi = (float(np.quantile(probe, 1 - q)) for q in (share, share * CRAFT_PEAK_SHARE))
+    if not hi > lo:
+        fail(f"latin: the ink probe is flat at its top ({lo} .. {hi})")
+    gain = (cfg.text_threshold - cfg.low_text) / (hi - lo)
+    shift = (cfg.low_text - gain * lo, cfg.link_threshold - gain * lo)
+    last["kernel"] = torch.tensor(np.stack([gain * w[:hc2]] * 2), dtype=torch.float32,
+                                  device="cuda")[:, :, None, None].contiguous()
+    last["bias"] = torch.tensor([gain * w[hc2] + b for b in shift], dtype=torch.float32,
+                                device="cuda")
+    log(f"latin: the maps' stand-in: a probe of the head's {hc2} features fitted to the glyph "
+        f"page's ink ({share:.2%} of its map pixels; correlation "
+        f"{np.corrcoef(probe, ink)[0, 1]:.3f}), low_text at its top {share:.2%} and "
+        f"text_threshold at its top {share * CRAFT_PEAK_SHARE:.2%} (CRAFT_PEAK_SHARE "
+        f"{CRAFT_PEAK_SHARE}), the affinity map the same probe with link_threshold at low_text's "
+        f"place: gain {gain:.6g}, biases {[round(v, 6) for v in shift]}")
+
+    glyph_rgbs = [np.ascontiguousarray(text_page(SEED + i)[..., ::-1]) for i in range(DET_PAGES)]
+    t0 = time.perf_counter()
+    glyph_boxes = latin.detect_boxes_batch(glyph_rgbs)
+    glyph_ms = (time.perf_counter() - t0) * 1e3 / len(glyph_rgbs)
+    log(f"latin: on the stand-in's maps, detect_boxes_batch over {len(glyph_rgbs)} glyph pages "
+        f"{glyph_ms:.2f} ms a page by the host clock, boxes {[len(b) for b in glyph_boxes]}")
+    if not sum(len(b) for b in glyph_boxes):
+        fail("latin: detect_boxes_batch found no box on the stand-in's maps")
+    lines = line_crops(LATIN_LINES, SEED)
+    latin.recognize_lines(lines[:8])  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    texts = latin.recognize_lines(lines)
+    rec_s = time.perf_counter() - t0
+    if len(texts) != len(lines) or not all(isinstance(t, str) for t in texts):
+        fail("latin: recognize_lines returned the wrong strings")
+    t0 = time.perf_counter()
+    found = latin.readtext(glyphs)
+    read_s = time.perf_counter() - t0
+    engine = engine or ocr_engine()
+    calls = []
+
+    def ocr_page(crops):
+        calls.append(list(crops))
+        return engine.ocr_page(crops)
+
+    t0 = time.perf_counter()
+    regions, launch = counted(lambda: detect_text_regions(glyphs, ocr_page,
+                                                          proposer=craft_proposer(latin)))
+    text_s = time.perf_counter() - t0
+    n_dispatch = sum(len(batching.prep_page_gray(c, 1)) for c in calls)
+    want = {name: INT8_PER_DISPATCH.get(name, 0) * n_dispatch for name in launch}
+    buckets = Counter(_round_up(max(8, round(c.shape[1] * 32 / c.shape[0])),
+                                latin.rec_width_buckets) for c in lines)
+    log(f"latin: recognize_lines over {len(lines)} line crops {len(lines) / rec_s:.1f} lines/s "
+        f"({rec_s * 1e3:.1f} ms; by width bucket {dict(sorted(buckets.items()))}), "
+        f"texts {texts[:4]}; readtext on the glyph page {read_s * 1e3:.1f} ms, {len(found)} "
+        f"regions; "
+        f"text mode {text_s * 1e3:.1f} ms, ocr_page calls {[len(c) for c in calls]} in "
+        f"{n_dispatch} dispatches, launches {nonzero(launch)}, {len(regions)} regions; on {card}")
+    if not found:
+        fail("latin: readtext found no region")
+    if len(calls) != 1 or not calls[0] or not regions:
+        fail(f"latin: text mode made {len(calls)} ocr_page calls and kept {len(regions)} regions")
+    if launch != want:
+        fail(f"latin: text mode's launch counts {launch}, expected {want}")
 
 
 def phase(label: str) -> None:
@@ -3686,8 +4200,17 @@ def run_engines(results: dict) -> dict:
 
     # -- detection: the U-Net on the card, native contours; A, B, C ---------------
     torch.cuda.empty_cache()
-    run_detection()
+    engine = run_detection()
     phase("detection")
+
+    # -- the other detector and recognizer families; A, B, C on their crops -------
+    torch.cuda.empty_cache()
+    run_onnx()
+    phase("onnx")
+    run_yolo(engine)
+    phase("yolo")
+    run_latin(engine)
+    phase("latin")
     return rates
 
 

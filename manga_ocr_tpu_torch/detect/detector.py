@@ -7,9 +7,11 @@ emits ``{'polygon', 'text'}`` dicts that become per-crop jobs.  Here
 detection is batched: the pages of one shape go to the device in
 ``segment_pages`` dispatches of up to ``DISPATCH_PAGES``, and the host
 traces polygons (``detect/contours.py``: cv2, the native tracer, or NumPy).
+``from_checkpoint`` also opens ``.onnx`` segmenters, run page by page on
+the ONNX executor (``models/convert_onnx.py``, ``OnnxWrappedDetector``).
 
-Not ported: sharded dispatch over a mesh (``mesh=`` raises) and ``.onnx``
-checkpoints (``from_checkpoint`` raises); see ROADMAP.md queue 1.
+Not ported: sharded dispatch over a mesh (``mesh=`` raises); see ROADMAP.md
+queue 1 item 7.
 """
 
 from __future__ import annotations
@@ -78,13 +80,19 @@ class BubbleDetector:
         min_area: float = 200.0,
         device="cuda",
     ):
-        """Load detector weights from a flat ``.npz`` written by either
-        package (``models.detector.save_params``)."""
+        """Load detector weights: a flat ``.npz`` written by either package
+        (``models.detector.save_params``), or a real ``.onnx`` checkpoint
+        (parsed and executed on ``device`` by ``models/convert_onnx.py`` --
+        the reference's detector family, ``main_window.py:6776-6815``).
+        ``mesh=`` raises for both."""
         if str(path).lower().endswith(".onnx"):
-            raise NotImplementedError(
-                "BubbleDetector.from_checkpoint: .onnx checkpoints need the ONNX "
-                "reader and executor (convert_onnx / onnx_lite), not ported yet; "
-                "see ROADMAP.md queue 1 item 6")
+            from manga_ocr_tpu_torch.models.convert_onnx import OnnxBubbleDetector
+
+            if mesh is not None:
+                raise ValueError("BubbleDetector: mesh= (data-parallel dispatch) is not "
+                                 "ported; see ROADMAP.md queue 1 item 7")
+            return OnnxWrappedDetector(OnnxBubbleDetector.from_file(path, device=device),
+                                       min_area=min_area, device=device)
         cfg = cfg or seg.DetectorConfig()
         return BubbleDetector(seg.load_params(path, cfg), cfg, min_area=min_area, mesh=mesh,
                               device=device)
@@ -173,6 +181,22 @@ def detector_from_settings(settings: dict, dl_models: dict):
         return None
     key = (settings.get("dl_provider"), settings.get("dl_model_file"))
     return dl_models.get(key) or dl_models.get(settings.get("dl_model_file"))
+
+
+class OnnxWrappedDetector(BubbleDetector):
+    """BubbleDetector API over a real ``.onnx`` checkpoint (the ONNX
+    executor, one page at a time)."""
+
+    def __init__(self, onnx_det, min_area: float = 200.0, device="cuda"):
+        super().__init__(params=None, min_area=min_area, device=device)
+        self._onnx = onnx_det
+        self.params = object()  # non-None: the DL path is live
+
+    def detect_bubble_mask(self, page_bgr: np.ndarray) -> np.ndarray | None:
+        return self._onnx.detect_bubble_mask(page_bgr)
+
+    def detect_bubble_masks(self, pages_bgr: Sequence[np.ndarray]) -> list[np.ndarray]:
+        return [self._onnx.detect_bubble_mask(p) for p in pages_bgr]
 
 
 def _component_containing(mask: np.ndarray, rect: Rect) -> np.ndarray | None:

@@ -88,8 +88,8 @@ def craft_proposer(
     latin_engine,
 ) -> Callable[[np.ndarray], list[np.ndarray]]:
     """Proposal source backed by a CRAFT detector, duck-typed on
-    ``latin_engine.detect_boxes(rgb) -> [(x, y, w, h)]`` (the JAX package's
-    ``engine/latin.py``, not ported yet) — the rebuild's equivalent of the
+    ``latin_engine.detect_boxes(rgb) -> [(x, y, w, h)]`` (the port's
+    ``engine.latin.TorchLatinEngine``) — the rebuild's equivalent of the
     reference's engine-specific box collectors (EasyOCR's collector at
     ``main_window.py:9322-9352`` reads boxes out of its internal CRAFT).
 

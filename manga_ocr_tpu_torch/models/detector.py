@@ -263,6 +263,12 @@ def init_params(cfg: DetectorConfig, seed: int = 0, device="cpu", dtype=torch.fl
 def save_params(params, path: str) -> None:
     """Write the JAX package's flat ``.npz`` (slash-joined keys such as
     ``down/0/c1/kernel``, HWIO kernels): either package loads it."""
+    save_npz(params_to_jax(params), path)
+
+
+def save_npz(tree, path: str) -> None:
+    """A tree in the JAX package's layout (numpy leaves) as the flat ``.npz``
+    both packages share, its keys joined by slashes."""
     flat = {}
 
     def walk(prefix, node):
@@ -275,7 +281,7 @@ def save_params(params, path: str) -> None:
         else:
             flat[prefix] = np.asarray(node)
 
-    walk("", params_to_jax(params))
+    walk("", tree)
     np.savez(path, **flat)
 
 

@@ -5,7 +5,7 @@ the same numpy-made weights (``params_from_jax``) and pages: masks,
 fallback), ``crops_from_detections``, ``split_extended_bubbles``,
 ``detector_from_settings`` and ``from_checkpoint``, each contour tier (cv2,
 the native tracer, NumPy) forced alike in both packages; and the port's
-refusals (``mesh=``, ``.onnx``, a CUDA device without CUDA)."""
+refusals (``mesh=``, also on an ``.onnx`` path, a CUDA device without CUDA)."""
 
 import jax
 import jax.numpy as jnp
@@ -265,8 +265,9 @@ def test_refusals(pair, tmp_path):
     params = tseg.params_from_jax(tree)
     with pytest.raises(ValueError, match="mesh"):
         tdetect.BubbleDetector(params, tdet.cfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="convert_onnx"):
-        tdetect.BubbleDetector.from_checkpoint(str(tmp_path / "bubbles.onnx"), device="cpu")
+    with pytest.raises(ValueError, match="mesh"):  # .onnx opens since the ONNX executor
+        tdetect.BubbleDetector.from_checkpoint(str(tmp_path / "bubbles.onnx"), mesh=object(),
+                                               device="cpu")
     path = str(tmp_path / "det.npz")
     tseg.save_params(params, path)
     with pytest.raises(ValueError, match="mesh"):

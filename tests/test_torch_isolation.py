@@ -13,7 +13,10 @@ the detection's copies: ``core/geometry.py``, ``mask_to_polygons`` in each
 tier (cv2, the native tracer, NumPy), ``fill_polygon`` (cv2, NumPy),
 ``dilate`` (cv2, native, NumPy), the adaptive threshold, the classical
 bubble finder, ``detect/postprocess.py``, ``detect/craft_boxes.py`` and
-``TypesetArea``'s payloads."""
+``TypesetArea``'s payloads; and the detector and recognizer families'
+copies: ``models/onnx_lite.py`` (the bytes it writes and what it reads),
+YOLO's host decode (``_grid_anchors``, ``_nms``, ``postprocess``,
+``combined_bubble_mask``) and the CRNN's ``ctc_greedy``."""
 
 import ast
 import dataclasses
@@ -86,6 +89,9 @@ def test_engine_server_and_chip_smoke_import_neither():
         from manga_ocr_tpu_torch.runtime import pipeline
         from manga_ocr_tpu_torch.typeset import area, cleanup
         from manga_ocr_tpu_torch.core import geometry
+        from manga_ocr_tpu_torch.models import (convert_latin, convert_onnx, convert_yolo, craft,
+                                                crnn, onnx_lite, yolo_seg)
+        from manga_ocr_tpu_torch.engine import latin
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "manga_ocr_tpu", "optax"))
         print("LOADED", bad)
@@ -472,3 +478,125 @@ def test_native_mask_ops_refuse_bad_shapes():
         native.fill_polygon(np.zeros((4, 4), np.int32), np.zeros((3, 2), np.int32))
     with pytest.raises(ValueError, match="radius"):
         native.dilate_box(np.zeros((4, 4), np.uint8), -1)
+
+
+# -- the detector and recognizer families' copies -----------------------------------
+
+from manga_ocr_tpu.models import crnn as jcrnn  # noqa: E402
+from manga_ocr_tpu.models import onnx_lite as jol  # noqa: E402
+from manga_ocr_tpu.models import yolo_seg as jys  # noqa: E402
+from manga_ocr_tpu_torch.models import crnn as tcrnn  # noqa: E402
+from manga_ocr_tpu_torch.models import onnx_lite as tol  # noqa: E402
+from manga_ocr_tpu_torch.models import yolo_seg as tys  # noqa: E402
+
+
+def _onnx_graph(ol):
+    """A graph with every attribute and tensor kind the reader knows: ints,
+    floats, strings, int and float lists, a tensor; f32, f16, int64 and int32
+    initializers; negative values; inputs with and without shapes."""
+    g = ol.Graph()
+    rng = np.random.default_rng(0)
+    g.initializers = {"w": rng.normal(size=(4, 3, 3, 3)).astype(np.float32),
+                      "h": rng.normal(size=(5,)).astype(np.float16),
+                      "shape": np.asarray([0, -1, 256], np.int64),
+                      "i32": np.asarray([-7, 3], np.int32)}
+    t = ol.Tensor("k", np.asarray([[1.5, -2.0]], np.float32))
+    g.nodes = [ol.Node("Conv", "c", ["x", "w"], ["y"], {"pads": [1, 0, 1, 2], "group": 1}),
+               ol.Node("LeakyRelu", "l", ["y"], ["z"], {"alpha": 0.125}),
+               ol.Node("Resize", "r", ["z", "", "", "shape"], ["u"],
+                       {"mode": b"nearest", "axis": -1, "scales": [1.0, 2.5]}),
+               ol.Node("Constant", "k", [], ["kk"], {"value": t}),
+               ol.Node("Concat", "", ["u", "kk"], ["out"], {"axis": -3})]
+    g.inputs = [ol.ValueInfo("x", [1, 3, 16, 16]), ol.ValueInfo("w", [4, 3, 3, 3]),
+                ol.ValueInfo("free", [])]
+    g.outputs = [ol.ValueInfo("out", [1, 0, 16, 16])]
+    return g
+
+
+def _same_graph(a, b):
+    assert [(n.op_type, n.name, n.inputs, n.outputs) for n in a.nodes] == [
+        (n.op_type, n.name, n.inputs, n.outputs) for n in b.nodes]
+    for na, nb in zip(a.nodes, b.nodes):
+        assert list(na.attrs) == list(nb.attrs)
+        for k in na.attrs:
+            va, vb = na.attrs[k].value, nb.attrs[k].value
+            if hasattr(va, "array"):
+                assert va.name == vb.name
+                np.testing.assert_array_equal(va.array, vb.array)
+            else:
+                assert va == vb, k
+    assert list(a.initializers) == list(b.initializers)
+    for k, v in a.initializers.items():
+        assert v.dtype == b.initializers[k].dtype
+        np.testing.assert_array_equal(v, b.initializers[k])
+    assert [(v.name, v.shape) for v in a.inputs + a.outputs] == [
+        (v.name, v.shape) for v in b.inputs + b.outputs]
+
+
+def test_onnx_lite_reads_and_writes_as_jax(tmp_path):
+    tpath, jpath = str(tmp_path / "t.onnx"), str(tmp_path / "j.onnx")
+    tol.save_model(_onnx_graph(tol), tpath)
+    jol.save_model(_onnx_graph(jol), jpath)
+    with open(tpath, "rb") as f, open(jpath, "rb") as g:
+        data = f.read()
+        assert data == g.read()  # the same bytes
+    t, j = tol.load_model(data), jol.load_model(data)
+    _same_graph(t, j)
+    assert tol.load_model(tpath).nodes[2].attrs["axis"].value == -1
+    for name in ("DT_FLOAT", "DT_FLOAT16", "DT_INT64", "DT_INT32"):
+        assert getattr(tol, name) == getattr(jol, name)
+    # the wire helpers, on the values JAX's own tests pin
+    for v in (0, 1, 127, 128, 300, 2**40, (-1) & ((1 << 64) - 1)):
+        a, b = bytearray(), bytearray()
+        tol._write_varint(a, v)
+        jol._write_varint(b, v)
+        assert a == b and tol._read_varint(bytes(a), 0) == jol._read_varint(bytes(b), 0)
+
+
+def _yolo_case(seed):
+    cfg_t = tys.YoloSegConfig(input_size=64, num_masks=8, reg_max=4)
+    cfg_j = jys.YoloSegConfig(input_size=64, num_masks=8, reg_max=4)
+    rng = np.random.default_rng(seed)
+    n = (64 // 8) ** 2 + (64 // 16) ** 2 + (64 // 32) ** 2
+    preds = rng.normal(0.0, 2.0, (n, 4 * 4 + 1 + 8)).astype(np.float32)
+    preds[:, 16] -= 1.5  # a share of the anchors below conf_threshold
+    protos = rng.normal(0.0, 1.0, (16, 16, 8)).astype(np.float32)
+    return cfg_t, cfg_j, preds, protos
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_yolo_host_decode_as_jax(seed):
+    for size in (64, 640):
+        for got, want in zip(tys._grid_anchors(size), jys._grid_anchors(size)):
+            assert got.dtype == want.dtype
+            np.testing.assert_array_equal(got, want)
+    rng = np.random.default_rng(seed + 10)
+    xy = rng.uniform(0, 50, (40, 2)).astype(np.float32)
+    boxes = np.concatenate([xy, xy + rng.uniform(2, 20, (40, 2)).astype(np.float32)], 1)
+    scores = rng.random(40).astype(np.float32)
+    for thr in (0.1, 0.5, 0.7):
+        assert tys._nms(boxes, scores, thr) == jys._nms(boxes, scores, thr)
+    cfg_t, cfg_j, preds, protos = _yolo_case(seed)
+    for out_hw in ((64, 64), (97, 53)):
+        got = tys.postprocess(preds, protos, cfg_t, *out_hw)
+        want = jys.postprocess(preds, protos, cfg_j, *out_hw)
+        assert len(got) == len(want) > 0
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g["box"], w["box"])
+            assert g["score"] == w["score"]
+            np.testing.assert_array_equal(g["mask"], w["mask"])
+        np.testing.assert_array_equal(tys.combined_bubble_mask(got, *out_hw),
+                                      jys.combined_bubble_mask(want, *out_hw))
+    preds[:, 16] = -20.0
+    assert tys.postprocess(preds, protos, cfg_t, 64, 64) == jys.postprocess(
+        preds, protos, cfg_j, 64, 64) == []
+
+
+def test_ctc_greedy_as_jax():
+    rng = np.random.default_rng(4)
+    for k, blank in ((5, 0), (13, 0), (13, 3)):
+        logits = rng.normal(size=(6, 20, k)).astype(np.float32)
+        logits[:, ::3, blank] += 3.0  # blanks between repeats
+        for lengths in (None, np.array([20, 19, 7, 1, 0, 3])):
+            assert tcrnn.ctc_greedy(logits, lengths, blank) == jcrnn.ctc_greedy(logits, lengths,
+                                                                                 blank)
