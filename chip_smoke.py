@@ -191,7 +191,26 @@ each engine, from each tree in turn.)
    boxes on glyph pages, recognize_lines timed, readtext and text mode on
    craft_proposer (regions required, text mode's proposals read by the int8
    engine: A 12, B 12, C 1 a dispatch exactly).
-12. Prints its total seconds, one JSON line of kernel results, then the
+12. Text erasure and typeset export (phase "inpaint"; no kernel of its own:
+   plain PyTorch on the card, f32 with TF32 off): the LaMa generator at the
+   published big-lama width (InpaintConfig(num_blocks=18): ngf 64, 3
+   downsamples, ratio 0.75) on numpy seed-0 weights; one 512x512 window of
+   (10c)'s page with a text-block hole on the card against the port's host
+   path (the head's logits within LAMA_LOGIT_REL of the largest, known
+   pixels bit-equal, differing hole pixels counted), with the process's TF32
+   flags on, which inpaint_batch overrides; inpaint_batch on 512x512
+   regions at B=1, 2, 4, 8 and on one 1704x1200 page by CUDA events with
+   each one's peak device memory and TFLOP/s (B=8 uncapped: cuDNN's FFT
+   convolutions), LamaInpainter.inpaint_many on the 8 regions in
+   DISPATCH_PIXELS dispatches, and a torch.profiler split of a page call
+   (convolutions, FFTs, the rest); then every area of (10c)'s
+   page with the most regions erased through erase_area_for_settings with
+   inpaint_model_key "big_lama" (the phase fails if the inpainter raised
+   on an area, or if a pixel outside an area's mask changed), a Project of
+   the page's areas saved and loaded, and export.batch_save and export_pdf
+   into a temporary directory (the written page equal to render_page's),
+   with ms per area and per page and the host ms of render + save.
+13. Prints its total seconds, one JSON line of kernel results, then the
    device line {"ok": true, "device": {...}} last.  Any failed check exits
    non-zero before the device line.
 """
@@ -3408,7 +3427,8 @@ def run_detection():
     dispatch exactly, every job's text equal to engine.ocr_page on the same
     crops, every JobResult with its TypesetArea.  (d) detect_text_regions on
     one page through the engine: every proposal read in one ocr_page call.
-    Returns (c)'s engine."""
+    Returns (c)'s engine and the stage that phase "inpaint" erases: (c)'s
+    page with the most regions and its JobResults."""
     import numpy as np
     import torch
 
@@ -3589,6 +3609,8 @@ def run_detection():
             fail("detection (c): a page's texts differ from engine.ocr_page on its crops")
     log(f"detection (c): every job's text equals engine.ocr_page on its page's crops; "
         f"texts {[r.original_text for r in per_page[0]]}")
+    most = max(range(len(items)), key=lambda i: len(per_page[i]))
+    stage = (tpages[most], per_page[most])
 
     # -- (d) text mode ----------------------------------------------------------------
     page = text_page(SEED)
@@ -3614,7 +3636,7 @@ def run_detection():
     if list(ran) != [default_tier]:
         fail(f"detection: host contours ran on tiers {ran}, not the {default_tier} one")
     log(f"detection: host contour tier {default_tier} ({ran})")
-    return engine
+    return engine, stage
 
 
 # -- the other detector and recognizer families: ONNX, YOLOv8-seg, CRAFT + CRNN -----
@@ -4101,6 +4123,278 @@ def run_latin(engine=None) -> None:
         fail(f"latin: text mode's launch counts {launch}, expected {want}")
 
 
+# -- text erasure and typeset export: LaMa, cleanup, render, project, export --------
+
+# The generator runs f32 with TF32 off on both devices: its logits differ by
+# summation order only (36 FFC units, each with an rFFT2/irFFT2 pair), bounded
+# relative to the largest logit.  Random He-init weights over 36 residual
+# units saturate the sigmoid, so the uint8 hole pixels say little: their
+# differing count is printed, the logits are held.
+LAMA_LOGIT_REL = 1e-4
+LAMA_REGION = 512
+LAMA_BATCHES = (1, 2, 4, 8)
+LAMA_PAGE_HW = (1704, 1200)  # DET_PAGE_HW padded to a multiple of 2**3
+
+
+def lama_flops(cfg, h: int, w: int, dense_up: bool = False) -> float:
+    """2 x the multiply-adds of the generator's convolutions on an h x w
+    region (multiples of 2**downsamples): each conv on its output pixels, a
+    transposed conv on its input pixels (or, with ``dense_up``, as the dense
+    conv on its output); the FFTs left out."""
+    d = cfg.downsamples
+
+    def mac(cin, cout, k, level, wd=None):
+        return cin * cout * k * k * (h >> level) * (wd or (w >> level))
+
+    total = mac(4, cfg.feats(0), 7, 0) + mac(cfg.feats(0), 3, 7, 0)
+    for i in range(d):
+        cout = cfg.deep_channels if i == d - 1 else cfg.feats(i + 1)
+        total += mac(cfg.feats(i), cout, 3, i + 1)
+        total += mac(cfg.feats(i + 1), cfg.feats(i), 3, i if dense_up else i + 1)
+    cl, cg = cfg.cl, cfg.cg
+    unit = (mac(cl, cl, 3, d) + mac(cg, cl, 3, d) + mac(cl, cg, 3, d)
+            + mac(cg, cg // 2, 1, d) + mac(cg // 2, cg, 1, d)
+            + mac(cg, cg, 1, d, (w >> d) // 2 + 1))  # the Fourier unit's 1x1
+    return 2.0 * (total + 2 * cfg.num_blocks * unit)
+
+
+def split_by_kind(rows) -> dict:
+    """Device ms of profiled kernels by kind: convolutions (cuDNN's and
+    torch's conv kernels, implicit GEMMs), FFTs (cuFFT) and the rest."""
+    conv_words = ("conv", "gemm", "xmma", "fprop", "dgrad", "wgrad", "winograd", "cudnn",
+                  "fft2d_r2c", "fft2d_c2r", "flip_filter")
+    out = {"convolutions": 0.0, "ffts": 0.0, "rest": 0.0}
+    for name, ms, _ in rows:
+        n = name.lower()
+        kind = ("convolutions" if any(w in n for w in conv_words)
+                else "ffts" if "fft" in n or "bluestein" in n else "rest")
+        out[kind] += ms
+    return out
+
+
+def run_inpaint(stage) -> None:
+    """Text erasure and typeset export on the card (no kernel: plain
+    PyTorch, f32 with TF32 off).  ``stage``: a page of DET_PAGE_HW and its
+    JobResults from PagePipeline (run_detection's (c)).  (a) The LaMa
+    generator at big-lama width on numpy seed-0 weights, one LAMA_REGION²
+    window with a text-block hole card against host: the head's logits,
+    known pixels, differing hole pixels; (b) inpaint_batch at LAMA_BATCHES
+    regions and on one LAMA_PAGE_HW page by CUDA events with peak memory,
+    inpaint_many on the regions (DISPATCH_PIXELS a dispatch; its first
+    dispatch equal to inpaint_batch's), and a profiled page call split by
+    kind; (c) every area of the page
+    erased through erase_area_for_settings with the "big_lama" inpainter
+    (no fall-through, nothing outside an area's mask changed), a Project
+    saved and loaded, batch_save and export_pdf into a temporary directory,
+    the written page equal to render_page's."""
+    import logging
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from manga_ocr_tpu_torch.core import files as fio
+    from manga_ocr_tpu_torch.core.project import Project, load_project, save_project
+    from manga_ocr_tpu_torch.models import inpaint as ip
+    from manga_ocr_tpu_torch.models.detector import fp32_products
+    from manga_ocr_tpu_torch.runtime import export
+    from manga_ocr_tpu_torch.typeset import cleanup as cl
+    from manga_ocr_tpu_torch.typeset.render import render_page
+
+    card = card_line()
+    page, results = stage
+    if not results:
+        fail("inpaint: the stage's page has no area")
+    cfg = ip.InpaintConfig(num_blocks=18)
+    t0 = time.time()
+    tree = ip.init_params(cfg, SEED, "cpu")
+    inp = ip.LamaInpainter(tree, cfg, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in inp._net.parameters())
+    s = LAMA_REGION
+    region_flops = lama_flops(cfg, s, s)
+    page_flops = lama_flops(cfg, *LAMA_PAGE_HW)
+    log(f"inpaint: {cfg}: {n_params} parameters ({n_params * 4 / 1e6:.1f} MB f32), on the card "
+        f"in {time.time() - t0:.1f} s; {region_flops / 1e12:.4f} TFLOP a {s}x{s} region "
+        f"({lama_flops(cfg, s, s, dense_up=True) / 1e12:.4f} with the transposed convs dense), "
+        f"{page_flops / 1e12:.4f} a {LAMA_PAGE_HW[0]}x{LAMA_PAGE_HW[1]} page (deep map "
+        f"{LAMA_PAGE_HW[0] >> 3}x{LAMA_PAGE_HW[1] >> 3})")
+
+    # -- (a) card against host on one region ---------------------------------------------
+    ph, pw = page.shape[:2]
+    masks = [cl.build_cleanup_mask(page.shape, r.area.cleanup_polygon) for r in results]
+    r0 = results[0].area.rect
+    y0 = min(max(0, r0.top + r0.h // 2 - s // 2), ph - s)
+    x0 = min(max(0, r0.left + r0.w // 2 - s // 2), pw - s)
+    img = np.ascontiguousarray(page[y0 : y0 + s, x0 : x0 + s])[None]
+    msk = np.ascontiguousarray(masks[0][y0 : y0 + s, x0 : x0 + s])[None]
+    x = torch.from_numpy(img).permute(0, 3, 1, 2).float() / 255.0
+    m = torch.from_numpy(msk > 0).float()
+    t0 = time.time()
+    with fp32_products(), torch.no_grad():
+        host_logits = ip.head_logits(tree, x, m, cfg)
+    host_s = time.time() - t0
+    host_u8 = ip.inpaint_batch(tree, img, msk, cfg).numpy()
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with fp32_products(), torch.no_grad():
+            dev_logits = ip.head_logits(inp._net, x.cuda(), m.cuda(), cfg).cpu()
+        dev_u8 = ip.inpaint_batch(inp._net, img, msk, cfg).cpu().numpy()
+        flags_after = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        with torch.no_grad():  # the control: the same graph with TF32 products
+            tf32_logits = ip.head_logits(inp._net, x.cuda(), m.cuda(), cfg).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    top = float(host_logits.abs().max())
+    rel = float((dev_logits - host_logits).abs().max()) / top
+    tf32_rel = float((tf32_logits - host_logits).abs().max()) / top
+    hole = np.repeat((msk > 0)[..., None], 3, axis=-1)
+    known_ok = (np.array_equal(dev_u8[~hole], img[~hole])
+                and np.array_equal(host_u8[~hole], img[~hole]))
+    n_diff = int((dev_u8 != host_u8)[hole].sum())
+    saturated = float((host_logits.abs() > 10).float().mean())
+    log(f"inpaint (a): a {s}x{s} window at ({y0}, {x0}), {int(hole[..., 0].sum())} hole pixels: "
+        f"logits card vs host max |diff| {rel:.3e} of the largest ({top:.4g}; bound "
+        f"{LAMA_LOGIT_REL}); TF32 control (not held) {tf32_rel:.3e}; {saturated:.1%} of the "
+        f"logits beyond +-10; known pixels {'bit-equal' if known_ok else 'DIFFER'}; "
+        f"{n_diff} of {int(hole.sum())} hole values differ; host {host_s:.1f} s on {card}")
+    if flags_after != (True, True):
+        fail(f"inpaint (a): inpaint_batch left the TF32 flags at {flags_after}")
+    if rel > LAMA_LOGIT_REL or not known_ok:
+        fail(f"inpaint (a): card and host disagree: logits {rel} > {LAMA_LOGIT_REL} or known "
+             f"pixels changed")
+
+    # -- (b) times ------------------------------------------------------------------------
+    n = max(LAMA_BATCHES)
+    offs = [(int(yy), int(xx))
+            for yy, xx in zip(np.linspace(0, ph - s, n), np.linspace(pw - s, 0, n))]
+    dimgs = torch.from_numpy(np.stack([page[a : a + s, b : b + s] for a, b in offs])).cuda()
+    dmsks = torch.from_numpy(np.repeat(msk, n, axis=0)).cuda()
+    ms, peak = {}, {}
+    for b in LAMA_BATCHES:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ms[b] = cuda_ms(lambda: ip.inpaint_batch(inp._net, dimgs[:b], dmsks[:b], cfg), reps=3) / b
+        peak[b] = torch.cuda.max_memory_allocated() / 2**30
+    regions = [page[a : a + s, b : b + s] for a, b in offs]
+    inp.inpaint_many(regions, [msk[0]] * n)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    many = inp.inpaint_many(regions, [msk[0]] * n)
+    many_ms = (time.perf_counter() - t0) * 1e3 / n
+    per = ip.DISPATCH_PIXELS // (s * s)
+    first = ip.inpaint_batch(inp._net, dimgs[:per], dmsks[:per], cfg).cpu().numpy()
+    if not all(np.array_equal(a, b) for a, b in zip(many, first)):
+        fail("inpaint (b): inpaint_many's first dispatch differs from inpaint_batch's")
+    del dimgs, dmsks
+    full = np.zeros(page.shape[:2], np.uint8)
+    for mk in masks:
+        full |= mk
+    pimg = np.pad(page, ((0, LAMA_PAGE_HW[0] - ph), (0, LAMA_PAGE_HW[1] - pw), (0, 0)), mode="edge")
+    pmsk = np.pad(full, ((0, LAMA_PAGE_HW[0] - ph), (0, LAMA_PAGE_HW[1] - pw)))
+    dpage = torch.from_numpy(pimg[None]).cuda()
+    dpmsk = torch.from_numpy(pmsk[None]).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    page_ms = cuda_ms(lambda: ip.inpaint_batch(inp._net, dpage, dpmsk, cfg), reps=3)
+    page_peak = torch.cuda.max_memory_allocated() / 2**30
+    rate = lambda flops, t: flops / t / 1e9  # noqa: E731  (TFLOP/s from ms)
+    log(f"inpaint (b): inpaint_batch on {s}x{s} regions, ms a region (peak device memory, "
+        f"TFLOP/s): " + ", ".join(f"B={b} {ms[b]:.3f} ({peak[b]:.2f} GiB, "
+                                  f"{rate(region_flops, ms[b]):.1f})" for b in ms)
+        + f"; inpaint_many on the {n} regions ({per} a dispatch, DISPATCH_PIXELS) "
+        f"{many_ms:.3f} ms a region by the host clock"
+        + f"; one {LAMA_PAGE_HW[0]}x{LAMA_PAGE_HW[1]} page {page_ms:.3f} ms ({page_peak:.2f} GiB, "
+        f"{rate(page_flops, page_ms):.1f} TFLOP/s, "
+        f"{rate(page_flops, page_ms) / (H100_F32_FLOPS / 1e12):.1%} of the f32 peak) on {card}")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ip.inpaint_batch(inp._net, dpage, dpmsk, cfg)
+        torch.cuda.synchronize()
+    log_profile(f"inpaint_batch page {LAMA_PAGE_HW[0]}x{LAMA_PAGE_HW[1]}", prof)
+    split = split_by_kind(device_ms_by_kernel(prof))
+    total = sum(split.values())
+    log(f"inpaint (b): the page call's device ms by kind: "
+        + ", ".join(f"{k} {v:.3f} ({v / total:.1%})" for k, v in split.items() if total))
+    del dpage, dpmsk
+    torch.cuda.empty_cache()
+
+    # -- (c) the stage: erase every area, then project -> render -> save ------------------
+    raised = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            raised.append(record.getMessage())
+
+    calls = [0]
+
+    def big_lama(image, mask):
+        calls[0] += 1
+        return inp(image, mask)
+
+    settings = {"inpaint_model_key": "big_lama", "use_inpaint": True,
+                "use_background_box": True, "inpaint_padding": 2}
+    handler = Catch(logging.WARNING)
+    logger = logging.getLogger(cl.__name__)
+    logger.addHandler(handler)
+    out = page.copy()
+    area_ms = []
+    try:
+        for r, mk in zip(results, masks):
+            before = out
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = cl.erase_area_for_settings(out, r.area, settings,
+                                             inpainters={"big_lama": big_lama})
+            area_ms.append((time.perf_counter() - t0) * 1e3)
+            if not np.array_equal(out[mk == 0], before[mk == 0]):
+                fail("inpaint (c): erasing an area changed pixels outside its mask")
+    finally:
+        logger.removeHandler(handler)
+    want_calls = sum(bool(mk.any()) for mk in masks)
+    if raised or calls[0] != want_calls:
+        fail(f"inpaint (c): the inpainter ran {calls[0]} times for {want_calls} areas; fell "
+             f"through: {raised}")
+    erased_share = float((out != page).any(-1).mean())
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "page01.png")
+        fio.save_image(path, page, "PNG")
+        proj = Project(project_dir=tmp, settings=dict(settings))
+        for r in results:
+            proj.add_area(path, r.area, push_undo=False)
+        save_project(proj, os.path.join(tmp, "project.json"))
+        back = load_project(os.path.join(tmp, "project.json"))
+        areas = back.image_state(path).areas
+        if [a.to_payload() for a in areas] != [r.area.to_payload() for r in results]:
+            fail("inpaint (c): the project's areas did not survive save and load")
+        t0 = time.perf_counter()
+        composed = render_page(page, areas)
+        render_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        written = export.batch_save(back)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        pdf = export.export_pdf(back, os.path.join(tmp, "book.pdf"))
+        with open(pdf, "rb") as f:
+            pdf_head = f.read(5)
+        pdf_kb = os.path.getsize(pdf) / 1e3
+        if written != [export.typeset_output_path(path, "PNG")]:
+            fail(f"inpaint (c): batch_save wrote {written}")
+        saved_page = fio.safe_open_image(written[0])
+        if saved_page is None or not np.array_equal(saved_page, composed) or pdf_head != b"%PDF-":
+            fail("inpaint (c): the written page differs from render_page's, or no PDF")
+    log(f"inpaint (c): {len(results)} areas of a {ph}x{pw} page erased through "
+        f"erase_area_for_settings with the big_lama inpainter ({calls[0]} calls, no "
+        f"fall-through, nothing outside a mask changed, {erased_share:.2%} of the page's "
+        f"pixels changed): ms an area {[round(v, 1) for v in area_ms]}, {sum(area_ms):.1f} ms "
+        f"the page; Project saved and loaded; render_page {render_ms:.1f} ms, batch_save "
+        f"(render + PNG) {save_ms:.1f} ms a page by the host clock, PDF {pdf_kb:.0f} kB on "
+        f"{card}")
+
+
 def phase(label: str) -> None:
     """The seconds since the last phase mark (where the run's time goes)."""
     now = time.time()
@@ -4200,7 +4494,7 @@ def run_engines(results: dict) -> dict:
 
     # -- detection: the U-Net on the card, native contours; A, B, C ---------------
     torch.cuda.empty_cache()
-    engine = run_detection()
+    engine, stage = run_detection()
     phase("detection")
 
     # -- the other detector and recognizer families; A, B, C on their crops -------
@@ -4211,6 +4505,12 @@ def run_engines(results: dict) -> dict:
     phase("yolo")
     run_latin(engine)
     phase("latin")
+
+    # -- text erasure and typeset export: LaMa at big-lama width on (c)'s page ---------
+    del engine
+    torch.cuda.empty_cache()
+    run_inpaint(stage)
+    phase("inpaint")
     return rates
 
 

@@ -16,12 +16,18 @@ bubble finder, ``detect/postprocess.py``, ``detect/craft_boxes.py`` and
 ``TypesetArea``'s payloads; and the detector and recognizer families'
 copies: ``models/onnx_lite.py`` (the bytes it writes and what it reads),
 YOLO's host decode (``_grid_anchors``, ``_nms``, ``postprocess``,
-``combined_bubble_mask``) and the CRNN's ``ctc_greedy``."""
+``combined_bubble_mask``) and the CRNN's ``ctc_greedy``; and the erase ->
+compose -> save stage's copies, ``models/convert_lama.py``,
+``typeset/render.py``, ``core/project.py``, ``runtime/export.py`` and
+``typeset/cleanup.py``'s erasing functions, held to JAX's code statement for
+statement (docstrings aside, the package's name mapped; ``erase_area``'s one
+deliberate difference, its logged fall-through, named)."""
 
 import ast
 import dataclasses
 import glob
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -92,6 +98,10 @@ def test_engine_server_and_chip_smoke_import_neither():
         from manga_ocr_tpu_torch.models import (convert_latin, convert_onnx, convert_yolo, craft,
                                                 crnn, onnx_lite, yolo_seg)
         from manga_ocr_tpu_torch.engine import latin
+        from manga_ocr_tpu_torch.models import convert_lama, inpaint
+        from manga_ocr_tpu_torch.typeset import render
+        from manga_ocr_tpu_torch.core import project
+        from manga_ocr_tpu_torch.runtime import export
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "manga_ocr_tpu", "optax"))
         print("LOADED", bad)
@@ -600,3 +610,46 @@ def test_ctc_greedy_as_jax():
         for lengths in (None, np.array([20, 19, 7, 1, 0, 3])):
             assert tcrnn.ctc_greedy(logits, lengths, blank) == jcrnn.ctc_greedy(logits, lengths,
                                                                                  blank)
+
+
+def _code(path, names=None):
+    """A module's (or some of its functions') statements as AST dumps, with
+    docstrings dropped and the JAX package's name mapped to the port's."""
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(re.sub(r"\bmanga_ocr_tpu\b", "manga_ocr_tpu_torch", f.read()), path)
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:] or [ast.Pass()]
+    nodes = [n for n in tree.body if names is None or getattr(n, "name", None) in names]
+    return [ast.dump(n) for n in nodes]
+
+
+COPIES = ["models/convert_lama.py", "typeset/render.py", "core/project.py",
+          "runtime/export.py"]
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_stage_copies_are_the_jax_code(rel):
+    want = _code(os.path.join(REPO, "manga_ocr_tpu", rel))
+    got = _code(os.path.join(REPO, "manga_ocr_tpu_torch", rel))
+    assert len(got) == len(want) > 3
+    assert got == want
+
+
+def test_cleanup_erasing_half_is_the_jax_code_but_the_logged_fall_through():
+    names = {"build_cleanup_mask", "dilate", "get_background_color", "auto_text_color",
+             "inpaint", "erase_area_for_settings"}
+    rel = os.path.join("typeset", "cleanup.py")
+    want = _code(os.path.join(REPO, "manga_ocr_tpu", rel), names)
+    got = _code(os.path.join(REPO, "manga_ocr_tpu_torch", rel), names)
+    assert len(got) == len(want) == len(names) and got == want
+    jerase = _code(os.path.join(REPO, "manga_ocr_tpu", rel), {"erase_area"})[0]
+    terase = _code(os.path.join(REPO, "manga_ocr_tpu_torch", rel), {"erase_area"})[0]
+    assert jerase != terase
+    # the one difference: the except clause binds the exception and logs it
+    silent = ("ExceptHandler(type=Name(id='Exception', ctx=Load()), "
+              "body=[Pass()])")
+    assert silent in jerase and silent not in terase and "attr='warning'" in terase
