@@ -210,7 +210,32 @@ each engine, from each tree in turn.)
    the page's areas saved and loaded, and export.batch_save and export_pdf
    into a temporary directory (the written page equal to render_page's),
    with ms per area and per page and the host ms of render + save.
-13. Prints its total seconds, one JSON line of kernel results, then the
+13. The process command (phase "process"; host layers: settings, the
+   translation service over HTTP, the registry's TesseractEngine probe,
+   the project and the export) as a user runs it, in-process:
+   cli.main(["--device", "cuda", "process", FOLDER, "--out", OUT,
+   "--detector", NPZ, "--settings", S, "--translate", "--provider",
+   "openrouter"]) on (10c)'s 8 pages written as PNGs, (10a)'s full-width
+   U-Net saved by models/detector.save_params (the form --detector reads:
+   DetectorConfig()), and a settings.json whose openrouter URL points at a
+   stub chat-completions server on 127.0.0.1 in a thread of this script
+   (its reply a function of each request's own prompt); the command builds
+   the full-width int8 engine on seed-0 weights at max length 300 (A, B,
+   C).  It must exit 0 and write a project.json that load_project reads,
+   one *_typeset.png per page with areas, every area with OCR text
+   carrying the stub's reply to that text; the stub must count requests;
+   the launches over the run must be A 12, B 12, C 1 per dispatch exactly;
+   every area's text must equal PagePipeline(engine.ocr_page) on the same
+   pages with the same detector and the command's own engine.  Then
+   shorter runs: --detect-mode text on (10d)'s glyph-column page,
+   --enhanced on two pages (with tesseract where it is installed, else the
+   same model's second pass; which one ran is printed), and
+   --detector-type yolo on (11)'s YOLO weights with the lowered cls bias
+   (yolo_seg.save_params), each with exact launch counts.  Prints pages/s
+   by the host clock, the host split (engine build, detection, OCR,
+   translation round trips, save_project + batch_save), launches per
+   dispatch and the stub's request count.
+14. Prints its total seconds, one JSON line of kernel results, then the
    device line {"ok": true, "device": {...}} last.  Any failed check exits
    non-zero before the device line.
 """
@@ -3784,7 +3809,7 @@ def run_onnx() -> None:
         fail(f"onnx: {flipped} mask pixels flipped card against host away from the threshold")
 
 
-def run_yolo(engine=None) -> None:
+def run_yolo(engine=None) -> dict:
     """YOLOv8-seg on the card (no kernel: plain PyTorch).  YoloSegConfig()
     (n-scale, 640) on numpy seed-0 weights over DET_PAGES pages of
     DET_PAGE_HW: infer's preds and protos on the card against the host's on
@@ -3797,7 +3822,8 @@ def run_yolo(engine=None) -> None:
     conf_threshold, instances kept, host-clock ms a page) and its OR-ed
     masks through mask_to_polygons(min_area=200), crops_from_detections and
     the int8 engine's ocr_page (``engine``, else built here): A 12, B 12, C 1
-    a dispatch exactly."""
+    a dispatch exactly.  Returns the stand-in's weights (the JAX layout,
+    numpy leaves, the cls bias lowered)."""
     import numpy as np
     import torch
 
@@ -3892,6 +3918,7 @@ def run_yolo(engine=None) -> None:
         fail(f"yolo: launch counts {launch}, expected {want}")
     if not all(isinstance(t, str) for page in texts for t in page):
         fail("yolo: the OCR engine returned a non-string")
+    return tree
 
 
 def tree_tensors(tree):
@@ -4395,6 +4422,295 @@ def run_inpaint(stage) -> None:
         f"{card}")
 
 
+# -- the process command ------------------------------------------------------------
+
+
+def stub_reply(prompt: str) -> str:
+    """The stub translator's reply: a function of the prompt's own text."""
+    text = next((ln[len("Text: "):] for ln in prompt.splitlines() if ln.startswith("Text: ")),
+                None)
+    return f"EN<{text}>"
+
+
+def stub_translator():
+    """A chat-completions server on 127.0.0.1 in a thread of this process:
+    each reply is ``stub_reply`` of the request's prompt.  Returns (server,
+    URL, the request bodies received)."""
+    import http.server
+    import threading
+
+    bodies = []
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        # the headers and the body go out as two writes: without TCP_NODELAY
+        # the body waits for the client's delayed ACK (~40 ms a request)
+        disable_nagle_algorithm = True
+
+        def do_POST(self):
+            body = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+            bodies.append(body)
+            prompt = json.loads(body)["messages"][-1]["content"]
+            out = json.dumps({"choices": [{"message": {"content": stub_reply(prompt)}}],
+                              "usage": {"prompt_tokens": 1, "completion_tokens": 1}}).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(out)))
+            self.end_headers()
+            self.wfile.write(out)
+
+        def log_message(self, *args):
+            pass
+
+    httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd, f"http://127.0.0.1:{httpd.server_address[1]}/v1/chat/completions", bodies
+
+
+class HostSplit:
+    """Wraps functions and methods (looked up at call time by the command)
+    with timers for one run: seconds and calls by label, each call's
+    seconds in call order; the engine that ``_build_engine`` returned; every
+    ocr_page call's crops and orientation.  The wrapped functions compute
+    what they did before."""
+
+    def __init__(self):
+        self.s, self.n, self.each, self.ocr_calls, self.engine, self._undo = {}, {}, {}, [], None, []
+
+    def wrap(self, owner, name: str, label: str) -> None:
+        orig = getattr(owner, name)
+        split = self
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                out = orig(*args, **kwargs)
+            finally:
+                dt = time.perf_counter() - t0
+                split.s[label] = split.s.get(label, 0.0) + dt
+                split.n[label] = split.n.get(label, 0) + 1
+                split.each.setdefault(label, []).append(dt)
+            if label == "engine build":
+                split.engine = out
+            return out
+
+        setattr(owner, name, timed)
+        self._undo.append((owner, name, orig))
+
+    def record_ocr(self, cls) -> None:
+        orig = cls.ocr_page
+        split = self
+
+        def ocr_page(engine, crops, orientation=1, timer=None):
+            split.ocr_calls.append((list(crops), orientation))
+            return orig(engine, crops, orientation, timer)
+
+        cls.ocr_page = ocr_page
+        self._undo.append((cls, "ocr_page", orig))
+
+    def undo(self) -> None:
+        for owner, name, orig in reversed(self._undo):
+            setattr(owner, name, orig)
+        self._undo = []
+
+    def dispatches(self) -> int:
+        from manga_ocr_tpu_torch.parallel import batching
+
+        return sum(len(batching.prep_page_gray(c, o)) for c, o in self.ocr_calls if c)
+
+
+def run_cli_process(label: str, folder: str, out: str, args: list) -> tuple:
+    """``cli.main(["--device", "cuda", "process", folder, "--out", out,
+    *args])`` in-process with the host split's timers on: its launches
+    must be A 12, B 12, C 1 per dispatch of its ocr_page calls exactly.
+    Returns (wall seconds, launch counts, HostSplit)."""
+    from manga_ocr_tpu_torch import cli
+    from manga_ocr_tpu_torch.core import project as proj
+    from manga_ocr_tpu_torch.detect import detector as det
+    from manga_ocr_tpu_torch.detect import text_detect
+    from manga_ocr_tpu_torch.engine.engine import TorchMangaOcrEngine
+    from manga_ocr_tpu_torch.models import yolo_seg
+    from manga_ocr_tpu_torch.runtime import export
+    from manga_ocr_tpu_torch.translate.service import TranslationService
+
+    split = HostSplit()
+    split.wrap(cli, "_build_engine", "engine build")
+    split.wrap(det.BubbleDetector, "detect_bubbles", "detection")
+    split.wrap(yolo_seg.YoloBubbleDetector, "detect_bubble_mask", "detection")
+    split.wrap(text_detect, "detect_text_regions", "text detection (its OCR included)")
+    split.wrap(TorchMangaOcrEngine, "ocr_page", "OCR")
+    split.wrap(TorchMangaOcrEngine, "ocr_page_dual", "dual pass")
+    split.wrap(TranslationService, "translate_with_ai", "translation round trips")
+    split.wrap(proj, "save_project", "save_project + batch_save")
+    split.wrap(export, "batch_save", "save_project + batch_save")
+    split.record_ocr(TorchMangaOcrEngine)
+    argv = ["--device", "cuda", "process", folder, "--out", out, *args]
+    try:
+        t0 = time.perf_counter()
+        rc, launch = counted(lambda: cli.main(argv))
+        wall = time.perf_counter() - t0
+    finally:
+        split.undo()
+    n_dispatch = split.dispatches()
+    want = {name: INT8_PER_DISPATCH.get(name, 0) * n_dispatch for name in launch}
+    log(f"process {label}: cli.main({argv[2:]}) exit {rc} in {wall:.2f} s; "
+        f"{len(split.ocr_calls)} ocr_page calls, {n_dispatch} dispatches, launches "
+        f"{nonzero(launch)} ({json.dumps({k: v // max(n_dispatch, 1) for k, v in nonzero(launch).items()})} "
+        f"a dispatch); host split s {json.dumps({k: round(v, 4) for k, v in split.s.items()})}, "
+        f"calls {json.dumps(split.n)}")
+    if rc != 0:
+        fail(f"process {label}: exit {rc}")
+    if not n_dispatch or launch != want:
+        fail(f"process {label}: launch counts {launch}, expected {want}")
+    return wall, launch, split
+
+
+def typeset_pages(project, folder: str, label: str) -> None:
+    """One ``*_typeset.png`` per page with areas, none for the others."""
+    from manga_ocr_tpu_torch.runtime.export import typeset_output_path
+
+    with_areas = sorted(p for p, st in project.images.items() if st.areas)
+    written = sorted(glob.glob(os.path.join(folder, "*_typeset.png")))
+    if not with_areas or written != sorted(typeset_output_path(p, "PNG") for p in with_areas):
+        fail(f"process {label}: typeset pages {written} for the pages with areas {with_areas}")
+
+
+def run_process(yolo_tree: dict) -> None:
+    """The process command on the card (module docstring, 13)."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from manga_ocr_tpu_torch.core.project import load_project
+    from manga_ocr_tpu_torch.detect import postprocess
+    from manga_ocr_tpu_torch.detect.detector import BubbleDetector
+    from manga_ocr_tpu_torch.models import detector as seg
+    from manga_ocr_tpu_torch.models import yolo_seg as ys
+    from manga_ocr_tpu_torch.runtime.pipeline import PagePipeline
+
+    card = card_line()
+    # the stub lives on this host: keep any proxy setting away from it
+    os.environ["NO_PROXY"] = ",".join(filter(None, [os.environ.get("NO_PROXY"),
+                                                    "127.0.0.1", "localhost"]))
+    tesseract = shutil.which("tesseract")
+    transport = "requests" if importlib.util.find_spec("requests") else "urllib"
+    httpd, url, bodies = stub_translator()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_process_")
+    try:
+        t0 = time.perf_counter()
+        pages, drawn = detection_pages(DET_PAGES, SEED + 1)
+        folder = os.path.join(tmp, "pages")
+        os.makedirs(folder)
+        for i, page in enumerate(pages):
+            Image.fromarray(page[..., ::-1]).save(os.path.join(folder, f"page{i:02d}.png"))
+        npz = os.path.join(tmp, "unet.npz")
+        seg.save_params(seg.init_params(seg.DetectorConfig(), SEED, "cpu"), npz)
+        settings = os.path.join(tmp, "settings.json")
+        with open(settings, "w") as f:
+            json.dump({"apis": {"openrouter": {"keys": ["stub"]}},
+                       "translate": {"openrouter": {"url": url}}}, f)
+        log(f"process: {len(pages)} pages of {DET_PAGE_HW[0]}x{DET_PAGE_HW[1]} ({sum(drawn)} "
+            f"bubbles drawn), the U-Net and settings written in {time.perf_counter() - t0:.1f} s; "
+            f"tesseract {tesseract or 'not found: the same model reads the second pass'}; "
+            f"robust_post on {transport}")
+
+        # -- the main run: U-Net detection, OCR, translation, project, export -----------
+        out = os.path.join(tmp, "out")
+        wall, launch, split = run_cli_process(
+            "main", folder, out, ["--detector", npz, "--settings", settings, "--translate",
+                                  "--provider", "openrouter"])
+        project = load_project(os.path.join(out, "project.json"))
+        typeset_pages(project, folder, "main")
+        paths = sorted(os.path.join(folder, n) for n in os.listdir(folder)
+                       if not n.endswith("_typeset.png"))
+        areas = {p: project.images[p].areas if p in project.images else [] for p in paths}
+        n_areas = sum(len(a) for a in areas.values())
+        wrong = [(a.original_text, a.text) for a in sum(areas.values(), [])
+                 if a.original_text and a.text != stub_reply(f"Text: {a.original_text}")]
+        if not bodies or wrong or not any(a.original_text for a in sum(areas.values(), [])):
+            fail(f"process main: {len(bodies)} stub requests; areas whose text is not the "
+                 f"stub's reply to their OCR text: {wrong[:5]}")
+        # the same pages through PagePipeline, the same detector and the command's engine
+        detector = BubbleDetector.from_checkpoint(npz, device="cuda")
+        pipe = PagePipeline(split.engine.ocr_page)
+        ref = pipe.process_pages(
+            [(p, np.asarray(Image.open(p).convert("RGB"))[..., ::-1].copy()) for p in paths],
+            lambda page: postprocess.split_extended_bubbles(detector.detect_bubbles(page)))
+        pipe.close()
+        for p in paths:
+            got = [a.original_text for a in areas[p]]
+            want = [r.original_text for r in ref[p] if r.area is not None]
+            if got != want:
+                fail(f"process main: {p}: texts {got} != PagePipeline's {want}")
+        n_dispatch = split.dispatches()
+        build_s = split.s.get("engine build", 0.0)
+        page_split = {k: round(v / len(paths), 4) for k, v in split.s.items()
+                      if k != "engine build"}
+        log(f"process main: {len(paths)} pages, {n_areas} areas {[len(a) for a in areas.values()]}, "
+            f"texts equal to PagePipeline(engine.ocr_page)'s; {len(bodies)} stub requests, every "
+            f"area's text the stub's reply to its own; {len(paths) / wall:.3f} pages/s end to end "
+            f"({len(paths) / (wall - build_s):.3f} without the {build_s:.2f} s engine build) by the "
+            f"host clock; host split s a page {json.dumps(page_split)} (translation: the sum over "
+            f"its {split.n.get('translation round trips', 0)} calls, concurrent on 8 threads; ms "
+            f"a call in call order {[round(t * 1e3, 2) for t in split.each.get('translation round trips', [])]}); "
+            f"launches a dispatch "
+            f"{json.dumps({k: v // n_dispatch for k, v in nonzero(launch).items()})}; on {card}")
+        del detector, split
+        torch.cuda.empty_cache()
+        # robust_post's other transport branch, urllib, with requests hidden
+        from manga_ocr_tpu_torch.utils import http as mhttp
+
+        saved = sys.modules.get("requests")
+        sys.modules["requests"] = None  # `import requests` raises ImportError
+        try:
+            t0 = time.perf_counter()
+            resp = mhttp.robust_post(url, json={"messages": [{"role": "user",
+                                                              "content": "Text: 猫"}]})
+            urllib_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            if saved is None:
+                sys.modules.pop("requests", None)
+            else:
+                sys.modules["requests"] = saved
+        if not resp.ok or resp.json()["choices"][0]["message"]["content"] != "EN<猫>":
+            fail(f"process: robust_post on urllib: HTTP {resp.status_code} {resp.text[:200]}")
+        log(f"process: robust_post on urllib (requests hidden) {urllib_ms:.2f} ms a round trip")
+
+        # -- shorter runs: text mode, the dual pass, YOLO (no --translate) ---------------
+        n_requests = len(bodies)
+
+        def short(label: str, page_list: list, args: list) -> None:
+            sub = os.path.join(tmp, label)
+            os.makedirs(sub)
+            for i, page in enumerate(page_list):
+                Image.fromarray(page[..., ::-1]).save(os.path.join(sub, f"page{i:02d}.png"))
+            sub_out = os.path.join(tmp, f"{label}_out")
+            wall, _, split = run_cli_process(label, sub, sub_out, args)
+            proj = load_project(os.path.join(sub_out, "project.json"))
+            typeset_pages(proj, sub, label)
+            texts = [a.original_text for st in proj.images.values() for a in st.areas]
+            log(f"process {label}: {len(page_list)} pages, {len(texts)} areas, "
+                f"{len(page_list) / wall:.3f} pages/s end to end; texts {texts[:8]}; on {card}")
+            if len(bodies) != n_requests:
+                fail(f"process {label}: requests reached the stub without --translate")
+            torch.cuda.empty_cache()
+
+        short("text", [text_page(SEED)], ["--detect-mode", "text"])
+        short("enhanced", pages[:2], ["--detector", npz, "--enhanced"])
+        yolo_npz = os.path.join(tmp, "yolo.npz")
+        ys.save_params(ys.params_from_jax(yolo_tree, "cpu"), yolo_npz)
+        short("yolo", pages[:2], ["--detector", yolo_npz, "--detector-type", "yolo"])
+        log(f"process: the dual pass's second engine: "
+            f"{'tesseract at ' + tesseract if tesseract else 'the same model (no tesseract)'}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def phase(label: str) -> None:
     """The seconds since the last phase mark (where the run's time goes)."""
     now = time.time()
@@ -4501,7 +4817,7 @@ def run_engines(results: dict) -> dict:
     torch.cuda.empty_cache()
     run_onnx()
     phase("onnx")
-    run_yolo(engine)
+    yolo_tree = run_yolo(engine)
     phase("yolo")
     run_latin(engine)
     phase("latin")
@@ -4511,6 +4827,11 @@ def run_engines(results: dict) -> dict:
     torch.cuda.empty_cache()
     run_inpaint(stage)
     phase("inpaint")
+
+    # -- the process command: detect -> OCR (A, B, C) -> translate -> typeset -> export --
+    torch.cuda.empty_cache()
+    run_process(yolo_tree)
+    phase("process")
     return rates
 
 

@@ -2,7 +2,8 @@
 and ``eval`` on an HF checkpoint directory, against the JAX package's: ``ocr``
 prints JAX ``cli.main``'s lines for the same arguments (a tiny HF directory,
 weights std 0.1, the int8 serving engine in f32), a missing image exits 1,
-the options and subcommands of unported features exit 2, ``--device cuda``
+the options and the subcommand of unported features (``bench``, ``--wire``,
+``--no-coalesce``, ``--mesh-data``, ``--no-aot``) exit 2, ``--device cuda``
 raises without CUDA, ``eval.main`` prints JAX's report for the directory,
 and ``serve.build_engine --checkpoint`` serves the checkpoint's weights."""
 
@@ -70,8 +71,8 @@ def test_ocr_missing_image_exits_1(hf_dir, tmp_path, capsys):
 @pytest.mark.parametrize(
     "argv", [["--wire", "gray", "ocr", "x.png"], ["--no-coalesce", "ocr", "x.png"],
              ["--mesh-data", "2", "ocr", "x.png"], ["--no-aot", "ocr", "x.png"],
-             ["process", "pages", "--out", "o"], ["bench"], []],
-    ids=["wire", "no_coalesce", "mesh_data", "no_aot", "process", "bench", "no_command"],
+             ["bench"], []],
+    ids=["wire", "no_coalesce", "mesh_data", "no_aot", "bench", "no_command"],
 )
 def test_unported_options_and_subcommands_exit_2(argv, capsys):
     with pytest.raises(SystemExit) as e:

@@ -1,8 +1,8 @@
 """The port stands alone: no module of ``manga_ocr_tpu_torch/``, no
 ``chip_smoke.py`` and no card test imports ``jax``, ``optax`` or anything of
 the JAX package (an AST scan, and a subprocess that imports the engine, the
-server, the command line, ``MangaOcr``, the HF converter, the trainer and
-``chip_smoke`` and then reads ``sys.modules``); and the port's own
+server, the command line with its ``process`` modules, ``MangaOcr``, the HF
+converter, the trainer and ``chip_smoke`` and then reads ``sys.modules``); and the port's own
 copies of the shared modules agree with the JAX package's: the config
 (fields, defaults, constructors), the tokenizer (encodes and decodes) and
 ``prep_page_gray`` (byte-identical batches on the fixture crops, for each
@@ -21,7 +21,12 @@ compose -> save stage's copies, ``models/convert_lama.py``,
 ``typeset/render.py``, ``core/project.py``, ``runtime/export.py`` and
 ``typeset/cleanup.py``'s erasing functions, held to JAX's code statement for
 statement (docstrings aside, the package's name mapped; ``erase_area``'s one
-deliberate difference, its logged fall-through, named)."""
+deliberate difference, its logged fall-through, named); and the application
+layers' copies under the ``process`` command, ``core/settings.py``,
+``utils/http.py``, ``utils/rate_limit.py``, ``translate/``,
+``engine/ai_ocr.py`` and ``core/review.py``, held the same way, with
+``engine/registry.py`` held to JAX's code but for its named differences
+(``_latin_preprocess``, the Latin factory, the ``device`` parameter)."""
 
 import ast
 import dataclasses
@@ -102,6 +107,10 @@ def test_engine_server_and_chip_smoke_import_neither():
         from manga_ocr_tpu_torch.typeset import render
         from manga_ocr_tpu_torch.core import project
         from manga_ocr_tpu_torch.runtime import export
+        from manga_ocr_tpu_torch.core import review, settings
+        from manga_ocr_tpu_torch.engine import ai_ocr, registry
+        from manga_ocr_tpu_torch.translate import prompts, providers, service, styles
+        from manga_ocr_tpu_torch.utils import http, rate_limit
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "manga_ocr_tpu", "optax"))
         print("LOADED", bad)
@@ -612,9 +621,9 @@ def test_ctc_greedy_as_jax():
                                                                                  blank)
 
 
-def _code(path, names=None):
-    """A module's (or some of its functions') statements as AST dumps, with
-    docstrings dropped and the JAX package's name mapped to the port's."""
+def _module(path):
+    """A module's AST with docstrings dropped and the JAX package's name
+    mapped to the port's."""
     with open(path, encoding="utf-8") as f:
         tree = ast.parse(re.sub(r"\bmanga_ocr_tpu\b", "manga_ocr_tpu_torch", f.read()), path)
     for node in ast.walk(tree):
@@ -623,12 +632,20 @@ def _code(path, names=None):
                 and isinstance(body[0].value, ast.Constant)
                 and isinstance(body[0].value.value, str)):
             node.body = body[1:] or [ast.Pass()]
-    nodes = [n for n in tree.body if names is None or getattr(n, "name", None) in names]
+    return tree
+
+
+def _code(path, names=None):
+    """A module's (or some of its functions') statements as AST dumps, with
+    docstrings dropped and the JAX package's name mapped to the port's."""
+    nodes = [n for n in _module(path).body if names is None or getattr(n, "name", None) in names]
     return [ast.dump(n) for n in nodes]
 
 
 COPIES = ["models/convert_lama.py", "typeset/render.py", "core/project.py",
-          "runtime/export.py"]
+          "runtime/export.py", "core/settings.py", "utils/http.py", "utils/rate_limit.py",
+          "translate/prompts.py", "translate/providers.py", "translate/service.py",
+          "translate/styles.py", "engine/ai_ocr.py", "core/review.py"]
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -653,3 +670,74 @@ def test_cleanup_erasing_half_is_the_jax_code_but_the_logged_fall_through():
     silent = ("ExceptHandler(type=Name(id='Exception', ctx=Load()), "
               "body=[Pass()])")
     assert silent in jerase and silent not in terase and "attr='warning'" in terase
+
+
+def test_translate_package_init_is_the_jax_code():
+    rel = os.path.join("translate", "__init__.py")
+    want = _code(os.path.join(REPO, "manga_ocr_tpu", rel))
+    got = _code(os.path.join(REPO, "manga_ocr_tpu_torch", rel))
+    assert len(got) == len(want) == 1 and got == want
+
+
+def _drop_device(fn: ast.FunctionDef) -> ast.FunctionDef:
+    """``fn`` without its ``device`` parameter (and its default)."""
+    names = [a.arg for a in fn.args.args]
+    if "device" in names:
+        i = names.index("device")
+        n_plain = len(fn.args.args) - len(fn.args.defaults)
+        fn.args.args.pop(i)
+        if i >= n_plain:
+            fn.args.defaults.pop(i - n_plain)
+    return fn
+
+
+def test_registry_is_the_jax_code_but_the_device_and_the_latin_path():
+    """``engine/registry.py`` is JAX's statement for statement but for three
+    named places: ``_latin_preprocess`` (the port's ``ocr_preprocess`` on a
+    device), ``make_default_registry``'s Latin factory (``TorchLatinEngine``
+    on that device), and the ``device`` parameter of ``EngineRegistry``
+    (checked at construction, passed to ``_latin_preprocess``) and
+    ``make_default_registry`` (passed to both)."""
+    rel = os.path.join("engine", "registry.py")
+    jmod = _module(os.path.join(REPO, "manga_ocr_tpu", rel))
+    tmod = _module(os.path.join(REPO, "manga_ocr_tpu_torch", rel))
+    jnodes = {getattr(n, "name", ast.dump(n)): n for n in jmod.body}
+    tnodes = {getattr(n, "name", ast.dump(n)): n for n in tmod.body}
+    assert list(tnodes) == list(jnodes) and len(jnodes) > 8
+    special = {"_latin_preprocess", "make_default_registry", "EngineRegistry"}
+    for name in jnodes.keys() - special:
+        assert ast.dump(tnodes[name]) == ast.dump(jnodes[name]), name
+
+    # EngineRegistry: every method as JAX's; __init__ adds the device and its
+    # check before JAX's statements; perform_ocr passes self.device on
+    jcls, tcls = jnodes["EngineRegistry"], tnodes["EngineRegistry"]
+    jm = {m.name: m for m in jcls.body}
+    tm = {m.name: m for m in tcls.body}
+    assert list(tm) == list(jm)
+    for name in jm.keys() - {"__init__", "perform_ocr"}:
+        assert ast.dump(tm[name]) == ast.dump(jm[name]), name
+    tinit = _drop_device(tm["__init__"])
+    n_device = len(tinit.body) - len(jm["__init__"].body)
+    assert n_device == 3 and "device" in ast.dump(ast.Module(tinit.body[:n_device], []))
+    tinit.body = tinit.body[n_device:]
+    assert ast.dump(tinit) == ast.dump(jm["__init__"])
+    latin_call = "Call(func=Name(id='_latin_preprocess', ctx=Load()), args=["
+    tperf = ast.dump(tm["perform_ocr"])
+    device_arg = ", Attribute(value=Name(id='self', ctx=Load()), attr='device', ctx=Load())"
+    assert tperf.count(device_arg) == 1 and latin_call in tperf
+    assert tperf.replace(device_arg, "") == ast.dump(jm["perform_ocr"])
+
+    # make_default_registry: JAX's but for the device parameter, the
+    # registry built on it, and the Latin factory's body
+    jmk, tmk = jnodes["make_default_registry"], _drop_device(tnodes["make_default_registry"])
+    jlatin = next(n for n in ast.walk(jmk) if isinstance(n, ast.FunctionDef) and n.name == "_latin")
+    tlatin = next(n for n in ast.walk(tmk) if isinstance(n, ast.FunctionDef) and n.name == "_latin")
+    factory = ast.dump(tlatin)
+    assert "attr='from_checkpoints'" in factory and "TorchLatinEngine" in factory
+    assert "keyword(arg='device', value=Name(id='device', ctx=Load()))" in factory
+    tlatin.body = jlatin.body
+    dump = ast.dump(tmk)
+    built = "Call(func=Name(id='EngineRegistry', ctx=Load()), args=[Name(id='device', ctx=Load())]"
+    assert dump.count(built) == 1
+    assert dump.replace(built, "Call(func=Name(id='EngineRegistry', ctx=Load()), args=[]") == \
+        ast.dump(jmk)
