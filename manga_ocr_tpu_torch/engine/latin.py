@@ -15,11 +15,12 @@ This engine runs the same two-model pipeline (``models/craft.py`` +
   ``detect/craft_boxes.py``) and CTC decode.
 
 Weights: EasyOCR's published ``.pth`` checkpoints convert via
-``models/convert_latin.py`` (``from_checkpoints``); without them the engine
-draws the port's numpy init (seed 0), not JAX's ``PRNGKey(0)``.  Engine
-contract: ``perform_ocr(bgr, settings) -> str`` with ``"[ERROR: ...]"``
-sentinel strings.  Not ported: ``mesh=`` (raises; ROADMAP.md queue 1 item
-7) and CRNN checkpoint directories (``train_latin``; raises).
+``models/convert_latin.py``, and a recognizer trained by ``train_latin``
+loads from its checkpoint directory (``from_checkpoints``); without them
+the engine draws the port's numpy init (seed 0), not JAX's ``PRNGKey(0)``.
+Engine contract: ``perform_ocr(bgr, settings) -> str`` with
+``"[ERROR: ...]"`` sentinel strings.  Not ported: ``mesh=`` (raises;
+ROADMAP.md queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -279,30 +280,39 @@ class TorchLatinEngine:
     def from_checkpoints(
         cls, craft_path: str, crnn_path: str, charset: str | None = None, **kw
     ) -> "TorchLatinEngine":
-        """Build from EasyOCR-style torch ``.pth`` checkpoints (the charset
-        defaults to :data:`DEFAULT_CHARSET`).  A CRNN checkpoint directory
-        (``train_latin.save_crnn_checkpoint``) raises: ``train_latin`` is
-        not ported (ROADMAP.md queue 1 item 5)."""
+        """Build from checkpoints.
+
+        ``craft_path``: torch ``.pth`` (EasyOCR's published detector).
+        ``crnn_path``: torch ``.pth`` OR a native checkpoint dir written by
+        ``train_latin.save_crnn_checkpoint`` in either package (whose
+        manifest carries the config and the training charset -- an explicit
+        ``charset`` argument overrides it; for ``.pth`` the charset defaults
+        to :data:`DEFAULT_CHARSET`)."""
         import os
 
         from manga_ocr_tpu_torch.models import convert_latin as cl
 
-        if os.path.isdir(crnn_path):
-            raise NotImplementedError(
-                "TorchLatinEngine.from_checkpoints: CRNN checkpoint directories need "
-                "train_latin.load_crnn_checkpoint, not ported yet; see ROADMAP.md queue 1 item 5")
         craft_params = craft_mod.params_from_jax(
             cl.convert_craft_state_dict(cl.load_torch_checkpoint(craft_path)))
-        crnn_tree = cl.convert_crnn_state_dict(cl.load_torch_checkpoint(crnn_path))
-        num_classes = crnn_tree["head"]["bias"].shape[0]
-        kw.setdefault("crnn_cfg", crnn_mod.CrnnConfig(num_classes=num_classes))
-        charset = charset or DEFAULT_CHARSET
+        if os.path.isdir(crnn_path):
+            from manga_ocr_tpu_torch.train_latin import load_crnn_checkpoint
+
+            crnn_params, crnn_cfg, manifest_charset = load_crnn_checkpoint(crnn_path, "cpu")
+            kw.setdefault("crnn_cfg", crnn_cfg)
+            charset = charset or manifest_charset
+        else:
+            crnn_params = crnn_mod.params_from_jax(
+                cl.convert_crnn_state_dict(cl.load_torch_checkpoint(crnn_path)))
+            num_classes = crnn_params["head"]["bias"].shape[0]
+            kw.setdefault("crnn_cfg", crnn_mod.CrnnConfig(num_classes=num_classes))
+            charset = charset or DEFAULT_CHARSET
+        num_classes = crnn_params["head"]["bias"].shape[0]
         if len(charset) + 1 != num_classes:
             raise ValueError(
                 f"checkpoint has {num_classes} classes; charset must have "
                 f"{num_classes - 1} characters"
             )
-        return cls(craft_params, crnn_mod.params_from_jax(crnn_tree), charset=charset, **kw)
+        return cls(craft_params, crnn_params, charset=charset, **kw)
 
 
 # -- small host helpers (PIL-free, cv2-free) --------------------------------

@@ -249,9 +249,8 @@ def make_default_registry(
         def _latin():
             from manga_ocr_tpu_torch.engine.latin import TorchLatinEngine
 
-            # charset resolution: explicit settings override > DEFAULT_CHARSET
-            # (torch .pth checkpoints; CRNN checkpoint directories raise
-            # until train_latin is ported)
+            # charset resolution: explicit settings override > native
+            # checkpoint manifest > DEFAULT_CHARSET (torch .pth case)
             return TorchLatinEngine.from_checkpoints(
                 craft_path,
                 crnn_path,

@@ -20,7 +20,9 @@ has no Pallas kernel.  Each BiLSTM is an ``nn.LSTM`` built on the meta
 device and loaded from the tree (``_lstm_module``), never drawn from
 torch's default init.  Both directions run over the whole padded bucket
 width, as JAX's ``lax.scan`` does: packing sequences by their valid widths
-would change the backward direction's output.
+would change the backward direction's output.  ``crnn_forward(...,
+grad=True)`` is the training forward (``train_latin``): the LSTMs compute
+with the tree's own tensors (``_lstm_call``), so gradients reach them.
 
 Parameters keep the JAX package's tree with PyTorch's layouts: OIHW convs,
 [O, I] linears, LSTM directions as ``{"w_ih": [4H, I], "w_hh": [4H, H],
@@ -103,6 +105,29 @@ def _lstm_scan(p: dict, x: torch.Tensor, reverse: bool) -> torch.Tensor:
     return out.flip(1) if reverse else out
 
 
+def _lstm_call(dirs: list):
+    """The BiLSTM over the given directions as a callable [B, T, I] ->
+    ([B, T, 2H], state) that computes with the tree's own tensors, so
+    gradients reach them: a meta-built ``nn.LSTM`` called through
+    ``torch.func.functional_call`` with ``w_ih``, ``w_hh`` and the summed
+    ``bias`` as ``bias_ih``, and ``bias_hh`` a zero constant that is never
+    a leaf of the tree (JAX has one bias a direction, so no optimizer may
+    train a second).  The module is in training mode, since cuDNN refuses
+    an RNN backward in eval mode; it has no dropout, so the math is the
+    same."""
+    with torch.device("meta"):
+        m = nn.LSTM(dirs[0]["w_ih"].shape[1], dirs[0]["w_hh"].shape[1], batch_first=True,
+                    bidirectional=len(dirs) == 2)
+    tensors = {}
+    for d, sfx in zip(dirs, ("", "_reverse")):
+        tensors[f"weight_ih_l0{sfx}"] = d["w_ih"]
+        tensors[f"weight_hh_l0{sfx}"] = d["w_hh"]
+        tensors[f"bias_ih_l0{sfx}"] = d["bias"]
+        tensors[f"bias_hh_l0{sfx}"] = torch.zeros_like(d["bias"], requires_grad=False)
+    m.train()
+    return lambda x: torch.func.functional_call(m, tensors, (x,))
+
+
 class Crnn:
     """The recognizer's tree on one device, with each BiLSTM as an
     ``nn.LSTM`` (``_lstm_module``) built once."""
@@ -113,22 +138,32 @@ class Crnn:
                       for n in range(2)]
 
 
-def bilstm_forward(p: dict, lstm: nn.LSTM, x: torch.Tensor) -> torch.Tensor:
-    """BidirectionalLSTM block: biLSTM + linear (torch module shape)."""
+def bilstm_forward(p: dict, lstm, x: torch.Tensor) -> torch.Tensor:
+    """BidirectionalLSTM block: biLSTM + linear (torch module shape);
+    ``lstm`` an ``nn.LSTM`` or ``_lstm_call``'s callable."""
     h, _ = lstm(x)  # [B, T, 2H]: forward, then backward
     return F.linear(h, p["linear"]["kernel"], p["linear"]["bias"])
 
 
-def crnn_forward(params, x: torch.Tensor) -> torch.Tensor:
+def _logits(p: dict, x: torch.Tensor, lstms: list) -> torch.Tensor:
+    h = features_forward(p["features"], x)
+    for n, lstm in enumerate(lstms):
+        h = bilstm_forward(p[f"rnn{n}"], lstm, h)
+    return F.linear(h, p["head"]["kernel"], p["head"]["bias"])
+
+
+def crnn_forward(params, x: torch.Tensor, grad: bool = False) -> torch.Tensor:
     """[B, 1, H, W] normalized gray crops -> per-column logits [B, T, K].
-    ``params``: a ``Crnn`` or the port's tree."""
+    ``params``: a ``Crnn`` or the port's tree; ``grad=True`` (the port's
+    tree only) carries gradients to the tree's leaves, else no graph is
+    built."""
+    if grad:
+        lstms = [_lstm_call([params[f"rnn{n}"]["fwd"], params[f"rnn{n}"]["bwd"]])
+                 for n in range(2)]
+        return _logits(params, x, lstms)
     net = params if isinstance(params, Crnn) else Crnn(params)
-    p = net.params
     with torch.no_grad():
-        h = features_forward(p["features"], x)
-        for n, lstm in enumerate(net.lstms):
-            h = bilstm_forward(p[f"rnn{n}"], lstm, h)
-        return F.linear(h, p["head"]["kernel"], p["head"]["bias"])
+        return _logits(net.params, x, net.lstms)
 
 
 def ctc_greedy(logits: np.ndarray, lengths: np.ndarray | None, blank_id: int = 0):

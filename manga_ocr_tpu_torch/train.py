@@ -105,14 +105,17 @@ class OptState(NamedTuple):
     scheduler: torch.optim.lr_scheduler.LambdaLR | None
 
 
-def make_optimizer(lr: float | Callable[[int], float] = 1e-4) -> Callable[[dict], OptState]:
-    """``optax.adamw(lr, weight_decay=0.01)``: returns ``init(params) ->
-    OptState``, which builds the optimizer state over a parameter tree."""
+def make_optimizer(lr: float | Callable[[int], float] = 1e-4,
+                   weight_decay: float = 0.01) -> Callable[[dict], OptState]:
+    """``optax.adamw(lr, weight_decay=weight_decay)`` (0.01, this module's
+    setting; optax's own default is 1e-4, and ``optax.adam`` is 0.0):
+    returns ``init(params) -> OptState``, which builds the optimizer state
+    over a parameter tree."""
 
     def init(params: dict) -> OptState:
         leaves = [t for _, t in _leaves(params)]
         opt = torch.optim.AdamW(leaves, lr=1.0 if callable(lr) else lr, betas=(0.9, 0.999),
-                                eps=1e-8, weight_decay=0.01)
+                                eps=1e-8, weight_decay=weight_decay)
         sched = torch.optim.lr_scheduler.LambdaLR(opt, lr) if callable(lr) else None
         return OptState(opt, sched)
 

@@ -11,7 +11,8 @@ through ``load_torch_checkpoint`` files), the converted weights against the
 twins' own forwards; ``TorchLatinEngine``'s boxes and strings equal to
 ``TpuLatinEngine``'s (``detect_boxes_batch`` over three buckets and a
 downscaled page, ``recognize_lines``, ``readtext``, ``perform_ocr``,
-``from_checkpoints``), with the score pixels and logit gaps that lie within
+``from_checkpoints`` on ``.pth`` files and on a ``train_latin`` checkpoint
+directory), with the score pixels and logit gaps that lie within
 the tolerance of a threshold counted, printed and required to be none (the
 inputs are fixed, so one that comes to lie there fails loudly); and text mode
 (``detect_text_regions`` on ``craft_proposer(engine)``) against JAX's.
@@ -32,6 +33,7 @@ from manga_ocr_tpu.engine import latin as jlatin
 from manga_ocr_tpu.models import convert_latin as jconv
 from manga_ocr_tpu.models import craft as jcraft
 from manga_ocr_tpu.models import crnn as jcrnn
+from manga_ocr_tpu_torch import train_latin as ttl
 from manga_ocr_tpu_torch.detect import text_detect as ttd
 from manga_ocr_tpu_torch.engine import latin as tlatin
 from manga_ocr_tpu_torch.models import convert_latin as tconv
@@ -432,9 +434,26 @@ def test_from_checkpoints_and_refusals(twins, tmp_path):
     with pytest.raises(ValueError, match="charset"):
         tlatin.TorchLatinEngine.from_checkpoints(str(tmp_path / "craft.pth"),
                                                  str(tmp_path / "crnn.pth"), device="cpu")
-    with pytest.raises(NotImplementedError, match="train_latin"):
-        tlatin.TorchLatinEngine.from_checkpoints(str(tmp_path / "craft.pth"), str(tmp_path),
-                                                 device="cpu")
+    # a CRNN checkpoint directory (train_latin.save_crnn_checkpoint): the
+    # manifest's config and charset, an explicit charset over it, JAX's tree
+    crnn_dir = str(tmp_path / "crnn_dir")
+    ttl.save_crnn_checkpoint(crnn_dir, t.crnn_params, t.crnn_cfg, CHARSET)
+    kw_dir = dict(kw, craft_cfg=TCRAFT)
+    d = tlatin.TorchLatinEngine.from_checkpoints(str(tmp_path / "craft.pth"), crnn_dir,
+                                                 device="cpu", **kw_dir)
+    jd = jlatin.TpuLatinEngine.from_checkpoints(str(tmp_path / "craft.pth"), crnn_dir, **kw)
+    assert d.charset == jd.charset == CHARSET
+    assert dataclasses.asdict(d.crnn_cfg) == dataclasses.asdict(jd.crnn_cfg)
+    _same_tree(tcrnn.params_to_jax(d.crnn_params), jd.crnn_params)
+    _same_tree(tcrnn.params_to_jax(d.crnn_params), j.crnn_params)
+    other = "abcdefghijkl"
+    assert tlatin.TorchLatinEngine.from_checkpoints(
+        str(tmp_path / "craft.pth"), crnn_dir, charset=other, device="cpu", **kw_dir
+    ).charset == other
+    with pytest.raises(ValueError, match="charset"):
+        tlatin.TorchLatinEngine.from_checkpoints(str(tmp_path / "craft.pth"), crnn_dir,
+                                                 charset="abc", device="cpu", **kw_dir)
+    assert d.perform_ocr(page) == t.perform_ocr(page)
     with pytest.raises(ValueError, match="mesh"):
         tlatin.TorchLatinEngine(mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="num_classes"):
