@@ -252,7 +252,24 @@ each engine, from each tree in turn.)
    by the host clock, the host split (engine build, detection, OCR,
    translation round trips, save_project + batch_save), launches per
    dispatch and the stub's request count.
-14. Prints its total seconds, one JSON line of kernel results, then the
+14. Data-parallel serving (phase "data-parallel serving"; the device guard
+   of every kernel launch, no kernel of its own) on a mesh of every card
+   where there are several, else a virtual mesh of DP_VIRTUAL x cuda:0:
+   torch.cuda.device_count() and the refusal of --mesh-data over more cards
+   than are visible; the full-width int8 engine on the mesh (exact launch
+   counts: A 12, B 12, C 1 per shard dispatch), the [lengths | tokens]
+   matrix of each bucket of the 256-crop page against the single-device
+   engine's (bit-equal rows, or, where kernel C's result depends on the
+   batch size, the differing rows teacher-forced within DECODE_GAP_REL, the
+   stage and C's grids printed), both engines' crops/s; BubbleDetector,
+   LamaInpainter (big-lama) and TorchLatinEngine's CRAFT maps and CRNN
+   logits on the mesh against one device on each shard's slice (bit-equal;
+   LaMa within one level on 0.5% of pixels); then one rank a mesh device in
+   child processes (``chip_smoke.py --dp-rank RANK N PORT OUT``: gloo on
+   one card, NCCL on several; parallel/multihost's initialize,
+   make_global_mesh, global_batch, gather_to_hosts, sync), their gathered
+   matrix held to one process's run of the same bucket as above.
+15. Prints its total seconds, one JSON line of kernel results, then the
    device line {"ok": true, "device": {...}} last.  Any failed check exits
    non-zero before the device line.
 """
@@ -2060,12 +2077,12 @@ def drive_page(engine, crops, label: str, per_dispatch: dict, results: dict,
     return texts
 
 
-def page_rate(engine, crops, label: str) -> float:
-    """crops/s of ocr_page on one 256-crop page (the fixtures cycled), after a
-    warm page."""
+def page_rate(engine, crops, label: str, n: int = 256) -> float:
+    """crops/s of ocr_page on one ``n``-crop page (the fixtures cycled),
+    after a warm page."""
     import torch
 
-    page = [crops[i % len(crops)] for i in range(256)]
+    page = [crops[i % len(crops)] for i in range(n)]
     engine.ocr_page(page)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2073,7 +2090,7 @@ def page_rate(engine, crops, label: str) -> float:
     for _ in range(reps):
         engine.ocr_page(page)
     rate = reps * len(page) / (time.perf_counter() - t0)
-    log(f"{label} ocr_page 256 crops: {rate} crops/s on {card_line()}")
+    log(f"{label} ocr_page {n} crops: {rate} crops/s on {card_line()}")
     return rate
 
 
@@ -5049,6 +5066,331 @@ def run_process(yolo_tree: dict) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- data-parallel serving (phase "data-parallel serving") ------------------------------
+DP_VIRTUAL = 2  # the mesh on one card: a virtual mesh of DP_VIRTUAL x cuda:0
+DP_PAGES = 8  # U-Net pages of DET_PAGE_HW (4 a dispatch on one device)
+DP_LAMA_REGIONS = 8  # 512x512 regions (DISPATCH_PIXELS: 4 a dispatch on one device)
+DP_CRAFT_PAGES = 8  # 512x512 pages (CRAFT's cap at that bucket: 4 a dispatch)
+DP_LINES = 64  # CRNN lines
+DP_RANK_TIMEOUT_S = 300
+# pages timed on both engines: at 256 crops every card's kernel C runs one
+# wave of clusters (15 tiles of up to 18 rows), at 1024 one device needs four
+DP_PAGE_SIZES = (256, 1024)
+
+
+def dp_devices() -> list:
+    """The phase's data devices: every card where there are several, else a
+    virtual mesh of DP_VIRTUAL x cuda:0."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n > 1:
+        return [torch.device("cuda", i) for i in range(n)]
+    return [torch.device("cuda", 0)] * DP_VIRTUAL
+
+
+def dp_label(devices: list) -> str:
+    names = sorted({str(d) for d in devices})
+    return f"{len(devices)} x {names[0]}" if len(names) == 1 else ", ".join(names)
+
+
+def host_timed(fn) -> tuple:
+    """``fn()``'s result and the host seconds of a second call, the cards
+    synchronised (the first call warms cuDNN and the allocator)."""
+    import torch
+
+    def sync():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def dp_matrices(engine, page) -> list:
+    """``[lengths | tokens]`` of each bucket of ``page`` (as ocr_page
+    prepares it, Vertical): (batch, host matrix of its valid rows)."""
+    from manga_ocr_tpu_torch.parallel import mesh as meshlib
+
+    return [(b, meshlib.dp_gather(shards, b.valid))
+            for b, shards in engine._dispatch_page(page, 1, None)]
+
+
+def dp_hold_rows(label: str, engine, b, got, want, n: int) -> None:
+    """Rows of one bucket from a run split ``n`` ways against the
+    single-device run's: bit-equal, or else (printed: which stage differs,
+    kernel C's grids) each differing row's tokens scored by the plain
+    decoder on the kernel encoder's output of its own shard (teacher-forced
+    gaps within DECODE_GAP_REL)."""
+    import numpy as np
+    import torch
+
+    from manga_ocr_tpu_torch.models import decoder as dec
+    from manga_ocr_tpu_torch.models import model as mdl
+    from manga_ocr_tpu_torch.ops import decode_loop as dl
+    from manga_ocr_tpu_torch.ops import preprocess as pp
+
+    same = (got == want).all(axis=1)
+    if same.all():
+        log(f"{label}: bucket {b.bucket_hw} x{b.crops.shape[0]}: {len(got)} rows bit-equal")
+        return
+    bad = np.flatnonzero(~same)
+    rows = b.crops.shape[0] // n
+    with torch.inference_mode():
+        px = pp.model_preprocess(torch.from_numpy(b.crops).cuda(), torch.from_numpy(b.sizes).cuda(),
+                                 engine.cfg.encoder.image_size).to(engine.dtype)
+        whole = mdl.encode(engine.params, px, engine.cfg).float()
+        parts = torch.cat([mdl.encode(engine.params, px[i * rows:(i + 1) * rows], engine.cfg)
+                           for i in range(n)]).float()
+        enc_diff = float((whole - parts).abs().max())
+        grids = []  # kernel C's grid at the whole batch's size and at a shard's
+        for x in (px, px[:rows]):
+            mdl.ocr_forward(engine.params, x, engine.cfg, max_length=engine.max_length)
+            grids.append(dl.greedy_decode_loop.last_grid)
+        tokens = torch.from_numpy(np.ascontiguousarray(got[bad, 1:])).cuda()
+        lengths = torch.from_numpy(np.ascontiguousarray(got[bad, 0])).cuda()
+        cross = dec.precompute_cross_kv_packed(engine.params["decoder"], parts[bad].to(engine.dtype),
+                                               engine.cfg.decoder, int8=False)
+        stats = live_gap_stats(*dl.teacher_forced_gaps(
+            engine.params["decoder"], cross, engine.cfg.decoder,
+            tokens[:, : int(lengths.max())].contiguous()), lengths)
+    where = "encoder (kernels A, B)" if enc_diff else "decode (kernel C)"
+    log(f"{label}: bucket {b.bucket_hw} x{b.crops.shape[0]}: {len(bad)} of {len(got)} rows differ "
+        f"from the single-device run; the encoder's output of the shards differs from the whole "
+        f"batch's by {enc_diff} (so the {where} depends on the batch; C's grid at "
+        f"B={b.crops.shape[0]} {grids[0]}, at B={rows} {grids[1]}); the differing rows "
+        f"teacher-forced by the plain decoder on their shard's encoder output {stats}")
+    if stats["max_rel_gap"] > DECODE_GAP_REL:
+        fail(f"{label}: sharded rows' gap {stats['max_rel_gap']} over {DECODE_GAP_REL}")
+
+
+def dp_bucket():
+    """The 256-crop page's largest bucket (Vertical), as ocr_page prepares it."""
+    from manga_ocr_tpu_torch.parallel import batching
+
+    crops = load_crops()
+    page = [crops[i % len(crops)] for i in range(256)]
+    return max(batching.prep_page_gray(page, 1), key=lambda b: b.crops.shape[0])
+
+
+def dp_rank(rank: int, n: int, port: int, out: str) -> None:
+    """One of the phase's ``n`` ranks (``chip_smoke.py --dp-rank RANK N PORT
+    OUT``; gloo where the ranks share a card, NCCL where each has its own):
+    its rows of the 256-crop page's largest bucket through the int8 engine's
+    ocr_forward on its device, every rank's [lengths | tokens] read back by
+    gather_to_hosts (rank 0 writes it)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from manga_ocr_tpu_torch.models import model as mdl
+    from manga_ocr_tpu_torch.parallel import multihost as mh
+    from manga_ocr_tpu_torch.ops import preprocess as pp
+
+    mh.initialize(f"127.0.0.1:{port}", num_processes=n, process_id=rank)
+    mesh = mh.make_global_mesh()
+    b = dp_bucket()
+    rows = b.crops.shape[0] // n
+    crops, offset = mh.global_batch(b.crops[rank * rows:(rank + 1) * rows], mesh)
+    sizes, _ = mh.global_batch(b.sizes[rank * rows:(rank + 1) * rows], mesh)
+    with torch.cuda.device(crops.device):  # the engine's default "cuda" is this rank's card
+        engine = ocr_engine()
+    with torch.inference_mode():
+        px = pp.model_preprocess(crops, sizes.int(), engine.cfg.encoder.image_size).to(engine.dtype)
+        o = mdl.ocr_forward(engine.params, px, engine.cfg, max_length=engine.max_length)
+        got = mh.gather_to_hosts(torch.cat([o.lengths[:, None], o.tokens], dim=1))
+    mh.sync("gathered")
+    log(f"dp rank {rank}: backend {dist.get_backend()}, mesh {mesh}, rows {offset}.."
+        f"{offset + rows - 1} on {crops.device}, gathered {got.shape}")
+    if rank == 0:
+        np.save(out, got)
+    dist.destroy_process_group()
+
+
+def run_data_parallel() -> None:
+    """Data-parallel serving on the phase's mesh (``dp_devices``: every card
+    where there are several, else a virtual mesh of DP_VIRTUAL x cuda:0):
+    (a) the full-width int8 engine sharded against the single-device
+    engine: exact launch counts (A 12, B 12, C 1 per shard dispatch), each
+    bucket's [lengths | tokens] of the 256-crop page (dp_hold_rows), both
+    engines' crops/s; (b) BubbleDetector (DetectorConfig()) on DP_PAGES
+    pages of DET_PAGE_HW and one odd-shape page, LamaInpainter (big-lama) on
+    DP_LAMA_REGIONS 512x512 regions, TorchLatinEngine's CRAFT maps on
+    DP_CRAFT_PAGES 512x512 pages and CRNN logits on DP_LINES lines, each
+    sharded and held to one device's outputs on the same per-device slices
+    (bit-equal; LaMa's pixels within one level on 0.5% of pixels, as the CPU
+    tests hold), recognize_lines' strings compared; (c) one rank a mesh
+    device in child processes (``--dp-rank``), their gather_to_hosts held to
+    one process's run of the same bucket (dp_hold_rows)."""
+    import argparse
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from manga_ocr_tpu_torch import cli
+    from manga_ocr_tpu_torch.detect.detector import BubbleDetector
+    from manga_ocr_tpu_torch.engine import TorchMangaOcrEngine
+    from manga_ocr_tpu_torch.engine.latin import TorchLatinEngine
+    from manga_ocr_tpu_torch.models import detector as seg
+    from manga_ocr_tpu_torch.models import inpaint as ip
+    from manga_ocr_tpu_torch.models.config import MangaOCRConfig
+    from manga_ocr_tpu_torch.models.params import init_params
+    from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
+    from manga_ocr_tpu_torch.parallel import mesh as meshlib
+
+    card = card_line()
+    n_cards = torch.cuda.device_count()
+    devices = dp_devices()
+    n, where = len(devices), dp_label(devices)
+    log(f"data-parallel serving: torch.cuda.device_count() = {n_cards}; the mesh {where} on "
+        f"{card}")
+    try:
+        cli._mesh(argparse.Namespace(mesh_data=n_cards + 1, device="cuda"))
+        fail(f"--mesh-data {n_cards + 1} built a mesh on {n_cards} card(s)")
+    except ValueError as e:
+        log(f"--mesh-data {n_cards + 1} on {n_cards} card(s) raises: {e}")
+    mesh = meshlib.make_mesh(n, devices=devices)
+    if n_cards > 1 and cli._mesh(argparse.Namespace(mesh_data=n, device="cuda")).data_devices \
+            != devices:
+        fail(f"--mesh-data {n} does not take the {n_cards} visible cards")
+
+    # -- (a) the int8 engine: sharded against single-device -------------------------------
+    cfg = MangaOCRConfig.base()
+    params = init_params(cfg, SEED, "cpu", std=WEIGHT_STD)
+    tok = CharTokenizer.synthetic()
+    single = TorchMangaOcrEngine(params, cfg, tok, device="cuda")
+    sharded = TorchMangaOcrEngine(params, cfg, tok, device="cuda", mesh=mesh)
+    crops = load_crops()
+    sharded.ocr_page(crops[:2])  # first call
+    per_shard = {"fused_attn_layer": 12, "fused_mlp_block": 12, "greedy_decode_loop": 1,
+                 "greedy_decode_loop[cluster]": 1, "precompute_cross_kv_packed": 1}
+    drive_page(sharded, crops, f"int8 engine on {where}", {k: n * v for k, v in per_shard.items()},
+               {}, record={k: None for k in per_shard})
+    page = [crops[i % len(crops)] for i in range(256)]
+    want, got = dp_matrices(single, page), dp_matrices(sharded, page)
+    for (b, w), (_, g) in zip(want, got):
+        dp_hold_rows(f"int8 engine on {where} vs one device", single, b, g, w, n)
+    for size in DP_PAGE_SIZES:
+        rate_single = page_rate(single, crops, "int8 engine, one device", size)
+        rate_sharded = page_rate(sharded, crops, f"int8 engine, mesh {where}", size)
+        log(f"data-parallel int8 engine crops/s on a {size}-crop page: one device {rate_single}, "
+            f"{where} {rate_sharded} ({rate_sharded / rate_single:.3f}x) on {card}")
+    del single, sharded
+    torch.cuda.empty_cache()
+
+    # -- (b) the secondary models: one device on each shard's slice, then the mesh -----------
+    def per_slice(fn, items, k):
+        rows = -(-k // n)
+        return [out for i in range(0, k, rows) for out in fn(items[i:i + rows])]
+
+    dcfg = seg.DetectorConfig()
+    tree = seg.init_params(dcfg, SEED, "cpu")
+    pages, _ = detection_pages(DP_PAGES, SEED)
+    odd = np.ascontiguousarray(pages[0][: DET_PAGE_HW[0] - 100, : DET_PAGE_HW[1] - 100])
+    one, det = (BubbleDetector(tree, dcfg, device="cuda"),
+                BubbleDetector(tree, dcfg, device="cuda", mesh=mesh))
+    want, t_one = host_timed(lambda: per_slice(one.detect_bubble_masks, pages, DP_PAGES)
+                             + one.detect_bubble_masks([odd]))
+    got, t_dp = host_timed(lambda: det.detect_bubble_masks(pages + [odd]))
+    diff = [int((a != b).sum()) for a, b in zip(got, want)]
+    log(f"BubbleDetector on {where}: {DP_PAGES} pages of {DET_PAGE_HW} and one odd, differing "
+        f"mask pixels per page {diff}; host clock after a warm call {t_one:.3f} s one device, "
+        f"{t_dp:.3f} s sharded, on {card}")
+    if any(diff) or det._params_repl is None or not any(m.any() for m in want):
+        fail("BubbleDetector: the sharded masks differ from one device's (or never split)")
+    del one, det
+
+    icfg = ip.InpaintConfig(num_blocks=18)
+    itree = ip.init_params(icfg, SEED, "cpu")
+    rng = np.random.default_rng(SEED)
+    regions, holes = [], []
+    for k in range(DP_LAMA_REGIONS):
+        y, x = int(rng.integers(0, DET_PAGE_HW[0] - 512)), int(rng.integers(0, DET_PAGE_HW[1] - 512))
+        regions.append(np.ascontiguousarray(pages[k % DP_PAGES][y:y + 512, x:x + 512]))
+        m = np.zeros((512, 512), np.uint8)
+        m[128:384, 160:352] = 255
+        holes.append(m)
+    one, lama = (ip.LamaInpainter(itree, icfg, device="cuda"),
+                 ip.LamaInpainter(itree, icfg, device="cuda", mesh=mesh))
+    want, t_one = host_timed(lambda: per_slice(
+        lambda idx: one.inpaint_many([regions[i] for i in idx], [holes[i] for i in idx]),
+        list(range(DP_LAMA_REGIONS)), DP_LAMA_REGIONS))
+    got, t_dp = host_timed(lambda: lama.inpaint_many(regions, holes))
+    worst = max(int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max()) for a, b in zip(got, want))
+    share = max(float((a != b).any(-1).mean()) for a, b in zip(got, want))
+    log(f"LamaInpainter on {where}: {DP_LAMA_REGIONS} regions of 512x512, largest difference "
+        f"{worst} levels on {share} of pixels at most; host clock after a warm call {t_one:.3f} s "
+        f"one device, {t_dp:.3f} s sharded, on {card}")
+    if worst > 1 or share > 0.005 or lama._params_repl is None:
+        fail("LamaInpainter: the sharded regions differ from one device's (or never split)")
+    del one, lama, itree
+    torch.cuda.empty_cache()
+
+    latin = TorchLatinEngine(device="cuda")
+    latin_dp = TorchLatinEngine(latin.craft_params, latin.crnn_params, device="cuda", mesh=mesh)
+    batch = np.stack([np.ascontiguousarray(p[:512, :512, ::-1]) for p in pages[:DP_CRAFT_PAGES]])
+    want = [np.concatenate(m) for m in zip(*per_slice(
+        lambda x: [latin.detect_maps(x)], batch, DP_CRAFT_PAGES))]
+    got = latin_dp.detect_maps(batch)
+    errs = [family_err(g, w) for g, w in zip(got, want)]
+    x = np.random.default_rng(SEED).normal(size=(DP_LINES, 32, 128, 1)).astype(np.float32)
+    lw = np.concatenate(per_slice(lambda v: [latin.recognize_logits(v)], x, DP_LINES))
+    lerr = family_err(latin_dp.recognize_logits(x), lw)
+    lines = line_crops(DP_LINES, SEED)
+    same_texts = sum(a == b for a, b in zip(latin_dp.recognize_lines(lines),
+                                            latin.recognize_lines(lines)))
+    log(f"TorchLatinEngine on {where}: CRAFT maps of {DP_CRAFT_PAGES} pages of 512x512 "
+        f"(region, affinity) largest-relative error {errs}, CRNN logits of {DP_LINES} lines "
+        f"{lerr}, against one device on each shard's slice; recognize_lines: {same_texts} of "
+        f"{len(lines)} strings equal to one device's (its whole buckets in one dispatch), on "
+        f"{card}")
+    if max(errs) > 0 or lerr > 0 or latin_dp._craft_repl is None or latin_dp._crnn_repl is None:
+        fail("TorchLatinEngine: the sharded maps or logits differ from one device's")
+    del latin, latin_dp
+    torch.cuda.empty_cache()
+
+    # -- (c) one rank a mesh device -----------------------------------------------------------
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    b = dp_bucket()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "gathered.npy")
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK",
+                            "LOCAL_WORLD_SIZE")}
+        t0 = time.time()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank",
+                                   str(r), str(n), str(port), out], env=env, cwd=ROOT,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(n)]
+        try:
+            for r, proc in enumerate(procs):
+                text, _ = proc.communicate(timeout=DP_RANK_TIMEOUT_S)
+                log("\n".join(f"  rank {r}: {ln}" for ln in text.splitlines()[-6:]))
+                if proc.returncode != 0:
+                    fail(f"dp rank {r} exited {proc.returncode}")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        gathered = np.load(out)
+        log(f"{n} ranks on {where}: {time.time() - t0:.1f} s with their start")
+    engine = ocr_engine()
+    with torch.inference_mode():
+        whole = engine._run_bucket(b.crops, b.sizes).cpu().numpy()
+    if gathered.shape != whole.shape:
+        fail(f"gather_to_hosts: {gathered.shape}, one process {whole.shape}")
+    dp_hold_rows(f"{n} ranks' gather_to_hosts vs one process", engine, b, gathered, whole, n)
+
+
 def phase(label: str) -> None:
     """The seconds since the last phase mark (where the run's time goes)."""
     now = time.time()
@@ -5175,6 +5517,11 @@ def run_engines(results: dict) -> dict:
     torch.cuda.empty_cache()
     run_process(yolo_tree)
     phase("process")
+
+    # -- data-parallel serving on a virtual mesh of cuda:0; two gloo ranks ------------------
+    torch.cuda.empty_cache()
+    run_data_parallel()
+    phase("data-parallel serving")
     return rates
 
 
@@ -5204,10 +5551,13 @@ def main() -> int:
     if sys.argv[1:2] == ["--latin-loop"] and len(sys.argv) == 4:
         latin_loop(int(sys.argv[2]), sys.argv[3])
         return 0
+    if sys.argv[1:2] == ["--dp-rank"] and len(sys.argv) == 6:
+        dp_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])
+        return 0
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}; usage: chip_smoke.py "
              f"[--stack-floor | --core-times ROOT... | --gemm-times ROOT... | "
-             f"--latin-loop SEED DIR]")
+             f"--latin-loop SEED DIR | --dp-rank RANK N PORT OUT]")
 
     from manga_ocr_tpu_torch.engine.engine import _cast_quantized
     from manga_ocr_tpu_torch.kernels import build

@@ -18,6 +18,9 @@ mirrors the JAX package so each module's counterpart is easy to find:
                  checkpoint store.
 - ``engine/``  — ``TorchMangaOcrEngine`` (``ocr_page``, ``ocr_pages``,
                  ``ocr_page_dual``, ``perform_ocr``, ``warmup``).
+- ``parallel/`` — host batching, data-parallel meshes of torch devices
+                 (``mesh``) and multi-process meshes on
+                 ``torch.distributed`` (``multihost``).
 - ``serve.py`` — the HTTP server around the engine.
 - ``eval.py``  — the CER harness (``python -m manga_ocr_tpu_torch.eval``).
 - ``core/``    — file helpers (image decode, natural sort).

@@ -9,13 +9,13 @@ detection is batched: the pages of one shape go to the device in
 traces polygons (``detect/contours.py``: cv2, the native tracer, or NumPy).
 ``from_checkpoint`` also opens ``.onnx`` segmenters, run page by page on
 the ONNX executor (``models/convert_onnx.py``, ``OnnxWrappedDetector``).
-
-Not ported: sharded dispatch over a mesh (``mesh=`` raises); see ROADMAP.md
-queue 1 item 7.
+Under a mesh (``parallel.mesh``) a dispatch of at least the data-axis size
+is split across the data devices.
 """
 
 from __future__ import annotations
 
+import sys
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -25,6 +25,7 @@ from manga_ocr_tpu_torch.core.geometry import Rect, polygon_bounding_rect
 from manga_ocr_tpu_torch.detect import contours as cont
 from manga_ocr_tpu_torch.detect import postprocess as post
 from manga_ocr_tpu_torch.models import detector as seg
+from manga_ocr_tpu_torch.parallel import mesh as meshlib
 
 
 # Pages a segment_pages dispatch: above four, cuDNN's heuristics pick FFT
@@ -48,7 +49,14 @@ class BubbleDetector:
     ``load_params``, ``params_from_jax``) or a ``UNet``; None leaves only the
     classical finder.  The weights are copied once, in f32, to ``device``
     (default ``"cuda"``, which raises where CUDA is unavailable rather than
-    running on the CPU)."""
+    running on the CPU).
+
+    ``mesh``: a ``parallel.mesh.Mesh`` whose devices replace ``device``
+    (they must be of its type).  A shape group goes in dispatches of at most
+    ``DISPATCH_PAGES`` pages a device; a dispatch of at least the data-axis
+    size is zero-padded and split across the data devices (the weights
+    replicated once, on the first such dispatch), a smaller one runs on the
+    first device."""
 
     def __init__(
         self,
@@ -58,16 +66,15 @@ class BubbleDetector:
         mesh=None,
         device="cuda",
     ):
-        if mesh is not None:
-            raise ValueError("BubbleDetector: mesh= (data-parallel dispatch) is not ported; "
-                             "see ROADMAP.md queue 1 item 7")
-        self.device = torch.device(device)
+        self.device = meshlib.serving_devices(mesh, device, "BubbleDetector")[0]
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("BubbleDetector: device='cuda' but CUDA is unavailable")
         self.cfg = cfg or seg.DetectorConfig()
+        self.mesh = mesh
         self.params = params
         self.min_area = min_area
         self._net = None
+        self._params_repl = None  # one tree per data device, made on first use
         if params is not None:
             tree = params.tree() if isinstance(params, seg.UNet) else params
             self._net = seg.UNet(_tree_to(tree, self.device), self.cfg).requires_grad_(False)
@@ -84,13 +91,18 @@ class BubbleDetector:
         (``models.detector.save_params``), or a real ``.onnx`` checkpoint
         (parsed and executed on ``device`` by ``models/convert_onnx.py`` --
         the reference's detector family, ``main_window.py:6776-6815``).
-        ``mesh=`` raises for both."""
+        ``mesh`` applies to the ``.npz`` form only: the ONNX executor runs on
+        ``device`` alone and ignores it with a note on stderr."""
         if str(path).lower().endswith(".onnx"):
             from manga_ocr_tpu_torch.models.convert_onnx import OnnxBubbleDetector
 
             if mesh is not None:
-                raise ValueError("BubbleDetector: mesh= (data-parallel dispatch) is not "
-                                 "ported; see ROADMAP.md queue 1 item 7")
+                print(
+                    "note: mesh ignored for .onnx detector checkpoints "
+                    "(single-device executor); convert to the native .npz "
+                    "form for sharded dispatch",
+                    file=sys.stderr,
+                )
             return OnnxWrappedDetector(OnnxBubbleDetector.from_file(path, device=device),
                                        min_area=min_area, device=device)
         cfg = cfg or seg.DetectorConfig()
@@ -110,7 +122,7 @@ class BubbleDetector:
     # -- batched page API -----------------------------------------------------
 
     def detect_bubble_masks(self, pages_bgr: Sequence[np.ndarray]) -> list[np.ndarray]:
-        """One device dispatch per DISPATCH_PAGES pages of one shape."""
+        """One dispatch per DISPATCH_PAGES pages of one shape a device."""
         if self.params is None:
             raise RuntimeError("detector has no weights loaded")
         by_shape: dict[tuple, list[int]] = {}
@@ -118,13 +130,25 @@ class BubbleDetector:
             by_shape.setdefault(p.shape[:2], []).append(i)
         out: list[Optional[np.ndarray]] = [None] * len(pages_bgr)
         for (h, w), group in by_shape.items():
-            for at in range(0, len(group), DISPATCH_PAGES):
-                idxs = group[at : at + DISPATCH_PAGES]
+            for part in meshlib.dispatch_slices(len(group), DISPATCH_PAGES, self.mesh):
+                idxs = group[part]
                 rgb = np.ascontiguousarray(np.stack([pages_bgr[i][..., ::-1] for i in idxs]))
-                masks = seg.segment_pages(self._net, rgb, self.cfg, h, w).cpu().numpy()
+                masks = self._segment(rgb, h, w)
                 for row, i in enumerate(idxs):
                     out[i] = masks[row]
         return out  # type: ignore[return-value]
+
+    def _segment(self, rgb: np.ndarray, h: int, w: int) -> np.ndarray:
+        """One dispatch's host masks: on the first device, or, where the mesh
+        splits it, zero-padded and one call on each data device, all
+        launched before any is read back."""
+        if not meshlib.splits(self.mesh, rgb.shape[0]):
+            return seg.segment_pages(self._net, rgb, self.cfg, h, w).cpu().numpy()
+        if self._params_repl is None:
+            self._params_repl = meshlib.dp_replicate(self._net.tree(), self.mesh)
+        shards = zip(self._params_repl, meshlib.dp_shard_batch(rgb, self.mesh))
+        return meshlib.dp_gather([seg.segment_pages(t, x, self.cfg, h, w) for t, x in shards],
+                                 rgb.shape[0])
 
     def detect_bubbles(self, page_bgr: np.ndarray) -> list[dict]:
         """Page -> [{'polygon': [N,2], 'text': None}] (AutoDetector schema)."""

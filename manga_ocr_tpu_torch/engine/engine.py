@@ -19,9 +19,15 @@ crop and its ``ocr_preprocess`` variant (skew-corrected, equalized, Otsu
 binarized), both through one ``ocr_page``, or the variant through a second
 engine.
 
+``mesh`` (``parallel.mesh.make_mesh``) serves data-parallel as the JAX
+engine does under a (data, 1) mesh: the params replicated once per data
+device, each bucket's batch padded to a multiple of the data-axis size
+(repeating its last crop), split, every shard launched on its device
+before any is read back, and the rows joined in order.
+
 Not ported (each is absent, see ROADMAP.md): the packed and fused
-multi-bucket wire formats, meshes, the AOT executable store, and CUDA graph
-capture.
+multi-bucket wire formats, tensor parallelism (a model axis above 1), the
+AOT executable store, and CUDA graph capture.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from manga_ocr_tpu_torch.models.quantize import quantize_encoder
 from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
 from manga_ocr_tpu_torch.ops import preprocess as pp
 from manga_ocr_tpu_torch.parallel import batching
+from manga_ocr_tpu_torch.parallel import mesh as meshlib
 from manga_ocr_tpu_torch.utils.metrics import COMPILE_EVENTS
 
 
@@ -90,7 +97,14 @@ class TorchMangaOcrEngine:
     B, C) or its unquantized form (bf16 params, kernels E, D, C).
     ``serving_kernels=False`` runs ``cfg`` as given on params cast to
     ``dtype``: with ``MangaOCRConfig.base()`` that is the exact reference
-    path."""
+    path.
+
+    ``mesh``: a ``parallel.mesh.Mesh``; every crop batch is sharded over its
+    data axis (None = ``device`` alone).  Its devices replace ``device``,
+    which must then be of their type (CUDA or CPU, so a CUDA request never
+    runs on the CPU); ``self.device`` is the first of them.  A model axis
+    above 1 raises: the serving kernels are data-parallel only, and tensor
+    parallelism is not ported."""
 
     def __init__(
         self,
@@ -102,10 +116,23 @@ class TorchMangaOcrEngine:
         device="cuda",
         serving_kernels: bool | None = None,
         quantize_int8: bool | None = None,
+        mesh: meshlib.Mesh | None = None,
     ):
-        self.device = torch.device(device)
+        devices = meshlib.serving_devices(mesh, device, "TorchMangaOcrEngine")
+        self.device = devices[0]
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("TorchMangaOcrEngine: device='cuda' but CUDA is unavailable")
+        n_model = mesh.shape[meshlib.MODEL_AXIS] if mesh is not None else 1
+        if n_model > 1 and serving_kernels:
+            raise ValueError(
+                "fused serving kernels support data-parallel meshes only "
+                f"(model axis size 1, got {n_model})"
+            )
+        if n_model > 1:
+            raise ValueError(
+                f"a model axis of {n_model} (tensor parallelism) is not ported; serve on a "
+                "(data, 1) mesh (ROADMAP.md queue 1 item 7)"
+            )
         if serving_kernels is None:
             serving_kernels = True
         if quantize_int8 is None:
@@ -128,20 +155,37 @@ class TorchMangaOcrEngine:
             }
         else:
             self.params = mdl.cast_params(params, dtype)
+        self.mesh = mesh
+        # one replica per data device, copied once; the kernels' prepared
+        # weights are cached per replica's leaves (a virtual mesh that
+        # repeats a device shares one replica, so one cache entry)
+        self._devices = devices
+        self._replicas = [self.params] if mesh is None else meshlib.dp_replicate(self.params, mesh)
+        self._batch_multiple = len(devices)
         self._lock = threading.Lock()
         self._warmed: set = set()  # (bucket_hw, padded_batch) pairs run once
 
     # -- one dispatch ---------------------------------------------------------
 
-    def _run_bucket(self, crops_u8: np.ndarray, sizes: np.ndarray) -> torch.Tensor:
+    def _run_bucket(self, crops_u8: np.ndarray, sizes: np.ndarray, shard: int = 0) -> torch.Tensor:
         """[B, bh, bw] uint8 gray crops + [B, 2] extents -> [B, 1 + L] int32
-        ``[lengths | tokens]`` on the device (not yet read back)."""
-        crops = torch.from_numpy(np.ascontiguousarray(crops_u8)).to(self.device, non_blocking=True)
-        ext = torch.from_numpy(np.ascontiguousarray(sizes, np.int32)).to(self.device)
+        ``[lengths | tokens]`` on data device ``shard`` with its replica (not
+        yet read back)."""
+        device, params = self._devices[shard], self._replicas[shard]
+        crops = torch.from_numpy(np.ascontiguousarray(crops_u8)).to(device, non_blocking=True)
+        ext = torch.from_numpy(np.ascontiguousarray(sizes, np.int32)).to(device)
         with torch.inference_mode():
             pixels = pp.model_preprocess(crops, ext, self.cfg.encoder.image_size).to(self.dtype)
-            out = mdl.ocr_forward(self.params, pixels, self.cfg, max_length=self.max_length)
+            out = mdl.ocr_forward(params, pixels, self.cfg, max_length=self.max_length)
             return torch.cat([out.lengths[:, None], out.tokens], dim=1)
+
+    def _run_sharded(self, crops_u8: np.ndarray, sizes: np.ndarray) -> list[torch.Tensor]:
+        """A batch whose rows divide by the data-axis size -> one output per
+        data device (``_run_bucket`` on each slice), every shard launched
+        before any is read back."""
+        rows = crops_u8.shape[0] // self._batch_multiple
+        return [self._run_bucket(crops_u8[i * rows:(i + 1) * rows], sizes[i * rows:(i + 1) * rows],
+                                 i) for i in range(self._batch_multiple)]
 
     # -- batched entry points ---------------------------------------------------
 
@@ -195,9 +239,15 @@ class TorchMangaOcrEngine:
             batches = batching.prep_page_gray(crops, orientation)
         outs = []
         for b in batches:
-            self._note_dispatch_shape(b.bucket_hw, b.crops.shape[0])
+            arr, sizes = b.crops, b.sizes
+            if arr.shape[0] % self._batch_multiple:
+                # repeat the last crop and its extents (JAX engine.py:528-531)
+                pad = self._batch_multiple - arr.shape[0] % self._batch_multiple
+                arr = np.concatenate([arr, np.repeat(arr[-1:], pad, axis=0)])
+                sizes = np.concatenate([sizes, np.repeat(sizes[-1:], pad, axis=0)])
+            self._note_dispatch_shape(b.bucket_hw, arr.shape[0])
             with stage("dispatch"):
-                outs.append((b, self._run_bucket(b.crops, b.sizes)))
+                outs.append((b, self._run_sharded(arr, sizes)))
         return outs
 
     def _collect_page(self, outs, timer) -> list[str]:
@@ -206,9 +256,9 @@ class TorchMangaOcrEngine:
             return []
         stage = _stage_fn(timer)
         texts = []
-        for b, out in outs:
+        for b, shards in outs:
             with stage("readback"):
-                packed = out.cpu().numpy()[: b.valid]
+                packed = meshlib.dp_gather(shards, b.valid)
             with stage("detok"):
                 texts.append(self.tokenizer.decode_batch(packed[:, 1:], packed[:, 0]))
         return batching.scatter_results([b for b, _ in outs], texts)
@@ -311,7 +361,9 @@ class TorchMangaOcrEngine:
         full: bool = False,
     ) -> None:
         """Run one dispatch per bucket x batch shape (``full=True``: the whole
-        ``warm_set()``; default: the common buckets at the smallest batch)."""
+        ``warm_set()``; default: the common buckets at the smallest batch),
+        each batch rounded up to the data-axis multiple first, then
+        deduplicated."""
         if full:
             pairs = self.warm_set(bucket_hws, batch_sizes)
         else:
@@ -321,10 +373,15 @@ class TorchMangaOcrEngine:
                 for hw in (bucket_hws or default)
                 for n in (batch_sizes or batching.BATCH_SCHEDULE[:1])
             ]
+        rounded = []
         for hw, n in pairs:
+            n += -n % self._batch_multiple
+            if (hw, n) not in rounded:
+                rounded.append((hw, n))
+        for hw, n in rounded:
             dummy = np.zeros((n, hw[0], hw[1]), np.uint8)  # gray wire
             sizes = np.full((n, 2), hw, np.int32)
-            self._run_bucket(dummy, sizes).cpu()
+            meshlib.dp_gather(self._run_sharded(dummy, sizes), n)
             with self._lock:
                 self._warmed.add((hw, n))
 

@@ -19,8 +19,9 @@ Weights: EasyOCR's published ``.pth`` checkpoints convert via
 loads from its checkpoint directory (``from_checkpoints``); without them
 the engine draws the port's numpy init (seed 0), not JAX's ``PRNGKey(0)``.
 Engine contract: ``perform_ocr(bgr, settings) -> str`` with
-``"[ERROR: ...]"`` sentinel strings.  Not ported: ``mesh=`` (raises;
-ROADMAP.md queue 1 item 7).
+``"[ERROR: ...]"`` sentinel strings.  Under a mesh (``parallel.mesh``), a
+CRAFT or CRNN batch of at least the data-axis size is split across the data
+devices.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from manga_ocr_tpu_torch.detect import craft_boxes
 from manga_ocr_tpu_torch.models import craft as craft_mod
 from manga_ocr_tpu_torch.models import crnn as crnn_mod
 from manga_ocr_tpu_torch.models.detector import fp32_products
+from manga_ocr_tpu_torch.parallel import mesh as meshlib
 
 # Default charset: blank(0) + these characters in order.  A converted
 # checkpoint's training charset MUST be passed explicitly (the class-count
@@ -76,7 +78,14 @@ class TorchLatinEngine:
     (``models.craft.params_from_jax`` etc.), copied once to ``device``
     (default ``"cuda"``, which raises where CUDA is unavailable
     rather than running on the CPU); None draws the port's numpy init on
-    first use of that half."""
+    first use of that half.
+
+    ``mesh``: a ``parallel.mesh.Mesh`` whose devices replace ``device``
+    (they must be of its type).  CRAFT page batches (at most
+    ``DISPATCH_PAGES`` and ``DISPATCH_PIXELS`` a device) and CRNN line
+    batches of at least the data-axis size are zero-padded and split
+    across the data devices, each half's weights replicated once per raw
+    tree; smaller batches run on the first device."""
 
     def __init__(
         self,
@@ -90,10 +99,8 @@ class TorchLatinEngine:
         mesh=None,
         device="cuda",
     ):
-        if mesh is not None:
-            raise ValueError("TorchLatinEngine: mesh= (data-parallel dispatch) is not ported; "
-                             "see ROADMAP.md queue 1 item 7")
-        self.device = torch.device(device)
+        self.device = meshlib.serving_devices(mesh, device, "TorchLatinEngine")[0]
+        self.mesh = mesh
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("TorchLatinEngine: device='cuda' but CUDA is unavailable")
         self.craft_cfg = craft_cfg or craft_mod.CraftConfig()
@@ -126,6 +133,15 @@ class TorchLatinEngine:
     @property
     def crnn_params(self) -> dict:
         return self.crnn.params
+
+    def _replicas(self, raw: dict, cache_attr: str, make=lambda tree: tree) -> list:
+        """``make`` of the tree ``raw`` on each data device, made once per
+        raw tree and cached in ``cache_attr``."""
+        cached = getattr(self, cache_attr, None)
+        if cached is None or cached[0] is not raw:
+            cached = (raw, [make(t) for t in meshlib.dp_replicate(raw, self.mesh)])
+            setattr(self, cache_attr, cached)
+        return cached[1]
 
     # -- detection ---------------------------------------------------------
 
@@ -165,9 +181,17 @@ class TorchLatinEngine:
 
     def detect_maps(self, batch_u8: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """One CRAFT dispatch: uint8 RGB [N, side, side, 3] -> host (region,
-        affinity) maps [N, side/2, side/2]."""
-        region, affinity = craft_mod.detect_maps(self.craft_params, batch_u8)
-        return region.cpu().numpy(), affinity.cpu().numpy()
+        affinity) maps [N, side/2, side/2]; split across the mesh where it
+        holds at least the data-axis size of pages."""
+        n = batch_u8.shape[0]
+        if not meshlib.splits(self.mesh, n):
+            region, affinity = craft_mod.detect_maps(self.craft_params, batch_u8)
+            return region.cpu().numpy(), affinity.cpu().numpy()
+        repl = self._replicas(self.craft_params, "_craft_repl")
+        maps = [craft_mod.detect_maps(p, x)
+                for p, x in zip(repl, meshlib.dp_shard_batch(batch_u8, self.mesh))]
+        return (meshlib.dp_gather([m[0] for m in maps], n),
+                meshlib.dp_gather([m[1] for m in maps], n))
 
     def detect_boxes(self, rgb: np.ndarray) -> list[tuple[int, int, int, int]]:
         """RGB uint8 [H,W,3] -> [(x,y,w,h)] text boxes in image coords."""
@@ -180,17 +204,17 @@ class TorchLatinEngine:
     def detect_boxes_batch(self, images: list[np.ndarray]) -> list[list[tuple[int, int, int, int]]]:
         """Batched multi-page detection: images grouped by pad bucket, a
         bucket's pages in CRAFT dispatches of at most ``DISPATCH_PAGES`` and
-        ``DISPATCH_PIXELS`` (vs the reference's per-image torch call in the
-        AutoDetector sweep, ``workers.py:448-482``)."""
+        ``DISPATCH_PIXELS`` a device (vs the reference's per-image torch call
+        in the AutoDetector sweep, ``workers.py:448-482``)."""
         prepped = [self._prep_for_detection(np.asarray(img)) for img in images]
         per_bucket: dict[int, list[int]] = {}
         for i, (_, side, _, _, _) in enumerate(prepped):
             per_bucket.setdefault(side, []).append(i)
         out: list[list[tuple[int, int, int, int]]] = [[] for _ in images]
         for side, bucket in sorted(per_bucket.items()):
-            step = max(1, min(DISPATCH_PAGES, DISPATCH_PIXELS // (side * side)))
-            for at in range(0, len(bucket), step):
-                idxs = bucket[at : at + step]
+            cap = max(1, min(DISPATCH_PAGES, DISPATCH_PIXELS // (side * side)))
+            for part in meshlib.dispatch_slices(len(bucket), cap, self.mesh):
+                idxs = bucket[part]
                 batch = np.zeros((len(idxs), side, side, 3), np.uint8)
                 for row, i in enumerate(idxs):
                     rgb, _, h, w, _ = prepped[i]
@@ -205,10 +229,18 @@ class TorchLatinEngine:
 
     def recognize_logits(self, batch: np.ndarray) -> np.ndarray:
         """One CRNN dispatch: normalized gray crops [N, H, W, 1] f32 -> host
-        logits [N, W/4 - 1, K]."""
-        x = torch.from_numpy(batch).to(self.device).permute(0, 3, 1, 2).contiguous()
+        logits [N, W/4 - 1, K]; split across the mesh where it holds at least
+        the data-axis size of lines."""
+        n = batch.shape[0]
+        if not meshlib.splits(self.mesh, n):
+            nets, shards = [self.crnn], [torch.from_numpy(batch).to(self.device)]
+        else:
+            nets = self._replicas(self.crnn_params, "_crnn_repl", crnn_mod.Crnn)
+            shards = meshlib.dp_shard_batch(batch, self.mesh)
         with fp32_products():
-            return crnn_mod.crnn_forward(self.crnn, x).cpu().numpy()
+            logits = [crnn_mod.crnn_forward(net, x.permute(0, 3, 1, 2).contiguous())
+                      for net, x in zip(nets, shards)]
+        return meshlib.dp_gather(logits, n)
 
     def recognize_lines(self, gray_crops: list[np.ndarray]) -> list[str]:
         """Gray uint8 line crops (any sizes) -> texts, ONE recognizer

@@ -185,3 +185,25 @@ def stream_ptr(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def call(device, what: str, name: str, *args, stream: bool = True) -> None:
+    """Call the C entry point ``name`` with ``device`` (a ``torch.device``)
+    current, PyTorch's current stream on ``device`` appended to ``args``
+    (``stream=False``: nothing appended), and raise as ``check`` does,
+    naming ``what``.  The C side keys its per-device state (SM counts,
+    opted-in shared memory, function attributes) on the current device, so
+    a tensor on ``cuda:1`` must launch with ``cuda:1`` current; a CUDA
+    device that is current already is not set again (launches are
+    host-bound on the step decodes)."""
+    import torch
+
+    fn = getattr(load(), name)
+    if stream:
+        args = (*args, stream_ptr(device))
+    if device.type == "cuda" and device.index in (None, torch.cuda.current_device()):
+        err = fn(*args)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args)
+    check(err, what)

@@ -1,8 +1,9 @@
 """Thin launchers for the C entry points of ``csrc/`` (CUDA tensors only).
 
 Each launcher checks device, dtype, shape and contiguity, allocates its
-outputs with ``torch.empty``, launches on PyTorch's current stream and
-raises if the launch reported a CUDA error.  The public kernel wrappers
+outputs with ``torch.empty``, and launches through ``build.call``: with its
+tensors' device current, on PyTorch's current stream there, raising if the
+launch reported a CUDA error.  The public kernel wrappers
 (``ops.fused_mlp``, ``ops.flash_attention``, ``ops.encoder_stack``,
 ``ops.decode_loop``, ``ops.fused_head``, ``ops.decode_layer``) chain them.
 """
@@ -67,15 +68,13 @@ def ln_quant_rows(
         _expect(t, torch.float32, (k,), name)
     q = torch.empty((m, k), dtype=torch.int8, device=x.device)
     sx = torch.empty((m,), dtype=torch.float32, device=x.device)
-    lib = build.load()
-    err = lib.mocr_ln_quant_rows(
+    build.call(
+        x.device, "ln_quant_rows", "mocr_ln_quant_rows",
         x.data_ptr(), int(x.dtype == torch.bfloat16),
         ln[0].data_ptr() if ln is not None else None,
         ln[1].data_ptr() if ln is not None else None,
         int(ln is not None), float(eps), q.data_ptr(), sx.data_ptr(), m, k,
-        build.stream_ptr(x.device),
     )
-    build.check(err, "ln_quant_rows")
     return q, sx
 
 
@@ -135,13 +134,11 @@ def int8_gemm(
         _expect(residual, torch.bfloat16, (m, n), "int8_gemm residual")
     out_dtype = torch.float32 if mode in _GEMM_F32_OUT else torch.bfloat16
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    lib = build.load()
-    err = lib.mocr_int8_gemm(
+    build.call(
+        a.device, "int8_gemm", "mocr_int8_gemm",
         a.data_ptr(), b_t.data_ptr(), sx.data_ptr(), sw.data_ptr(), bias.data_ptr(),
-        residual.data_ptr() if residual is not None else None, out.data_ptr(),
-        m, n, k, mode, build.stream_ptr(a.device),
+        residual.data_ptr() if residual is not None else None, out.data_ptr(), m, n, k, mode,
     )
-    build.check(err, "int8_gemm")
     return out
 
 
@@ -186,20 +183,14 @@ def _attention(
                              f"even (pairs are stored together)")
         for t, name in ((q, "q"), (k, "k"), (v, "v"), (out, "out")):
             _expect_aligned(t, f"attention {name}")
-    lib = build.load()
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), *in_strides, out.data_ptr(),
+            *out_strides, int(out.dtype == torch.bfloat16))
     if sdpa_int8:
-        err = lib.mocr_attention_sdpa_int8(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), *in_strides, out.data_ptr(), *out_strides,
-            int(out.dtype == torch.bfloat16), batch, seq, heads, dh, int(valid_len), float(scale),
-            build.stream_ptr(q.device),
-        )
+        build.call(q.device, "attention", "mocr_attention_sdpa_int8", *ptrs, batch, seq, heads,
+                   dh, int(valid_len), float(scale))
     else:
-        err = lib.mocr_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), *in_strides, out.data_ptr(), *out_strides,
-            int(out.dtype == torch.bfloat16), int(divide), batch, seq, heads, dh, int(valid_len),
-            float(scale), build.stream_ptr(q.device),
-        )
-    build.check(err, "attention")
+        build.call(q.device, "attention", "mocr_attention", *ptrs, int(divide), batch, seq,
+                   heads, dh, int(valid_len), float(scale))
     return out
 
 
@@ -228,14 +219,13 @@ def decode_loop(
     tokens: torch.Tensor, lengths: torch.Tensor,
 ) -> None:
     """Launch the whole-decode kernel on pointers the caller validated."""
-    lib = build.load()
     c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
     c_ints = (ctypes.c_int * len(ints))(*ints)
-    err = lib.mocr_decode_loop(
+    build.call(
+        tokens.device, "greedy_decode_loop", "mocr_decode_loop",
         c_ptrs, len(ptrs), c_ints, len(ints), float(scale), float(eps),
-        tokens.data_ptr(), lengths.data_ptr(), build.stream_ptr(tokens.device),
+        tokens.data_ptr(), lengths.data_ptr(),
     )
-    build.check(err, "greedy_decode_loop")
 
 
 def decode_loop_blocks_per_sm(device, int8_w: bool, fuse_kv: bool, opts: bool, rows: int,
@@ -245,12 +235,10 @@ def decode_loop_blocks_per_sm(device, int8_w: bool, fuse_kv: bool, opts: bool, r
     for the compiled kernel (its registers and shared memory)."""
     key = (torch.device(device).index, int8_w, fuse_kv, opts, rows, smem)
     if key not in _BLOCKS_PER_SM:
-        lib = build.load()
         out = ctypes.c_int(0)
-        with torch.cuda.device(device):
-            err = lib.mocr_decode_loop_blocks_per_sm(int(int8_w), int(fuse_kv), int(opts), rows,
-                                                     smem, ctypes.byref(out))
-        build.check(err, "greedy_decode_loop occupancy")
+        build.call(device, "greedy_decode_loop occupancy", "mocr_decode_loop_blocks_per_sm",
+                   int(int8_w), int(fuse_kv), int(opts), rows, smem, ctypes.byref(out),
+                   stream=False)
         if out.value < 1:
             raise RuntimeError(f"greedy_decode_loop: {rows} rows per block do not fit on an SM")
         _BLOCKS_PER_SM[key] = out.value
@@ -272,16 +260,14 @@ def decode_cluster(
     the six projections' scales).  ``prof`` (int64 zeros on the card,
     one per stage) runs the profiled instance, which adds its first CTA's
     clocks per stage there."""
-    lib = build.load()
     c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
     c_ints = (ctypes.c_int * len(ints))(*ints)
     clusters = (ctypes.c_int * 3)()
-    err = lib.mocr_decode_cluster(
+    build.call(
+        tokens.device, "greedy_decode_loop (cluster)", "mocr_decode_cluster",
         c_ptrs, len(ptrs), c_ints, len(ints), float(scale), float(eps), int(int8),
         tokens.data_ptr(), lengths.data_ptr(), clusters, 0 if prof is None else prof.data_ptr(),
-        build.stream_ptr(tokens.device),
     )
-    build.check(err, "greedy_decode_loop (cluster)")
     return clusters[0], clusters[1], clusters[2]
 
 
@@ -294,12 +280,8 @@ def ln_rows_bf16(
     for t, name in zip(ln, ("ln scale", "ln bias")):
         _expect(t, torch.float32, (k,), name)
     y = torch.empty_like(x)
-    lib = build.load()
-    err = lib.mocr_ln_rows_bf16(
-        x.data_ptr(), ln[0].data_ptr(), ln[1].data_ptr(), float(eps), y.data_ptr(), m, k,
-        build.stream_ptr(x.device),
-    )
-    build.check(err, "ln_rows_bf16")
+    build.call(x.device, "ln_rows_bf16", "mocr_ln_rows_bf16",
+               x.data_ptr(), ln[0].data_ptr(), ln[1].data_ptr(), float(eps), y.data_ptr(), m, k)
     return y
 
 
@@ -338,13 +320,11 @@ def bf16_gemm(
         _expect(out, out_dtype, (m, n), "bf16_gemm out")
         if out.device != a.device:
             raise ValueError(f"bf16_gemm out: expected a tensor on {a.device}, got {out.device}")
-    lib = build.load()
-    err = lib.mocr_bf16_gemm(
+    build.call(
+        a.device, "bf16_gemm", "mocr_bf16_gemm",
         a.data_ptr(), b.data_ptr(), bias.data_ptr(),
-        residual.data_ptr() if residual is not None else None, out.data_ptr(),
-        m, n, k, mode, build.stream_ptr(a.device),
+        residual.data_ptr() if residual is not None else None, out.data_ptr(), m, n, k, mode,
     )
-    build.check(err, "bf16_gemm")
     return out
 
 
@@ -354,9 +334,8 @@ def check_gelu_erf_rcp(device) -> int:
     reciprocal by the branch-free rcp_ge1) differs from gelu_erf<false>
     (the division); 0 is the kernel's claim."""
     mismatches = torch.zeros((1,), dtype=torch.int64, device=device)
-    lib = build.load()
-    build.check(lib.mocr_check_gelu_erf_rcp(mismatches.data_ptr(), build.stream_ptr(device)),
-                "check_gelu_erf_rcp")
+    build.call(mismatches.device, "check_gelu_erf_rcp", "mocr_check_gelu_erf_rcp",
+               mismatches.data_ptr())
     return int(mismatches.item())
 
 
@@ -471,11 +450,9 @@ def encoder_layers(
     c_w = (ctypes.c_void_p * 16)(*(None if t is None else t[first].data_ptr() for t in weights))
     c_s = (ctypes.c_void_p * 6)(*(None if t is None else t.data_ptr() for t in scratch))
     out = torch.empty_like(x)
-    lib = build.load()
-    err = lib.mocr_encoder_layers(c_w, 16, c_s, 6, x.data_ptr(), out.data_ptr(), int(count),
-                                  int(int8), int(gelu_sigmoid), int(divide), b, s, d, heads,
-                                  inter, float(eps), float(scale), build.stream_ptr(x.device))
-    build.check(err, "encoder_layers")
+    build.call(x.device, "encoder_layers", "mocr_encoder_layers",
+               c_w, 16, c_s, 6, x.data_ptr(), out.data_ptr(), int(count), int(int8),
+               int(gelu_sigmoid), int(divide), b, s, d, heads, inter, float(eps), float(scale))
     return out
 
 
@@ -520,13 +497,12 @@ def fused_head(
     part_v = torch.empty((b, v // HEAD_SLOT), dtype=torch.float32, device=x.device)
     part_i = torch.empty((b, v // HEAD_SLOT), dtype=torch.int32, device=x.device)
     ids = torch.empty((b,), dtype=torch.int32, device=x.device)
-    lib = build.load()
-    err = lib.mocr_fused_head(
+    build.call(
+        x.device, "fused_head", "mocr_fused_head",
         x.data_ptr(), wt.data_ptr(), bt.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
         wp.data_ptr(), bp.data_ptr(), b, d, v, float(eps), h32.data_ptr(), hb.data_ptr(),
-        part_v.data_ptr(), part_i.data_ptr(), ids.data_ptr(), build.stream_ptr(x.device),
+        part_v.data_ptr(), part_i.data_ptr(), ids.data_ptr(),
     )
-    build.check(err, "fused_head")
     return ids
 
 
@@ -619,14 +595,12 @@ def self_attn_step(
     _expect(cache_v, torch.bfloat16, (t_len, b, d), "self_attn_step cache_v")
     out, sx = _step_out(b, d, ctx_dtype, qkv.device, "self_attn_step")
     plan = attn_step_plan(b, heads, dh, t_len, 2, True, _base_align(cache_k, cache_v))
-    lib = build.load()
-    err = lib.mocr_self_attn_step(
+    build.call(
+        qkv.device, "self_attn_step", "mocr_self_attn_step",
         qkv.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), out.data_ptr(),
         sx.data_ptr() if sx is not None else None, _STEP_MODES[ctx_dtype], b, t_len, heads, dh,
         int(step), float(scale), plan["cluster"], plan["width"], plan["chunk"], plan["smem"],
-        build.stream_ptr(qkv.device),
     )
-    build.check(err, "self_attn_step")
     return (out, sx) if sx is not None else out
 
 
@@ -659,13 +633,12 @@ def cross_attn_step(
         raise ValueError("cross_attn_step: scales come with int8 K/V only")
     out, sx = _step_out(b, d, ctx_dtype, q.device, "cross_attn_step")
     plan = attn_step_plan(b, heads, dh, s, k.element_size(), False, _base_align(k, v))
-    lib = build.load()
-    err = lib.mocr_cross_attn_step(
+    build.call(
+        q.device, "cross_attn_step", "mocr_cross_attn_step",
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr() if int8 else None, v_scale.data_ptr() if int8 else None, int(int8),
         out.data_ptr(), sx.data_ptr() if sx is not None else None, _STEP_MODES[ctx_dtype], b, s,
         heads, dh, int(s_valid), float(scale), plan["cluster"], plan["width"], plan["chunk"],
-        plan["smem"], build.stream_ptr(q.device),
+        plan["smem"],
     )
-    build.check(err, "cross_attn_step")
     return (out, sx) if sx is not None else out

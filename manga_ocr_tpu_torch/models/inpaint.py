@@ -28,10 +28,8 @@ Parameters keep the JAX package's tree (``stem``, ``down``, ``blocks``,
 conv kernels, and the upsamples' ``ConvTranspose2d`` weights [I, O, 3, 3]
 un-flipped.  The JAX layout (HWIO; the upsamples spatially flipped for an
 input-dilated conv) exists only at the edges: ``params_from_jax`` and
-``params_to_jax``.
-
-Not ported: sharded dispatch over a mesh (``LamaInpainter`` takes no
-``mesh``); see ROADMAP.md queue 1 item 7.
+``params_to_jax``.  ``LamaInpainter(mesh=)`` splits batches across the
+data devices of a ``parallel.mesh.Mesh``.
 """
 
 from __future__ import annotations
@@ -44,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from manga_ocr_tpu_torch.models.detector import fp32_products
+from manga_ocr_tpu_torch.parallel import mesh as meshlib
 
 # Padded pixels a dispatch of ``LamaInpainter.inpaint_many``: a shape group
 # larger than this is split (at least one region a dispatch; a split changes
@@ -341,22 +340,42 @@ class LamaInpainter:
     converted checkpoint) or an ``FFCResNetGenerator``; None leaves an
     inpainter that raises when called.  The weights are copied once, in f32,
     to ``device`` (default ``"cuda"``, which raises where CUDA is unavailable
-    rather than running on the CPU)."""
+    rather than running on the CPU).
 
-    def __init__(self, params=None, cfg: InpaintConfig | None = None, device="cuda"):
-        self.device = torch.device(device)
+    ``mesh``: a ``parallel.mesh.Mesh`` whose devices replace ``device``
+    (they must be of its type).  A dispatch of at least the data-axis size
+    of regions is zero-padded and split across the data devices (the
+    weights replicated once, on the first such dispatch), at most
+    ``DISPATCH_PIXELS`` padded pixels a device; a smaller one runs on the
+    first device."""
+
+    def __init__(self, params=None, cfg: InpaintConfig | None = None, device="cuda",
+                 mesh: meshlib.Mesh | None = None):
+        self.device = meshlib.serving_devices(mesh, device, "LamaInpainter")[0]
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("LamaInpainter: device='cuda' but CUDA is unavailable")
         self.cfg = cfg or InpaintConfig()
+        self.mesh = mesh
         self.params = params
         self._net = None
+        self._params_repl = None  # one tree per data device, made on first use
         if params is not None:
             tree = params.tree() if isinstance(params, FFCResNetGenerator) else params
             self._net = FFCResNetGenerator(tree, self.cfg).to(self.device, torch.float32)
 
     def _dispatch(self, imgs: np.ndarray, msks: np.ndarray) -> np.ndarray:
-        """[N, H, W, 3] / [N, H, W] uint8 (already factor-padded) -> [N, H, W, 3]."""
-        return inpaint_batch(self._net, imgs, msks, self.cfg).cpu().numpy()
+        """[N, H, W, 3] / [N, H, W] uint8 (already factor-padded) -> [N, H, W, 3]:
+        one call on the first device, or, under a mesh and with N at least
+        the data-axis size, one call on each data device (zero-padded to a
+        multiple of it), all launched before any is read back."""
+        n = imgs.shape[0]
+        if not meshlib.splits(self.mesh, n):
+            return inpaint_batch(self._net, imgs, msks, self.cfg).cpu().numpy()
+        if self._params_repl is None:
+            self._params_repl = meshlib.dp_replicate(self._net.tree(), self.mesh)
+        shards = zip(self._params_repl, meshlib.dp_shard_batch(imgs, self.mesh),
+                     meshlib.dp_shard_batch(msks, self.mesh))
+        return meshlib.dp_gather([inpaint_batch(t, i, m, self.cfg) for t, i, m in shards], n)
 
     def _pad(self, img: np.ndarray, msk: np.ndarray):
         """Pad to a multiple of the downsample factor: the image by its edge,
@@ -378,9 +397,10 @@ class LamaInpainter:
         self, images_bgr: list[np.ndarray], masks_u8: list[np.ndarray]
     ) -> list[np.ndarray]:
         """Batched multi-region inpainting: regions grouped by factor-padded
-        shape, one device dispatch per shape group of at most
-        ``DISPATCH_PIXELS`` padded pixels (at least one region); results in
-        input order."""
+        shape, one dispatch per shape group of at most ``DISPATCH_PIXELS``
+        padded pixels a device (at least one region; under a mesh, the data
+        devices' share while at least one region a device is left); results
+        in input order."""
         if self.params is None:
             raise RuntimeError("inpainter has no weights loaded")
         prepped = [(*self._pad(img, msk), img.shape[0], img.shape[1])
@@ -390,9 +410,9 @@ class LamaInpainter:
             by_shape.setdefault(img.shape[:2], []).append(i)
         out: list[np.ndarray | None] = [None] * len(prepped)
         for (ph, pw), group in sorted(by_shape.items()):
-            step = max(1, DISPATCH_PIXELS // (ph * pw))
-            for at in range(0, len(group), step):
-                idxs = group[at : at + step]
+            cap = max(1, DISPATCH_PIXELS // (ph * pw))
+            for part in meshlib.dispatch_slices(len(group), cap, self.mesh):
+                idxs = group[part]
                 res = self._dispatch(np.stack([prepped[i][0] for i in idxs]),
                                      np.stack([prepped[i][1] for i in idxs]))
                 for row, i in enumerate(idxs):

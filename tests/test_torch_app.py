@@ -55,6 +55,7 @@ from manga_ocr_tpu_torch.translate import styles as tstyles
 from manga_ocr_tpu_torch.typeset.area import TypesetArea as TArea
 from manga_ocr_tpu_torch.utils import http as thttp
 from manga_ocr_tpu_torch.utils import rate_limit as trate
+from port_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKGS = {

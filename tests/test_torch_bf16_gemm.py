@@ -22,6 +22,7 @@ from manga_ocr_tpu.ops.fused_mlp import _kernel_bf16
 from manga_ocr_tpu.ops.kernel_utils import gelu_fn as jax_gelu_fn
 from manga_ocr_tpu_torch.kernels import build, launch
 from manga_ocr_tpu_torch.ops import fused_mlp as tm
+from port_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 MODES = {
     "gelu_erf": launch.BF16_GELU_ERF,

@@ -20,6 +20,7 @@ from manga_ocr_tpu_torch.models import checkpoint as tck
 from manga_ocr_tpu_torch.models.params import init_params_numpy, params_from_jax
 from manga_ocr_tpu_torch.models.quantize import quantize_encoder
 from port_config import port_config
+from port_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 SEED0 = os.path.join(os.path.dirname(__file__), "fixtures", "tiny_random_seed0")
 

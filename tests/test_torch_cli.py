@@ -3,9 +3,11 @@ and ``eval`` on an HF checkpoint directory, against the JAX package's: ``ocr``
 prints JAX ``cli.main``'s lines for the same arguments (a tiny HF directory,
 weights std 0.1, the int8 serving engine in f32), a missing image exits 1,
 the options and the subcommand of unported features (``bench``, ``--wire``,
-``--no-coalesce``, ``--mesh-data``, ``--no-aot``) exit 2, ``--device cuda``
-raises without CUDA, ``eval.main`` prints JAX's report for the directory,
-and ``serve.build_engine --checkpoint`` serves the checkpoint's weights."""
+``--no-coalesce``, ``--no-aot``) exit 2, ``--mesh-data 2`` under ``--device
+cpu`` prints the lines of one device (a 2-way virtual CPU mesh, also in
+``serve``'s engine), ``--device cuda`` raises without CUDA, ``eval.main``
+prints JAX's report for the directory, and ``serve.build_engine
+--checkpoint`` serves the checkpoint's weights."""
 
 import dataclasses
 import glob
@@ -27,6 +29,7 @@ from manga_ocr_tpu_torch.models import convert as tconv
 from manga_ocr_tpu_torch.models.config import MangaOCRConfig
 from manga_ocr_tpu_torch.models.params import init_params
 from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
+from port_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures", "eval")
 PATHS = sorted(glob.glob(os.path.join(FIXTURES, "*.png")))[:6]
@@ -70,15 +73,34 @@ def test_ocr_missing_image_exits_1(hf_dir, tmp_path, capsys):
 
 @pytest.mark.parametrize(
     "argv", [["--wire", "gray", "ocr", "x.png"], ["--no-coalesce", "ocr", "x.png"],
-             ["--mesh-data", "2", "ocr", "x.png"], ["--no-aot", "ocr", "x.png"],
-             ["bench"], []],
-    ids=["wire", "no_coalesce", "mesh_data", "no_aot", "bench", "no_command"],
+             ["--no-aot", "ocr", "x.png"], ["bench"], []],
+    ids=["wire", "no_coalesce", "no_aot", "bench", "no_command"],
 )
 def test_unported_options_and_subcommands_exit_2(argv, capsys):
     with pytest.raises(SystemExit) as e:
         tcli.main(argv)
     assert e.value.code == 2
     assert "usage:" in capsys.readouterr().err
+
+
+def test_mesh_data_ocr_prints_the_lines_of_one_device(hf_dir, capsys):
+    args = ["--checkpoint", hf_dir, "--device", "cpu", "--dtype", "float32", "--max-length",
+            "12"]
+    assert tcli.main([*args, "ocr", PATHS[0]]) == 0
+    want = capsys.readouterr().out
+    assert tcli.main([*args, "--mesh-data", "2", "ocr", PATHS[0]]) == 0
+    assert capsys.readouterr().out == want
+
+
+def test_serve_build_engine_takes_the_mesh(hf_dir):
+    args = srv.parser().parse_args(["--checkpoint", hf_dir, "--device", "cpu", "--dtype",
+                                    "float32", "--max-length", "12", "--mesh-data", "2"])
+    engine = srv.build_engine(args)
+    assert engine.mesh.shape == {"data": 2, "model": 1}
+    assert engine.device == torch.device("cpu") and len(engine._replicas) == 2
+    if not torch.cuda.is_available():  # no card: a CUDA mesh has no device to take
+        with pytest.raises(ValueError, match="needs 2 devices but only 0"):
+            tcli._mesh(srv.parser().parse_args(["--mesh-data", "2"]))
 
 
 def test_cuda_device_raises_without_cuda(hf_dir, monkeypatch):

@@ -19,6 +19,7 @@ from manga_ocr_tpu_torch.eval import cer
 from manga_ocr_tpu_torch.models.config import DecoderConfig, EncoderConfig, MangaOCRConfig
 from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
 from manga_ocr_tpu_torch.ops import preprocess as pp
+from port_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 SEQ = 6  # [CLS] + up to 3 chars + [SEP]
 

@@ -23,6 +23,7 @@ from manga_ocr_tpu_torch.models import convert as tconv
 from manga_ocr_tpu_torch.models.config import MangaOCRConfig
 from manga_ocr_tpu_torch.models.params import init_params
 from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
+from port_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures", "eval")
 PATHS = sorted(glob.glob(os.path.join(FIXTURES, "*.png")))[:6]

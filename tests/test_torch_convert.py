@@ -26,6 +26,7 @@ from manga_ocr_tpu_torch.models import convert as tconv
 from manga_ocr_tpu_torch.models import safetensors_io
 from manga_ocr_tpu_torch.models.checkpoint import load_checkpoint
 from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
+from port_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 SEED0 = os.path.join(os.path.dirname(__file__), "fixtures", "tiny_random_seed0")
 LOGITS_TOL = 1e-5  # f32 logits of the tiny model (|logit| up to ~3), port against HF

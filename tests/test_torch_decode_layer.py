@@ -44,6 +44,7 @@ from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer as PortTokenizer
 from manga_ocr_tpu_torch.ops import decode_layer as tdl
 from manga_ocr_tpu_torch.ops import fused_mlp as tm
 from port_config import port_config
+from port_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 BATCH = 3
 ATOL, RTOL = 2e-4, 1e-3

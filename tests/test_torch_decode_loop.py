@@ -37,6 +37,7 @@ from manga_ocr_tpu_torch.ops import decode_loop as tl
 from manga_ocr_tpu_torch.ops import encoder_weights as ew
 from manga_ocr_tpu_torch.ops.common import layer_norm
 from port_config import port_config
+from port_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 STEPS = 11
 S_PAD, S_VALID = 8, 5  # fuse_kv: raw encoder rows, of which the first S_VALID are real

@@ -5,7 +5,8 @@ the same numpy-made weights (``params_from_jax``) and pages: masks,
 fallback), ``crops_from_detections``, ``split_extended_bubbles``,
 ``detector_from_settings`` and ``from_checkpoint``, each contour tier (cv2,
 the native tracer, NumPy) forced alike in both packages; and the port's
-refusals (``mesh=``, also on an ``.onnx`` path, a CUDA device without CUDA)."""
+refusals (a mesh of another device type, a CUDA device without CUDA; an
+``.onnx`` path ignores a mesh with JAX's note)."""
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +27,8 @@ from manga_ocr_tpu_torch.detect import detector as tdetect
 from manga_ocr_tpu_torch.detect import postprocess as tpost
 from manga_ocr_tpu_torch.detect import synthetic
 from manga_ocr_tpu_torch.models import detector as tseg
+from manga_ocr_tpu_torch.parallel.mesh import make_mesh
+from port_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 TIERS = ["cv2", "native", "numpy"]
 MASK_EPS = 1e-4  # a pixel this close to the threshold may flip between packages
@@ -260,18 +263,20 @@ def test_from_checkpoint_matches_jax(pair, tmp_path):
     assert not any(p.requires_grad for p in loaded._net.parameters())
 
 
-def test_refusals(pair, tmp_path):
+def test_refusals(pair, tmp_path, capsys):
     jdet, tdet, tree, pages, jm, tm = pair
     params = tseg.params_from_jax(tree)
-    with pytest.raises(ValueError, match="mesh"):
-        tdetect.BubbleDetector(params, tdet.cfg, mesh=object(), device="cpu")
-    with pytest.raises(ValueError, match="mesh"):  # .onnx opens since the ONNX executor
-        tdetect.BubbleDetector.from_checkpoint(str(tmp_path / "bubbles.onnx"), mesh=object(),
+    cuda_mesh = make_mesh(2, devices=[torch.device("cuda", 0)] * 2)
+    with pytest.raises(ValueError, match="mesh"):  # a CUDA mesh under device="cpu"
+        tdetect.BubbleDetector(params, tdet.cfg, mesh=cuda_mesh, device="cpu")
+    with pytest.raises(FileNotFoundError):  # .onnx ignores the mesh (a note), then opens
+        tdetect.BubbleDetector.from_checkpoint(str(tmp_path / "bubbles.onnx"), mesh=cuda_mesh,
                                                device="cpu")
+    assert "mesh ignored for .onnx" in capsys.readouterr().err
     path = str(tmp_path / "det.npz")
     tseg.save_params(params, path)
     with pytest.raises(ValueError, match="mesh"):
-        tdetect.BubbleDetector.from_checkpoint(path, tdet.cfg, mesh=object(), device="cpu")
+        tdetect.BubbleDetector.from_checkpoint(path, tdet.cfg, mesh=cuda_mesh, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tdetect.BubbleDetector(params, tdet.cfg)  # the default device is "cuda"

@@ -29,6 +29,7 @@ from manga_ocr_tpu_torch.detect import contours as cont
 from manga_ocr_tpu_torch.detect import synthetic
 from manga_ocr_tpu_torch.detect.detector import BubbleDetector
 from manga_ocr_tpu_torch.models import detector as seg
+from port_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import test_detect_closed_loop as jloop  # noqa: E402

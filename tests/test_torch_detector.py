@@ -18,6 +18,7 @@ import torch
 from manga_ocr_tpu.models import detector as jseg
 from manga_ocr_tpu_torch.models import detector as tseg
 from manga_ocr_tpu_torch.ops import image as tim
+from port_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 FORWARD_ATOL = 1e-5
 PROB_ATOL = 1e-5  # the resized probabilities (JAX's resize vs two matmuls)

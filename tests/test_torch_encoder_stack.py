@@ -22,6 +22,7 @@ from manga_ocr_tpu_torch.models.params import init_params_numpy, layer_params, p
 from manga_ocr_tpu_torch.ops import encoder_stack as ts
 from manga_ocr_tpu_torch.ops import encoder_weights as ew
 from port_config import port_config
+from port_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 TOL = 1e-5
 

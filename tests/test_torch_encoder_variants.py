@@ -40,6 +40,7 @@ from manga_ocr_tpu_torch.models import model as tmdl
 from manga_ocr_tpu_torch.models import vit as tvit
 from manga_ocr_tpu_torch.models.params import init_params_numpy, params_from_jax
 from port_config import port_config
+from port_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 MAX_LEN = 12
 ENC_TOL = 1e-4

@@ -28,6 +28,7 @@ from manga_ocr_tpu_torch.models.params import init_params_numpy, params_from_jax
 from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer as PortTokenizer
 from manga_ocr_tpu_torch.parallel import batching
 from port_config import port_config
+from port_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures", "eval")
 MAX_LEN = 12

@@ -13,6 +13,7 @@ import pytest
 
 from manga_ocr_tpu import eval as jeval
 from manga_ocr_tpu_torch import eval as teval
+from port_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 TESTS = os.path.dirname(__file__)
 FIXTURES = os.path.join(TESTS, "fixtures", "eval")

@@ -29,6 +29,7 @@ from manga_ocr_tpu.ops.flash_attention import mha_fused as jax_mha_fused
 from manga_ocr_tpu.ops.flash_attention import mha_packed as jax_mha_packed
 from manga_ocr_tpu.ops.quant import quantize_weight_per_col
 from manga_ocr_tpu_torch.ops import flash_attention as ta
+from port_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 TOL = 1e-5
 HEADS = 4

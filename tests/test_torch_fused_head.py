@@ -19,6 +19,7 @@ from manga_ocr_tpu.ops.kernel_utils import erf_poly
 from manga_ocr_tpu_torch.kernels import build, launch
 from manga_ocr_tpu_torch.ops import fused_head as th
 from manga_ocr_tpu_torch.ops.fused_mlp import bf16_gemm_reference
+from port_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 def _inputs(vocab, seed=0, b=6, d=64):

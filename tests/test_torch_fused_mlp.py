@@ -14,6 +14,7 @@ import jax.numpy as jnp
 from manga_ocr_tpu.ops.fused_mlp import fused_mlp_block as jax_mlp
 from manga_ocr_tpu.ops.quant import quantize_weight_per_col
 from manga_ocr_tpu_torch.ops import fused_mlp as tm
+from port_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 TOL = 1e-5
 

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 
 from manga_ocr_tpu.ops import image as jim
 from manga_ocr_tpu_torch.ops import image as tim
+from port_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 RESIZE_ATOL = 1e-4
 # cos/sin of an f32 angle may differ by an ulp between XLA and PyTorch, and

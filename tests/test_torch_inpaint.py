@@ -25,6 +25,8 @@ from manga_ocr_tpu.models import convert_lama as jconv
 from manga_ocr_tpu.models import inpaint as jip
 from manga_ocr_tpu_torch.models import convert_lama as tconv
 from manga_ocr_tpu_torch.models import inpaint as tip
+from manga_ocr_tpu_torch.parallel.mesh import make_mesh
+from port_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 JCFG = jtwin.CFG
 TCFG = tip.InpaintConfig(base_channels=8, num_blocks=2, downsamples=2, global_ratio=0.5,
@@ -251,8 +253,9 @@ def test_refusals(tree):
     with pytest.raises(RuntimeError, match="no weights"):
         tip.LamaInpainter(device="cpu").inpaint_many([np.zeros((8, 8, 3), np.uint8)],
                                                       [np.zeros((8, 8), np.uint8)])
-    with pytest.raises(TypeError):
-        tip.LamaInpainter(tip.params_from_jax(tree), TCFG, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="mesh"):  # a CUDA mesh under device="cpu"
+        tip.LamaInpainter(tip.params_from_jax(tree), TCFG, device="cpu",
+                          mesh=make_mesh(2, devices=[torch.device("cuda", 0)] * 2))
     params = tip.params_from_jax(tree)
     with pytest.raises(ValueError, match="uint8"):
         tip.inpaint_batch(params, np.zeros((1, 8, 8, 3), np.float32),

@@ -27,6 +27,7 @@ from manga_ocr_tpu_torch.kernels import build, launch
 from manga_ocr_tpu_torch.ops import flash_attention as fa
 from manga_ocr_tpu_torch.ops import fused_mlp as tm
 from manga_ocr_tpu_torch.ops.kernel_utils import ln32, quant_rows
+from port_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 MODES = {
     "bf16": launch.GEMM_BF16,

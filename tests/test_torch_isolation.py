@@ -26,7 +26,10 @@ layers' copies under the ``process`` command, ``core/settings.py``,
 ``utils/http.py``, ``utils/rate_limit.py``, ``translate/``,
 ``engine/ai_ocr.py`` and ``core/review.py``, held the same way, with
 ``engine/registry.py`` held to JAX's code but for its named differences
-(``_latin_preprocess``, the Latin factory, the ``device`` parameter)."""
+(``_latin_preprocess``, the Latin factory, the ``device`` parameter); and
+data-parallel serving's copies: ``pad_batch_to_multiple`` (statement for
+statement and on the same arrays) and ``make_global_mesh``'s per-process
+block check (the same rows or the same error on the same fake devices)."""
 
 import ast
 import dataclasses
@@ -51,6 +54,7 @@ from manga_ocr_tpu_torch.core import files as tfiles
 from manga_ocr_tpu_torch.models import config as tcfg
 from manga_ocr_tpu_torch.models import tokenizer as ttok
 from manga_ocr_tpu_torch.parallel import batching as tbatch
+from port_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "manga_ocr_tpu", "optax")
@@ -92,7 +96,7 @@ def test_engine_server_and_chip_smoke_import_neither():
         import manga_ocr_tpu_torch.train
         from manga_ocr_tpu_torch.core import files
         from manga_ocr_tpu_torch.ops import image, preprocess
-        from manga_ocr_tpu_torch.parallel import batching
+        from manga_ocr_tpu_torch.parallel import batching, mesh, multihost
         from manga_ocr_tpu_torch.models import decoder, model
         from manga_ocr_tpu_torch.models import detector
         from manga_ocr_tpu_torch.detect import (contours, craft_boxes, detector, postprocess,
@@ -741,3 +745,47 @@ def test_registry_is_the_jax_code_but_the_device_and_the_latin_path():
     assert dump.count(built) == 1
     assert dump.replace(built, "Call(func=Name(id='EngineRegistry', ctx=Load()), args=[]") == \
         ast.dump(jmk)
+
+
+# -- data-parallel serving's copies -------------------------------------------------------
+
+from manga_ocr_tpu.parallel import mesh as jmesh  # noqa: E402
+from manga_ocr_tpu.parallel import multihost as jmh  # noqa: E402
+from manga_ocr_tpu_torch.parallel import mesh as tmesh  # noqa: E402
+from manga_ocr_tpu_torch.parallel import multihost as tmh  # noqa: E402
+
+
+def test_pad_batch_to_multiple_is_the_jax_code():
+    rel = os.path.join("parallel", "mesh.py")
+    want = _code(os.path.join(REPO, "manga_ocr_tpu", rel), {"pad_batch_to_multiple"})
+    assert _code(os.path.join(REPO, "manga_ocr_tpu_torch", rel), {"pad_batch_to_multiple"}) == \
+        want and len(want) == 1
+    rng = np.random.default_rng(0)
+    for shape, m, dtype in (((3, 2), 4, np.uint8), ((8, 5, 5, 3), 8, np.uint8),
+                            ((9, 4), 8, np.float32), ((1,), 3, np.int32), ((0, 2), 2, np.uint8)):
+        arr = (rng.random(shape) * 200).astype(dtype)
+        got, want = tmesh.pad_batch_to_multiple(arr, m), jmesh.pad_batch_to_multiple(arr, m)
+        assert got.dtype == want.dtype and (got is arr) == (want is arr)
+        np.testing.assert_array_equal(got, want)
+
+
+class _Dev:
+    def __init__(self, pid, i):
+        self.process_index, self.i = pid, i
+
+
+@pytest.mark.parametrize("blocks, n_model", [
+    ((4, 4), 2), ((4, 2), 3), ((4, 2), 4), ((3, 3), 3), ((2, 2, 2), 1), ((1,), 1), ((4, 4), 0),
+    ((2, 4), 2)], ids=str)
+def test_global_mesh_block_check_as_jax(blocks, n_model):
+    """make_global_mesh's per-process blocks on the same fake devices: the
+    same rows, or the same ValueError."""
+    devs = [_Dev(pid, i) for pid, n in enumerate(blocks) for i in range(n)]
+    out = []
+    for mh in (jmh, tmh):
+        try:
+            mesh = mh.make_global_mesh(n_model=n_model, devices=devs)
+            out.append((dict(mesh.shape), [[id(d) for d in row] for row in mesh.devices]))
+        except ValueError as e:
+            out.append(str(e))
+    assert out[0] == out[1]

@@ -39,6 +39,8 @@ from manga_ocr_tpu_torch.engine import latin as tlatin
 from manga_ocr_tpu_torch.models import convert_latin as tconv
 from manga_ocr_tpu_torch.models import craft as tcraft
 from manga_ocr_tpu_torch.models import crnn as tcrnn
+from manga_ocr_tpu_torch.parallel.mesh import make_mesh
+from port_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 JCRAFT, JCRNN = jtwin.CRAFT_CFG, jtwin.CRNN_CFG
 TCRAFT = tcraft.CraftConfig(vgg_channels=(4, 8, 16, 32, 32, 64), head_channels=8)
@@ -454,8 +456,9 @@ def test_from_checkpoints_and_refusals(twins, tmp_path):
         tlatin.TorchLatinEngine.from_checkpoints(str(tmp_path / "craft.pth"), crnn_dir,
                                                  charset="abc", device="cpu", **kw_dir)
     assert d.perform_ocr(page) == t.perform_ocr(page)
-    with pytest.raises(ValueError, match="mesh"):
-        tlatin.TorchLatinEngine(mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="mesh"):  # a CUDA mesh under device="cpu"
+        tlatin.TorchLatinEngine(mesh=make_mesh(2, devices=[torch.device("cuda", 0)] * 2),
+                                device="cpu")
     with pytest.raises(ValueError, match="num_classes"):
         tlatin.TorchLatinEngine(charset="abc", crnn_cfg=TCRNN, device="cpu")
     if not torch.cuda.is_available():

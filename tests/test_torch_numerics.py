@@ -18,6 +18,7 @@ from manga_ocr_tpu_torch.models import quantize as tq
 from manga_ocr_tpu_torch.ops import common as tc
 from manga_ocr_tpu_torch.ops import kernel_utils as tk
 from manga_ocr_tpu_torch.ops import quant as tquant
+from port_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ATOL = 1e-6
 

@@ -33,6 +33,7 @@ from manga_ocr_tpu.ops import preprocess as jpp
 from manga_ocr_tpu_torch.ops import image as tim
 from manga_ocr_tpu_torch.ops import preprocess as tpp
 from manga_ocr_tpu_torch.parallel import batching
+from port_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures", "eval")
 ANGLE_ATOL_DEG = 1e-3

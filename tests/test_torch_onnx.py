@@ -21,6 +21,7 @@ from manga_ocr_tpu_torch.detect import detector as tdetect
 from manga_ocr_tpu_torch.models import convert_onnx as tonnx
 from manga_ocr_tpu_torch.models import detector as tseg
 from manga_ocr_tpu_torch.models import onnx_lite as tol
+from port_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 # f32 on both sides; the executors differ by summation order only (XLA's
 # convolutions against ATen's), well under 1e-5 at these magnitudes

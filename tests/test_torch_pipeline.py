@@ -18,6 +18,7 @@ from manga_ocr_tpu.runtime import pipeline as jpipe
 from manga_ocr_tpu_torch.core import geometry as tgeo
 from manga_ocr_tpu_torch.runtime import pipeline as tpipe
 from manga_ocr_tpu_torch.typeset.area import TypesetArea
+from port_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 SETTINGS = [
     {"use_inpaint": False},

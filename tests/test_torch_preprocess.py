@@ -12,6 +12,7 @@ from manga_ocr_tpu.ops import preprocess as jpp
 from manga_ocr_tpu.parallel import batching
 from manga_ocr_tpu_torch.ops import image as tim
 from manga_ocr_tpu_torch.ops import preprocess as tpp
+from port_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ATOL = 1e-5
 

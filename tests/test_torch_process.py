@@ -12,7 +12,8 @@ text`` on a page of glyph columns, ``--detector`` on a full-width
 ``--no-split-bubbles``, ``--enhanced`` (no ``tesseract`` here: the same-model
 second pass), ``--translate --provider openrouter`` against one loopback stub
 that both runs share (its replies a function of each request's own prompt),
-and the three ``--text-proposer craft`` messages."""
+and the three ``--text-proposer craft`` messages; and the port's own run
+under ``--mesh-data 2`` against its single-device run."""
 
 import dataclasses
 import glob
@@ -36,6 +37,7 @@ from manga_ocr_tpu_torch.models.config import MangaOCRConfig
 from manga_ocr_tpu_torch.models.params import init_params
 from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
 from manga_ocr_tpu_torch.train import render_text_crop
+from port_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 @pytest.fixture(scope="module")
@@ -238,3 +240,32 @@ def test_craft_proposer_messages_as_jax(case, tmp_path, capsys, hf_dir, folders)
     _same(got, want)
     assert got["rc"] == rc
     assert message.replace("<missing>", missing) in got["err"]
+
+
+def test_mesh_data_writes_the_single_device_project(tmp_path, capsys, hf_dir, folders,
+                                                    det_npz):
+    """``--mesh-data 2`` (a 2-way virtual CPU mesh under ``--device cpu``)
+    shards the OCR engine's buckets and hands the detector the mesh: the
+    same project and typeset pages as one device."""
+    runs = []
+    for top in ([], ["--mesh-data", "2"]):
+        folder = tmp_path / f"pages{len(runs)}"
+        shutil.copytree(folders / "bubbles", folder)
+        out_dir = tmp_path / f"out{len(runs)}"
+        assert tcli.main(["--device", "cpu", *top, "--checkpoint", hf_dir, "--dtype", "float32",
+                          "--max-length", "12", "process", str(folder), "--out", str(out_dir),
+                          "--detector", det_npz]) == 0
+        capsys.readouterr()
+        payload = json.loads((out_dir / "project.json").read_text(encoding="utf-8")
+                             .replace(json.dumps(str(folder))[1:-1], "<pages>"))
+        payload.pop("saved_at")
+        for entry in payload["history_entries"]:
+            entry.pop("timestamp")
+        pages = [np.asarray(Image.open(p)) for p in sorted(glob.glob(str(folder / "*_typeset.png")))]
+        runs.append((payload, pages))
+    (want, want_pages), (got, got_pages) = runs
+    assert got == want and any(a["original_text"] for v in got["typeset_data"].values()
+                               for a in v["areas"])
+    assert len(got_pages) == len(want_pages) == 2
+    for a, b in zip(got_pages, want_pages):
+        np.testing.assert_array_equal(a, b)

@@ -21,6 +21,7 @@ from manga_ocr_tpu_torch.engine import TorchMangaOcrEngine
 from manga_ocr_tpu_torch.models.config import MangaOCRConfig
 from manga_ocr_tpu_torch.models.params import init_params
 from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
+from port_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -29,6 +29,7 @@ from manga_ocr_tpu_torch.models import model as tmdl
 from manga_ocr_tpu_torch.models.params import init_params_numpy, params_from_jax
 from manga_ocr_tpu_torch.ops import fused_head, fused_mlp
 from port_config import port_config
+from port_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 BATCH = 4
 

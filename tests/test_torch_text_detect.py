@@ -7,6 +7,7 @@ sentinels, and the CRAFT proposer's line grouping."""
 
 import numpy as np
 import pytest
+from port_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 cv2 = pytest.importorskip("cv2")
 

@@ -48,6 +48,7 @@ from manga_ocr_tpu_torch.models.convert import load_hf_checkpoint
 from manga_ocr_tpu_torch.models.params import init_params_numpy, params_from_jax
 from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
 from port_config import port_config
+from port_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JCFG = JaxConfig.tiny()

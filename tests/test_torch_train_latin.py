@@ -57,6 +57,7 @@ from manga_ocr_tpu_torch import train_latin as ttl
 from manga_ocr_tpu_torch.engine import latin as tlatin
 from manga_ocr_tpu_torch.engine.registry import make_default_registry
 from manga_ocr_tpu_torch.models import crnn as tcrnn
+from port_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 CHARSET = "0123456789"
 JCFG = jcrnn.CrnnConfig(num_classes=len(CHARSET) + 1, output_channel=32, hidden_size=16)

@@ -38,6 +38,7 @@ from manga_ocr_tpu_torch.runtime import export as texp
 from manga_ocr_tpu_torch.typeset import cleanup as tcl
 from manga_ocr_tpu_torch.typeset import render as tren
 from manga_ocr_tpu_torch.typeset.area import TypesetArea as TArea
+from port_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 def _page(h=200, w=200, color=(230, 230, 230)):

@@ -24,6 +24,7 @@ from manga_ocr_tpu.models import yolo_seg as jys
 from manga_ocr_tpu_torch.models import convert_yolo as tconv
 from manga_ocr_tpu_torch.models import detector as tseg
 from manga_ocr_tpu_torch.models import yolo_seg as tys
+from port_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 JCFG = jtwin.CFG  # input 64, width (4, 8, 16, 32, 64), depth 1s, 8 masks, reg_max 4
 TCFG = tys.YoloSegConfig(input_size=64, width=(4, 8, 16, 32, 64), depth=(1, 1, 1, 1),
