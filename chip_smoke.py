@@ -69,10 +69,21 @@ each engine, from each tree in turn.)
    checking the launch counters of every kernel (kernel C in its cluster
    form on both engines' dispatches), the encoder output and the
    decode tokens against the plain path's, and printing crops/s on one
-   256-crop page.  Then the step-by-step greedy decode (head_kernel and
-   step_mlp_kernel "fused": kernels F and D) at B=32 over 100 steps, its
-   tokens scored by the plain step decode; and one page through the exact
-   reference path (serving_kernels=False), which must launch no kernel.
+   256-crop page.  Then (phase "wire and coalescing", run_wire) the int8
+   engine with wire gray and packed, coalesce on and off, on the 256-crop
+   page and a five-bucket page: launches A 12, B 12, C 1 a bucket, the
+   packed prep's PackedBatch items, ``fused`` where coalescing applies,
+   the transfers and readbacks counted against the design (fused gray
+   wire 1 and 1; else 2 transfers a bucket; 1 readback under coalesce,
+   else 1 a bucket), every bucket's [lengths | tokens] rows bit-equal to
+   the bucket program's on the unsent gray batch, and the coalesced
+   readback on 2 x cuda:0 bit-equal to the per-bucket one; with each
+   page's wire bytes, the stage split, ocr_page's and ocr_pages' crops/s,
+   and the dispatch path's host synchronizations.  Then the step-by-step
+   greedy decode (head_kernel and step_mlp_kernel "fused": kernels F and
+   D) at B=32 over 100 steps, its tokens scored by the plain step decode;
+   and one page through the exact reference path (serving_kernels=False),
+   which must launch no kernel.
    Last, the fused whole-layer step decode (step_kernel "fused_layer",
    head_kernel "fused") through ocr_forward on 32 crops: kernels A and B
    in the encoder, then per step J, K and B's step form per layer and F;
@@ -2180,6 +2191,215 @@ def check_server(engine, crops) -> None:
     log(f"server /ocr {single} /ocr_batch {batch}")
     if single != direct[:3] or batch != direct:
         fail(f"server texts differ from the engine's: {single} {batch} vs {direct}")
+
+
+WIRE_SETTINGS = (("gray", True), ("gray", False), ("packed", True), ("packed", False))
+WIRE_STREAM_PAGES = 8  # ocr_pages' stream of 256-crop pages, lookahead 2
+WIRE_PER_DISPATCH = {"fused_attn_layer": 12, "fused_mlp_block": 12, "greedy_decode_loop": 1,
+                     "greedy_decode_loop[cluster]": 1, "precompute_cross_kv_packed": 1}
+
+
+def wire_page(crops) -> list:
+    """The fixture crops, then four each of three crops tiled from them:
+    tall (348 x 85), large (370 x 303) and wide (130 x 214, turned tall by
+    the Vertical rule), so that the page spans five buckets."""
+    import numpy as np
+
+    tall = np.concatenate([crops[0]] * 3, axis=0)
+    large = np.tile(crops[3], (5, 3, 1))
+    wide = np.tile(crops[2], (3, 5, 1))[:130, :214]
+    return list(crops) + [np.ascontiguousarray(c) for c in (tall, large, wide) for _ in range(4)]
+
+
+def wire_design(wire: str, coalesce: bool, n: int) -> tuple:
+    """(transfers to the card, copies back) of an ``n``-bucket page in one
+    wire setting: the fused gray wire one buffer, else two a bucket (crops
+    or rows, extents or meta); one readback under coalesce, else one a
+    bucket."""
+    fused = coalesce and n > 1
+    return (1 if fused and wire == "gray" else 2 * n), (1 if fused else n)
+
+
+def dispatch_syncs(engine, page) -> dict:
+    """The host synchronizations on ``_dispatch_page``'s path over ``page``
+    (``torch.cuda.set_sync_debug_mode("warn")``), counted by the innermost
+    line of the port that led to each and the line that raised it; and the
+    host seconds of the dispatch and of the readback after it."""
+    import collections
+    import traceback
+    import warnings
+
+    import torch
+
+    port = os.path.join(ROOT, "manga_ocr_tpu_torch")
+    sites = collections.Counter()
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" not in str(message):
+            return  # e.g. the mode's own notice that it is a prototype
+        ours = [f for f in traceback.extract_stack()[:-1] if f.filename.startswith(port)]
+        where = (f"{os.path.relpath(ours[-1].filename, ROOT)}:{ours[-1].lineno} "
+                 f"`{ours[-1].line}`" if ours else "outside the port")
+        sites[f"{where} -> {os.path.basename(filename)}:{lineno}: {message}"] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            dispatched = engine._dispatch_page(page, 1, None)
+            t1 = time.perf_counter()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    engine._page_rows(dispatched)
+    t2 = time.perf_counter()
+    return {"syncs": dict(sites), "dispatch_s": t1 - t0, "readback_s": t2 - t1}
+
+
+def run_wire(params, crops) -> None:
+    """Phase "wire and coalescing": the int8 engine (MangaOCRConfig.base())
+    with wire gray and packed, coalesce on and off, on the 256-crop page
+    (two buckets) and wire_page's (five).  Holds, per setting: kernel
+    launches A 12, B 12, C 1 a bucket exactly; prep_page_packed's
+    PackedBatch items on the card's machine (the native library loaded);
+    ``fused`` on a multi-bucket page under coalesce (one HostCopy) and on
+    no single-bucket page; the StageTimer's "h2d" and "readback" counts
+    against wire_design; every bucket's [lengths | tokens] rows bit-equal
+    to _bucket_program's on the gray batch sent with no wire at all.  Then
+    the coalesced and the per-bucket readback on a mesh of 2 x cuda:0,
+    bit-equal to each other.  Prints each page's wire bytes, each setting's
+    stage split of a timed 256-crop page, ocr_page's crops/s and
+    ocr_pages' over WIRE_STREAM_PAGES pages (lookahead 2), and the host
+    synchronizations on the dispatch path."""
+    import numpy as np
+    import torch
+
+    from manga_ocr_tpu_torch import native
+    from manga_ocr_tpu_torch.engine import TorchMangaOcrEngine
+    from manga_ocr_tpu_torch.engine.engine import HostCopy
+    from manga_ocr_tpu_torch.models.config import MangaOCRConfig
+    from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
+    from manga_ocr_tpu_torch.parallel import batching
+    from manga_ocr_tpu_torch.parallel import mesh as meshlib
+    from manga_ocr_tpu_torch.utils.metrics import StageTimer
+
+    card = card_line()
+    cfg, tok = MangaOCRConfig.base(), CharTokenizer.synthetic()
+    big = [crops[i % len(crops)] for i in range(256)]
+    pages = {"256-crop page": big, "five-bucket page": wire_page(crops)}
+    if native.load() is None:
+        fail("wire: the native prep library did not load, so the packed wire would ship "
+             "gray batches")
+    n_buckets = {}
+    for label, page in pages.items():
+        gray, packed = batching.prep_page_gray(page, 1), batching.prep_page_packed(page, 1)
+        if not all(isinstance(b, batching.PackedBatch) for b in packed):
+            fail(f"wire: prep_page_packed returned {[type(b).__name__ for b in packed]}")
+        n_buckets[label] = len(gray)
+        gray_bytes = sum(b.crops.nbytes + b.sizes.nbytes for b in gray)
+        packed_bytes = sum(b.flat.nbytes + 12 * b.sizes.shape[0] for b in packed)
+        log(f"wire bytes, {label} ({len(page)} crops, buckets "
+            f"{[(b.bucket_hw, b.crops.shape[0]) for b in gray]}): gray {gray_bytes} in "
+            f"{2 * len(gray)} transfers, fused gray {gray_bytes} in 1, packed {packed_bytes} "
+            f"in {2 * len(packed)} ({packed_bytes / gray_bytes:.4f} of gray) on {card}")
+    if n_buckets["five-bucket page"] < 3:
+        fail(f"wire: the multi-bucket page spans {n_buckets['five-bucket page']} buckets")
+
+    # the reference rows: each gray batch straight into the bucket program, no wire
+    base = TorchMangaOcrEngine(params, cfg, tok, device="cuda")
+    base.ocr_page(crops[:2])  # first call
+    want = {}
+    with torch.inference_mode():
+        for label, page in pages.items():
+            want[label] = [
+                base._bucket_program(torch.from_numpy(b.crops).cuda(),
+                                     torch.from_numpy(b.sizes).cuda()).cpu().numpy()[: b.valid]
+                for b in batching.prep_page_gray(page, 1)]
+    sync = dispatch_syncs(base, big)
+    log(f"wire: host synchronizations on the dispatch path of the 256-crop page (gray, "
+        f"coalesced) by line: {sync['syncs']}; the dispatch returned after "
+        f"{sync['dispatch_s']:.4f} s, the readback then waited {sync['readback_s']:.4f} s "
+        f"(host clock) on {card}")
+    del base
+
+    def hold(label, name, rows):
+        if len(rows) != len(want[label]):
+            fail(f"wire {name}, {label}: {len(rows)} buckets, expected {len(want[label])}")
+        for i, (g, w) in enumerate(zip(rows, want[label])):
+            if g.shape != w.shape or not np.array_equal(g, w):
+                fail(f"wire {name}, {label}: bucket {i} rows differ from the bucket program's "
+                     f"({int((g != w).any(axis=1).sum()) if g.shape == w.shape else g.shape} "
+                     f"rows)")
+
+    rates = {}
+    for wire, coalesce in WIRE_SETTINGS:
+        name = f"wire={wire}, coalesce={coalesce}"
+        engine = TorchMangaOcrEngine(params, cfg, tok, device="cuda", wire=wire,
+                                     coalesce=coalesce)
+        engine.ocr_page(crops[:2])  # first call
+        n = n_buckets["five-bucket page"]
+        texts, counts = counted(lambda: engine.ocr_page(pages["five-bucket page"]))
+        expect = {k: WIRE_PER_DISPATCH.get(k, 0) * n for k in counts}
+        if counts != expect:
+            fail(f"wire {name}: launches {counts} on {n} buckets, expected {expect}")
+        want_type = batching.PackedBatch if wire == "packed" else batching.BucketedBatch
+        for label, page in pages.items():
+            dispatched = engine._dispatch_page(page, 1, None)
+            outs, fused = dispatched
+            if not all(isinstance(b, want_type) for b, _ in outs):
+                fail(f"wire {name}, {label}: batches {[type(b).__name__ for b, _ in outs]}")
+            if (fused is not None) != coalesce or (coalesce and (
+                    len(fused) != 1 or not isinstance(fused[0], HostCopy))):
+                fail(f"wire {name}, {label}: fused {fused} on {len(outs)} buckets")
+            hold(label, name, engine._page_rows(dispatched))
+            timer = StageTimer()
+            got_texts = engine.ocr_page(page, timer=timer)
+            split = timer.summary()
+            design = wire_design(wire, coalesce, len(outs))
+            if (split["h2d"]["count"], split["readback"]["count"]) != design:
+                fail(f"wire {name}, {label}: h2d / readback {split['h2d']['count']} / "
+                     f"{split['readback']['count']}, by design {design}")
+            log(f"wire {name}, {label}: {design[0]} transfer(s) to the card, {design[1]} "
+                f"readback(s); stage split of a timed page {json.dumps(split)} on {card}")
+            if label == "five-bucket page" and got_texts != texts:
+                fail(f"wire {name}: a timed page read other strings than an untimed one")
+        if engine._dispatch_page(crops[:2], 1, None)[1] is not None:
+            fail(f"wire {name}: fused set on a single-bucket page")
+        rate = rates.setdefault(name, {})
+        rate["ocr_page"] = page_rate(engine, crops, f"wire {name}")
+        engine.ocr_pages([big], lookahead=2)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.ocr_pages([big] * WIRE_STREAM_PAGES, lookahead=2)
+        rate["ocr_pages"] = WIRE_STREAM_PAGES * len(big) / (time.perf_counter() - t0)
+        log(f"wire {name} ocr_pages {WIRE_STREAM_PAGES} x {len(big)} crops, lookahead 2: "
+            f"{rate['ocr_pages']} crops/s on {card}")
+        del engine
+    log(f"wire crops/s by setting (ocr_page one 256-crop page; ocr_pages "
+        f"{WIRE_STREAM_PAGES} of them, lookahead 2): {json.dumps(rates)} on {card}")
+
+    # the readback half under a mesh: 2 x cuda:0, coalesced against per bucket
+    mesh = meshlib.make_mesh(2, devices=[torch.device("cuda", 0)] * 2)
+    sharded = {c: TorchMangaOcrEngine(params, cfg, tok, device="cuda", mesh=mesh, coalesce=c)
+               for c in (True, False)}
+    sharded[True].ocr_page(crops[:2])  # first call
+    for label, page in pages.items():
+        rows = {}
+        for c, engine in sharded.items():
+            dispatched = engine._dispatch_page(page, 1, None)
+            if (dispatched[1] is not None) != c or (c and len(dispatched[1]) != 2):
+                fail(f"wire on 2 x cuda:0, coalesce={c}, {label}: fused {dispatched[1]}")
+            rows[c] = engine._page_rows(dispatched)
+        for i, (a, b) in enumerate(zip(rows[True], rows[False])):
+            if a.shape != b.shape or not np.array_equal(a, b):
+                fail(f"wire on 2 x cuda:0, {label}: bucket {i}'s coalesced rows differ from "
+                     f"the per-bucket readback's")
+        log(f"wire on 2 x cuda:0, {label}: {len(rows[True])} buckets' rows, coalesced (one "
+            f"readback a data device) bit-equal to the per-bucket readback")
+    del sharded
+    torch.cuda.empty_cache()
 
 
 def step_gaps(params, enc, cfg, tokens, lengths) -> dict:
@@ -5114,10 +5334,8 @@ def host_timed(fn) -> tuple:
 def dp_matrices(engine, page) -> list:
     """``[lengths | tokens]`` of each bucket of ``page`` (as ocr_page
     prepares it, Vertical): (batch, host matrix of its valid rows)."""
-    from manga_ocr_tpu_torch.parallel import mesh as meshlib
-
-    return [(b, meshlib.dp_gather(shards, b.valid))
-            for b, shards in engine._dispatch_page(page, 1, None)]
+    dispatched = engine._dispatch_page(page, 1, None)
+    return list(zip([b for b, _ in dispatched[0]], engine._page_rows(dispatched)))
 
 
 def dp_hold_rows(label: str, engine, b, got, want, n: int) -> None:
@@ -5428,6 +5646,10 @@ def run_engines(results: dict) -> dict:
     check_server(engine, crops)
     del engine
     phase("int8 engine")
+
+    # -- the wire formats and page coalescing on the int8 engine: A, B, C -------
+    run_wire(params, crops)
+    phase("wire and coalescing")
 
     # -- unquantized serving: kernels E, D, C -----------------------------------
     engine = TorchMangaOcrEngine(params, cfg, CharTokenizer.synthetic(), device="cuda",

@@ -15,9 +15,12 @@ Its flags, messages and outputs are the JAX command's; ``--device`` (default
 ``cuda``, which raises where CUDA is unavailable) places the OCR engine, the
 detectors and the CRAFT proposer; ``--mesh-data N`` shards the OCR engine's
 and the U-Net detector's batches over N devices (the visible CUDA devices,
-or, under ``--device cpu``, an N-way virtual CPU mesh).  The JAX command
-line's ``bench`` subcommand and its ``--wire``, ``--no-coalesce`` and
-``--no-aot`` options are not ported: the command line rejects them.
+or, under ``--device cpu``, an N-way virtual CPU mesh); ``--wire
+{gray,packed}`` picks the engine's host -> device crop format and
+``--no-coalesce`` sends and reads back a multi-bucket page bucket by bucket
+(``TorchMangaOcrEngine``'s ``wire`` and ``coalesce``).  The JAX command
+line's ``bench`` subcommand and its ``--no-aot`` option are not ported: the
+command line rejects them.
 """
 
 from __future__ import annotations
@@ -33,8 +36,8 @@ def _build_engine(args):
     ``args.checkpoint`` (else ``$MANGA_OCR_CHECKPOINT``) loaded in f32, or
     random weights from ``args.seed`` (0 where ``args`` has none) at
     ``MangaOCRConfig.base()`` width with a warning; ``args.max_length``,
-    ``args.dtype``, ``args.serving_kernels``, ``args.device`` and
-    ``args.mesh_data`` (``_mesh``)."""
+    ``args.dtype``, ``args.serving_kernels``, ``args.device``,
+    ``args.mesh_data`` (``_mesh``), ``args.wire`` and ``args.no_coalesce``."""
     import torch
 
     from manga_ocr_tpu_torch.engine import TorchMangaOcrEngine
@@ -69,6 +72,7 @@ def _build_engine(args):
         params, cfg, tok, max_length=args.max_length, device=args.device,
         dtype=torch.float32 if args.dtype == "float32" else torch.bfloat16,
         serving_kernels=None if flag == "auto" else flag == "on", mesh=_mesh(args),
+        wire=getattr(args, "wire", "gray"), coalesce=not getattr(args, "no_coalesce", False),
     )
 
 
@@ -284,6 +288,16 @@ def add_engine_options(p: argparse.ArgumentParser) -> None:
         "--serving-kernels", default="auto", choices=("auto", "on", "off"),
         help="int8 serving kernels: auto (engine default), on, or off (exact "
         "reference math)",
+    )
+    p.add_argument(
+        "--wire", default="gray", choices=("gray", "packed"),
+        help="host->device crop format: padded gray batches (default) or "
+        "height-tight row-packed buffers (one device only)",
+    )
+    p.add_argument(
+        "--no-coalesce", action="store_true",
+        help="send and read back a multi-bucket page bucket by bucket instead of "
+        "in one transfer each way (a measurement aid)",
     )
     p.add_argument(
         "--mesh-data", type=int, default=0,

@@ -25,9 +25,21 @@ device, each bucket's batch padded to a multiple of the data-axis size
 (repeating its last crop), split, every shard launched on its device
 before any is read back, and the rows joined in order.
 
-Not ported (each is absent, see ROADMAP.md): the packed and fused
-multi-bucket wire formats, tensor parallelism (a model axis above 1), the
-AOT executable store, and CUDA graph capture.
+The host <-> device traffic is the JAX engine's.  ``wire="gray"`` ships
+each bucket's padded [B, bh, bw] uint8 batch and its [B, 2] extents;
+``wire="packed"`` ships each bucket's crop rows height-tight with a [B, 3]
+(h, w, row offset) array, and the device rebuilds the same batch with one
+row gather (``ops.preprocess.unpack_packed_page``).  ``coalesce=True`` (the
+default) gives a multi-bucket page one transfer each way: on one device
+its gray buckets travel as ONE uint8 buffer, split on the device by static
+slices, and under any configuration its buckets' ``[lengths | tokens]``
+matrices are joined on the device and read back once (once per data
+device under a mesh).  Every copy to the host starts at dispatch
+(``HostCopy``: a pinned host tensor and a CUDA event), so ``ocr_pages``'s
+lookahead only waits on those copies.
+
+Not ported (each is absent, see ROADMAP.md): tensor parallelism (a model
+axis above 1), the AOT executable store, and CUDA graph capture.
 """
 
 from __future__ import annotations
@@ -83,6 +95,67 @@ def _params_to(tree, device):
     return tree.to(device)
 
 
+def _pinned(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as the source of a transfer to ``device``: a pinned
+    copy for CUDA (a copy from pageable memory is synchronous, whatever
+    ``non_blocking`` says; PyTorch's pinned-memory cache keeps the block
+    until the copy that reads it has run), the array's own tensor on the
+    CPU."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    return t.pin_memory() if device.type == "cuda" else t
+
+
+def _h2d(host: torch.Tensor, device: torch.device, stage, timed: bool) -> torch.Tensor:
+    """One host -> device transfer in a "h2d" stage of its own (on the CPU
+    the tensor itself: no transfer).  With a timer on CUDA the host first
+    waits for the work queued on the stream (counted in "dispatch"), then
+    for the copy, so "h2d" times the copy alone."""
+    cuda = timed and device.type == "cuda"
+    if cuda:
+        with stage("dispatch"):
+            torch.cuda.current_stream(device).synchronize()
+    with stage("h2d"):
+        out = host.to(device, non_blocking=True)
+        if cuda:
+            torch.cuda.current_stream(device).synchronize()
+    return out
+
+
+def _int32_rows(buf: torch.Tensor, n: int) -> torch.Tensor:
+    """``8 n`` little-endian bytes of a uint8 tensor -> its [n, 2] int32
+    view, no copy.  ``view(torch.int32)`` needs the slice's storage offset
+    to be a multiple of 4: the fused wire keeps it so (every bucket's
+    ``bh * bw`` is a multiple of 4), and this checks it."""
+    if buf.storage_offset() % 4:
+        raise ValueError(f"fused wire: extents at byte {buf.storage_offset()}, not a multiple of 4")
+    return buf.view(torch.int32).view(n, 2)
+
+
+class HostCopy:
+    """A device tensor's copy to the host, started when this is made (the
+    counterpart of JAX's ``copy_to_host_async``).  On CUDA: a
+    ``non_blocking`` copy into a pinned host tensor of its own, then an
+    event recorded on the stream that runs the copy (the current stream of
+    the tensor's device, in the dispatching thread); ``numpy()`` waits on
+    that event alone.  The pinned tensor lives as long as this object, and
+    no two pages share one.  On the CPU the tensor is its own host copy."""
+
+    def __init__(self, src: torch.Tensor):
+        self.shape = src.shape
+        if src.device.type == "cuda":
+            self._host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+            self._host.copy_(src, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(src.device))
+        else:
+            self._host, self._event = src, None
+
+    def numpy(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
+
+
 class TorchMangaOcrEngine:
     """Batched manga-ocr engine on a CUDA device (or the CPU, for tests).
 
@@ -104,7 +177,13 @@ class TorchMangaOcrEngine:
     which must then be of their type (CUDA or CPU, so a CUDA request never
     runs on the CPU); ``self.device`` is the first of them.  A model axis
     above 1 raises: the serving kernels are data-parallel only, and tensor
-    parallelism is not ported."""
+    parallelism is not ported.
+
+    ``wire``: the host -> device crop format, "gray" (padded batches) or
+    "packed" (height-tight rows, rebuilt on the device; one device only:
+    a ``ValueError`` under a mesh).  ``coalesce``: a multi-bucket page's
+    single h2d buffer (one device, gray batches) and single readback (any
+    configuration); ``False`` sends and reads back bucket by bucket."""
 
     def __init__(
         self,
@@ -117,11 +196,22 @@ class TorchMangaOcrEngine:
         serving_kernels: bool | None = None,
         quantize_int8: bool | None = None,
         mesh: meshlib.Mesh | None = None,
+        wire: str = "gray",
+        coalesce: bool = True,
     ):
         devices = meshlib.serving_devices(mesh, device, "TorchMangaOcrEngine")
         self.device = devices[0]
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("TorchMangaOcrEngine: device='cuda' but CUDA is unavailable")
+        if wire not in ("gray", "packed"):
+            raise ValueError(f"wire must be 'gray' or 'packed', got {wire!r}")
+        if wire == "packed" and mesh is not None:
+            raise ValueError(
+                "wire='packed' is single-device only (global offsets); "
+                "use the default gray wire under a mesh"
+            )
+        self._wire = wire
+        self._coalesce = coalesce
         n_model = mesh.shape[meshlib.MODEL_AXIS] if mesh is not None else 1
         if n_model > 1 and serving_kernels:
             raise ValueError(
@@ -167,25 +257,79 @@ class TorchMangaOcrEngine:
 
     # -- one dispatch ---------------------------------------------------------
 
-    def _run_bucket(self, crops_u8: np.ndarray, sizes: np.ndarray, shard: int = 0) -> torch.Tensor:
-        """[B, bh, bw] uint8 gray crops + [B, 2] extents -> [B, 1 + L] int32
-        ``[lengths | tokens]`` on data device ``shard`` with its replica (not
-        yet read back)."""
-        device, params = self._devices[shard], self._replicas[shard]
-        crops = torch.from_numpy(np.ascontiguousarray(crops_u8)).to(device, non_blocking=True)
-        ext = torch.from_numpy(np.ascontiguousarray(sizes, np.int32)).to(device)
+    def _bucket_program(self, crops: torch.Tensor, ext: torch.Tensor,
+                        shard: int = 0) -> torch.Tensor:
+        """[B, bh, bw] uint8 gray crops + [B, 2] int32 extents, both on data
+        device ``shard`` -> [B, 1 + L] int32 ``[lengths | tokens]`` there,
+        with its replica (not read back)."""
         with torch.inference_mode():
             pixels = pp.model_preprocess(crops, ext, self.cfg.encoder.image_size).to(self.dtype)
-            out = mdl.ocr_forward(params, pixels, self.cfg, max_length=self.max_length)
+            out = mdl.ocr_forward(self._replicas[shard], pixels, self.cfg,
+                                  max_length=self.max_length)
             return torch.cat([out.lengths[:, None], out.tokens], dim=1)
 
-    def _run_sharded(self, crops_u8: np.ndarray, sizes: np.ndarray) -> list[torch.Tensor]:
+    def _run_bucket(self, crops_u8: np.ndarray, sizes: np.ndarray, shard: int = 0,
+                    stage=None, timed: bool = False) -> torch.Tensor:
+        """A gray-wire bucket on data device ``shard``: the crops and the
+        extents in two transfers, then ``_bucket_program``."""
+        stage = stage or _stage_fn(None)
+        device = self._devices[shard]
+        with stage("host_prep"):
+            crops_h = _pinned(crops_u8, device)
+            ext_h = _pinned(np.ascontiguousarray(sizes, np.int32), device)
+        crops = _h2d(crops_h, device, stage, timed)
+        ext = _h2d(ext_h, device, stage, timed)
+        with stage("dispatch"):
+            return self._bucket_program(crops, ext, shard)
+
+    def _run_sharded(self, crops_u8: np.ndarray, sizes: np.ndarray, stage=None,
+                     timed: bool = False) -> list[torch.Tensor]:
         """A batch whose rows divide by the data-axis size -> one output per
         data device (``_run_bucket`` on each slice), every shard launched
         before any is read back."""
         rows = crops_u8.shape[0] // self._batch_multiple
         return [self._run_bucket(crops_u8[i * rows:(i + 1) * rows], sizes[i * rows:(i + 1) * rows],
-                                 i) for i in range(self._batch_multiple)]
+                                 i, stage, timed) for i in range(self._batch_multiple)]
+
+    def _run_packed(self, b: batching.PackedBatch, stage, timed: bool) -> torch.Tensor:
+        """A packed-wire bucket: the row buffer and the [B, 3] (h, w, row
+        offset) array in two transfers, the padded batch rebuilt on the
+        device, then ``_bucket_program``."""
+        device = self.device
+        with stage("host_prep"):
+            flat_h = _pinned(b.flat, device)
+            meta_h = _pinned(np.concatenate([b.sizes, b.offsets[:, None]], axis=1), device)
+        flat = _h2d(flat_h, device, stage, timed)
+        meta = _h2d(meta_h, device, stage, timed)
+        with stage("dispatch"):
+            crops, ext = pp.unpack_packed_page(flat, meta, *b.bucket_hw)
+            return self._bucket_program(crops, ext.contiguous())
+
+    def _dispatch_fused_wire(self, batches, stage, timed: bool) -> list:
+        """A multi-bucket gray page over ONE transfer (the wire half of
+        ``coalesce``): each bucket's crop bytes, then its int32 extents'
+        bytes, in one uint8 buffer (pinned on CUDA), split on the device by
+        static slices."""
+        device = self.device
+        with stage("host_prep"):
+            # the page-sized memcpy is prep, so that "h2d" is the transfer alone
+            parts = [p.reshape(-1).view(np.uint8) for b in batches
+                     for p in (b.crops, np.ascontiguousarray(b.sizes, np.int32))]
+            wire = torch.empty(sum(p.size for p in parts), dtype=torch.uint8,
+                               pin_memory=device.type == "cuda")
+            np.concatenate(parts, out=wire.numpy())
+        dwire = _h2d(wire, device, stage, timed)
+        outs, off = [], 0
+        with stage("dispatch"):
+            for b in batches:
+                (n, bh, bw) = b.crops.shape
+                crops = dwire[off:off + n * bh * bw].view(n, bh, bw)
+                off += n * bh * bw
+                ext = _int32_rows(dwire[off:off + 8 * n], n)
+                off += 8 * n
+                self._note_dispatch_shape(b.bucket_hw, n)
+                outs.append((b, [self._bucket_program(crops, ext)]))
+        return outs
 
     # -- batched entry points ---------------------------------------------------
 
@@ -198,7 +342,9 @@ class TorchMangaOcrEngine:
         """OCR every crop of a page: bucket, pad, one dispatch per bucket.
         ``orientation`` follows the reference's manga-ocr rule, applied
         host-side per crop before bucketing; ``timer`` is an optional
-        ``utils.metrics.StageTimer``."""
+        ``utils.metrics.StageTimer`` (host_prep, h2d, dispatch, readback,
+        detok; one "h2d" entry a transfer, one "readback" a copy waited
+        on)."""
         return self._collect_page(self._dispatch_page(crops, orientation, timer), timer)
 
     def ocr_pages(
@@ -230,15 +376,35 @@ class TorchMangaOcrEngine:
         return results
 
     def _dispatch_page(self, crops, orientation, timer):
-        """Host prep + transfer + device dispatch for one page; returns
-        (batch, device output) pairs with no host readback."""
+        """Host prep + transfers + device dispatch for one page, with no
+        wait on the device.  Returns ``(outs, fused)``: ``outs`` is one
+        ``(batch, outputs)`` pair a bucket, an output a data device;
+        ``fused`` is one ``HostCopy`` a data device of every bucket's
+        outputs joined on the device (a multi-bucket page under
+        ``coalesce``), else None, and then each output is a ``HostCopy``."""
         if not len(crops):
-            return []
+            return [], None
         stage = _stage_fn(timer)
+        timed = timer is not None
         with stage("host_prep"):
-            batches = batching.prep_page_gray(crops, orientation)
+            # the native orient + gray (+ pad) pass, else NumPy: the same bytes
+            if self._wire == "packed":
+                batches = batching.prep_page_packed(crops, orientation)
+            else:
+                batches = batching.prep_page_gray(crops, orientation)
+        if (
+            self._coalesce
+            and len(batches) > 1
+            and self.mesh is None
+            and not any(isinstance(b, batching.PackedBatch) for b in batches)
+        ):
+            return self._finish_dispatch(self._dispatch_fused_wire(batches, stage, timed), stage)
         outs = []
         for b in batches:
+            if isinstance(b, batching.PackedBatch):
+                self._note_dispatch_shape(b.bucket_hw, b.sizes.shape[0])
+                outs.append((b, [self._run_packed(b, stage, timed)]))
+                continue
             arr, sizes = b.crops, b.sizes
             if arr.shape[0] % self._batch_multiple:
                 # repeat the last crop and its extents (JAX engine.py:528-531)
@@ -246,22 +412,60 @@ class TorchMangaOcrEngine:
                 arr = np.concatenate([arr, np.repeat(arr[-1:], pad, axis=0)])
                 sizes = np.concatenate([sizes, np.repeat(sizes[-1:], pad, axis=0)])
             self._note_dispatch_shape(b.bucket_hw, arr.shape[0])
-            with stage("dispatch"):
-                outs.append((b, self._run_sharded(arr, sizes)))
-        return outs
+            outs.append((b, self._run_sharded(arr, sizes, stage, timed)))
+        return self._finish_dispatch(outs, stage)
 
-    def _collect_page(self, outs, timer) -> list[str]:
-        """Token readback + detokenization for one page's dispatches."""
+    def _finish_dispatch(self, outs, stage):
+        """The dispatch's tail: join the buckets' outputs on each data
+        device for one readback there (the readback half of ``coalesce``),
+        or else copy each output back by itself; either way the copies to
+        the host start now, so they run as soon as the work ends."""
+        fused = None
+        with stage("dispatch"), torch.inference_mode():
+            if len(outs) > 1 and self._coalesce:
+                fused = [HostCopy(torch.cat([shards[i] for _, shards in outs]))
+                         for i in range(self._batch_multiple)]
+            else:
+                outs = [(b, [HostCopy(s) for s in shards]) for b, shards in outs]
+        return outs, fused
+
+    def _collect_page(self, page, timer) -> list[str]:
+        """Wait on one page's copies to the host, then detokenize each
+        bucket's valid rows."""
+        outs, _ = page
         if not outs:
             return []
         stage = _stage_fn(timer)
         texts = []
-        for b, shards in outs:
-            with stage("readback"):
-                packed = meshlib.dp_gather(shards, b.valid)
+        for packed in self._page_rows(page, stage):
             with stage("detok"):
                 texts.append(self.tokenizer.decode_batch(packed[:, 1:], packed[:, 0]))
         return batching.scatter_results([b for b, _ in outs], texts)
+
+    def _page_rows(self, page, stage=None) -> list[np.ndarray]:
+        """A dispatched page's ``[lengths | tokens]`` rows on the host, one
+        [valid, 1 + L] int32 array a bucket: each copy waited on in a
+        "readback" stage of its own, the shards' rows joined in order and
+        the padding rows dropped."""
+        outs, fused = page
+        stage = stage or _stage_fn(None)
+
+        def wait(copy: HostCopy) -> np.ndarray:
+            with stage("readback"):
+                return copy.numpy()
+
+        def join(parts: list) -> np.ndarray:
+            return np.concatenate(parts) if len(parts) > 1 else parts[0]
+
+        if fused is None:
+            return [join([wait(c) for c in copies])[: b.valid] for b, copies in outs]
+        hosts = [wait(f) for f in fused]
+        rows, off = [], 0
+        for b, shards in outs:
+            n = shards[0].shape[0]
+            rows.append(join([h[off:off + n] for h in hosts])[: b.valid])
+            off += n
+        return rows
 
     def ocr_page_dual(
         self,

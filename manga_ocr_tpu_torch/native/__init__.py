@@ -1,4 +1,5 @@
-"""ctypes bindings of the native host ops: the page prep (``prep.cpp``) and
+"""ctypes bindings of the native host ops: the page prep (``prep.cpp``: the
+gray wire's padded batches and the packed wire's row-packed buffers) and
 the detection's mask ops (``contours.cpp``).
 
 The port's copy of ``manga_ocr_tpu/native``.  Both sources are compiled on
@@ -6,8 +7,9 @@ first use with the host's C++ compiler into one library in the git-ignored
 ``build/manga_ocr_tpu_torch/`` directory beside the CUDA library, keyed by a
 hash of the sources and flags, so an edited source is rebuilt and a stale
 library never loaded.  ``load()`` returns None when no compiler or library is
-available; callers then take the NumPy path (byte-identical batches for the
-prep; ``detect/contours.py``'s tracer and fill for the mask ops).
+available; callers then take the NumPy path (byte-identical gray batches for
+the prep, which the packed wire's prep returns too; ``detect/contours.py``'s
+tracer and fill for the mask ops).
 """
 
 from __future__ import annotations
@@ -92,6 +94,17 @@ def load() -> ctypes.CDLL | None:
             ctypes.c_int32,
             ctypes.c_int32,
         ]
+        lib.prep_gray_packed.restype = None
+        lib.prep_gray_packed.argtypes = [
+            ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)),
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_uint8),
+            ctypes.c_int32,
+        ]
         lib.trace_external_contours.restype = ctypes.c_int32
         lib.trace_external_contours.argtypes = [
             ctypes.POINTER(ctypes.c_uint8),
@@ -160,6 +173,46 @@ def prep_gray_batch(crops: list[np.ndarray], rots: np.ndarray, dst: np.ndarray) 
     lib.prep_gray_batch(
         ptrs, _i32ptr(dims), _i32ptr(chs), _i32ptr(rots), n,
         _u8ptr(dst), dst.shape[1], dst.shape[2],
+    )
+    return True
+
+
+def prep_gray_packed(
+    crops: list[np.ndarray], rots: np.ndarray, row_offsets: np.ndarray, dst: np.ndarray
+) -> bool:
+    """Fused orient + gray of ``crops`` into the row-packed wire buffer
+    ``dst`` [H_total, bw]: crop i fills its rotated height of rows from
+    ``row_offsets[i]``, each row edge-padded to bw, so heights are tight
+    and the device rebuilds the padded batch with a clamped row gather
+    (``ops.preprocess.unpack_packed_page``).  ``rots`` and the crops as in
+    ``prep_gray_batch``.  Returns False when the native library is
+    unavailable."""
+    lib = load()
+    if lib is None:
+        return False
+    n = len(crops)
+    if not (dst.flags["C_CONTIGUOUS"] and dst.dtype == np.uint8 and dst.ndim == 2):
+        raise ValueError("prep_gray_packed: dst must be a contiguous uint8 [rows, bw] array")
+    bw = dst.shape[1]
+    dims = np.empty((n, 2), np.int32)
+    chs = np.empty((n,), np.int32)
+    ptrs = (ctypes.POINTER(ctypes.c_uint8) * n)()
+    for i, c in enumerate(crops):
+        if not (c.flags["C_CONTIGUOUS"] and c.dtype == np.uint8):
+            raise ValueError("prep_gray_packed: crops must be contiguous uint8 arrays")
+        dims[i] = c.shape[:2]
+        chs[i] = 1 if c.ndim == 2 else c.shape[2]
+        ptrs[i] = _u8ptr(c)
+    rots = np.ascontiguousarray(rots, np.int32)
+    byte_offsets = np.ascontiguousarray(row_offsets, np.int64) * bw
+    if n:
+        last_h = int(dims[-1, 1] if rots[-1] else dims[-1, 0])
+        if int(row_offsets[-1]) + last_h > dst.shape[0]:
+            raise ValueError(f"prep_gray_packed: the last crop's rows end past {dst.shape[0]}")
+    lib.prep_gray_packed(
+        ptrs, _i32ptr(dims), _i32ptr(chs), _i32ptr(rots),
+        byte_offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), n,
+        _u8ptr(dst), bw,
     )
     return True
 

@@ -87,4 +87,25 @@ void prep_gray_batch(const uint8_t** srcs, const int32_t* dims,
   }
 }
 
+// Packed-wire entry (the engine's wire="packed"): n crops grayed + rotated
+// into a flat buffer at per-crop offsets; the device rebuilds the padded
+// batch with a clamped row gather (ops/preprocess.unpack_packed_page).
+//  bw_pad == 0: TIGHT pack (offsets are element offsets; rows of length w).
+//  bw_pad  > 0: ROW pack -- heights tight, each row edge-padded to bw_pad
+//    (offsets are byte offsets == row_offset * bw_pad); the device gathers
+//    whole rows.
+void prep_gray_packed(const uint8_t** srcs, const int32_t* dims,
+                      const int32_t* chs, const int32_t* rots,
+                      const int64_t* offsets, int32_t n, uint8_t* dst,
+                      int32_t bw_pad) {
+  for (int32_t r = 0; r < n; ++r) {
+    const int32_t h = dims[2 * r], w = dims[2 * r + 1];
+    const int32_t oh = rots[r] ? w : h, ow = rots[r] ? h : w;
+    // tight pack == pad target exactly the rotated dims; row pack == pad
+    // width only (height stays oh either way)
+    prep_gray_row(srcs[r], h, w, chs[r], rots[r], dst + offsets[r], oh,
+                  bw_pad > 0 ? bw_pad : ow);
+  }
+}
+
 }  // extern "C"

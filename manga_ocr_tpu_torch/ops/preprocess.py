@@ -9,6 +9,8 @@
    Gaussian(3,3) -> Otsu -> BGR, every statistic over the valid region.
 
 Both are batched over bucket-padded crops on the input's device.
+``unpack_packed_page`` rebuilds such a batch on the device from the
+engine's packed wire (``parallel.batching.prep_page_packed``).
 """
 
 from __future__ import annotations
@@ -81,3 +83,24 @@ def ocr_preprocess(
     blurred = im.gaussian_blur3_u8(eq, sizes)
     binary = im.otsu_binarize(blurred, mask)
     return im.gray_to_bgr(binary), angles
+
+
+def unpack_packed_page(
+    flat: torch.Tensor, meta: torch.Tensor, bh: int, bw: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The padded gray batch from the row-packed wire
+    (``parallel.batching.prep_page_packed``): ``flat`` [H_cap, bw] uint8
+    holds each crop's width-padded rows height-tight, ``meta`` [B, 3] int32
+    its (h, w, row_offset).  Crop i's row r is ``flat`` row ``offset_i +
+    min(r, h_i - 1)``: clamping the row index is the height edge
+    replication, so the batch is byte-identical to ``prep_page_gray``'s.
+    One row gather on ``flat``'s device.  Returns (batch [B, bh, bw] uint8,
+    sizes [B, 2] int32).  A zero-height crop's index -1 wraps to the
+    buffer's last row, as ``jnp.take`` wraps it."""
+    b = meta.shape[0]
+    h = meta[:, 0:1]
+    i = torch.minimum(torch.arange(bh, dtype=meta.dtype, device=meta.device)[None, :], h - 1)
+    ridx = (meta[:, 2:3] + i).reshape(-1)
+    ridx = torch.where(ridx < 0, ridx + flat.shape[0], ridx)
+    batch = flat.index_select(0, ridx).reshape(b, bh, bw)
+    return batch, meta[:, :2]

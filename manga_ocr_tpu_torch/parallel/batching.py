@@ -7,6 +7,9 @@ each (bucket, batch) shape is one dispatch.  The gray wire ships one uint8
 channel per pixel; ``prep_page_gray`` builds it in one native C++ pass per
 bucket (``native/prep.cpp``) or, when the native library is unavailable or
 a crop has an unusual channel count, with NumPy, byte for byte the same.
+The packed wire (``prep_page_packed``, ``PackedBatch``) ships the same
+bytes without the height padding, which the device restores
+(``ops.preprocess.unpack_packed_page``).
 """
 
 from __future__ import annotations
@@ -266,3 +269,80 @@ def _prep_page_gray_numpy(
             c = np.repeat(c, 3, axis=2)
         expanded.append(orient_crop(c, orientation))
     return bucket_crops(expanded, buckets, gray=True)
+
+
+# The packed wire's buffer row capacity is quantized to 64ths of the padded
+# batch's rows, so a bucket's buffers take few distinct shapes while the
+# height padding stays off the wire.
+CAP_QUANTA = 64
+
+
+@dataclasses.dataclass
+class PackedBatch:
+    """One bucket's crops in the row-packed wire format: heights tight,
+    widths edge-padded to the bucket width on the host.  The device rebuilds
+    the padded [B, bh, bw] batch with a per-row clamped gather
+    (``ops.preprocess.unpack_packed_page``), byte-identical to
+    ``prep_page_gray``'s batch; the batch-padding rows alias the last real
+    crop's rows through ``offsets``, so they cost nothing on the wire."""
+
+    bucket_hw: tuple[int, int]
+    flat: np.ndarray  # [H_cap, bw] uint8: tight crop rows + tail padding
+    offsets: np.ndarray  # [B_padded] int32 ROW offsets into flat
+    indices: list[int]  # original crop index per valid row
+    valid: int
+    sizes: np.ndarray  # [B_padded, 2] int32 valid (h, w) per row
+
+
+def prep_page_packed(
+    crops: Sequence[np.ndarray],
+    orientation: int,
+    buckets: Sequence[tuple[int, int]] = DEFAULT_BUCKETS,
+) -> list:
+    """Host prep of the row-packed wire (``PackedBatch``): orient + bucket +
+    gray + width pad into one height-tight buffer per bucket, in one native
+    pass per bucket.  Where the native library does not load (or a crop
+    needs the NumPy path), returns ``prep_page_gray``'s ``BucketedBatch``
+    items instead: callers dispatch on the type."""
+    from manga_ocr_tpu_torch import native
+
+    if native.load() is None:
+        return prep_page_gray(crops, orientation, buckets)
+    grouped = _native_prep_groups(crops, orientation, buckets)
+    if grouped is None:
+        return prep_page_gray(crops, orientation, buckets)
+    prepped, groups = grouped
+
+    out = []
+    for hw, idxs in sorted(groups.items(), key=lambda kv: kv[0][0] * kv[0][1]):
+        bh, bw = hw
+        n = len(idxs)
+        bn = pad_batch_size(n)
+        sizes = np.empty((bn, 2), np.int32)
+        offsets = np.empty((bn,), np.int64)
+        rots = np.fromiter((prepped[i][1] for i in idxs), np.int32, count=n)
+        total_rows = 0
+        for row, i in enumerate(idxs):
+            eh, ew = prepped[i][2], prepped[i][3]
+            sizes[row] = (eh, ew)
+            offsets[row] = total_rows
+            total_rows += eh
+        if bn > n:
+            sizes[n:] = sizes[n - 1]
+            offsets[n:] = offsets[n - 1]  # alias the last crop's rows
+        # quantized row capacity: CAP_QUANTA-ths of the padded batch rows
+        full = bn * bh
+        step = -(-full // CAP_QUANTA)
+        h_cap = min(full, -(-total_rows // step) * step)
+        # rows [0, total_rows) are all written by the native pass; only the
+        # quantization tail needs deterministic bytes
+        flat = np.empty((h_cap, bw), np.uint8)
+        flat[total_rows:] = 0
+        if not native.prep_gray_packed(
+            [prepped[i][0] for i in idxs], rots, offsets[:n], flat
+        ):
+            return prep_page_gray(crops, orientation, buckets)
+        out.append(
+            PackedBatch(hw, flat, offsets.astype(np.int32), idxs, n, sizes)
+        )
+    return out

@@ -9,7 +9,9 @@ page-size dispatches.
 - ``GET  /stats``     — throughput + stage timing counters
 
 Run: python -m manga_ocr_tpu_torch.serve --port 8080 --checkpoint DIR
-(without a checkpoint: random weights from ``--seed``)
+(without a checkpoint: random weights from ``--seed``), with the command
+line's engine options (``cli.add_engine_options``: ``--device``,
+``--wire``, ``--no-coalesce``, ``--mesh-data``, ...)
 """
 
 from __future__ import annotations

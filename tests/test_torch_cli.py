@@ -2,8 +2,10 @@
 and ``eval`` on an HF checkpoint directory, against the JAX package's: ``ocr``
 prints JAX ``cli.main``'s lines for the same arguments (a tiny HF directory,
 weights std 0.1, the int8 serving engine in f32), a missing image exits 1,
-the options and the subcommand of unported features (``bench``, ``--wire``,
-``--no-coalesce``, ``--no-aot``) exit 2, ``--mesh-data 2`` under ``--device
+the option and the subcommand of unported features (``bench``,
+``--no-aot``) exit 2, ``--wire packed`` and ``--no-coalesce`` reach the
+engine and print the gray wire's lines (``--wire packed --mesh-data 2``
+fails with JAX's message), ``--mesh-data 2`` under ``--device
 cpu`` prints the lines of one device (a 2-way virtual CPU mesh, also in
 ``serve``'s engine), ``--device cuda`` raises without CUDA, ``eval.main``
 prints JAX's report for the directory, and ``serve.build_engine
@@ -72,15 +74,40 @@ def test_ocr_missing_image_exits_1(hf_dir, tmp_path, capsys):
 
 
 @pytest.mark.parametrize(
-    "argv", [["--wire", "gray", "ocr", "x.png"], ["--no-coalesce", "ocr", "x.png"],
-             ["--no-aot", "ocr", "x.png"], ["bench"], []],
-    ids=["wire", "no_coalesce", "no_aot", "bench", "no_command"],
+    "argv", [["--no-aot", "ocr", "x.png"], ["bench"], []],
+    ids=["no_aot", "bench", "no_command"],
 )
 def test_unported_options_and_subcommands_exit_2(argv, capsys):
     with pytest.raises(SystemExit) as e:
         tcli.main(argv)
     assert e.value.code == 2
     assert "usage:" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize(
+    "flags, kw", [(["--wire", "packed"], {"_wire": "packed", "_coalesce": True}),
+                  (["--no-coalesce"], {"_wire": "gray", "_coalesce": False})],
+    ids=["wire", "no_coalesce"],
+)
+def test_wire_options_reach_the_engine_and_print_the_gray_lines(hf_dir, flags, kw, capsys):
+    args = ["--checkpoint", hf_dir, "--device", "cpu", "--dtype", "float32", "--max-length",
+            "12"]
+    engine = srv.build_engine(srv.parser().parse_args([*args, *flags]))
+    assert {k: getattr(engine, k) for k in kw} == kw
+    assert tcli.main([*args, "ocr", *PATHS]) == 0
+    want = capsys.readouterr().out
+    assert tcli.main([*args, *flags, "ocr", *PATHS]) == 0
+    assert capsys.readouterr().out == want
+
+
+def test_packed_wire_on_a_mesh_fails_with_the_jax_message(hf_dir):
+    args = ["--checkpoint", hf_dir, "--dtype", "float32", "--wire", "packed", "--mesh-data", "2"]
+    with pytest.raises(ValueError) as got:
+        tcli.main(["--device", "cpu", *args, "ocr", PATHS[0]])
+    with pytest.raises(ValueError) as want:
+        jcli.main([*args, "ocr", PATHS[0]])
+    assert str(got.value) == str(want.value)
+    assert "wire='packed' is single-device only" in str(got.value)
 
 
 def test_mesh_data_ocr_prints_the_lines_of_one_device(hf_dir, capsys):

@@ -29,7 +29,10 @@ layers' copies under the ``process`` command, ``core/settings.py``,
 (``_latin_preprocess``, the Latin factory, the ``device`` parameter); and
 data-parallel serving's copies: ``pad_batch_to_multiple`` (statement for
 statement and on the same arrays) and ``make_global_mesh``'s per-process
-block check (the same rows or the same error on the same fake devices)."""
+block check (the same rows or the same error on the same fake devices); and
+the packed wire's copies: ``CAP_QUANTA``, ``PackedBatch``'s fields and
+``prep_page_packed`` (statement for statement), and the packed entry of
+``native/prep.cpp`` (its code, comments aside)."""
 
 import ast
 import dataclasses
@@ -789,3 +792,32 @@ def test_global_mesh_block_check_as_jax(blocks, n_model):
         except ValueError as e:
             out.append(str(e))
     assert out[0] == out[1]
+
+
+# -- the packed wire's copies ---------------------------------------------------------------
+
+
+def test_packed_wire_prep_is_the_jax_code():
+    assert tbatch.CAP_QUANTA == jbatch.CAP_QUANTA == 64
+    assert [(f.name, f.type) for f in dataclasses.fields(tbatch.PackedBatch)] == \
+        [(f.name, f.type) for f in dataclasses.fields(jbatch.PackedBatch)]
+    rel = os.path.join("parallel", "batching.py")
+    names = {"prep_page_packed", "PackedBatch"}
+    want = _code(os.path.join(REPO, "manga_ocr_tpu", rel), names)
+    assert _code(os.path.join(REPO, "manga_ocr_tpu_torch", rel), names) == want
+    assert len(want) == 2
+
+
+def _cpp_code(path: str, start: str) -> str:
+    """The C++ source from ``start`` on, comments and blank runs dropped."""
+    with open(path, encoding="utf-8") as f:
+        src = f.read()
+    src = re.sub(r"/\*.*?\*/", "", re.sub(r"//[^\n]*", "", src[src.index(start):]), flags=re.S)
+    return " ".join(src.split())
+
+
+def test_native_packed_entry_is_the_jax_code():
+    rel = os.path.join("native", "prep.cpp")
+    want = _cpp_code(os.path.join(REPO, "manga_ocr_tpu", rel), "void prep_gray_packed(")
+    got = _cpp_code(os.path.join(REPO, "manga_ocr_tpu_torch", rel), "void prep_gray_packed(")
+    assert got == want and "prep_gray_row(" in want

@@ -24,6 +24,7 @@ from manga_ocr_tpu.engine import TpuMangaOcrEngine
 from manga_ocr_tpu.models.config import MangaOCRConfig
 from manga_ocr_tpu.models.tokenizer import CharTokenizer
 from manga_ocr_tpu_torch.engine import TorchMangaOcrEngine
+from manga_ocr_tpu_torch.engine.engine import HostCopy
 from manga_ocr_tpu_torch.kernels import build, launch
 from manga_ocr_tpu_torch.models.params import init_params_numpy, params_from_jax
 from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer as PortTokenizer
@@ -92,19 +93,20 @@ def test_sharded_engine_equals_single_device_and_jax(engines, config, page):
 
 
 def test_dispatch_launches_every_shard_before_readback(engines):
-    """``_dispatch_page`` returns, per bucket, one device output per data
-    device (none read back yet); the 3-crop bucket is padded to 8 rows by
+    """``_dispatch_page`` returns, per bucket, one output per data device,
+    each a ``HostCopy`` started at dispatch and not waited on (a one-bucket
+    page: ``fused`` is None); the 3-crop bucket is padded to 8 rows by
     repeating its last crop."""
     _, _, sharded = engines()
-    outs = sharded._dispatch_page(PAGES["3_crops"], 1, None)
-    assert len(outs) == 1
+    outs, fused = sharded._dispatch_page(PAGES["3_crops"], 1, None)
+    assert len(outs) == 1 and fused is None
     b, shards = outs[0]
     assert b.valid == 3 and len(shards) == N_DATA
-    assert all(isinstance(s, torch.Tensor) and s.shape == (1, MAX_LEN + 1) for s in shards)
+    assert all(isinstance(s, HostCopy) and s.shape == (1, MAX_LEN + 1) for s in shards)
     rows = np.concatenate([s.numpy() for s in shards])
     # rows 3..7 decode the repeated last crop
     assert all((r == rows[2]).all() for r in rows[3:])
-    assert sharded._collect_page(outs, None) == sharded.ocr_page(PAGES["3_crops"])
+    assert sharded._collect_page((outs, fused), None) == sharded.ocr_page(PAGES["3_crops"])
 
 
 def test_params_replicated_once_per_data_device(engines, mesh):
