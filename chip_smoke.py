@@ -14,7 +14,10 @@ forms at B=256 (serving, fuse_kv with its profiled split, the unfused
 path, int8_w, int8_w + fuse_kv), the three engines' crops/s (int8, bf16,
 int8 with attn_sdpa_int8 + fuse_cross_kv) and a torch.profiler split of
 one H bf16 layer, one A int8 and one B call at B=256 and one dispatch of
-each engine, from each tree in turn.)
+each engine, from each tree in turn;
+``python3 chip_smoke.py --tp-times ROOT...`` the plain engine's and the
+tensor-parallel engine's crops/s and the train step's ms on one device,
+a (1, 2) and a (2, 2) mesh of cuda:0, from each tree in turn.)
 
 1. Requires CUDA; prints the card's name and power limit (nvidia-smi).
 2. Builds the kernels of manga_ocr_tpu_torch/csrc with nvcc (sm_90a), one
@@ -280,7 +283,22 @@ each engine, from each tree in turn.)
    one card, NCCL on several; parallel/multihost's initialize,
    make_global_mesh, global_batch, gather_to_hosts, sync), their gathered
    matrix held to one process's run of the same bucket as above.
-15. Prints its total seconds, one JSON line of kernel results, then the
+15. Tensor parallelism (phase "tensor parallelism"; no kernel: the model
+   axis runs the plain routes) at base() width in f32, TF32 held off, on a
+   (1, 2) mesh (two cards, else TP_VIRTUAL x cuda:0) and, where four cards
+   are visible, a (2, 2) mesh (else the fixture crops' texts on a (2, 2)
+   mesh of 4 x cuda:0): the engine on the fixture crops (no launch)
+   and each bucket's rows of the 256-crop page against the single-device
+   plain engine's (bit-equal, or the differing rows teacher-forced within
+   TP_GAP_REL), both crops/s and a page's peak memory; one train step's
+   loss and gradients against one device's (phase "training"'s bounds),
+   the data rows' params bit-equal after it, ms a B=32 step against one
+   device's and its peak memory; two gloo ranks on cuda:0 on a (2, 2)
+   global mesh (``chip_smoke.py --tp-rank RANK PORT OUT BACKEND``) taking
+   one step together against one process (equal losses and params, the
+   loss within 2e-5, the params within 3 lr), and where two cards or more
+   are visible two NCCL ranks, one card each, held the same way.
+16. Prints its total seconds, one JSON line of kernel results, then the
    device line {"ok": true, "device": {...}} last.  Any failed check exits
    non-zero before the device line.
 """
@@ -5609,6 +5627,404 @@ def run_data_parallel() -> None:
     dp_hold_rows(f"{n} ranks' gather_to_hosts vs one process", engine, b, gathered, whole, n)
 
 
+# Tensor parallelism (the plain routes on model columns, shard_params, the mesh train step)
+# at base() width in f32 with TF32 held off: a (1, 2) mesh of two cards where
+# several are visible, else of TP_VIRTUAL x cuda:0, and a (2, 2) mesh where
+# four cards are.  The tensor-parallel engine's rows are held to the
+# single-device plain engine's: bit-equal, or else each differing row's
+# tokens teacher-forced by the plain decoder, the chosen token within
+# TP_GAP_REL of the top logit (f32 partial sums in another order).
+TP_VIRTUAL = 2
+TP_GAP_REL = 1e-4
+TP_CHECK_BATCH = 8  # the step's loss and gradients against one device
+TP_TIMED_STEPS = 3
+TP_RANK_TIMEOUT_S = 300
+
+
+def tp_meshes() -> list:
+    """(label, mesh) of each mesh of the phase."""
+    import torch
+
+    from manga_ocr_tpu_torch.parallel import mesh as meshlib
+
+    n = torch.cuda.device_count()
+    pair = [torch.device("cuda", i) for i in range(2)] if n > 1 else \
+        [torch.device("cuda", 0)] * TP_VIRTUAL
+    out = [(f"(1, 2) on {dp_label(pair)}", meshlib.make_mesh(1, 2, devices=pair))]
+    if n >= 4:
+        four = [torch.device("cuda", i) for i in range(4)]
+        out.append((f"(2, 2) on {dp_label(four)}", meshlib.make_mesh(2, 2, devices=four)))
+    return out
+
+
+def sync_cards() -> None:
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def tp_batch(cfg, n: int):
+    """``n`` synthetic rows (numpy seed SEED) whose loss masks differ from
+    row to row in the second half (the second rank's rows)."""
+    from manga_ocr_tpu_torch import train as trainlib
+    from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
+
+    b = next(trainlib.synthetic_dataset(cfg, CharTokenizer.synthetic(), n, TRAIN_SEQ, seed=SEED))
+    mask = b.loss_mask.clone()
+    for r in range(n // 2, n):
+        mask[r, 2 + r:] = 0.0
+    return trainlib.TrainBatch(b.pixel_values, b.tokens, mask)
+
+
+def params_digest(tree) -> str:
+    import hashlib
+
+    from manga_ocr_tpu_torch import train as trainlib
+
+    h = hashlib.sha256()
+    for _, t in trainlib._leaves(tree):
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def tp_times() -> dict:
+    """``--tp-times``' child (base() in f32, TF32 held off): crops/s of one
+    256-crop page (after a warm one, host clock) through the plain engine on
+    cuda:0 and the tensor-parallel engine on (1, 2) and (2, 2) meshes of
+    cuda:0, and ms a B=TRAIN_BATCH, T=TRAIN_SEQ train step (mean of
+    TP_TIMED_STEPS after a warm one, host clock, synchronised) on each."""
+    import torch
+
+    from manga_ocr_tpu_torch import train as trainlib
+    from manga_ocr_tpu_torch.engine import TorchMangaOcrEngine
+    from manga_ocr_tpu_torch.models.config import MangaOCRConfig
+    from manga_ocr_tpu_torch.models.detector import fp32_products
+    from manga_ocr_tpu_torch.models.params import init_params
+    from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
+    from manga_ocr_tpu_torch.parallel import mesh as meshlib
+
+    cfg = MangaOCRConfig.base()
+    params = init_params(cfg, SEED, "cpu", std=WEIGHT_STD)
+    tok = CharTokenizer.synthetic()
+    crops = load_crops()
+    page = [crops[i % len(crops)] for i in range(256)]
+    timed = next(trainlib.synthetic_dataset(cfg, tok, TRAIN_BATCH, TRAIN_SEQ, seed=SEED))
+    meshes = {"one device": None}
+    for shape in ((1, 2), (2, 2)):
+        meshes[f"{shape}"] = meshlib.make_mesh(*shape, devices=[torch.device("cuda", 0)] *
+                                               (shape[0] * shape[1]))
+    out = {}
+    with fp32_products():
+        for label, mesh in meshes.items():
+            engine = TorchMangaOcrEngine(params, cfg, tok, dtype=torch.float32, device="cuda",
+                                         serving_kernels=False, mesh=mesh)
+            engine.ocr_page(page)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.ocr_page(page)
+            out[f"engine {label} crops/s"] = len(page) / (time.perf_counter() - t0)
+            del engine
+            p, st = trainlib.init_train_state(cfg, trainlib.make_optimizer(1e-4), device="cuda",
+                                              init_params=params, mesh=mesh)
+            fn = trainlib.make_train_step(cfg, mesh)
+            batch = timed if mesh is not None else trainlib.TrainBatch(*(t.cuda() for t in timed))
+            fn(p, st, batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TP_TIMED_STEPS):
+                fn(p, st, batch)
+            torch.cuda.synchronize()
+            out[f"step {label} ms"] = (time.perf_counter() - t0) * 1e3 / TP_TIMED_STEPS
+            del p, st
+            torch.cuda.empty_cache()
+    out["card"] = card_line()
+    return out
+
+
+def tp_rank(rank: int, port: int, out: str, backend: str) -> None:
+    """One of the phase's two ranks (``chip_smoke.py --tp-rank RANK PORT OUT
+    BACKEND``): under gloo both on cuda:0, under NCCL rank r on cuda:r; a
+    (2 data x 2 model) global mesh, one data row of two columns a rank (both
+    on the rank's card); this rank's half of tp_batch(TP_CHECK_BATCH)
+    through one train step (lr 1e-4); its loss and its params' digest to
+    ``OUT``."""
+    import torch
+    import torch.distributed as dist
+
+    from manga_ocr_tpu_torch import train as trainlib
+    from manga_ocr_tpu_torch.models.config import MangaOCRConfig
+    from manga_ocr_tpu_torch.models.detector import fp32_products
+    from manga_ocr_tpu_torch.models.params import init_params
+    from manga_ocr_tpu_torch.parallel import mesh as meshlib
+    from manga_ocr_tpu_torch.parallel import multihost as mh
+
+    mh.initialize(f"127.0.0.1:{port}", num_processes=2, process_id=rank, backend=backend)
+    card = (lambda r: torch.device("cuda", r)) if backend == "nccl" else \
+        (lambda r: torch.device("cuda", 0))
+    mesh = mh.make_global_mesh(n_model=2, devices=[
+        mh.RankDevice(r, card(r)) for r in range(2) for _ in range(2)])
+    cfg = MangaOCRConfig.base()
+    batch = tp_batch(cfg, TP_CHECK_BATCH)
+    half = TP_CHECK_BATCH // 2
+    mine = trainlib.TrainBatch(*(t[rank * half:(rank + 1) * half] for t in batch))
+    with fp32_products():
+        grid, state = trainlib.init_train_state(
+            cfg, trainlib.make_optimizer(1e-4), device="cuda",
+            init_params=init_params(cfg, SEED, "cpu", std=WEIGHT_STD), mesh=mesh)
+        t0 = time.perf_counter()
+        grid, state, loss = trainlib.make_train_step(cfg, mesh)(grid, state, mine)
+        loss = float(loss)
+        step_s = time.perf_counter() - t0
+    full = meshlib.unshard_params(grid[rank])
+    digest = params_digest(full)
+    mh.sync("stepped")
+    log(f"tp rank {rank}: backend {dist.get_backend()} on {card(rank)}, mesh {mesh.shape}, rows "
+        f"{rank * half}..{(rank + 1) * half - 1}, loss {loss!r} in {step_s:.3f} s (host clock)")
+    with open(f"{out}.{rank}.json", "w") as f:
+        json.dump({"loss": loss, "digest": digest}, f)
+    if rank == 0:
+        torch.save({k: t.detach().cpu() for k, t in trainlib._leaves(full)}, f"{out}.params")
+    dist.destroy_process_group()
+
+
+def tp_hold_rows(label: str, engine, b, got, want) -> None:
+    """Rows of one bucket from the tensor-parallel engine against the
+    single-device plain engine's: bit-equal, or else each differing row's
+    tokens teacher-forced by the plain decoder on the single engine's
+    encoder output, every chosen token within TP_GAP_REL of the top logit."""
+    import numpy as np
+    import torch
+
+    from manga_ocr_tpu_torch.models import decoder as dec
+    from manga_ocr_tpu_torch.models import vit
+    from manga_ocr_tpu_torch.ops import preprocess as pp
+
+    same = (got == want).all(axis=1)
+    if same.all():
+        log(f"{label}: bucket {b.bucket_hw} x{b.crops.shape[0]}: {len(got)} rows bit-equal to "
+            f"one device's")
+        return
+    bad = np.flatnonzero(~same)
+    cfg = engine.cfg
+    with torch.inference_mode():
+        px = pp.model_preprocess(torch.from_numpy(b.crops[bad]).cuda(),
+                                 torch.from_numpy(b.sizes[bad]).cuda(),
+                                 cfg.encoder.image_size).to(engine.dtype)
+        enc = vit.encode(engine.params["encoder"], px, cfg.encoder)
+        toks = torch.from_numpy(np.ascontiguousarray(got[bad, 1:])).cuda()
+        logits = dec.forward_full(engine.params["decoder"], toks[:, :-1], enc, cfg.decoder)
+        chosen = logits.gather(-1, toks[:, 1:, None].long())[..., 0]
+        top = logits.amax(-1)
+        live = torch.arange(toks.shape[1] - 1, device="cuda")[None] < \
+            torch.from_numpy(got[bad, 0]).cuda()[:, None] - 1
+        gap = ((top - chosen) / top.abs().clamp_min(1e-30))[live]
+    worst = float(gap.max()) if gap.numel() else 0.0
+    log(f"{label}: bucket {b.bucket_hw} x{b.crops.shape[0]}: {len(bad)} of {len(got)} rows "
+        f"differ from one device's; their tokens teacher-forced by the plain decoder: largest "
+        f"gap to the top logit {worst!r} of it over {int(live.sum())} tokens (bound {TP_GAP_REL})")
+    if worst > TP_GAP_REL:
+        fail(f"{label}: tensor-parallel rows' gap {worst} over {TP_GAP_REL}")
+
+
+def run_tensor_parallel() -> None:
+    """Tensor parallelism at base() width, f32, TF32 held off, on each of
+    tp_meshes(): (a) the engine (serving_kernels defaults off on a model axis
+    of 2) on the fixture crops with no kernel launched, each bucket's rows of
+    the 256-crop page held to the single-device plain engine's
+    (tp_hold_rows), crops/s of both and the peak device memory of a page;
+    (b) one train step on a TP_CHECK_BATCH batch whose masks differ by row
+    (lr 0: the gradients stay) against one device's loss_fn and backward
+    (TRAIN_LOSS_REL, TRAIN_GRAD_REL, as phase "training"), the replicas
+    bit-equal after it, then ms a step at TRAIN_BATCH x TRAIN_SEQ against one
+    device's (host clock, the cards synchronised) and the peak memory;
+    (c) two gloo ranks on cuda:0 (``--tp-rank``) taking one step together on
+    a (2, 2) global mesh: equal losses and param digests, the loss within
+    2e-5 of one process's step on the whole batch, the params within 3 lr of
+    it; then, where two cards or more are visible, two NCCL ranks on cuda:0
+    and cuda:1 the same way."""
+    import numpy as np
+    import torch
+
+    from manga_ocr_tpu_torch import train as trainlib
+    from manga_ocr_tpu_torch.engine import TorchMangaOcrEngine
+    from manga_ocr_tpu_torch.models.config import MangaOCRConfig
+    from manga_ocr_tpu_torch.models.detector import fp32_products
+    from manga_ocr_tpu_torch.models.params import init_params
+    from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
+    from manga_ocr_tpu_torch.parallel import mesh as meshlib
+
+    card = card_line()
+    cfg = MangaOCRConfig.base()
+    params = init_params(cfg, SEED, "cpu", std=WEIGHT_STD)
+    tok = CharTokenizer.synthetic()
+    crops = load_crops()
+    page = [crops[i % len(crops)] for i in range(256)]
+
+    def peak_gib(fn) -> tuple:
+        """``fn``'s host seconds (the cards synchronised) and peak device
+        memory by card in GiB."""
+        sync_cards()
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.reset_peak_memory_stats(i)
+        t0 = time.perf_counter()
+        fn()
+        sync_cards()
+        return time.perf_counter() - t0, [round(torch.cuda.max_memory_allocated(i) / 2**30, 3)
+                                          for i in range(torch.cuda.device_count())]
+
+    with fp32_products():
+        # -- (a) the engine ------------------------------------------------------------
+        single = TorchMangaOcrEngine(params, cfg, tok, dtype=torch.float32, device="cuda",
+                                     serving_kernels=False)
+        want = dp_matrices(single, page)  # also the warm page
+        t, mem_single = peak_gib(lambda: single.ocr_page(page))
+        rate_single = len(page) / t
+        for label, mesh in tp_meshes():
+            tp = TorchMangaOcrEngine(params, cfg, tok, dtype=torch.float32, device="cuda",
+                                     mesh=mesh)
+            if not tp._tensor_parallel or tp.cfg != cfg:
+                fail(f"tensor parallelism {label}: the engine did not take the plain TP route")
+            texts, counts = counted(lambda: tp.ocr_page(crops))
+            if any(counts.values()) or len(set(texts)) < 2 or len(texts) != len(crops):
+                fail(f"tensor parallelism {label}: launches {counts}, {len(set(texts))} texts")
+            for (b, w), (_, g) in zip(want, dp_matrices(tp, page)):
+                tp_hold_rows(f"tensor-parallel engine {label}", single, b, g, w)
+            t, mem = peak_gib(lambda: tp.ocr_page(page))
+            rate = len(page) / t
+            log(f"tensor-parallel engine {label}: {rate} crops/s on the 256-crop page (one page "
+                f"after a warm one, host clock) against one device's plain engine {rate_single} "
+                f"({rate / rate_single:.3f}x); peak device memory of the page by card {mem} GiB "
+                f"(one device {mem_single}), on {card}")
+            del tp
+        if torch.cuda.device_count() < 4:
+            # several data rows in one decode loop (ocr_forward_rows) on one card
+            quad = meshlib.make_mesh(2, 2, devices=[torch.device("cuda", 0)] * 4)
+            tp = TorchMangaOcrEngine(params, cfg, tok, dtype=torch.float32, device="cuda",
+                                     mesh=quad)
+            got, counts = counted(lambda: dp_matrices(tp, crops))
+            if any(counts.values()):
+                fail(f"tensor parallelism (2, 2) on 4 x cuda:0: launches {counts}")
+            for (b, w), (_, g) in zip(dp_matrices(single, crops), got):
+                tp_hold_rows("tensor-parallel engine (2, 2) on 4 x cuda:0", single, b, g, w)
+            del tp
+        del single
+        torch.cuda.empty_cache()
+
+        # -- (b) the train step -----------------------------------------------------------
+        check = tp_batch(cfg, TP_CHECK_BATCH)
+        one, _ = trainlib.init_train_state(cfg, trainlib.make_optimizer(0.0, 0.0),
+                                           device="cuda", init_params=params)
+        loss = trainlib.loss_fn(one, trainlib.TrainBatch(*(t.cuda() for t in check)), cfg)
+        loss.backward()
+        ref = (loss.item(), {k: p.grad.cpu() for k, p in trainlib._leaves(one)})
+        del one, loss
+        timed = next(trainlib.synthetic_dataset(cfg, tok, TRAIN_BATCH, TRAIN_SEQ, seed=SEED))
+
+        def step_ms(mesh) -> tuple:
+            p, st = trainlib.init_train_state(cfg, trainlib.make_optimizer(1e-4), device="cuda",
+                                              init_params=params, mesh=mesh)
+            fn = trainlib.make_train_step(cfg, mesh)
+            batch = timed if mesh is not None else trainlib.TrainBatch(*(t.cuda() for t in timed))
+
+            def steps():
+                for _ in range(TP_TIMED_STEPS):
+                    fn(p, st, batch)
+
+            fn(p, st, batch)
+            _, mem = peak_gib(lambda: fn(p, st, batch))
+            t, _ = peak_gib(steps)
+            return t * 1e3 / TP_TIMED_STEPS, mem
+
+        ms_single, mem_single = step_ms(None)
+        for label, mesh in tp_meshes():
+            grid, st = trainlib.init_train_state(cfg, trainlib.make_optimizer(0.0, 0.0),
+                                                 device="cuda", init_params=params, mesh=mesh)
+            _, _, loss = trainlib.make_train_step(cfg, mesh)(grid, st, check)
+            grads = {k: g.cpu() for k, g in trainlib._leaves(
+                meshlib.unshard_params(grid[0], get=lambda t: t.grad))}
+            if not grad_gaps("tensor parallelism (b)", f"train step {label} vs one device",
+                             (float(loss), grads), ref):
+                fail(f"tensor parallelism (b) {label}: loss or gradient outside its bound")
+            digests = {params_digest(meshlib.unshard_params(cols)) for cols in grid}
+            if len(digests) != 1:
+                fail(f"tensor parallelism (b) {label}: the data rows' params differ")
+            del grid, st, grads
+            ms, mem = step_ms(mesh)
+            log(f"tensor-parallel train step {label}: B={TRAIN_BATCH} T={TRAIN_SEQ} {ms:.3f} ms a "
+                f"step (host clock, cards synchronised, mean of {TP_TIMED_STEPS}) against one "
+                f"device's {ms_single:.3f} ({ms / ms_single:.3f}x); peak device memory by card "
+                f"{mem} GiB (one device {mem_single}); the data rows' params bit-equal after a "
+                f"step, on {card}")
+        torch.cuda.empty_cache()
+
+        # -- (c) two ranks: gloo on one card, NCCL on two ---------------------------------
+        p, st = trainlib.init_train_state(cfg, trainlib.make_optimizer(1e-4), device="cuda",
+                                          init_params=params)
+        _, _, loss = trainlib.make_train_step(cfg)(p, st, trainlib.TrainBatch(
+            *(t.cuda() for t in check)))
+        loss = float(loss)
+        one_process = {k: t.detach().cpu() for k, t in trainlib._leaves(p)}
+        del p, st
+        torch.cuda.empty_cache()
+        backends = ["gloo"] + (["nccl"] if torch.cuda.device_count() >= 2 else [])
+        for backend in backends:
+            ranks, ranked = tp_ranks(backend)
+            worst = max(float((ranked[k] - t).abs().max()) for k, t in one_process.items())
+            rel = abs(ranks[0]["loss"] - loss) / abs(loss)
+            where = "cuda:0" if backend == "gloo" else "cuda:0 and cuda:1"
+            log(f"2 {backend} ranks on {where}, one train step on a (2, 2) global mesh: losses "
+                f"{ranks[0]['loss']!r} and {ranks[1]['loss']!r}, one process {loss!r} (relative "
+                f"gap {rel:.3e}, bound 2e-5); params digests equal "
+                f"{ranks[0]['digest'] == ranks[1]['digest']}; largest |param - one process's| "
+                f"{worst!r} (bound 3 lr = 3e-4), on {card}")
+            if ranks[0]["loss"] != ranks[1]["loss"] or ranks[0]["digest"] != ranks[1]["digest"] \
+                    or rel > 2e-5 or not worst <= 3e-4 or not np.isfinite(loss):
+                fail(f"tensor parallelism (c) {backend}: the ranks disagree with each other or "
+                     f"one process")
+
+
+def tp_ranks(backend: str) -> tuple:
+    """Two ``--tp-rank`` children under ``backend`` -> (each rank's loss and
+    digest, rank 0's params on the host)."""
+    import socket
+    import tempfile
+
+    import torch
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "tp")
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK",
+                            "LOCAL_WORLD_SIZE")}
+        t0 = time.time()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-rank",
+                                   str(r), str(port), out, backend], env=env, cwd=ROOT,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        try:
+            for r, proc in enumerate(procs):
+                text, _ = proc.communicate(timeout=TP_RANK_TIMEOUT_S)
+                log("\n".join(f"  rank {r}: {ln}" for ln in text.splitlines()[-4:]))
+                if proc.returncode != 0:
+                    fail(f"tp rank {r} ({backend}) exited {proc.returncode}")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        ranks = []
+        for r in range(2):
+            with open(f"{out}.{r}.json") as f:
+                ranks.append(json.load(f))
+        ranked = torch.load(f"{out}.params")
+        log(f"2 {backend} ranks: {time.time() - t0:.1f} s with their start")
+    return ranks, ranked
+
+
 def phase(label: str) -> None:
     """The seconds since the last phase mark (where the run's time goes)."""
     now = time.time()
@@ -5744,6 +6160,11 @@ def run_engines(results: dict) -> dict:
     torch.cuda.empty_cache()
     run_data_parallel()
     phase("data-parallel serving")
+
+    # -- tensor parallelism: the TP engine, the mesh train step, two gloo ranks -----------
+    torch.cuda.empty_cache()
+    run_tensor_parallel()
+    phase("tensor parallelism")
     return rates
 
 
@@ -5764,6 +6185,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--core-times"] and sys.argv[2:]:
         compare_trees("core_times", sys.argv[2:])
         return 0
+    if sys.argv[1:2] == ["--tp-times"] and sys.argv[2:]:
+        compare_trees("tp_times", sys.argv[2:])
+        return 0
     if sys.argv[1:2] == ["--gemm-times"] and sys.argv[2:]:
         compare_trees("compare_child", sys.argv[2:])
         return 0
@@ -5776,10 +6200,14 @@ def main() -> int:
     if sys.argv[1:2] == ["--dp-rank"] and len(sys.argv) == 6:
         dp_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])
         return 0
+    if sys.argv[1:2] == ["--tp-rank"] and len(sys.argv) == 6:
+        tp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+        return 0
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}; usage: chip_smoke.py "
-             f"[--stack-floor | --core-times ROOT... | --gemm-times ROOT... | "
-             f"--latin-loop SEED DIR | --dp-rank RANK N PORT OUT]")
+             f"[--stack-floor | --core-times ROOT... | --gemm-times ROOT... | --tp-times ROOT... | "
+             f"--latin-loop SEED DIR | --dp-rank RANK N PORT OUT | --tp-rank RANK PORT OUT "
+             f"BACKEND]")
 
     from manga_ocr_tpu_torch.engine.engine import _cast_quantized
     from manga_ocr_tpu_torch.kernels import build

@@ -23,7 +23,12 @@ engine.
 engine does under a (data, 1) mesh: the params replicated once per data
 device, each bucket's batch padded to a multiple of the data-axis size
 (repeating its last crop), split, every shard launched on its device
-before any is read back, and the rows joined in order.
+before any is read back, and the rows joined in order.  On a model axis
+above 1 (tensor parallelism; ``serving_kernels`` then defaults to off, as
+in the JAX engine) the params are split by ``parallel.mesh.shard_params``
+and a bucket's data rows run ``models.model.ocr_forward_rows`` on their
+model columns: every row's work queued before the decode loop's one host
+read between chunks.
 
 The host <-> device traffic is the JAX engine's.  ``wire="gray"`` ships
 each bucket's padded [B, bh, bw] uint8 batch and its [B, 2] extents;
@@ -38,8 +43,8 @@ device under a mesh).  Every copy to the host starts at dispatch
 (``HostCopy``: a pinned host tensor and a CUDA event), so ``ocr_pages``'s
 lookahead only waits on those copies.
 
-Not ported (each is absent, see ROADMAP.md): tensor parallelism (a model
-axis above 1), the AOT executable store, and CUDA graph capture.
+Not ported (each is absent, see ROADMAP.md): the AOT executable store
+and CUDA graph capture.
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
 from manga_ocr_tpu_torch.ops import preprocess as pp
 from manga_ocr_tpu_torch.parallel import batching
 from manga_ocr_tpu_torch.parallel import mesh as meshlib
+from manga_ocr_tpu_torch.parallel import tensor
 from manga_ocr_tpu_torch.utils.metrics import COMPILE_EVENTS
 
 
@@ -71,6 +77,11 @@ def _stage_fn(timer):
 
 def _err(msg: str) -> str:
     return f"[ERROR: {msg}]"
+
+
+def _joined(out: mdl.GreedyResult) -> torch.Tensor:
+    """A decode's [B, 1 + L] int32 ``[lengths | tokens]`` rows."""
+    return torch.cat([out.lengths[:, None], out.tokens], dim=1)
 
 
 def _cast_quantized(tree, dtype):
@@ -164,20 +175,23 @@ class TorchMangaOcrEngine:
     they are moved to ``device``.  ``device`` is explicit: ``"cuda"`` raises
     when CUDA is unavailable instead of running on the CPU.
 
-    ``serving_kernels`` (default on) selects the serving configuration
-    (``config.with_serving_kernels``); ``quantize_int8`` (default: as
-    ``serving_kernels``) picks its int8 form (encoder quantized, kernels A,
-    B, C) or its unquantized form (bf16 params, kernels E, D, C).
-    ``serving_kernels=False`` runs ``cfg`` as given on params cast to
-    ``dtype``: with ``MangaOCRConfig.base()`` that is the exact reference
-    path.
+    ``serving_kernels`` (default on without a model axis above 1) selects
+    the serving configuration (``config.with_serving_kernels``);
+    ``quantize_int8`` (default: as ``serving_kernels``) picks its int8 form
+    (encoder quantized, kernels A, B, C) or its unquantized form (bf16
+    params, kernels E, D, C).  ``serving_kernels=False`` runs ``cfg`` as
+    given on params cast to ``dtype``: with ``MangaOCRConfig.base()`` that
+    is the exact reference path.
 
     ``mesh``: a ``parallel.mesh.Mesh``; every crop batch is sharded over its
     data axis (None = ``device`` alone).  Its devices replace ``device``,
     which must then be of their type (CUDA or CPU, so a CUDA request never
-    runs on the CPU); ``self.device`` is the first of them.  A model axis
-    above 1 raises: the serving kernels are data-parallel only, and tensor
-    parallelism is not ported.
+    runs on the CPU); ``self.device`` is the first of them.  On a model axis
+    above 1 the engine serves tensor-parallel on the plain route: the
+    params split over each data row's model columns (``shard_params``), the
+    rows' shards through ``models.model.ocr_forward_rows``;
+    ``serving_kernels=True`` raises there (the kernels hold whole weights),
+    as does a ``cfg`` that names a kernel.
 
     ``wire``: the host -> device crop format, "gray" (padded batches) or
     "packed" (height-tight rows, rebuilt on the device; one device only:
@@ -213,18 +227,17 @@ class TorchMangaOcrEngine:
         self._wire = wire
         self._coalesce = coalesce
         n_model = mesh.shape[meshlib.MODEL_AXIS] if mesh is not None else 1
-        if n_model > 1 and serving_kernels:
+        if serving_kernels is None:
+            serving_kernels = n_model == 1
+        if serving_kernels and n_model > 1:
             raise ValueError(
                 "fused serving kernels support data-parallel meshes only "
-                f"(model axis size 1, got {n_model})"
+                f"(model axis size 1, got {n_model}); pass "
+                "serving_kernels=False to serve tensor-parallel through the "
+                "XLA path"
             )
         if n_model > 1:
-            raise ValueError(
-                f"a model axis of {n_model} (tensor parallelism) is not ported; serve on a "
-                "(data, 1) mesh (ROADMAP.md queue 1 item 7)"
-            )
-        if serving_kernels is None:
-            serving_kernels = True
+            tensor.check_plain(cfg, n_model)
         if quantize_int8 is None:
             quantize_int8 = serving_kernels
         if serving_kernels:
@@ -248,9 +261,16 @@ class TorchMangaOcrEngine:
         self.mesh = mesh
         # one replica per data device, copied once; the kernels' prepared
         # weights are cached per replica's leaves (a virtual mesh that
-        # repeats a device shares one replica, so one cache entry)
+        # repeats a device shares one replica, so one cache entry).  Under
+        # tensor parallelism a replica is the row's column trees.
         self._devices = devices
-        self._replicas = [self.params] if mesh is None else meshlib.dp_replicate(self.params, mesh)
+        self._tensor_parallel = n_model > 1
+        if mesh is None:
+            self._replicas = [self.params]
+        elif self._tensor_parallel:
+            self._replicas = meshlib.shard_params(self.params, mesh)
+        else:
+            self._replicas = meshlib.dp_replicate(self.params, mesh)
         self._batch_multiple = len(devices)
         self._lock = threading.Lock()
         self._warmed: set = set()  # (bucket_hw, padded_batch) pairs run once
@@ -266,30 +286,47 @@ class TorchMangaOcrEngine:
             pixels = pp.model_preprocess(crops, ext, self.cfg.encoder.image_size).to(self.dtype)
             out = mdl.ocr_forward(self._replicas[shard], pixels, self.cfg,
                                   max_length=self.max_length)
-            return torch.cat([out.lengths[:, None], out.tokens], dim=1)
+            return _joined(out)
 
-    def _run_bucket(self, crops_u8: np.ndarray, sizes: np.ndarray, shard: int = 0,
-                    stage=None, timed: bool = False) -> torch.Tensor:
-        """A gray-wire bucket on data device ``shard``: the crops and the
-        extents in two transfers, then ``_bucket_program``."""
-        stage = stage or _stage_fn(None)
+    def _send(self, crops_u8: np.ndarray, sizes: np.ndarray, shard: int, stage,
+              timed: bool) -> tuple:
+        """A gray-wire bucket's crops and extents to data device ``shard``,
+        in two transfers."""
         device = self._devices[shard]
         with stage("host_prep"):
             crops_h = _pinned(crops_u8, device)
             ext_h = _pinned(np.ascontiguousarray(sizes, np.int32), device)
-        crops = _h2d(crops_h, device, stage, timed)
-        ext = _h2d(ext_h, device, stage, timed)
+        return _h2d(crops_h, device, stage, timed), _h2d(ext_h, device, stage, timed)
+
+    def _run_bucket(self, crops_u8: np.ndarray, sizes: np.ndarray, shard: int = 0,
+                    stage=None, timed: bool = False) -> torch.Tensor:
+        """A gray-wire bucket on data device ``shard``: ``_send``, then
+        ``_bucket_program``."""
+        stage = stage or _stage_fn(None)
+        crops, ext = self._send(crops_u8, sizes, shard, stage, timed)
         with stage("dispatch"):
             return self._bucket_program(crops, ext, shard)
 
     def _run_sharded(self, crops_u8: np.ndarray, sizes: np.ndarray, stage=None,
                      timed: bool = False) -> list[torch.Tensor]:
         """A batch whose rows divide by the data-axis size -> one output per
-        data device (``_run_bucket`` on each slice), every shard launched
-        before any is read back."""
+        data device, every shard launched before any is read back: each
+        slice through ``_run_bucket``, or under tensor parallelism every
+        slice sent, then all the rows through ``ocr_forward_rows`` (one
+        decode loop, whose host read between chunks covers every row)."""
         rows = crops_u8.shape[0] // self._batch_multiple
-        return [self._run_bucket(crops_u8[i * rows:(i + 1) * rows], sizes[i * rows:(i + 1) * rows],
-                                 i, stage, timed) for i in range(self._batch_multiple)]
+        parts = [slice(i * rows, (i + 1) * rows) for i in range(self._batch_multiple)]
+        if not self._tensor_parallel:
+            return [self._run_bucket(crops_u8[sl], sizes[sl], i, stage, timed)
+                    for i, sl in enumerate(parts)]
+        stage = stage or _stage_fn(None)
+        sent = [self._send(crops_u8[sl], sizes[sl], i, stage, timed) for i, sl in enumerate(parts)]
+        with stage("dispatch"), torch.inference_mode():
+            size = self.cfg.encoder.image_size
+            pixels = [pp.model_preprocess(c, e, size).to(self.dtype) for c, e in sent]
+            outs = mdl.ocr_forward_rows(self._replicas, pixels, self.cfg,
+                                        max_length=self.max_length)
+            return [_joined(out) for out in outs]
 
     def _run_packed(self, b: batching.PackedBatch, stage, timed: bool) -> torch.Tensor:
         """A packed-wire bucket: the row buffer and the [B, 3] (h, w, row

@@ -24,9 +24,24 @@ sequences (training's forward, plain and differentiable).  The decode forms:
 The self-attention cache is updated in place (the JAX package returns new
 buffers); ``KVCache`` keeps the JAX layouts: [B, H, T, dh] per layer for
 the ``xla`` step, [T, B, D] for ``fused_layer``.
+
+Tensor parallelism: ``embed``, ``precompute_cross_kv``, ``forward_full``,
+``lm_head`` and the ``xla`` step (``decode_hidden``,
+``decode_step_greedy``) also take a list of a data row's model columns
+(``parallel.mesh.shard_params``' decoder trees), with one cross-K/V and one
+cache a column, each over its heads (``column_cfg``).  The vocab-sharded
+token table is looked up per shard with the other shards' ids masked to
+zero, then summed (exact: one shard is nonzero); the logits are put
+together in column order, and the greedy argmax takes each shard's first
+maximum, then the first shard that holds the largest (the lower index
+wins a tie, as one ``argmax`` over the whole vocab does).  The replicated
+work (embeddings' sums, LNs, residuals, the head's transform) runs once,
+on column 0's device.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 from typing import NamedTuple
 
@@ -35,7 +50,19 @@ import torch
 from manga_ocr_tpu_torch.models.config import DecoderConfig
 from manga_ocr_tpu_torch.models.params import layer_params
 from manga_ocr_tpu_torch.ops import decode_layer
-from manga_ocr_tpu_torch.ops.common import NEG_INF, dense, gelu, layer_norm, mha, softmax
+from manga_ocr_tpu_torch.ops.common import (
+    NEG_INF,
+    columns,
+    dense,
+    gelu,
+    layer_norm,
+    mha,
+    mlp,
+    row_parallel,
+    softmax,
+    spread,
+    tree_device,
+)
 from manga_ocr_tpu_torch.ops.fused_head import fused_greedy_head, fused_greedy_head_reference
 from manga_ocr_tpu_torch.ops.fused_mlp import (
     Int8Weight,
@@ -91,26 +118,58 @@ def init_cache(cfg: DecoderConfig, batch: int, max_len: int, dtype, device) -> K
     return KVCache(zeros(), zeros())
 
 
-def embed(params: dict, tokens: torch.Tensor, position_offset: int, cfg: DecoderConfig) -> torch.Tensor:
+def column_cfg(cfg: DecoderConfig, n: int) -> DecoderConfig:
+    """One of ``n`` model columns' view of the decoder: its heads and width
+    (``head_dim`` kept), for its cross-K/V and cache."""
+    return dataclasses.replace(cfg, num_heads=cfg.num_heads // n,
+                               hidden_size=cfg.hidden_size // n)
+
+
+def _token_rows(cols: list, tokens: torch.Tensor) -> torch.Tensor:
+    """The token table's rows of ``tokens``; over vocab shards each shard's
+    rows with the ids outside it masked to zero, summed in column order."""
+    if len(cols) == 1:
+        return cols[0]["tok_embed"][tokens.long()]
+    dev = tree_device(cols[0])
+    rows = cols[0]["tok_embed"].shape[0]
+    we = None
+    for c, p in enumerate(cols):
+        t = tokens.to(p["tok_embed"].device).long() - c * rows
+        inside = (t >= 0) & (t < rows)
+        e = p["tok_embed"][t.clamp(0, rows - 1)].masked_fill(~inside[..., None], 0).to(dev)
+        we = e if we is None else we + e
+    return we
+
+
+def embed(params, tokens: torch.Tensor, position_offset: int, cfg: DecoderConfig) -> torch.Tensor:
     """Word + absolute position + token-type(0) embeddings, then LN.
     ``tokens``: [B, S] int.  Positions past the table take its last row, as
     JAX's gather clamps (the chunked decode may run up to ``chunk_size - 1``
-    steps past the last position; their tokens are sliced off)."""
+    steps past the last position; their tokens are sliced off).  ``params``
+    may be a list of model columns'."""
+    cols = columns(params)
+    params = cols[0]
     s = tokens.shape[-1]
     table = params["pos_embed"]
     pos = torch.arange(position_offset, position_offset + s, device=table.device)
-    we = params["tok_embed"][tokens.long()]
+    we = _token_rows(cols, tokens)
     x = we + table[pos.clamp(max=table.shape[0] - 1)] + params["tok_type"]
     return layer_norm(x, params["emb_ln"]["scale"], params["emb_ln"]["bias"], cfg.layer_norm_eps)
 
 
 def precompute_cross_kv(
-    params: dict, enc_out: torch.Tensor, cfg: DecoderConfig, int8: bool | None = None
-) -> CrossKV:
+    params, enc_out: torch.Tensor, cfg: DecoderConfig, int8: bool | None = None
+):
     """Project the encoder output to per-layer cross K/V once per dispatch,
     in the [L, B, H, dh, S] layout; ``int8`` (default ``cfg.cross_kv_int8``)
     stores it quantized: K per (l, b, h, s) over dh, V per (l, b, h, d) over
-    S, with the weight quantizer's division and clip."""
+    S, with the weight quantizer's division and clip.  A list of model
+    columns' params gives a list of ``CrossKV``, each over its column's
+    heads on its device."""
+    if isinstance(params, list):
+        ccfg = column_cfg(cfg, len(params))
+        return [precompute_cross_kv(p, e, ccfg, int8)
+                for p, e in zip(params, spread(enc_out, [tree_device(p) for p in params]))]
     if int8 is None:
         int8 = cfg.cross_kv_int8
     b, s, _ = enc_out.shape
@@ -201,7 +260,7 @@ def _post_ln_block(x, residual, ln, eps):
 
 
 def forward_full(
-    params: dict,
+    params,
     tokens: torch.Tensor,
     enc_out: torch.Tensor,
     cfg: DecoderConfig,
@@ -212,33 +271,70 @@ def forward_full(
     ``tokens`` [B, S] int; causal self-attention, ANDed with the optional key
     mask ``attention_mask`` [B, S] (nonzero = attend); full cross-attention
     over ``enc_out`` [B, S_enc, D].  Plain ops only, so autograd runs through
-    it (training's loss)."""
+    it (training's loss).  ``params`` may be a list of model columns' (the
+    logits put together on column 0's device)."""
+    cols = columns(params)
     s = tokens.shape[1]
-    x = embed(params, tokens, 0, cfg).to(enc_out.dtype)
+    x = embed(cols, tokens, 0, cfg).to(enc_out.dtype)
     mask = torch.ones((s, s), dtype=torch.bool, device=enc_out.device).tril()[None, None]
     if attention_mask is not None:
-        mask = mask & (attention_mask != 0)[:, None, None, :]
+        mask = mask & (attention_mask.to(enc_out.device) != 0)[:, None, None, :]
     eps = cfg.layer_norm_eps
     for l in range(cfg.num_layers):
-        lp = layer_params(params["layers"], l)
-        x = _post_ln_block(mha(x, x, lp["self_attn"], cfg.num_heads, mask=mask), x,
-                           lp["self_ln"], eps)
-        x = _post_ln_block(mha(x, enc_out, lp["cross_attn"], cfg.num_heads), x,
+        lps = [layer_params(c["layers"], l) for c in cols]
+        lp = lps[0]
+        x = _post_ln_block(mha(x, x, [p["self_attn"] for p in lps], cfg.num_heads, mask=mask),
+                           x, lp["self_ln"], eps)
+        x = _post_ln_block(mha(x, enc_out, [p["cross_attn"] for p in lps], cfg.num_heads), x,
                            lp["cross_ln"], eps)
-        fc1, fc2 = lp["mlp"]["fc1"], lp["mlp"]["fc2"]
-        h = dense(gelu(dense(x, fc1["kernel"], fc1["bias"])), fc2["kernel"], fc2["bias"])
-        x = _post_ln_block(h, x, lp["mlp_ln"], eps)
-    return lm_head(params, x, cfg)
+        x = _post_ln_block(mlp(x, [p["mlp"] for p in lps]), x, lp["mlp_ln"], eps)
+    return lm_head(cols, x, cfg)
 
 
-def lm_head(params: dict, x: torch.Tensor, cfg: DecoderConfig) -> torch.Tensor:
-    """Prediction head: dense + exact GELU + LN, then the vocab projection.
-    Returns float32 logits."""
-    t = params["head"]["transform"]
+def _vocab_logits(params, x: torch.Tensor, cfg: DecoderConfig) -> list:
+    """The head's transform (dense + exact GELU + LN, on column 0's params),
+    then each column's float32 logits over its vocab shard."""
+    cols = columns(params)
+    t = cols[0]["head"]["transform"]
     x = gelu(dense(x, t["dense"]["kernel"], t["dense"]["bias"]))
     x = layer_norm(x, t["ln"]["scale"], t["ln"]["bias"], cfg.layer_norm_eps)
-    p = params["head"]["proj"]
-    return x.float() @ p["kernel"].to(x.dtype).float() + p["bias"].float()
+    out = []
+    for c, xc in zip(cols, spread(x, [tree_device(c) for c in cols])):
+        p = c["head"]["proj"]
+        out.append(xc.float() @ p["kernel"].to(xc.dtype).float() + p["bias"].float())
+    return out
+
+
+def lm_head(params, x: torch.Tensor, cfg: DecoderConfig) -> torch.Tensor:
+    """Prediction head: dense + exact GELU + LN, then the vocab projection.
+    Returns float32 logits (a list of model columns' params: the shards put
+    together on column 0's device)."""
+    shards = _vocab_logits(params, x, cfg)
+    if len(shards) == 1:
+        return shards[0]
+    return torch.cat([t.to(shards[0].device) for t in shards], dim=-1)
+
+
+def _argmax(shards: list) -> torch.Tensor:
+    """The greedy token over vocab shards [B, V/n] each -> [B] int32 on the
+    first shard's device: every shard's first maximum, then the first shard
+    holding the largest."""
+    if len(shards) == 1:
+        return torch.argmax(shards[0], dim=-1).to(torch.int32)
+    dev = shards[0].device
+    rows = shards[0].shape[-1]
+    best_val = best_idx = None
+    for c, lg in enumerate(shards):
+        idx = torch.argmax(lg, dim=-1)
+        val = lg.gather(-1, idx[:, None])[:, 0].to(dev)
+        idx = idx.to(dev) + c * rows
+        if best_val is None:
+            best_val, best_idx = val, idx
+        else:
+            take = val > best_val
+            best_val = torch.where(take, val, best_val)
+            best_idx = torch.where(take, idx, best_idx)
+    return best_idx.to(torch.int32)
 
 
 def decode_step(
@@ -251,12 +347,13 @@ def decode_step(
 
 
 def decode_step_greedy(
-    params: dict, token: torch.Tensor, step: int, cache: KVCache, cross_kv,
+    params, token: torch.Tensor, step: int, cache, cross_kv,
     cfg: DecoderConfig, use_kernels: bool = True, prepared: list | None = None,
 ) -> tuple[torch.Tensor, KVCache]:
     """One greedy decode step -> (next token ids [B] int32, cache).  With
     ``cfg.head_kernel == "fused"`` the head is kernel F (its plain version
-    when ``use_kernels`` is False); otherwise logits and argmax."""
+    when ``use_kernels`` is False); otherwise logits and argmax (over the
+    vocab shards of a list of model columns' params)."""
     x, cache = decode_hidden(params, token, step, cache, cross_kv, cfg, use_kernels, prepared)
     if cfg.head_kernel == "fused":
         head = fused_greedy_head if use_kernels else fused_greedy_head_reference
@@ -264,7 +361,7 @@ def decode_step_greedy(
         nxt = head(x, t["dense"]["kernel"], t["dense"]["bias"], t["ln"]["scale"],
                    t["ln"]["bias"], p["kernel"], p["bias"], eps=cfg.layer_norm_eps)
         return nxt, cache
-    return torch.argmax(lm_head(params, x, cfg), dim=-1).to(torch.int32), cache
+    return _argmax(_vocab_logits(params, x, cfg)), cache
 
 
 def _cross_attend(q, ck, cv, k_scale, v_scale, sqrt_dh, dtype) -> torch.Tensor:
@@ -281,65 +378,75 @@ def _cross_attend(q, ck, cv, k_scale, v_scale, sqrt_dh, dtype) -> torch.Tensor:
 
 
 def decode_hidden(
-    params: dict, token: torch.Tensor, step: int, cache: KVCache, cross_kv,
+    params, token: torch.Tensor, step: int, cache, cross_kv,
     cfg: DecoderConfig, use_kernels: bool = True, prepared: list | None = None,
 ) -> tuple[torch.Tensor, KVCache]:
     """Decode step up to (excluding) the LM head -> (hidden [B, D], cache).
     Writes this step's K/V into ``cache`` at ``step``.  ``fused_layer``
     takes a ``CrossKVPacked`` and the packed cache, and ``prepared``
-    (``prepare_fused_layer``; made here when None)."""
+    (``prepare_fused_layer``; made here when None).  The ``xla`` step also
+    takes a list of model columns' params with their lists of caches and
+    ``CrossKV``s (the hidden state on column 0's device)."""
     if cfg.step_kernel == "fused_layer":
         if prepared is None:
             prepared = prepare_fused_layer(params, cfg, cache.k[0].dtype)
         return _decode_hidden_fused(params, token, step, cache, cross_kv, cfg, use_kernels,
                                     prepared)
-    heads, dh = cfg.num_heads, cfg.head_dim
+    cols, caches, crosses = columns(params), columns(cache), columns(cross_kv)
+    heads, dh = cfg.num_heads // len(cols), cfg.head_dim
     d = heads * dh
-    dt = cache.k[0].dtype
-    x = embed(params, token[:, None], step, cfg)[:, 0, :].to(dt)
+    dt = caches[0].k[0].dtype
+    x = embed(cols, token[:, None], step, cfg)[:, 0, :].to(dt)
     b = x.shape[0]
-    max_len = cache.k[0].shape[-2]
-    valid = (torch.arange(max_len, device=x.device) <= step)[None, None, :]
-    sqrt_dh = torch.sqrt(torch.tensor(float(dh), device=x.device))  # f32, as in JAX
+    devices = [x.device] if len(cols) == 1 else [tree_device(c) for c in cols]
+    max_len = caches[0].k[0].shape[-2]
+    valid = [(torch.arange(max_len, device=dv) <= step)[None, None, :] for dv in devices]
+    sqrt_dh = [torch.sqrt(torch.tensor(float(dh), device=dv)) for dv in devices]  # f32, as JAX
     eps = cfg.layer_norm_eps
     for l in range(cfg.num_layers):
-        lp = layer_params(params["layers"], l)
-        # -- causal self-attention against the running cache ----------------
-        sa = lp["self_attn"]
-        wqkv = torch.cat([sa[n]["kernel"] for n in ("q", "k", "v")], dim=1)
-        bqkv = torch.cat([sa[n]["bias"] for n in ("q", "k", "v")])
-        qkv = dense(x, wqkv, bqkv)
-        q = qkv[:, :d].reshape(b, heads, dh)
-        ck, cv = cache.k[l], cache.v[l]
-        ck[:, :, step] = qkv[:, d : 2 * d].reshape(b, heads, dh)
-        cv[:, :, step] = qkv[:, 2 * d :].reshape(b, heads, dh)
-        scores = torch.einsum("bhd,bhtd->bht", q.float(), ck.float()) / sqrt_dh
-        probs = softmax(torch.where(valid, scores, torch.full_like(scores, NEG_INF)))
-        ctx = torch.einsum("bht,bhtd->bhd", probs.to(dt).float(), cv.float())
-        out = dense(ctx.to(dt).reshape(b, d), sa["o"]["kernel"], sa["o"]["bias"])
+        lps = [layer_params(c["layers"], l) for c in cols]
+        lp = lps[0]
+        # -- causal self-attention against each column's running cache -------
+        ctx = []
+        for c, (sa, xc) in enumerate(zip([p["self_attn"] for p in lps], spread(x, devices))):
+            wqkv = torch.cat([sa[n]["kernel"] for n in ("q", "k", "v")], dim=1)
+            bqkv = torch.cat([sa[n]["bias"] for n in ("q", "k", "v")])
+            qkv = dense(xc, wqkv, bqkv)
+            q = qkv[:, :d].reshape(b, heads, dh)
+            ck, cv = caches[c].k[l], caches[c].v[l]
+            ck[:, :, step] = qkv[:, d : 2 * d].reshape(b, heads, dh)
+            cv[:, :, step] = qkv[:, 2 * d :].reshape(b, heads, dh)
+            scores = torch.einsum("bhd,bhtd->bht", q.float(), ck.float()) / sqrt_dh[c]
+            probs = softmax(torch.where(valid[c], scores, torch.full_like(scores, NEG_INF)))
+            cc = torch.einsum("bht,bhtd->bhd", probs.to(dt).float(), cv.float())
+            ctx.append(cc.to(dt).reshape(b, d))
+        out = row_parallel(ctx, [p["self_attn"]["o"] for p in lps])
         x = layer_norm(out + x, lp["self_ln"]["scale"], lp["self_ln"]["bias"], eps)
         # -- cross-attention over the precomputed encoder K/V ----------------
-        ca = lp["cross_attn"]
-        q = dense(x, ca["q"]["kernel"], ca["q"]["bias"]).reshape(b, heads, dh)
-        scaled = cross_kv.k_scale is not None
-        cctx = _cross_attend(
-            q, cross_kv.k[l], cross_kv.v[l], cross_kv.k_scale[l] if scaled else None,
-            cross_kv.v_scale[l] if scaled else None, sqrt_dh, dt,
-        )
-        out = dense(cctx.reshape(b, d), ca["o"]["kernel"], ca["o"]["bias"])
+        ctx = []
+        for c, (ca, xc) in enumerate(zip([p["cross_attn"] for p in lps], spread(x, devices))):
+            q = dense(xc, ca["q"]["kernel"], ca["q"]["bias"]).reshape(b, heads, dh)
+            kv = crosses[c]
+            scaled = kv.k_scale is not None
+            cc = _cross_attend(
+                q, kv.k[l], kv.v[l], kv.k_scale[l] if scaled else None,
+                kv.v_scale[l] if scaled else None, sqrt_dh[c], dt,
+            )
+            ctx.append(cc.reshape(b, d))
+        out = row_parallel(ctx, [p["cross_attn"]["o"] for p in lps])
         x = layer_norm(out + x, lp["cross_ln"]["scale"], lp["cross_ln"]["bias"], eps)
         # -- MLP ---------------------------------------------------------------
         fc1, fc2 = lp["mlp"]["fc1"], lp["mlp"]["fc2"]
         if cfg.step_mlp_kernel == "fused":
             # post-LN block LN(x + MLP(x)): the kernel computes x + MLP(x)
             # (pre_ln off), the LN follows
-            mlp = fused_mlp_block if use_kernels else fused_mlp_block_bf16_reference
+            fn = fused_mlp_block if use_kernels else fused_mlp_block_bf16_reference
             one = torch.ones((d,), dtype=torch.float32, device=x.device)
-            y = mlp(x, one, torch.zeros_like(one), fc1["kernel"], fc1["bias"], fc2["kernel"],
-                    fc2["bias"], pre_ln=False)
+            y = fn(x, one, torch.zeros_like(one), fc1["kernel"], fc1["bias"], fc2["kernel"],
+                   fc2["bias"], pre_ln=False)
             x = layer_norm(y, lp["mlp_ln"]["scale"], lp["mlp_ln"]["bias"], eps)
         else:
-            hdn = dense(gelu(dense(x, fc1["kernel"], fc1["bias"])), fc2["kernel"], fc2["bias"])
+            hdn = mlp(x, [p["mlp"] for p in lps])
             x = layer_norm(hdn + x, lp["mlp_ln"]["scale"], lp["mlp_ln"]["bias"], eps)
     return x, cache
 

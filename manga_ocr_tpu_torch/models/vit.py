@@ -32,6 +32,13 @@ alignment (``seq_pad_to``, under ``fused_layer`` only) and masks the padded
 keys; the port runs the 197 real tokens unpadded, which gives the same real
 rows (every op is row-local except attention, whose masked keys weigh
 exactly 0).
+
+Tensor parallelism: ``encode`` also takes a list of a data row's model
+columns (``parallel.mesh.shard_params``' encoder trees) on the plain route
+(``attn_kernel``/``mlp_kernel`` "xla"): the patch embedding's hidden-dim
+slices put together in column order, the blocks' ``mha`` and ``mlp`` over
+the columns, the replicated work (CLS, positions, LNs, residuals) once on
+column 0's device.
 """
 
 from __future__ import annotations
@@ -41,7 +48,15 @@ import torch
 from manga_ocr_tpu_torch.kernels import launch
 from manga_ocr_tpu_torch.models.config import EncoderConfig
 from manga_ocr_tpu_torch.models.params import layer_params
-from manga_ocr_tpu_torch.ops.common import dense, dense_any, gelu, layer_norm, mha
+from manga_ocr_tpu_torch.ops.common import (
+    columns,
+    dense,
+    layer_norm,
+    mha,
+    mlp,
+    spread,
+    tree_device,
+)
 from manga_ocr_tpu_torch.ops.encoder_stack import encoder_stack, encoder_stack_reference
 from manga_ocr_tpu_torch.ops.encoder_weights import LayerWeights, layer_view, prepare_layers
 from manga_ocr_tpu_torch.ops.flash_attention import (
@@ -64,31 +79,44 @@ _MLP_KERNELS = ("fused", "xla")
 _PREPARED_KERNELS = ("fused_layer", "merged_layer")
 
 
-def patch_embed(params: dict, pixel_values: torch.Tensor, cfg: EncoderConfig) -> torch.Tensor:
-    """[B, H, W, C] -> [B, N, D]: patches flattened in (row, col, channel)
-    order to match the HWIO conv kernel flattened the same way."""
+def patches(pixel_values: torch.Tensor, p: int) -> torch.Tensor:
+    """[B, H, W, C] -> [B, N, p*p*C]: patches flattened in (row, col,
+    channel) order to match the HWIO conv kernel flattened the same way."""
     b, h, w, c = pixel_values.shape
-    p = cfg.patch_size
     gh, gw = h // p, w // p
     x = pixel_values.reshape(b, gh, p, gw, p, c).permute(0, 1, 3, 2, 4, 5)
-    x = x.reshape(b, gh * gw, p * p * c)
-    kernel = params["kernel"].reshape(p * p * c, cfg.hidden_size)
-    return dense(x, kernel, params["bias"])
+    return x.reshape(b, gh * gw, p * p * c)
 
 
-def _attention(h: torch.Tensor, lp: dict, cfg: EncoderConfig, fused: bool, use_kernels: bool):
+def patch_embed(params, pixel_values: torch.Tensor, cfg: EncoderConfig) -> torch.Tensor:
+    """[B, H, W, C] -> [B, N, D]: ``patches`` times the flattened kernel.
+    ``params`` may be a list of model columns' (each a slice of the hidden
+    dim), whose outputs are put together in column order on column 0's
+    device."""
+    cols = columns(params)
+    x = patches(pixel_values, cfg.patch_size)
+    devices = [tree_device(c) for c in cols]
+    parts = [dense(xc, c["kernel"].reshape(x.shape[-1], -1), c["bias"])
+             for xc, c in zip(spread(x, devices), cols)]
+    if len(parts) == 1:
+        return parts[0]
+    return torch.cat([t.to(devices[0]) for t in parts], dim=-1)
+
+
+def _attention(h: torch.Tensor, cols: list, cfg: EncoderConfig, fused: bool, use_kernels: bool):
     if cfg.attn_kernel == "packed":
-        return mha_packed(h, h, lp["attn"], cfg.num_heads, use_kernels=use_kernels)
+        return mha_packed(h, h, cols[0]["attn"], cfg.num_heads, use_kernels=use_kernels)
     if fused:
-        return mha_fused(h, h, lp["attn"], cfg.num_heads, use_kernels=use_kernels)
-    return mha(h, h, lp["attn"], cfg.num_heads)
+        return mha_fused(h, h, cols[0]["attn"], cfg.num_heads, use_kernels=use_kernels)
+    return mha(h, h, [c["attn"] for c in cols], cfg.num_heads)
 
 
 def _mlp(
-    x: torch.Tensor, lp: dict, cfg: EncoderConfig, use_kernels: bool,
+    x: torch.Tensor, cols: list, cfg: EncoderConfig, use_kernels: bool,
     prepared: LayerWeights | None,
 ) -> torch.Tensor:
     """LN -> fc1 -> GELU -> fc2 -> + residual (the block's second half)."""
+    lp = cols[0]
     fc1, fc2 = lp["mlp"]["fc1"], lp["mlp"]["fc2"]
     if cfg.mlp_kernel == "fused":
         int8 = "w_q" in fc1
@@ -103,13 +131,12 @@ def _mlp(
         return fn(x, lp["ln2"]["scale"], lp["ln2"]["bias"], w1, fc1["bias"], w2, fc2["bias"],
                   eps=cfg.layer_norm_eps, gelu_mode=cfg.gelu_mode)
     h = layer_norm(x, lp["ln2"]["scale"], lp["ln2"]["bias"], cfg.layer_norm_eps)
-    h = dense_any(gelu(dense_any(h, fc1)), fc2)
-    return x + h
+    return x + mlp(h, [c["mlp"] for c in cols])
 
 
 def encoder_block(
     x: torch.Tensor,
-    lp: dict,
+    lp,
     cfg: EncoderConfig,
     use_kernels: bool = True,
     fused: bool = False,
@@ -118,7 +145,10 @@ def encoder_block(
 ) -> torch.Tensor:
     """One pre-LN ViT block.  ``prepared`` (this layer's
     ``ops.encoder_weights``) and ``scratch`` (kernel H's) are optional: the
-    kernels make them on the call when they are not given."""
+    kernels make them on the call when they are not given.  ``lp`` may be a
+    list of model columns' layer params (the plain route only)."""
+    cols = columns(lp)
+    lp = cols[0]
     eps = cfg.layer_norm_eps
     if cfg.attn_kernel == "merged_layer":
         if not use_kernels:
@@ -137,10 +167,10 @@ def encoder_block(
             x = fused_attn_layer(*args, prepared=attn, **flags)
         else:
             x = fused_attn_layer_reference(*args, **flags)
-        return _mlp(x, lp, cfg, use_kernels, prepared)
+        return _mlp(x, cols, cfg, use_kernels, prepared)
     h = layer_norm(x, lp["ln1"]["scale"], lp["ln1"]["bias"], eps)
-    x = x + _attention(h, lp, cfg, fused, use_kernels)
-    return _mlp(x, lp, cfg, use_kernels, prepared)
+    x = x + _attention(h, cols, cfg, fused, use_kernels)
+    return _mlp(x, cols, cfg, use_kernels, prepared)
 
 
 def _default_fused() -> bool:
@@ -151,7 +181,7 @@ def _default_fused() -> bool:
 
 
 def encode(
-    params: dict,
+    params,
     pixel_values: torch.Tensor,
     cfg: EncoderConfig,
     dtype: torch.dtype | None = None,
@@ -170,15 +200,25 @@ def encode(
     JAX package returns its seq-padded rows there (200 under the int8
     serving config, the pads row-local garbage that the decode masks); the
     port never pads, so its raw output has the ``seq_len`` = 197 real rows
-    only."""
+    only.
+
+    ``params`` may be a list of a data row's model columns' encoder trees
+    (tensor parallelism; the plain route only, else ``ValueError``); the
+    output is then on column 0's device."""
+    cols = columns(params)
+    params = cols[0]
+    fused = _default_fused() if fused_attention is None else fused_attention
+    if len(cols) > 1 and (cfg.attn_kernel, cfg.mlp_kernel, fused) != ("xla", "xla", False):
+        raise ValueError(f"encode: model columns run the plain route only, not attn_kernel="
+                         f"{cfg.attn_kernel!r}, mlp_kernel={cfg.mlp_kernel!r}, fused_attention="
+                         f"{fused}")
     if cfg.attn_kernel not in _ATTN_KERNELS or cfg.mlp_kernel not in _MLP_KERNELS:
         raise NotImplementedError(
             f"encode: attn_kernel={cfg.attn_kernel!r} / mlp_kernel={cfg.mlp_kernel!r} is not "
             f"ported (attn_kernel in {_ATTN_KERNELS}, mlp_kernel in {_MLP_KERNELS})"
         )
-    fused = _default_fused() if fused_attention is None else fused_attention
     dtype = dtype or pixel_values.dtype
-    x = patch_embed(params["patch_embed"], pixel_values.to(dtype), cfg)
+    x = patch_embed([c["patch_embed"] for c in cols], pixel_values.to(dtype), cfg)
     b = x.shape[0]
     cls = params["cls_token"].to(dtype).expand(b, 1, cfg.hidden_size)
     x = torch.cat([cls, x], dim=1) + params["pos_embed"].to(dtype)
@@ -198,7 +238,8 @@ def encode(
                 )
         for l in range(cfg.num_layers):
             lw = None if prepared is None else layer_view(prepared, l)
-            x = encoder_block(x, layer_params(layers, l), cfg, use_kernels, fused, lw, scratch)
+            lps = [layer_params(c["layers"], l) for c in cols]
+            x = encoder_block(x, lps, cfg, use_kernels, fused, lw, scratch)
     if raw_padded:
         return x
     return layer_norm(

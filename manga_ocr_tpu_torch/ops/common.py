@@ -3,7 +3,13 @@
 
 Used where the JAX package leaves the work to XLA: the patch embedding, the
 encoder's final LayerNorm, the projections, the cross-attention K/V
-precompute, and the whole reference path (``mha``, exact-erf ``gelu``).
+precompute, and the whole reference path (``mha``, ``mlp``, exact-erf
+``gelu``).  ``mha`` and ``mlp`` also run on a data row's model columns
+(tensor parallelism, ``parallel.mesh.shard_params``): a list of the
+columns' params in place of one set, each column computing its heads or
+its slice of fc1 from its copy of the input, and ``row_parallel`` summing
+the columns' partial output projections.  One set of params is one
+column, and computes exactly what it computes alone.
 Matmuls run in float32 on values already rounded to the compute dtype,
 which is exactly a compute-dtype matmul with float32 accumulation (a
 product of two bf16 values is exact in f32).  On CUDA this relies on TF32
@@ -90,19 +96,72 @@ def attention_scores(
     return (probs.to(q.dtype).float() @ v.float()).to(q.dtype)
 
 
+def columns(p) -> list:
+    """``p`` as a list of model columns' params: a list as given, one set
+    of params as the list of it alone."""
+    return p if isinstance(p, list) else [p]
+
+
+def tree_device(tree) -> torch.device:
+    """The device of a tree's first leaf."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree.device
+
+
+def spread(x: torch.Tensor, devices: list) -> list:
+    """``x`` as each column's input: the tensor itself on its own device, a
+    copy on another."""
+    return [x.to(d) for d in devices]
+
+
+def row_parallel(xs: list, ps: list) -> torch.Tensor:
+    """The row-parallel dense of model columns: ``sum_c xs[c] @ ps[c] +
+    bias`` on column 0's device, the partials in f32 summed in column order
+    and the (replicated) bias added once after the sum, in the inputs'
+    dtype (``dense``'s rounding).  One column is ``dense_any``."""
+    if len(ps) == 1:
+        return dense_any(xs[0], ps[0])
+    dev, dt = xs[0].device, xs[0].dtype
+    acc = None
+    for x, p in zip(xs, ps):
+        part = (x.float() @ p["kernel"].to(dt).float()).to(dev)
+        acc = part if acc is None else acc + part
+    return (acc + ps[0]["bias"].float()).to(dt)
+
+
 def mha(
     x_q: torch.Tensor,
     x_kv: torch.Tensor,
-    p: dict,
+    p,
     num_heads: int,
     mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Multi-head attention block: q/k/v projections, SDPA, output
-    projection.  ``p`` holds the q/k/v/o dense params (float or int8)."""
-    q = split_heads(dense_any(x_q, p["q"]), num_heads)
-    k = split_heads(dense_any(x_kv, p["k"]), num_heads)
-    v = split_heads(dense_any(x_kv, p["v"]), num_heads)
-    return dense_any(merge_heads(attention_scores(q, k, v, mask)), p["o"])
+    projection.  ``p`` holds the q/k/v/o dense params (float or int8), or is
+    a list of model columns' (each ``num_heads / n`` heads, on its device;
+    the output on column 0's)."""
+    cols = columns(p)
+    heads = num_heads // len(cols)
+    devices = [tree_device(c) for c in cols]
+    qs = spread(x_q, devices)
+    kvs = qs if x_kv is x_q else spread(x_kv, devices)
+    ctx = []
+    for c, xq, xkv, d in zip(cols, qs, kvs, devices):
+        q = split_heads(dense_any(xq, c["q"]), heads)
+        k = split_heads(dense_any(xkv, c["k"]), heads)
+        v = split_heads(dense_any(xkv, c["v"]), heads)
+        ctx.append(merge_heads(attention_scores(q, k, v, None if mask is None else mask.to(d))))
+    return row_parallel(ctx, [c["o"] for c in cols])
+
+
+def mlp(x: torch.Tensor, p) -> torch.Tensor:
+    """fc1 -> exact GELU -> fc2 (``p`` holds them, or is a list of model
+    columns': fc1 column-parallel, fc2 row-parallel)."""
+    cols = columns(p)
+    xs = spread(x, [tree_device(c) for c in cols])
+    mids = [gelu(dense_any(xc, c["fc1"])) for xc, c in zip(xs, cols)]
+    return row_parallel(mids, [c["fc2"] for c in cols])
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Device meshes and data-parallel dispatch on torch devices (counterpart of
-``manga_ocr_tpu/parallel/mesh.py`` without its tensor-parallel half).
+"""Device meshes, data-parallel dispatch and tensor-parallel parameter
+shardings on torch devices (counterpart of ``manga_ocr_tpu/parallel/mesh.py``).
 
 The JAX package shards over a ``jax.sharding.Mesh`` and lets XLA place the
 pieces; here the pieces are explicit:
@@ -15,15 +15,24 @@ pieces; here the pieces are explicit:
 Serving has no collective: every shard is a whole batch of independent
 rows.  A virtual mesh repeats one device (``[torch.device("cpu")] * 8`` in
 the CPU tests, ``[torch.device("cuda:0")] * 2`` on one card): the same
-code runs shard after shard there.  Not here: ``param_specs``,
-``param_shardings`` and ``shard_params`` (tensor parallelism over the
-model axis; ROADMAP.md queue 1 item 7).
+code runs shard after shard there.
+
+Tensor parallelism over the model axis: ``param_specs`` names, per leaf of
+the parameter tree, the dimension split over the model axis (the JAX
+package's ``PartitionSpec`` tree, leaf for leaf), and ``shard_params``
+gives each data row one tree per model column whose split leaves are that
+column's contiguous slice.  XLA partitions the JAX package's program from
+those annotations; here the plain routes take a row's list of columns
+(``parallel/tensor.py`` sets out how).
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
+import torch.distributed as dist
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -165,3 +174,233 @@ def dp_gather(shards, n: int) -> np.ndarray:
     -> one host array of their rows in order, the padding past ``n`` rows
     sliced off.  Every shard was launched before this reads any back."""
     return np.concatenate([s.cpu().numpy() for s in shards], axis=0)[:n]
+
+
+# ---------------------------------------------------------------------------
+# Parameter shardings (tensor parallelism over the model axis)
+# ---------------------------------------------------------------------------
+
+
+class PartitionSpec(tuple):
+    """Per dimension of a leaf, the mesh axis it is split over, or None (as
+    ``jax.sharding.PartitionSpec``; ``P()`` is replicated)."""
+
+    def __new__(cls, *dims):
+        return super().__new__(cls, dims)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+class NamedSharding(NamedTuple):
+    """A spec on a mesh (``jax.sharding.NamedSharding``)."""
+
+    mesh: Mesh
+    spec: PartitionSpec
+
+
+def _attn_spec(stacked: bool) -> dict:
+    """q/k/v shard the head (output) dim; o shards its input dim."""
+    lead = (None,) if stacked else ()  # leading stacked-layer axis
+    # kernels are [L?, din, dout]
+    qkv = P(*lead, None, MODEL_AXIS)
+    o = P(*lead, MODEL_AXIS, None)
+    qkv_b = P(*lead, MODEL_AXIS)
+    o_b = P(*lead, None)
+    return {
+        "q": {"kernel": qkv, "bias": qkv_b},
+        "k": {"kernel": qkv, "bias": qkv_b},
+        "v": {"kernel": qkv, "bias": qkv_b},
+        "o": {"kernel": o, "bias": o_b},
+    }
+
+
+def _mlp_spec(stacked: bool) -> dict:
+    lead = (None,) if stacked else ()
+    return {
+        "fc1": {"kernel": P(*lead, None, MODEL_AXIS), "bias": P(*lead, MODEL_AXIS)},
+        "fc2": {"kernel": P(*lead, MODEL_AXIS, None), "bias": P(*lead, None)},
+    }
+
+
+def _ln_spec(stacked: bool) -> dict:
+    lead = (None,) if stacked else ()
+    return {"scale": P(*lead, None), "bias": P(*lead, None)}
+
+
+def param_specs() -> dict:
+    """PartitionSpec tree matching ``models.params.init_params``' structure."""
+    return {
+        "encoder": {
+            "patch_embed": {"kernel": P(None, None, None, MODEL_AXIS), "bias": P(MODEL_AXIS)},
+            "cls_token": P(None, None, None),
+            "pos_embed": P(None, None, None),
+            "layers": {
+                "ln1": _ln_spec(True),
+                "attn": _attn_spec(True),
+                "ln2": _ln_spec(True),
+                "mlp": _mlp_spec(True),
+            },
+            "final_ln": _ln_spec(False),
+        },
+        "decoder": {
+            "tok_embed": P(MODEL_AXIS, None),
+            "pos_embed": P(None, None),
+            "tok_type": P(None),
+            "emb_ln": _ln_spec(False),
+            "layers": {
+                "self_attn": _attn_spec(True),
+                "self_ln": _ln_spec(True),
+                "cross_attn": _attn_spec(True),
+                "cross_ln": _ln_spec(True),
+                "mlp": _mlp_spec(True),
+                "mlp_ln": _ln_spec(True),
+            },
+            "head": {
+                "transform": {
+                    "dense": {"kernel": P(None, None), "bias": P(None)},
+                    "ln": _ln_spec(False),
+                },
+                "proj": {"kernel": P(None, MODEL_AXIS), "bias": P(MODEL_AXIS)},
+            },
+        },
+    }
+
+
+def param_shardings(mesh: Mesh) -> dict:
+    """``param_specs`` with each spec on ``mesh``."""
+
+    def place(tree):
+        if isinstance(tree, dict):
+            return {k: place(v) for k, v in tree.items()}
+        return NamedSharding(mesh, tree)
+
+    return place(param_specs())
+
+
+def flat_specs() -> dict:
+    """``param_specs`` by leaf path ("decoder/head/proj/kernel"), the paths
+    the checkpoint files use."""
+    out = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            path = f"{prefix}/{k}" if prefix else k
+            if isinstance(v, dict):
+                walk(v, path)
+            else:
+                out[path] = v
+
+    walk(param_specs(), "")
+    return out
+
+
+def model_dim(spec: PartitionSpec) -> int | None:
+    """The dimension ``spec`` splits over the model axis, or None."""
+    return spec.index(MODEL_AXIS) if MODEL_AXIS in spec else None
+
+
+def shard_leaf(full: torch.Tensor, spec: PartitionSpec, n_model: int, column: int,
+               name: str = "leaf") -> torch.Tensor:
+    """Model column ``column``'s part of the full leaf ``full`` under
+    ``spec``: its contiguous slice of the split dimension (a view), or
+    ``full`` itself where nothing is split.  Raises ``ValueError`` (naming
+    ``name``) where the dimension does not divide by ``n_model``."""
+    dim = model_dim(spec)
+    if dim is None or n_model == 1:
+        return full
+    if full.ndim != len(spec) or full.shape[dim] % n_model:
+        raise ValueError(
+            f"shard_params: {name} of shape {tuple(full.shape)} cannot be split over a model "
+            f"axis of {n_model} along dim {dim} (spec {spec})"
+        )
+    size = full.shape[dim] // n_model
+    return full.narrow(dim, column * size, size)
+
+
+def device_of(d) -> torch.device:
+    """A mesh entry's torch device (``parallel.multihost``'s global mesh
+    holds ``RankDevice``s: the rank and its device)."""
+    return getattr(d, "device", d)
+
+
+def local_rows(mesh: Mesh) -> list[int]:
+    """The data rows whose devices belong to this process: every row of a
+    mesh of plain devices; on a global mesh the rows of this rank."""
+    rank = dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+    return [i for i, row in enumerate(mesh.devices)
+            if getattr(row[0], "process_index", rank) == rank]
+
+
+def _check_specs(params, shardings, prefix: str = "") -> None:
+    """Every leaf of ``params`` has a sharding and divides as it says."""
+    if isinstance(params, dict):
+        if not isinstance(shardings, dict) or set(params) - set(shardings):
+            extra = (sorted(set(params) - set(shardings)) if isinstance(shardings, dict)
+                     else sorted(params))
+            raise ValueError(f"shard_params: no spec for {prefix or 'the tree'} {extra}")
+        for k, v in params.items():
+            _check_specs(v, shardings[k], f"{prefix}/{k}" if prefix else k)
+        return
+    if not isinstance(shardings, NamedSharding):
+        raise ValueError(f"shard_params: {prefix} is a leaf where the specs hold a tree")
+    n_model = shardings.mesh.shape[MODEL_AXIS]
+    for c in range(n_model):
+        shard_leaf(params, shardings.spec, n_model, c, prefix)
+
+
+def _column_tree(params, shardings, column: int, device: torch.device):
+    if isinstance(params, dict):
+        return {k: _column_tree(v, shardings[k], column, device) for k, v in params.items()}
+    piece = shard_leaf(params, shardings.spec, shardings.mesh.shape[MODEL_AXIS], column)
+    out = torch.empty(piece.shape, dtype=piece.dtype, device=device)
+    out.copy_(piece)
+    return out
+
+
+def shard_params(params: dict, mesh: Mesh) -> list:
+    """Place a parameter tree onto ``mesh`` with ``param_shardings(mesh)``:
+    for each data row of this process, one
+    tree per model column (in column order), of the model's structure, whose
+    split leaves are that column's contiguous slice and whose replicated
+    leaves are whole; rows of other processes are None.  Every leaf of every
+    tree is a tensor of its own on its column's device (never a view, nor a
+    tensor shared with another row or column), so that training steps every
+    replica and every shard as a leaf of its own.  A split dimension that
+    does not divide by the model-axis size raises ``ValueError`` naming the
+    leaf, before anything is copied.  With a model axis of 1 each row holds
+    one whole copy (``dp_replicate``'s layout, unshared)."""
+    shardings = param_shardings(mesh)
+    _check_specs(params, shardings)
+    mine = set(local_rows(mesh))
+    with torch.no_grad():
+        return [
+            [_column_tree(params, shardings, c, device_of(d)) for c, d in enumerate(row)]
+            if i in mine else None
+            for i, row in enumerate(mesh.devices)
+        ]
+
+
+@torch.no_grad()
+def unshard_params(columns: list, get=None):
+    """One data row's column trees (``shard_params``) -> the full tree on
+    column 0's device: each split leaf the concatenation of its columns'
+    slices along its spec's dimension, in column order; a replicated leaf
+    column 0's.  ``get`` maps each column's leaf to the tensor put together
+    in its place (default: the leaf; e.g. its gradient or an optimizer
+    moment)."""
+    get = get or (lambda t: t)
+
+    def walk(cols, spec):
+        if isinstance(cols[0], dict):
+            return {k: walk([c[k] for c in cols], spec[k]) for k in cols[0]}
+        parts = [get(t) for t in cols]
+        dim = model_dim(spec)
+        if dim is None or len(parts) == 1:
+            return parts[0]
+        return torch.cat([p.to(parts[0].device) for p in parts], dim=dim)
+
+    return walk(columns, param_specs())

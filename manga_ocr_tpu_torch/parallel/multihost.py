@@ -17,7 +17,11 @@ Deployment shape (one process per rank):
     out = model(batch)                                  # on this rank's device
     tokens = mh.gather_to_hosts(out)                    # every rank's rows, in order
 
-Not here: the train step over a global mesh (ROADMAP.md queue 1 item 7).
+Training on a global mesh (``train.make_train_step(cfg, mesh)``) passes each
+rank's rows of the global batch to its step; the loss mask's sum, the
+gradients and the reported loss cross the ranks through ``all_reduce_sum``
+(the model axis stays inside a rank: ``make_global_mesh`` refuses model
+blocks that cross processes).
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from manga_ocr_tpu_torch.parallel.mesh import Mesh
+from manga_ocr_tpu_torch.parallel.mesh import Mesh, local_rows
 
 
 class RankDevice(NamedTuple):
@@ -159,6 +163,22 @@ def gather_to_hosts(t) -> np.ndarray:
     parts = [torch.empty_like(t) for _ in counts]
     dist.all_gather(parts, t.contiguous())
     return np.concatenate([p[:c].cpu().numpy() for p, c in zip(parts, counts)])
+
+
+def spans_processes(mesh: Mesh) -> bool:
+    """Whether some data row of ``mesh`` belongs to another rank."""
+    return len(local_rows(mesh)) < mesh.devices.shape[0]
+
+
+def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
+    """The sum over every rank of ``t`` (each rank's tensor of one shape and
+    dtype), as a new tensor on ``t``'s device, the same values on every rank.
+    Under gloo the sum crosses through the CPU, under NCCL through this
+    rank's card; a failed collective raises."""
+    where = _local_device() if dist.get_backend() == "nccl" else torch.device("cpu")
+    buf = t.detach().to(where, copy=True)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM)
+    return buf.to(t.device)
 
 
 def sync(name: str = "barrier") -> None:

@@ -135,16 +135,49 @@ def test_warmup_rounds_batches_to_the_mesh_multiple(engines):
     assert sharded._warmed == {((128, 128), 8)}
 
 
+@pytest.fixture(scope="module")
+def tp_texts():
+    """Each page's strings from the port's single-device reference engine and
+    from JAX's tensor-parallel engine (``serving_kernels=False`` on its
+    (4, 2) mesh, as ``__graft_entry__.dryrun_multichip`` runs it)."""
+    from manga_ocr_tpu.parallel import mesh as jmesh
+
+    cfg = MangaOCRConfig.tiny()
+    np_params = init_params_numpy(cfg, 0, std=0.1)
+    jax_tp = TpuMangaOcrEngine(np_params, cfg, CharTokenizer.synthetic(), max_length=MAX_LEN,
+                               dtype=jnp.float32, mesh=jmesh.make_mesh(4, 2),
+                               serving_kernels=False)
+    single = TorchMangaOcrEngine(params_from_jax(np_params, "cpu"), port_config(cfg),
+                                 PortTokenizer.synthetic(), max_length=MAX_LEN,
+                                 dtype=torch.float32, device="cpu", serving_kernels=False)
+    return {name: (single.ocr_page(crops), jax_tp.ocr_page(crops))
+            for name, crops in PAGES.items()}
+
+
 @pytest.mark.parametrize("serving_kernels, match", [
-    (True, "data-parallel"), (False, "ROADMAP"), (None, "ROADMAP")])
-def test_model_axis_above_one_raises(serving_kernels, match):
+    (True, "data-parallel"), (False, None), (None, None)])
+def test_model_axis_above_one_raises(serving_kernels, match, tp_texts):
+    """On a (4, 2) mesh the serving kernels raise (they hold whole weights,
+    as in the JAX engine); ``serving_kernels=False`` and the default serve
+    tensor-parallel on the plain route: every page's strings equal the
+    single-device reference engine's and JAX's tensor-parallel engine's."""
     cfg = port_config(MangaOCRConfig.tiny())
     mesh = meshlib.make_mesh(4, 2, devices=[torch.device("cpu")] * 8)
     assert mesh.shape == {"data": 4, "model": 2}
-    with pytest.raises(ValueError, match=match):
-        TorchMangaOcrEngine(params_from_jax(init_params_numpy(MangaOCRConfig.tiny(), 0), "cpu"),
-                            cfg, PortTokenizer.synthetic(), dtype=torch.float32, device="cpu",
-                            mesh=mesh, serving_kernels=serving_kernels)
+    params = params_from_jax(init_params_numpy(MangaOCRConfig.tiny(), 0, std=0.1), "cpu")
+    kw = dict(max_length=MAX_LEN, dtype=torch.float32, device="cpu", mesh=mesh,
+              serving_kernels=serving_kernels)
+    if match is not None:
+        with pytest.raises(ValueError, match=match):
+            TorchMangaOcrEngine(params, cfg, PortTokenizer.synthetic(), **kw)
+        return
+    engine = TorchMangaOcrEngine(params, cfg, PortTokenizer.synthetic(), **kw)
+    assert engine.cfg == cfg and len(engine._replicas) == 4
+    assert all(len(cols) == 2 for cols in engine._replicas)
+    for name, crops in PAGES.items():
+        want, jax_want = tp_texts[name]
+        assert engine.ocr_page(crops) == want == jax_want, name
+    assert len(set(tp_texts["5_crops"][0])) > 1
 
 
 def test_a_mesh_of_another_device_type_raises(mesh):

@@ -359,8 +359,14 @@ def test_train_cli_needs_cuda_unless_told_cpu(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is unavailable"):
         ttr.main(["--config", "tiny", "--steps", "1", "--checkpoint-dir", str(tmp_path)])
     assert not os.listdir(tmp_path)
-    with pytest.raises(SystemExit):  # not ported: argparse refuses them
-        ttr.main(["--config", "tiny", "--mesh-data", "2", "--device", "cpu"])
+    # on a (2 data x 2 model) virtual CPU mesh the command line trains and
+    # writes its state, which JAX's loader reads
+    mesh_dir = tmp_path / "mesh"
+    assert ttr.main(["--config", "tiny", "--steps", "2", "--batch-size", "4", "--seq-len", "8",
+                     "--warmup-steps", "1", "--mesh-data", "2", "--mesh-model", "2",
+                     "--checkpoint-dir", str(mesh_dir), "--device", "cpu"]) == 0
+    _, _, step, jcfg = jtr.load_train_state(str(mesh_dir), jtr.make_optimizer())
+    assert step == 2 and port_config(jcfg) == TCFG
 
 
 def test_train_cli_export_hf_reads_back_in_both_packages(tmp_path, capsys):
