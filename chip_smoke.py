@@ -107,7 +107,12 @@ a (1, 2) and a (2, 2) mesh of cuda:0, from each tree in turn.)
    encoder output against the plain encoder's, the tokens scored by
    teacher forcing; and one page through the engine with
    serving_kernels=False on a merged_layer bf16 config (H and C).
-6. The forms of kernels A and C that complete the port: A's sdpa_int8
+6. Kernel C's batch invariance: its four cluster forms (serving, fuse_kv,
+   int8_w, int8_w + fuse_kv) on the first B rows of one encoder output at
+   B = 16, 128, 240, 256 and 384 (16-row tiles, one wave, and tiles of
+   17-32 rows, each grid printed), every row's [lengths | tokens]
+   bit-equal across the batch sizes.  Then the forms of kernels A and C
+   that complete the port: A's sdpa_int8
    form held against its plain version at B=256 (and sdpa_headpack shown
    bit-identical to A's default form); C's int8_w form on the cluster
    kernel's int8 instance (s8 projections), held and timed beside the
@@ -182,6 +187,15 @@ a (1, 2) and a (2, 2) mesh of cuda:0, from each tree in turn.)
    held-out lines exactly;
    ``train_latin.main(["--steps", "20", "--out", DIR])`` at its defaults,
    the directory loaded back.
+   Between the two (phase "closed loop"), scripts/torch_closed_loop_fullsize.py's
+   run at base() width cut to CLOSED_LOOP_STEPS steps of B=32 (its render
+   process, the clipped AdamW step, a checkpoint in a temporary
+   directory), its held-out read of CLOSED_LOOP_EVAL crops through the
+   int8 serving engine and the serving_kernels=False bf16 control, and
+   ocr_forward's crops/s at budget 300 and 32: steps/s, the host's share
+   of the loop, exact/CER (a plumbing check: the model has barely
+   trained) and the rates printed; a non-finite loss or one at or above
+   ln(vocab) fails.
 10. Detection (no kernel of its own; plain PyTorch on the card, host
    contours on the machine's own tier -- cv2 where OpenCV is installed,
    else the native tracer -- never the NumPy fallback; the native tracer
@@ -273,9 +287,8 @@ a (1, 2) and a (2, 2) mesh of cuda:0, from each tree in turn.)
    than are visible; the full-width int8 engine on the mesh (exact launch
    counts: A 12, B 12, C 1 per shard dispatch), the [lengths | tokens]
    matrix of each bucket of the 256-crop page against the single-device
-   engine's (bit-equal rows, or, where kernel C's result depends on the
-   batch size, the differing rows teacher-forced within DECODE_GAP_REL, the
-   stage and C's grids printed), both engines' crops/s; BubbleDetector,
+   engine's (every row bit-equal; where one differs, the stage and C's
+   grids are printed and the run fails), both engines' crops/s; BubbleDetector,
    LamaInpainter (big-lama) and TorchLatinEngine's CRAFT maps and CRNN
    logits on the mesh against one device on each shard's slice (bit-equal;
    LaMa within one level on 0.5% of pixels); then one rank a mesh device in
@@ -1108,7 +1121,8 @@ def engine_rates() -> dict:
 def decode_times() -> dict:
     """Kernel C at B=256, 299 steps, bf16 decoder weights, on a random raw
     encoder output and final LN: CUDA-event ms (mean of 2 after a warm run)
-    of the serving form over precomputed slabs, the fuse_kv form, final LN
+    of the serving form over precomputed slabs (also on their first 32
+    rows), the fuse_kv form, final LN
     + precompute_cross_kv_packed + the serving form (the unfused path), and
     the int8_w form (quantize_decoder weights) over the same slabs; then one
     profiled fuse_kv decode, printed as device ms by kernel.  Then int8_w
@@ -1143,13 +1157,16 @@ def decode_times() -> dict:
             params, common.layer_norm(enc_raw, fln["scale"], fln["bias"], eps), dcfg, int8=False)
 
     cross = slabs(p)
+    cross32 = dec.CrossKVPacked(cross.k[:, :32].contiguous(), cross.v[:, :32].contiguous())
+    times = {"C serving B=32": cuda_ms(lambda: dl.greedy_decode_loop(p, cross32, dcfg, steps),
+                                       reps=2)}
     runs = {"serving": lambda: dl.greedy_decode_loop(p, cross, dcfg, steps),
             "fuse_kv": lambda: dl.greedy_decode_loop(p, None, dcfg, steps, **fuse),
             "unfused (final LN + precompute + serving)":
                 lambda: dl.greedy_decode_loop(p, slabs(p), dcfg, steps),
             "int8_w": lambda: dl.greedy_decode_loop(q, cross, dcfg, steps),
             "int8_w + fuse_kv": lambda: dl.greedy_decode_loop(q, None, dcfg, steps, **fuse)}
-    times = {f"C {name} B={batch}": cuda_ms(fn, reps=2) for name, fn in runs.items()}
+    times.update({f"C {name} B={batch}": cuda_ms(fn, reps=2) for name, fn in runs.items()})
     traced(f"C fuse_kv B={batch}", runs["fuse_kv"])
     return times
 
@@ -1833,8 +1850,68 @@ def check_decode_kernel(params, cfg, results: dict) -> None:
                 f"{total / steps:.0f} clocks a step on {card_line()}")
 
 
+# Kernel C's rows must not depend on the bucket's batch size: one 16-row
+# tile (16), one wave of 16-row tiles (128, 240), a wave of wider tiles
+# where the bucket needs more 16-row tiles than the card seats clusters
+# and one wave of at most 32 rows a tile holds it (256: 18 rows on an
+# H100, which seats 15 clusters of 8), and two waves of 16-row tiles
+# where it does not (384).
+C_INVARIANCE_BATCHES = (16, 128, 240, 256, 384)
+
+
+def check_batch_invariance(decs: dict, fln: dict, dcfg, steps: int, s: int, d: int) -> None:
+    """Kernel C's four cluster forms (serving, fuse_kv, int8_w, int8_w +
+    fuse_kv) on the first B rows of one random raw encoder output at each B
+    of C_INVARIANCE_BATCHES: every row's [lengths | tokens] must be
+    bit-equal to the same row's at the largest B, and the grids must cover
+    16-row tiles and tiles of more than 16 rows.  The serving and int8_w
+    forms read slices of slabs precomputed once at the largest B, so that
+    only the kernel's rows are compared."""
+    import numpy as np
+    import torch
+
+    from manga_ocr_tpu_torch.models import decoder as dec
+    from manga_ocr_tpu_torch.ops import common
+    from manga_ocr_tpu_torch.ops import decode_loop as dl
+
+    top = max(C_INVARIANCE_BATCHES)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    enc_raw = (2 * torch.randn((top, s, d), generator=gen, device="cuda") + 0.5).to(torch.bfloat16)
+    enc = common.layer_norm(enc_raw, fln["scale"], fln["bias"], dcfg.layer_norm_eps)
+    rows_seen = set()
+    for form, weights, fuse in (("serving", "bf16", False), ("fuse_kv", "bf16", True),
+                                ("int8_w", "int8_w", False), ("int8_w + fuse_kv", "int8_w", True)):
+        p = decs[weights]
+        cross = None if fuse else dec.precompute_cross_kv_packed(p, enc, dcfg, int8=False)
+        mats, grids = {}, {}
+        for b in C_INVARIANCE_BATCHES:
+            if fuse:
+                out = dl.greedy_decode_loop(p, None, dcfg, steps, enc_raw=enc_raw[:b], s_valid=s,
+                                            enc_final_ln=fln)
+            else:
+                part = dec.CrossKVPacked(cross.k[:, :b].contiguous(), cross.v[:, :b].contiguous())
+                out = dl.greedy_decode_loop(p, part, dcfg, steps)
+            grids[b] = dict(dl.greedy_decode_loop.last_grid)
+            if grids[b]["form"] != "cluster":
+                fail(f"kernel C {form} B={b}: ran the {grids[b]['form']} kernel")
+            rows_seen.add(grids[b]["rows_per_tile"])
+            tokens, lengths = out
+            mats[b] = torch.cat([lengths[:, None], tokens], dim=1).cpu().numpy()
+        ref = mats[top]
+        differ = {b: int((m != ref[:b]).any(axis=1).sum()) for b, m in mats.items()}
+        log(f"kernel C {form}: rows differing from B={top}'s by B {differ}; grids "
+            f"{ {b: grids[b] for b in C_INVARIANCE_BATCHES} }; median length "
+            f"{float(np.median(ref[:, 0]))} on {card_line()}")
+        if any(differ.values()):
+            fail(f"kernel C {form}: a row's tokens depend on the batch size: {differ}")
+    if not (16 in rows_seen and max(rows_seen) > 16):
+        fail(f"kernel C batch invariance: tiles of {sorted(rows_seen)} rows; the check needs "
+             f"16-row tiles and wider ones")
+
+
 def check_decode_forms(raw, cfg, results: dict) -> None:
-    """Kernel C's int8_w and fuse_kv forms (and both together) against
+    """Kernel C's batch invariance (``check_batch_invariance``), then its
+    int8_w and fuse_kv forms (and both together) against
     their plain versions at B=256, steps=299.  int8_w over precomputed
     slabs on the cluster kernel's int8 instance, and on the present kernel
     (kernel="loop") on the same inputs, both held (teacher-forced within
@@ -1873,6 +1950,7 @@ def check_decode_forms(raw, cfg, results: dict) -> None:
            "bias": 0.1 * torch.randn(d, generator=gen, device="cuda")}
     enc = common.layer_norm(enc_raw, fln["scale"], fln["bias"], dcfg.layer_norm_eps)
     fuse = dict(enc_raw=enc_raw, s_valid=s, enc_final_ln=fln)
+    check_batch_invariance(decs, fln, dcfg, steps, s, d)
     for form, p in decs.items():
         cross = dec.precompute_cross_kv_packed(p, enc, dcfg, int8=False)
         int8_w = form == "int8_w"
@@ -3593,6 +3671,59 @@ def run_training() -> None:
 # 0.67 and 3.70.  So four loops run side by side in child processes, data
 # seeds 0 (JAX's) to 3, with JAX's settings but a cap of 4000 steps, and the
 # first that ends below loss 0.5 and reads 20 of the 24 lines stops the rest.
+# The closed loop's short run (phase "closed loop"): the full-size
+# closed loop's script (scripts/torch_closed_loop_fullsize.py) at base()
+# width for CLOSED_LOOP_STEPS steps of B=32, its held-out read of
+# CLOSED_LOOP_EVAL crops and both model-only rates.  A plumbing check:
+# so few steps leave the loss near the unigram entropy and the reads wrong.
+CLOSED_LOOP_STEPS = 200
+CLOSED_LOOP_EVAL = 32
+
+
+def run_closed_loop() -> None:
+    """``run`` of scripts/torch_closed_loop_fullsize.py on the card: its
+    render pool (a render process feeding the batches), CLOSED_LOOP_STEPS
+    clipped AdamW steps of B=32 on base() in f32 into a temporary
+    checkpoint directory, the held-out read of CLOSED_LOOP_EVAL crops
+    through the int8 serving engine (A, B, C) and the serving_kernels=False
+    bf16 control at max length 300, and ocr_forward's crops/s at budget 300
+    and 32 on 256 crops.  Prints steps/s, the loop's share of time waiting
+    on the host for a batch, exact/CER and the rates; fails on a non-finite
+    loss, a loss at or above ln(vocab), no checkpoint, or no rate."""
+    import math
+    import tempfile
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import torch_closed_loop_fullsize as cl
+
+    from manga_ocr_tpu_torch.models.config import MangaOCRConfig
+    from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ckpt")
+        s = cl.run(MangaOCRConfig.base(), CharTokenizer.synthetic(), CLOSED_LOOP_STEPS, 32,
+                   eval_n=CLOSED_LOOP_EVAL, tp_batch=256, ckpt_dir=path, pool_min=1000)
+        saved = sorted(os.listdir(path))
+    info = s["train"]
+    log(f"closed loop, base() from scratch: {info['steps']} steps of B=32 in "
+        f"{info['train_s']} s ({info['steps_per_s']} steps/s), waiting on the host "
+        f"{info['host_share']} of the loop, final loss {info['final_loss']}, pool "
+        f"{info['pool']} crops; checkpoint {saved}; held-out {s['eval_n']} crops: int8 serving "
+        f"exact {s['exact_fused_int8']} CER {s['cer_fused_int8']}, bf16 control exact "
+        f"{s['exact_xla_bf16']} CER {s['cer_xla_bf16']}, agreement {s['fused_vs_xla_agree']}; "
+        f"ocr_forward crops/s at budget 300 {s['crops_per_s_budget300_trained']} (median length "
+        f"{s['len_median']}), at 32 {s['crops_per_s_budget32']}; {time.time() - t0:.1f} s on "
+        f"{card_line()}")
+    vocab = MangaOCRConfig.base().decoder.vocab_size
+    if not (math.isfinite(info["final_loss"]) and info["final_loss"] < math.log(vocab)):
+        fail(f"closed loop: final loss {info['final_loss']} (ln vocab {math.log(vocab):.3f})")
+    if "weights.npz" not in saved or not (s["crops_per_s_budget300_trained"] > 0
+                                          and s["crops_per_s_budget32"] > 0):
+        fail(f"closed loop: checkpoint {saved}, rates {s['crops_per_s_budget300_trained']}, "
+             f"{s['crops_per_s_budget32']}")
+
+
 LATIN_PIXEL_SUMS = tuple(f"features/conv{i}/" for i in range(6))
 LATIN_BATCH, LATIN_WIDTH, LATIN_MAX_CHARS, LATIN_LR = 32, 128, 16, 1e-3
 LATIN_TIMED_STEPS = 50
@@ -5358,14 +5489,12 @@ def dp_matrices(engine, page) -> list:
 
 def dp_hold_rows(label: str, engine, b, got, want, n: int) -> None:
     """Rows of one bucket from a run split ``n`` ways against the
-    single-device run's: bit-equal, or else (printed: which stage differs,
-    kernel C's grids) each differing row's tokens scored by the plain
-    decoder on the kernel encoder's output of its own shard (teacher-forced
-    gaps within DECODE_GAP_REL)."""
-    import numpy as np
+    single-device run's: every row bit-equal (the encoder and kernel C
+    compute each row alone).  Where rows differ, the run fails after
+    printing which stage differs (the encoder's output of the shards
+    against the whole batch's) and kernel C's grids at both batch sizes."""
     import torch
 
-    from manga_ocr_tpu_torch.models import decoder as dec
     from manga_ocr_tpu_torch.models import model as mdl
     from manga_ocr_tpu_torch.ops import decode_loop as dl
     from manga_ocr_tpu_torch.ops import preprocess as pp
@@ -5374,7 +5503,6 @@ def dp_hold_rows(label: str, engine, b, got, want, n: int) -> None:
     if same.all():
         log(f"{label}: bucket {b.bucket_hw} x{b.crops.shape[0]}: {len(got)} rows bit-equal")
         return
-    bad = np.flatnonzero(~same)
     rows = b.crops.shape[0] // n
     with torch.inference_mode():
         px = pp.model_preprocess(torch.from_numpy(b.crops).cuda(), torch.from_numpy(b.sizes).cuda(),
@@ -5387,21 +5515,11 @@ def dp_hold_rows(label: str, engine, b, got, want, n: int) -> None:
         for x in (px, px[:rows]):
             mdl.ocr_forward(engine.params, x, engine.cfg, max_length=engine.max_length)
             grids.append(dl.greedy_decode_loop.last_grid)
-        tokens = torch.from_numpy(np.ascontiguousarray(got[bad, 1:])).cuda()
-        lengths = torch.from_numpy(np.ascontiguousarray(got[bad, 0])).cuda()
-        cross = dec.precompute_cross_kv_packed(engine.params["decoder"], parts[bad].to(engine.dtype),
-                                               engine.cfg.decoder, int8=False)
-        stats = live_gap_stats(*dl.teacher_forced_gaps(
-            engine.params["decoder"], cross, engine.cfg.decoder,
-            tokens[:, : int(lengths.max())].contiguous()), lengths)
     where = "encoder (kernels A, B)" if enc_diff else "decode (kernel C)"
-    log(f"{label}: bucket {b.bucket_hw} x{b.crops.shape[0]}: {len(bad)} of {len(got)} rows differ "
-        f"from the single-device run; the encoder's output of the shards differs from the whole "
-        f"batch's by {enc_diff} (so the {where} depends on the batch; C's grid at "
-        f"B={b.crops.shape[0]} {grids[0]}, at B={rows} {grids[1]}); the differing rows "
-        f"teacher-forced by the plain decoder on their shard's encoder output {stats}")
-    if stats["max_rel_gap"] > DECODE_GAP_REL:
-        fail(f"{label}: sharded rows' gap {stats['max_rel_gap']} over {DECODE_GAP_REL}")
+    fail(f"{label}: bucket {b.bucket_hw} x{b.crops.shape[0]}: {int((~same).sum())} of {len(got)} "
+         f"rows differ from the single-device run; the encoder's output of the shards differs "
+         f"from the whole batch's by {enc_diff} (so the {where} depends on the batch; C's grid "
+         f"at B={b.crops.shape[0]} {grids[0]}, at B={rows} {grids[1]})")
 
 
 def dp_bucket():
@@ -6125,6 +6243,11 @@ def run_engines(results: dict) -> dict:
     torch.cuda.empty_cache()
     run_training()
     phase("training")
+
+    # -- the full-size closed loop's script, cut to CLOSED_LOOP_STEPS: A, B, C -------
+    torch.cuda.empty_cache()
+    run_closed_loop()
+    phase("closed loop")
 
     # -- Latin recognizer training at the published CRNN width; no kernel -----------
     torch.cuda.empty_cache()

@@ -718,14 +718,64 @@ __device__ __forceinline__ void gather(const cg::cluster_group& cl, char* xch, i
   __syncthreads();
 }
 
+// One unit of a row's PV, keys [j0, j1) of the probabilities p (V row j
+// at vr0 + j * D): lane (grp = lane / NC, c = lane % NC) sums keys j0 + grp,
+// j0 + grp + G, ... over its 8 dims, the G groups' sums meet in grp_sum
+// ([G][DH] of this warp) and are added in group order, and put(i, d, a)
+// takes dim d = lane + 32 i's sum.  Both attention paths build a row's
+// context from these sums alone, added in chunk order from 0, so a row's
+// tokens do not depend on the path: not on the tile's row count, so not on
+// the bucket's batch size.  ``prefetch`` asks L2 for V two rounds ahead.
+template <int NC, typename Put>
+__device__ __forceinline__ void pv_chunk(const float* p, const bf16* vr0, int j0, int j1, int n,
+                                         int D, float* grp_sum, bool prefetch, Put&& put) {
+  constexpr int DH = 8 * NC, G = 32 / NC;
+  const int lane = threadIdx.x & 31, c = lane % NC, grp = lane / NC;
+  if (grp < G) {
+    float acc[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    const uint4* vr = reinterpret_cast<const uint4*>(vr0) + c;
+#pragma unroll 16
+    for (int j = j0 + grp; j < j1; j += G) {
+      if (prefetch && c == 0 && j + 2 * 32 < n) {
+        const char* vrow = reinterpret_cast<const char*>(vr0 + (long)(j + 2 * 32) * D);
+        prefetch_l2(vrow);
+        prefetch_l2(vrow + 16 * NC - 1);
+      }
+      const uint4 vv = vr[(long)j * (D / 8)];
+      const float pj = p[j];
+      const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&vv);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 vf = __bfloat1622float2(v2[e]);
+        acc[2 * e] += pj * vf.x;
+        acc[2 * e + 1] += pj * vf.y;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) grp_sum[grp * DH + 8 * c + e] = acc[e];
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < (DH + 31) / 32; ++i) {
+    const int d = lane + 32 * i;
+    if (d < DH) {
+      float a = 0.0f;
+#pragma unroll
+      for (int gg = 0; gg < G; ++gg) a += grp_sum[gg * DH + d];
+      put(i, d, a);
+    }
+  }
+  __syncwarp();
+}
+
 // Attention of the tile's live rows over n keys of one head, one warp per
 // row (warp w: rows w, w + WARPS, ...), as decode_loop.cuh attends: q rounded
 // to bf16, f32 scores x scale, exp(s - max) * (1/sum) rounded to bf16, f32
 // PV.  Scores: a lane takes one key and loads its whole head row (NC
 // 16-byte pieces) at once, after asking L2 for the next key it will take;
-// PV: NC lanes cover a key's row and 32 / NC key groups split the keys,
-// asking L2 for V two rounds ahead.  No block barrier: the warps run
-// their rows' phases independently.  K/V row b starts at k + b *
+// PV: pv_chunk over each KEY_CHUNK keys, asking L2 for V two rounds ahead,
+// the chunks added in order as attend_tile_t adds them.  No block barrier: the
+// warps run their rows' phases independently.  K/V row b starts at k + b *
 // kv_row_stride (offsets include the head).
 template <int NC, bool kF32>
 __device__ __forceinline__ void attend_rows_t(float* pout, int ldp, char* xch, int xrow,
@@ -783,40 +833,23 @@ __device__ __forceinline__ void attend_rows_t(float* pout, int ldp, char* xch, i
     const float inv = 1.0f / warp_sum(sum);
     for (int j = lane; j < n; j += 32) row[j] = bf16_round(__fmul_rn(row[j], inv));
     __syncwarp();
-    const int c = lane % NC, grp = lane / NC;
-    if (grp < G) {
-      float acc[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-      const uint4* vr = reinterpret_cast<const uint4*>(vr0) + c;
-  #pragma unroll 16
-      for (int j = grp; j < n; j += G) {
-        if (prefetch && c == 0 && j + 2 * 32 < n) {
-          const char* vrow = reinterpret_cast<const char*>(vr0 + (long)(j + 2 * 32) * D);
-          prefetch_l2(vrow);
-          prefetch_l2(vrow + 16 * NC - 1);
-        }
-        const uint4 vv = vr[(long)j * (D / 8)];
-        const float pj = row[j];
-        const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&vv);
+    // PV: the chunks' sums (pv_chunk) added in chunk order from 0, a lane
+    // keeping its dims' running sums
+    constexpr int DPL = (DH + 31) / 32;  // context dims a lane sums
+    float ctx_sum[DPL];
   #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 vf = __bfloat1622float2(v2[e]);
-          acc[2 * e] += pj * vf.x;
-          acc[2 * e + 1] += pj * vf.y;
-        }
-      }
+    for (int i = 0; i < DPL; ++i) ctx_sum[i] = 0.0f;
+    for (int j0 = 0; j0 < n; j0 += KEY_CHUNK)
+      pv_chunk<NC>(row, vr0, j0, min(n, j0 + KEY_CHUNK), n, D, grp_sum, prefetch,
+                   [&](int i, int, float a) { ctx_sum[i] += a; });
   #pragma unroll
-      for (int e = 0; e < 8; ++e) grp_sum[grp * DH + 8 * c + e] = acc[e];
-    }
-    __syncwarp();
-    bf16* ctx = reinterpret_cast<bf16*>(xch + r * xrow);
-    for (int d = lane; d < DH; d += 32) {
-      float a = 0.0f;
-  #pragma unroll
-      for (int gg = 0; gg < G; ++gg) a += grp_sum[gg * DH + d];
+    for (int i = 0; i < DPL; ++i) {
+      const int d = lane + 32 * i;
+      if (d >= DH) continue;
       if constexpr (kF32)
-        reinterpret_cast<float*>(xch + r * xrow)[d] = a;
+        reinterpret_cast<float*>(xch + r * xrow)[d] = ctx_sum[i];
       else
-        ctx[d] = __float2bfloat16_rn(a);
+        reinterpret_cast<bf16*>(xch + r * xrow)[d] = __float2bfloat16_rn(ctx_sum[i]);
     }
   }
 }
@@ -829,8 +862,7 @@ __device__ __forceinline__ void attend_rows_t(float* pout, int ldp, char* xch, i
 //   1. scores: a lane takes one key of a unit and loads its whole head row
 //      (NC 16-byte pieces) at once -> sc[r][j];
 //   2. softmax: a warp per row;
-//   3. PV: NC lanes cover a key's row, 32 / NC key groups split the unit's
-//      keys; each unit's f32 sum goes to parts[r][chunk];
+//   3. PV: pv_chunk over each unit's keys -> parts[r][chunk];
 //   4. ctx[r] = the sum of its chunks' parts in chunk order, as bf16 (or,
 //      kF32, f32) rows of the exchange buffer.
 // K/V row b starts at k + b * kv_row_stride (offsets include the head).
@@ -898,38 +930,13 @@ __device__ __forceinline__ void attend_tile_t(float* pout, int ldp, char* xch, i
     for (int j = lane; j < n; j += 32) row[j] = bf16_round(__fmul_rn(row[j], inv));
   }
   __syncthreads();
-  const int c = lane % NC, grp = lane / NC;
   for (int unit = warp; unit < units; unit += WARPS) {
     prefetch_unit(v, unit + WARPS);
     const int r = unit / n_ch, ch = unit % n_ch;
-    const int j0 = ch * KEY_CHUNK, j1 = min(n, j0 + KEY_CHUNK);
-    if (grp < G) {
-      float acc[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-      const uint4* vr = reinterpret_cast<const uint4*>(v + r * kv_row_stride) + c;
-      const float* p = sc + r * lds;
-#pragma unroll 16
-      for (int j = j0 + grp; j < j1; j += G) {
-        const uint4 vv = vr[(long)j * (D / 8)];
-        const float pj = p[j];
-        const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&vv);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 vf = __bfloat1622float2(v2[e]);
-          acc[2 * e] += pj * vf.x;
-          acc[2 * e + 1] += pj * vf.y;
-        }
-      }
-#pragma unroll
-      for (int e = 0; e < 8; ++e) grp_sum[grp * DH + 8 * c + e] = acc[e];
-    }
-    __syncwarp();
-    for (int d = lane; d < DH; d += 32) {
-      float a = 0.0f;
-#pragma unroll
-      for (int gg = 0; gg < G; ++gg) a += grp_sum[gg * DH + d];
-      parts[(r * n_ch + ch) * DH + d] = a;
-    }
-    __syncwarp();
+    const int j0 = ch * KEY_CHUNK;
+    pv_chunk<NC>(sc + r * lds, v + r * kv_row_stride, j0, min(n, j0 + KEY_CHUNK), n, D,
+                 grp_sum, false,
+                 [&](int, int d, float a) { parts[(r * n_ch + ch) * DH + d] = a; });
   }
   __syncthreads();
   for (int idx = threadIdx.x; idx < nrows * DH; idx += blockDim.x) {

@@ -1,5 +1,5 @@
 """The port stands alone: no module of ``manga_ocr_tpu_torch/``, no
-``chip_smoke.py`` and no card test imports ``jax``, ``optax`` or anything of
+``scripts/torch_*.py``, no ``chip_smoke.py`` and no card test imports ``jax``, ``optax`` or anything of
 the JAX package (an AST scan, and a subprocess that imports the engine, the
 server, the command line with its ``process`` modules, ``MangaOcr``, the HF
 converter, the trainer and ``chip_smoke`` and then reads ``sys.modules``); and the port's own
@@ -66,8 +66,9 @@ FORBIDDEN = ("jax", "jaxlib", "manga_ocr_tpu", "optax")
 def _standalone_files():
     files = sorted(glob.glob(os.path.join(REPO, "manga_ocr_tpu_torch", "**", "*.py"),
                              recursive=True))
-    return files + [os.path.join(REPO, "chip_smoke.py"),
-                    os.path.join(REPO, "tests", "test_torch_cuda.py")]
+    scripts = sorted(glob.glob(os.path.join(REPO, "scripts", "torch_*.py")))
+    return files + scripts + [os.path.join(REPO, "chip_smoke.py"),
+                              os.path.join(REPO, "tests", "test_torch_cuda.py")]
 
 
 def _imports(path):
