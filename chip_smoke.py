@@ -82,7 +82,23 @@ a (1, 2) and a (2, 2) mesh of cuda:0, from each tree in turn.)
    the bucket program's on the unsent gray batch, and the coalesced
    readback on 2 x cuda:0 bit-equal to the per-bucket one; with each
    page's wire bytes, the stage split, ocr_page's and ocr_pages' crops/s,
-   and the dispatch path's host synchronizations.  Then the step-by-step
+   and the dispatch path's host synchronizations.  Then (phase "engine
+   graphs", run_graphs) aot=True, one CUDA graph per (bucket, padded
+   batch), on the int8 and the bf16 engine: every bucket's rows bit-equal
+   to the same engine's eager bucket program on the 256-crop, the 8-crop
+   and the five-bucket page (int8: wire gray and packed, coalesce on and
+   off; bf16: gray coalesced), shapes captured at
+   their first dispatch and then every page dispatched before any is read,
+   which must launch no kernel wrapper (the graphs run the kernels);
+   ocr_pages over GRAPH_STREAM pages, lookahead 2, its rows bit-equal,
+   with the shapes captured in the order opposite to the one the pages
+   reach them in and one shape outside the warmed set, which must be
+   captured from the lookahead thread and counted once in COMPILE_EVENTS;
+   the capture seconds a shape, the device memory warmup() and
+   warmup(full=True) hold beside the eager engine's, and ocr_page crops/s
+   with the StageTimer's "dispatch" ms a page, eager against graph, at
+   budgets 300 and 24, on the 256-crop and the 8-crop page, and ocr_pages'
+   crops/s.  Then the step-by-step
    greedy decode (head_kernel and step_mlp_kernel "fused": kernels F and
    D) at B=32 over 100 steps, its tokens scored by the plain step decode;
    and one page through the exact reference path (serving_kernels=False),
@@ -2525,6 +2541,264 @@ def step_gaps(params, enc, cfg, tokens, lengths) -> dict:
         top[:, t] = lg.amax(-1)
         gaps[:, t] = top[:, t] - lg.gather(1, tokens[:, t + 1].long()[:, None])[:, 0]
     return live_gap_stats(gaps, top, lengths)
+
+
+GRAPH_STREAM = 8  # ocr_pages' pages in the graphs' stream check and rate, lookahead 2
+GRAPH_BUDGETS = (300, 24)  # max_length: the serving budget; above a trained model's p95 length (~20)
+GRAPH_FULL_BATCHES = (8, 16, 32, 64, 128, 256, 512)  # warmup(full=True)'s batch schedule
+GRAPH_STEP_LEN = 8  # max_length of the step-by-step decode's check (no graph; its steps cut)
+
+
+def page_shapes(page) -> list:
+    """The (bucket, padded batch) shapes of ``page``'s dispatches, in order."""
+    from manga_ocr_tpu_torch.parallel import batching
+
+    return [(b.bucket_hw, b.crops.shape[0]) for b in batching.prep_page_gray(page, 1)]
+
+
+def bucket_rows(engine, page) -> list:
+    """Each gray batch of ``page`` through ``engine``'s eager bucket program
+    (its own params, no graph, no wire): [valid, 1 + L] int32 rows a bucket."""
+    import torch
+
+    from manga_ocr_tpu_torch.parallel import batching
+
+    with torch.inference_mode():
+        return [engine._bucket_program(torch.from_numpy(b.crops).cuda(),
+                                       torch.from_numpy(b.sizes).cuda()).cpu().numpy()[: b.valid]
+                for b in batching.prep_page_gray(page, 1)]
+
+
+def hold_rows(label: str, got: list, want: list) -> None:
+    import numpy as np
+
+    if len(got) != len(want):
+        fail(f"{label}: {len(got)} buckets, expected {len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape or not np.array_equal(g, w):
+            fail(f"{label}: bucket {i}'s rows differ from the eager bucket program's "
+                 f"({int((g != w).any(axis=1).sum()) if g.shape == w.shape else g.shape} rows)")
+
+
+def wrapper_launches() -> int:
+    return sum(w.launches for w in kernel_wrappers().values())
+
+
+def device_mib() -> tuple:
+    """(allocated, reserved, held by CUDA graphs' private pools) device MiB
+    after a synchronize and empty_cache."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    pools = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+    return (torch.cuda.memory_allocated() / 2**20, torch.cuda.memory_reserved() / 2**20,
+            pools / 2**20)
+
+
+def graph_rate(engine, page, reps: int) -> tuple:
+    """(ocr_page crops/s over ``reps`` pages, the StageTimer's "dispatch" ms
+    a page over ``reps`` timed pages), after a warm page."""
+    import torch
+
+    from manga_ocr_tpu_torch.utils.metrics import StageTimer
+
+    engine.ocr_page(page)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        engine.ocr_page(page)
+    rate = reps * len(page) / (time.perf_counter() - t0)
+    timer = StageTimer()
+    for _ in range(reps):
+        engine.ocr_page(page, timer=timer)
+    return rate, timer.summary()["dispatch"]["total_s"] * 1000 / reps
+
+
+def run_graphs(params, crops) -> None:
+    """Phase "engine graphs": TorchMangaOcrEngine(aot=True) at full width,
+    one CUDA graph per (bucket, padded batch) shape (engine/graphs.py), held
+    bit for bit against the same engine's eager bucket program and measured
+    against the eager engine (see the module docstring, item 4)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from manga_ocr_tpu_torch.engine import TorchMangaOcrEngine
+    from manga_ocr_tpu_torch.models.config import MangaOCRConfig
+    from manga_ocr_tpu_torch.models.tokenizer import CharTokenizer
+    from manga_ocr_tpu_torch.utils.metrics import COMPILE_EVENTS
+
+    card = card_line()
+    cfg, tok = MangaOCRConfig.base(), CharTokenizer.synthetic()
+    big = [crops[i % len(crops)] for i in range(256)]
+    small = [crops[i % len(crops)] for i in range(8)]
+    pages = {"256-crop page": big, "8-crop page": small, "five-bucket page": wire_page(crops)}
+    for label, page in pages.items():
+        log(f"graphs: {label} dispatches {page_shapes(page)}")
+
+    def engine_of(**kw):
+        return TorchMangaOcrEngine(params, cfg, tok, device="cuda", **kw)
+
+    # -- rows: graph against eager, bit for bit --------------------------------
+    t0 = time.time()
+    settings = [("int8", True, w, c) for w, c in WIRE_SETTINGS] + [("bf16", False, "gray", True)]
+    want = {}
+    for form, q, wire, coalesce in settings:
+        name = f"{form} engine, wire={wire}, coalesce={coalesce}"
+        engine = engine_of(quantize_int8=q, wire=wire, coalesce=coalesce, aot=True)
+        if not engine._aot:
+            fail(f"graphs {name}: aot=True is off on one CUDA device")
+        if form not in want:  # the form's first engine; the others quantize the same params
+            want[form] = {label: bucket_rows(engine, page) for label, page in pages.items()}
+        for label, page in pages.items():  # each shape captured at its first dispatch
+            hold_rows(f"graphs {name}, {label}", engine._page_rows(
+                engine._dispatch_page(page, 1, None)), want[form][label])
+        before = wrapper_launches()
+        dispatched = {label: engine._dispatch_page(page, 1, None) for label, page in pages.items()}
+        for label, d in dispatched.items():
+            hold_rows(f"graphs {name}, {label}, all pages dispatched first",
+                      engine._page_rows(d), want[form][label])
+        if wrapper_launches() != before:
+            fail(f"graphs {name}: replays launched {wrapper_launches() - before} kernel wrappers")
+        secs = {f"{hw[0]}x{hw[1]}@{n}": round(c.seconds, 4)
+                for (hw, n), c in engine._graphs.captures.items()}
+        log(f"graphs {name}: every bucket's rows bit-equal to the eager bucket program's on "
+            f"the three pages, twice; {len(secs)} shapes captured, capture s by shape "
+            f"{json.dumps(secs)} on {card}")
+        del engine, dispatched
+    # the step-by-step decode (serving_kernels=False) reads its "done" flags on
+    # the host between chunks: the server, graphs on by default, serves it
+    # eagerly from its warmup on
+    from manga_ocr_tpu_torch import serve
+
+    argv = ["--serving-kernels", "off", "--max-length", str(GRAPH_STEP_LEN)]
+    engines = [serve.build_engine(serve.parser().parse_args(argv + extra))
+               for extra in (["--no-aot"], [])]
+    if engines[1]._aot or engines[1]._graphs is not None:
+        fail("graphs: serve.py --serving-kernels off captures the step-by-step decode")
+    engines[1].warmup()
+    step_want = bucket_rows(engines[0], small)
+    for engine in engines:
+        hold_rows("graphs: serving_kernels=False, 8-crop page", engine._page_rows(
+            engine._dispatch_page(small, 1, None)), step_want)
+    log(f"graphs: serve.py --serving-kernels off (aot on by default) captures nothing, warms "
+        f"and serves the 8-crop page eagerly, rows bit-equal to --no-aot's "
+        f"(max_length {GRAPH_STEP_LEN})")
+    del engines, engine
+    torch.cuda.empty_cache()
+    log(f"graphs: rows checked in {time.time() - t0:.1f} s")
+
+    # -- ocr_pages: capture order opposite to dispatch order; one unwarmed shape --
+    t0 = time.time()
+    extra = [crops[i % len(crops)] for i in range(40)]  # batches 32 and 16
+    stream = [big, pages["five-bucket page"], small, big, extra, pages["five-bucket page"],
+              small, big][:GRAPH_STREAM]
+    engine = engine_of(aot=True)
+    new = [s for s in page_shapes(extra) if all(s not in page_shapes(p) for p in stream
+                                                 if p is not extra)]
+    if not new:
+        fail(f"graphs: the extra page's shapes {page_shapes(extra)} are all elsewhere")
+    reached = []
+    for page in stream:
+        reached += [s for s in page_shapes(page) if s not in reached and s not in new]
+    for hw, n in reversed(reached):
+        engine.warmup(bucket_hws=[hw], batch_sizes=[n])
+    if list(engine._graphs.captures) != reached[::-1]:
+        fail(f"graphs: warmup captured {list(engine._graphs.captures)}")
+    record, threads = engine._graphs._record, []
+
+    def traced_record(cap, program):
+        threads.append(threading.get_ident())
+        record(cap, program)
+
+    engine._graphs._record = traced_record
+    got, page_rows = [], engine._page_rows
+
+    def recorded_rows(page, stage=None):
+        got.append(page_rows(page, stage))
+        return got[-1]
+
+    engine._page_rows = recorded_rows
+    COMPILE_EVENTS.reset()
+    texts = engine.ocr_pages(stream, lookahead=2)
+    events = COMPILE_EVENTS.summary()
+    engine._page_rows = page_rows
+    eager = {id(page): want["int8"][label] for label, page in pages.items()}
+    eager[id(extra)] = bucket_rows(engine, extra)
+    for i, page in enumerate(stream):
+        hold_rows(f"graphs ocr_pages, page {i}", got[i], eager[id(page)])
+    if len(texts) != len(stream) or [len(t) for t in texts] != [len(p) for p in stream]:
+        fail(f"graphs ocr_pages: {[len(t) for t in texts]} strings for the pages")
+    want_events = {"unplanned_compile": len(new),
+                   **{f"unplanned:{hw[0]}x{hw[1]}@{n}": 1 for hw, n in new}}
+    if events != want_events or len(threads) != len(new) or \
+            threading.get_ident() in threads:
+        fail(f"graphs ocr_pages: COMPILE_EVENTS {events} (expected {want_events}), "
+             f"{len(threads)} captures, in the calling thread: {threading.get_ident() in threads}")
+    sync = dispatch_syncs(engine, big)
+    log(f"graphs ocr_pages over {len(stream)} pages, lookahead 2: every row bit-equal to the "
+        f"eager bucket program's; {len(reached)} shapes captured in the order opposite to the "
+        f"pages', {new} first reached from the lookahead thread and captured there, "
+        f"COMPILE_EVENTS {events}; host synchronizations on a replayed 256-crop page's "
+        f"dispatch {sync['syncs']}, the dispatch returned after {sync['dispatch_s']:.4f} s "
+        f"(host clock); {time.time() - t0:.1f} s on {card}")
+    del engine
+    torch.cuda.empty_cache()
+
+    # -- capture: seconds and device memory ------------------------------------
+    memory, secs = {}, {}
+    for label, kw, full in (("eager engine, warmup()", {}, False),
+                            ("graph engine, warmup()", {"aot": True}, False),
+                            ("graph engine, warmup(full=True)", {"aot": True}, True)):
+        a0, r0, p0 = device_mib()
+        t0 = time.time()
+        engine = engine_of(**kw)
+        engine.warmup(full=full, batch_sizes=GRAPH_FULL_BATCHES if full else None)
+        seconds = time.time() - t0
+        a1, r1, p1 = device_mib()
+        memory[label] = {"allocated_mib": round(a1 - a0, 1), "graph_pool_mib": round(p1 - p0, 1),
+                         "reserved_mib": round(r1 - r0, 1), "reserved_after_mib": round(r1, 1),
+                         "build_and_warmup_s": round(seconds, 2)}
+        if engine._graphs is not None:
+            caps = [c.seconds for c in engine._graphs.captures.values()]
+            secs[label] = {"shapes": len(caps), "min": round(min(caps), 4),
+                           "median": round(float(np.median(caps)), 4), "max": round(max(caps), 4)}
+        del engine
+        a2, _, p2 = device_mib()  # the engine's graphs and pool go with it
+        memory[label]["after_del_mib"] = {"allocated": round(a2 - a0, 1),
+                                          "graph_pool": round(p2 - p0, 1)}
+    torch.cuda.empty_cache()
+    log(f"graphs: device memory the engine holds after its warmup (MiB beyond the run's "
+        f"before it: allocated, in graph pools, reserved; then reserved in all; then what "
+        f"stays allocated and pooled once the engine is dropped) "
+        f"{json.dumps(memory)}; capture s a shape {json.dumps(secs)} on {card}")
+
+    # -- speed: eager against graph, budgets 300 and 24 ------------------------------
+    rates = {}
+    for budget in GRAPH_BUDGETS:
+        # the card's work hides the host at the serving budget: one turn each
+        order = ("eager", "graph") if budget == 300 else ("eager", "graph", "graph", "eager")
+        for mode in order:
+            engine = engine_of(max_length=budget, aot=mode == "graph")
+            r = rates.setdefault(f"budget {budget}", {}).setdefault(mode, [])
+            big_rate, big_ms = graph_rate(engine, big, 2)
+            small_rate, small_ms = graph_rate(engine, small, 3 if budget == 300 else 5)
+            engine.ocr_pages([big], lookahead=2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.ocr_pages([big] * GRAPH_STREAM, lookahead=2)
+            r.append({"256-crop ocr_page crops/s": big_rate, "256-crop dispatch ms": big_ms,
+                      "8-crop ocr_page crops/s": small_rate, "8-crop dispatch ms": small_ms,
+                      "ocr_pages crops/s": GRAPH_STREAM * len(big) / (time.perf_counter() - t0)})
+            del engine
+        torch.cuda.empty_cache()
+    log(f"graphs: int8 engine, eager against graph (budget 300 eager, graph; 24 eager, graph, "
+        f"graph, eager): ocr_page crops/s and the StageTimer's dispatch ms a page on the 256-crop "
+        f"and the 8-crop page, ocr_pages crops/s over {GRAPH_STREAM} 256-crop pages "
+        f"(lookahead 2): {json.dumps(rates)} on {card}")
 
 
 def run_step_decode(engine, crops, results: dict) -> None:
@@ -6184,6 +6458,10 @@ def run_engines(results: dict) -> dict:
     # -- the wire formats and page coalescing on the int8 engine: A, B, C -------
     run_wire(params, crops)
     phase("wire and coalescing")
+
+    # -- compile-once dispatches: one CUDA graph per (bucket, padded batch) ---------
+    run_graphs(params, crops)
+    phase("engine graphs")
 
     # -- unquantized serving: kernels E, D, C -----------------------------------
     engine = TorchMangaOcrEngine(params, cfg, CharTokenizer.synthetic(), device="cuda",

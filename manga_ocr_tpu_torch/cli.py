@@ -19,8 +19,9 @@ or, under ``--device cpu``, an N-way virtual CPU mesh); ``--wire
 {gray,packed}`` picks the engine's host -> device crop format and
 ``--no-coalesce`` sends and reads back a multi-bucket page bucket by bucket
 (``TorchMangaOcrEngine``'s ``wire`` and ``coalesce``).  The JAX command
-line's ``bench`` subcommand and its ``--no-aot`` option are not ported: the
-command line rejects them.
+line's ``bench`` subcommand is not ported: the command line rejects it.
+Like JAX's, it has no ``--no-aot``: ``ocr`` and ``process`` dispatch
+eagerly, and only ``serve.py`` turns the engine's CUDA graphs on.
 """
 
 from __future__ import annotations
@@ -37,7 +38,9 @@ def _build_engine(args):
     random weights from ``args.seed`` (0 where ``args`` has none) at
     ``MangaOCRConfig.base()`` width with a warning; ``args.max_length``,
     ``args.dtype``, ``args.serving_kernels``, ``args.device``,
-    ``args.mesh_data`` (``_mesh``), ``args.wire`` and ``args.no_coalesce``."""
+    ``args.mesh_data`` (``_mesh``), ``args.wire``, ``args.no_coalesce`` and
+    ``args.no_aot`` (CUDA graphs on where ``args`` has it and it is False:
+    ``serve.py``'s default, as JAX's ``cli._build_engine`` passes ``aot``)."""
     import torch
 
     from manga_ocr_tpu_torch.engine import TorchMangaOcrEngine
@@ -73,6 +76,7 @@ def _build_engine(args):
         dtype=torch.float32 if args.dtype == "float32" else torch.bfloat16,
         serving_kernels=None if flag == "auto" else flag == "on", mesh=_mesh(args),
         wire=getattr(args, "wire", "gray"), coalesce=not getattr(args, "no_coalesce", False),
+        aot=not getattr(args, "no_aot", True),
     )
 
 

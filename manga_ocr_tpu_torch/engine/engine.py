@@ -43,8 +43,20 @@ device under a mesh).  Every copy to the host starts at dispatch
 (``HostCopy``: a pinned host tensor and a CUDA event), so ``ocr_pages``'s
 lookahead only waits on those copies.
 
-Not ported (each is absent, see ROADMAP.md): the AOT executable store
-and CUDA graph capture.
+``aot=True`` is the counterpart of the JAX engine's AOT executable store
+on one CUDA device: every dispatch of a (bucket, padded batch) shape,
+whichever wire brought its crops, replays ONE CUDA graph of
+``_bucket_program`` (``engine/graphs.py``), captured by ``warmup`` for the
+shapes it warms and at its first dispatch for any other (which
+``COMPILE_EVENTS`` counts as an unplanned compile, as JAX's does).  The rows
+are the eager dispatch's, bit for bit.  The CPU runs eagerly (it has no
+graphs), and so does a mesh, as under JAX's store, which is single-device
+(a data-parallel shard's graph would be one more per device, not ported).
+So does every decode but kernel C's whole loop (``step_kernel="fused_loop"``,
+the serving kernels): the step-by-step decodes (the exact reference path,
+``serving_kernels=False``, and the tensor-parallel decode) read their "done"
+flags on the host between chunks (``models.model.greedy_loop``), which no
+graph can, and a graph would fix their number of steps.
 """
 
 from __future__ import annotations
@@ -55,6 +67,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from manga_ocr_tpu_torch.engine import graphs
 from manga_ocr_tpu_torch.models import model as mdl
 from manga_ocr_tpu_torch.models.config import MangaOCRConfig, with_serving_kernels
 from manga_ocr_tpu_torch.models.quantize import quantize_encoder
@@ -167,6 +180,14 @@ class HostCopy:
         return self._host.numpy()
 
 
+def graphs_apply(aot: bool, mesh, device: torch.device, cfg: MangaOCRConfig) -> bool:
+    """Whether an engine asked for ``aot`` replays CUDA graphs: on one CUDA
+    device (JAX's store is single-device), and only where the whole decode
+    runs on the device (kernel C's loop; see the module docstring)."""
+    return (bool(aot) and mesh is None and device.type == "cuda"
+            and cfg.decoder.step_kernel == "fused_loop")
+
+
 class TorchMangaOcrEngine:
     """Batched manga-ocr engine on a CUDA device (or the CPU, for tests).
 
@@ -197,7 +218,13 @@ class TorchMangaOcrEngine:
     "packed" (height-tight rows, rebuilt on the device; one device only:
     a ``ValueError`` under a mesh).  ``coalesce``: a multi-bucket page's
     single h2d buffer (one device, gray batches) and single readback (any
-    configuration); ``False`` sends and reads back bucket by bucket."""
+    configuration); ``False`` sends and reads back bucket by bucket.
+
+    ``aot``: replay one CUDA graph per (bucket, padded batch) shape (see the
+    module docstring); on only for one CUDA device serving through kernel
+    C's loop, off on the CPU, under a mesh and for ``serving_kernels=False``
+    (``graphs_apply``; False by default, as JAX's; ``serve.py`` turns it on
+    unless given ``--no-aot``)."""
 
     def __init__(
         self,
@@ -212,6 +239,7 @@ class TorchMangaOcrEngine:
         mesh: meshlib.Mesh | None = None,
         wire: str = "gray",
         coalesce: bool = True,
+        aot: bool = False,
     ):
         devices = meshlib.serving_devices(mesh, device, "TorchMangaOcrEngine")
         self.device = devices[0]
@@ -274,6 +302,8 @@ class TorchMangaOcrEngine:
         self._batch_multiple = len(devices)
         self._lock = threading.Lock()
         self._warmed: set = set()  # (bucket_hw, padded_batch) pairs run once
+        self._aot = graphs_apply(aot, mesh, self.device, cfg)
+        self._graphs = graphs.BucketGraphs(self.device, self._lock) if self._aot else None
 
     # -- one dispatch ---------------------------------------------------------
 
@@ -288,6 +318,13 @@ class TorchMangaOcrEngine:
                                   max_length=self.max_length)
             return _joined(out)
 
+    def _program(self, crops: torch.Tensor, ext: torch.Tensor, shard: int = 0) -> torch.Tensor:
+        """``_bucket_program``, through its shape's CUDA graph under
+        ``aot``."""
+        if self._graphs is None:
+            return self._bucket_program(crops, ext, shard)
+        return self._graphs.run(self._bucket_program, crops, ext)
+
     def _send(self, crops_u8: np.ndarray, sizes: np.ndarray, shard: int, stage,
               timed: bool) -> tuple:
         """A gray-wire bucket's crops and extents to data device ``shard``,
@@ -301,11 +338,11 @@ class TorchMangaOcrEngine:
     def _run_bucket(self, crops_u8: np.ndarray, sizes: np.ndarray, shard: int = 0,
                     stage=None, timed: bool = False) -> torch.Tensor:
         """A gray-wire bucket on data device ``shard``: ``_send``, then
-        ``_bucket_program``."""
+        ``_program``."""
         stage = stage or _stage_fn(None)
         crops, ext = self._send(crops_u8, sizes, shard, stage, timed)
         with stage("dispatch"):
-            return self._bucket_program(crops, ext, shard)
+            return self._program(crops, ext, shard)
 
     def _run_sharded(self, crops_u8: np.ndarray, sizes: np.ndarray, stage=None,
                      timed: bool = False) -> list[torch.Tensor]:
@@ -331,7 +368,7 @@ class TorchMangaOcrEngine:
     def _run_packed(self, b: batching.PackedBatch, stage, timed: bool) -> torch.Tensor:
         """A packed-wire bucket: the row buffer and the [B, 3] (h, w, row
         offset) array in two transfers, the padded batch rebuilt on the
-        device, then ``_bucket_program``."""
+        device, then ``_program``."""
         device = self.device
         with stage("host_prep"):
             flat_h = _pinned(b.flat, device)
@@ -340,7 +377,7 @@ class TorchMangaOcrEngine:
         meta = _h2d(meta_h, device, stage, timed)
         with stage("dispatch"):
             crops, ext = pp.unpack_packed_page(flat, meta, *b.bucket_hw)
-            return self._bucket_program(crops, ext.contiguous())
+            return self._program(crops, ext.contiguous())
 
     def _dispatch_fused_wire(self, batches, stage, timed: bool) -> list:
         """A multi-bucket gray page over ONE transfer (the wire half of
@@ -365,7 +402,7 @@ class TorchMangaOcrEngine:
                 ext = _int32_rows(dwire[off:off + 8 * n], n)
                 off += 8 * n
                 self._note_dispatch_shape(b.bucket_hw, n)
-                outs.append((b, [self._bucket_program(crops, ext)]))
+                outs.append((b, [self._program(crops, ext)]))
         return outs
 
     # -- batched entry points ---------------------------------------------------
@@ -604,7 +641,8 @@ class TorchMangaOcrEngine:
         """Run one dispatch per bucket x batch shape (``full=True``: the whole
         ``warm_set()``; default: the common buckets at the smallest batch),
         each batch rounded up to the data-axis multiple first, then
-        deduplicated."""
+        deduplicated; under ``aot`` capture each shape's CUDA graph
+        instead, in that order."""
         if full:
             pairs = self.warm_set(bucket_hws, batch_sizes)
         else:
@@ -620,9 +658,12 @@ class TorchMangaOcrEngine:
             if (hw, n) not in rounded:
                 rounded.append((hw, n))
         for hw, n in rounded:
-            dummy = np.zeros((n, hw[0], hw[1]), np.uint8)  # gray wire
-            sizes = np.full((n, 2), hw, np.int32)
-            meshlib.dp_gather(self._run_sharded(dummy, sizes), n)
+            if self._graphs is not None:
+                self._graphs.capture(self._bucket_program, hw, n)
+            else:
+                dummy = np.zeros((n, hw[0], hw[1]), np.uint8)  # gray wire
+                sizes = np.full((n, 2), hw, np.int32)
+                meshlib.dp_gather(self._run_sharded(dummy, sizes), n)
             with self._lock:
                 self._warmed.add((hw, n))
 

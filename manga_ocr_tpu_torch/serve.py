@@ -11,7 +11,10 @@ page-size dispatches.
 Run: python -m manga_ocr_tpu_torch.serve --port 8080 --checkpoint DIR
 (without a checkpoint: random weights from ``--seed``), with the command
 line's engine options (``cli.add_engine_options``: ``--device``,
-``--wire``, ``--no-coalesce``, ``--mesh-data``, ...)
+``--wire``, ``--no-coalesce``, ``--mesh-data``, ...) and ``--no-aot``: the
+server replays one CUDA graph per (bucket, padded batch), captured by its
+warmup, unless given ``--no-aot`` (the engine's ``aot``; one CUDA device
+only, as JAX's AOT store is single-device).
 """
 
 from __future__ import annotations
@@ -158,6 +161,12 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights used without a checkpoint")
     p.add_argument("--window-ms", type=float, default=10.0)
+    p.add_argument(
+        "--no-aot", action="store_true",
+        help="dispatch eagerly instead of replaying one CUDA graph per bucket and "
+        "padded batch (the graphs are captured by the warmup; one CUDA device serving "
+        "through the kernels only)",
+    )
     return p
 
 

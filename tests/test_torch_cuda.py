@@ -705,6 +705,68 @@ def test_engine_runs_through_all_three_kernels(device):
     assert [a - b for a, b in zip(after, before)] == [layers, layers, 1]
 
 
+@pytest.mark.parametrize("quantize_int8", [True, False], ids=["int8", "bf16"])
+def test_aot_engine_replays_one_graph_a_shape_bit_equal_to_eager(device, quantize_int8):
+    """``aot=True``: ``warmup`` captures the shapes it warms, an unwarmed
+    shape is captured at its first dispatch, and a replay launches no
+    wrapper (the graph runs the kernels); every page's rows equal the eager
+    engine's bit for bit on both wires, coalesced and per bucket."""
+    from manga_ocr_tpu_torch.engine import TorchMangaOcrEngine
+    from manga_ocr_tpu_torch.models.params import init_params
+    from manga_ocr_tpu_torch.ops.decode_loop import greedy_decode_loop
+
+    cfg = MangaOCRConfig.tiny()
+    params = init_params(cfg, 0, "cpu")
+    rng = np.random.default_rng(0)
+    page = [rng.integers(0, 256, hw + (3,), dtype=np.uint8)
+            for hw in ((40, 60), (200, 90), (30, 30), (100, 400))]
+    pages = [page, page[:1], page[::-1], page[1:]]
+    eager = TorchMangaOcrEngine(params, cfg, CharTokenizer.synthetic(), max_length=10,
+                                device=device, quantize_int8=quantize_int8)
+    want = [eager._page_rows(eager._dispatch_page(p, 1, None)) for p in pages]
+    for wire in ("gray", "packed"):
+        for coalesce in (True, False):
+            engine = TorchMangaOcrEngine(params, cfg, CharTokenizer.synthetic(), max_length=10,
+                                         device=device, quantize_int8=quantize_int8, wire=wire,
+                                         coalesce=coalesce, aot=True)
+            assert engine._aot
+            engine.warmup(bucket_hws=((256, 128), (128, 128)), batch_sizes=(8,), full=True)
+            assert list(engine._graphs.captures) == [((256, 128), 8), ((128, 128), 8)]
+            got = [engine._page_rows(engine._dispatch_page(p, 1, None)) for p in pages]
+            assert len(engine._graphs.captures) == 3  # the 512x256 bucket at its first dispatch
+            before = greedy_decode_loop.launches
+            dispatched = [engine._dispatch_page(p, 1, None) for p in pages]
+            again = [engine._page_rows(d) for d in dispatched]
+            assert greedy_decode_loop.launches == before
+            for g, a, w in zip(got, again, want):
+                assert len(g) == len(w)
+                for x, y, z in zip(g, a, w):
+                    assert np.array_equal(x, z) and np.array_equal(y, z)
+
+
+def test_aot_engine_serves_the_step_by_step_decode_eagerly(device):
+    """``serving_kernels=False`` with ``aot=True`` on one card: the
+    step-by-step decode reads its "done" flags on the host, so the engine
+    captures no graph, serves from its warmup on, and its rows equal the
+    eager engine's."""
+    from manga_ocr_tpu_torch.engine import TorchMangaOcrEngine
+    from manga_ocr_tpu_torch.models.params import init_params
+
+    cfg = MangaOCRConfig.tiny()
+    params = init_params(cfg, 0, "cpu")
+    rng = np.random.default_rng(0)
+    page = [rng.integers(0, 256, hw + (3,), dtype=np.uint8)
+            for hw in ((40, 60), (200, 90), (30, 30))]
+    engines = [TorchMangaOcrEngine(params, cfg, CharTokenizer.synthetic(), max_length=10,
+                                   device=device, serving_kernels=False, aot=aot)
+               for aot in (False, True)]
+    assert not engines[1]._aot and engines[1]._graphs is None
+    engines[1].warmup(bucket_hws=((128, 128),), batch_sizes=(8,), full=True)
+    want, got = (e._page_rows(e._dispatch_page(page, 1, None)) for e in engines)
+    assert len(got) == len(want)
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+
+
 def _step_dense(rng, k, n, device, int8):
     if int8:
         return _quantized_dense(rng, k, n, device)
