@@ -327,7 +327,19 @@ a (1, 2) and a (2, 2) mesh of cuda:0, from each tree in turn.)
    one step together against one process (equal losses and params, the
    loss within 2e-5, the params within 3 lr), and where two cards or more
    are visible two NCCL ranks, one card each, held the same way.
-16. Prints its total seconds, one JSON line of kernel results, then the
+16. The throughput bench (phase "benchmark"): ``python -m
+   manga_ocr_tpu_torch.benchmark`` in a child process under a short
+   BENCH_BUDGET_S (phase D off), its lines echoed as they arrive: every
+   line must parse, the first scored line must come within
+   BENCH_FIRST_LINE_S, the last must carry phases A-C's keys with positive
+   rates and both utilisation shares in (0, BENCH_MFU_MAX].  Then its
+   programs in-process at B=256: one rung-2 call (A 12, B 12, C 1 in its
+   cluster form exactly), utils.metrics.trace of one call (CUDA kernels
+   required), its CUDA graph replay's rows bit-equal to the eager call's
+   with no wrapper launched; the budget-300 program's lengths
+   min(stop, unstopped length), its tokens equal to the unstopped ones up
+   to each row's length.
+17. Prints its total seconds, one JSON line of kernel results, then the
    device line {"ok": true, "device": {...}} last.  Any failed check exits
    non-zero before the device line.
 """
@@ -3950,7 +3962,8 @@ def run_training() -> None:
 # width for CLOSED_LOOP_STEPS steps of B=32, its held-out read of
 # CLOSED_LOOP_EVAL crops and both model-only rates.  A plumbing check:
 # so few steps leave the loss near the unigram entropy and the reads wrong.
-CLOSED_LOOP_STEPS = 200
+CLOSED_LOOP_STEPS = 100
+CLOSED_LOOP_RATE_ITERS, CLOSED_LOOP_RATE_PASSES = 6, 2  # the model-only rates' calls a pass, passes
 CLOSED_LOOP_EVAL = 32
 
 
@@ -3961,7 +3974,8 @@ def run_closed_loop() -> None:
     checkpoint directory, the held-out read of CLOSED_LOOP_EVAL crops
     through the int8 serving engine (A, B, C) and the serving_kernels=False
     bf16 control at max length 300, and ocr_forward's crops/s at budget 300
-    and 32 on 256 crops.  Prints steps/s, the loop's share of time waiting
+    and 32 on 256 crops (CLOSED_LOOP_RATE_ITERS calls a pass, CLOSED_LOOP_RATE_PASSES
+    passes).  Prints steps/s, the loop's share of time waiting
     on the host for a batch, exact/CER and the rates; fails on a non-finite
     loss, a loss at or above ln(vocab), no checkpoint, or no rate."""
     import math
@@ -3977,7 +3991,8 @@ def run_closed_loop() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "ckpt")
         s = cl.run(MangaOCRConfig.base(), CharTokenizer.synthetic(), CLOSED_LOOP_STEPS, 32,
-                   eval_n=CLOSED_LOOP_EVAL, tp_batch=256, ckpt_dir=path, pool_min=1000)
+                   eval_n=CLOSED_LOOP_EVAL, tp_batch=256, ckpt_dir=path, pool_min=1000,
+                   iters=CLOSED_LOOP_RATE_ITERS, passes=CLOSED_LOOP_RATE_PASSES)
         saved = sorted(os.listdir(path))
     info = s["train"]
     log(f"closed loop, base() from scratch: {info['steps']} steps of B=32 in "
@@ -6417,6 +6432,153 @@ def tp_ranks(backend: str) -> tuple:
     return ranks, ranked
 
 
+BENCH_CHILD_BUDGET_S = 240  # the bench child's BENCH_BUDGET_S
+BENCH_CHILD_TIMEOUT_S = 420
+BENCH_FIRST_LINE_S = 120  # the first scored line arrives within this
+BENCH_MFU_MAX = 1.05  # a share above this means the FLOP count or the timed window is wrong
+BENCH_KEYS = ("metric", "value", "unit", "config", "headline_kind", "model_gflops_per_crop",
+              "mfu_vs_bf16_peak", "mfu_vs_int8_peak", "full_path_crops_per_s",
+              "full_path_h2d_ms", "full_path_attempts", "full_path_stage_ms",
+              "crops_per_s_budget300_realistic", "budget300_mean_emitted_len",
+              "budget300_batch", "bench_wall_s")
+
+
+def bench_child() -> dict:
+    """``python -m manga_ocr_tpu_torch.benchmark`` in a child process, as a
+    user runs it, under BENCH_CHILD_BUDGET_S (phase D off: no trained
+    checkpoint here).  Its stdout lines are echoed as they arrive, each must
+    parse, the first scored one must come within BENCH_FIRST_LINE_S, and
+    the last must carry every key of phases A-C with positive rates and
+    both utilisation shares in (0, BENCH_MFU_MAX].  Returns the last line."""
+    import tempfile
+    import threading
+
+    env = dict(os.environ, BENCH_BUDGET_S=str(BENCH_CHILD_BUDGET_S),
+               PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    lines, first_s = [], None
+    with tempfile.TemporaryDirectory() as tmp, \
+            open(os.path.join(tmp, "stderr"), "w+") as err:
+        env["MANGA_OCR_TRAINED_CKPT"] = os.path.join(tmp, "no_trained_checkpoint")
+        t0 = time.time()
+        proc = subprocess.Popen([sys.executable, "-m", "manga_ocr_tpu_torch.benchmark"],
+                                cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=err, text=True)
+        watchdog = threading.Timer(BENCH_CHILD_TIMEOUT_S, proc.kill)
+        watchdog.start()
+        try:
+            for text in proc.stdout:
+                log(f"  bench +{time.time() - t0:.1f} s: {text.rstrip()}")
+                try:
+                    line = json.loads(text)
+                except json.JSONDecodeError:
+                    fail(f"bench: a stdout line does not parse: {text!r}")
+                if first_s is None and line.get("value", 0) > 0:
+                    first_s = time.time() - t0
+                lines.append(line)
+            rc = proc.wait()
+        finally:
+            watchdog.cancel()
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        err.seek(0)
+        notes = err.read().splitlines()
+    wall = time.time() - t0
+    log("\n".join(f"  bench stderr: {n}" for n in notes[-40:]))
+    if rc != 0:
+        fail(f"bench exited {rc} after {wall:.1f} s")
+    if first_s is None or first_s > BENCH_FIRST_LINE_S:
+        fail(f"bench: first scored line at {first_s} s (limit {BENCH_FIRST_LINE_S} s)")
+    last = lines[-1]
+    missing = [k for k in BENCH_KEYS if k not in last]
+    if missing:
+        fail(f"bench: the last line lacks {missing}")
+    if not (last["value"] > 0 and last["full_path_crops_per_s"] > 0
+            and last["crops_per_s_budget300_realistic"] > 0):
+        fail(f"bench: rates {last['value']}, {last['full_path_crops_per_s']}, "
+             f"{last['crops_per_s_budget300_realistic']}")
+    shares = (last["mfu_vs_bf16_peak"], last["mfu_vs_int8_peak"])
+    if not all(0 < m <= BENCH_MFU_MAX for m in shares):
+        fail(f"bench: utilisation shares {shares} outside (0, {BENCH_MFU_MAX}]")
+    log(f"bench: {len(lines)} lines, the first scored at {first_s:.1f} s, {wall:.1f} s in all; "
+        f"{last['value']} crops/s ({last['config']}), full path "
+        f"{last['full_path_crops_per_s']}, budget 300 {last['crops_per_s_budget300_realistic']} "
+        f"(mean length {last['budget300_mean_emitted_len']}), mfu bf16 {shares[0]} int8 "
+        f"{shares[1]} on {card_line()}")
+    return last
+
+
+def run_benchmark() -> None:
+    """Phase "benchmark": the bench as a user runs it (``bench_child``), then
+    its programs in-process at B=256 on the seed-0 weights: one rung-2 call
+    counted (A 12, B 12, C 1 in its cluster form), ``utils.metrics.trace``
+    of one eager call (it must hold CUDA kernels), the rows of its CUDA
+    graph replay (which must launch no wrapper) bit-equal to the eager
+    call's; the budget-300 program's lengths equal to min(stop, the
+    unstopped length) and its tokens to the unstopped ones up to each
+    row's length."""
+    import functools
+    import tempfile
+
+    import torch
+
+    from manga_ocr_tpu_torch import benchmark as bm
+    from manga_ocr_tpu_torch.engine import graphs
+    from manga_ocr_tpu_torch.utils import metrics
+
+    bench_child()
+    t0 = time.time()
+    dev = torch.device("cuda")
+    b = bm.BATCH_SIZES[0]
+    sp = bm._serving_params(bm._base_params_host(), dev)
+    _, serving = bm.rung_configs()
+    want = {"fused_attn_layer": 12, "fused_mlp_block": 12, "greedy_decode_loop": 1,
+            "greedy_decode_loop[cluster]": 1, "precompute_cross_kv_packed": 1}
+    with torch.inference_mode():
+        px = bm._pixels(b, serving.encoder.image_size, dev)
+        call = functools.partial(bm.ocr_fn(serving), sp, px)
+        eager, counts = counted(call)
+        expected = {name: want.get(name, 0) for name in counts}
+        if counts != expected:
+            fail(f"bench rung 2: launch counts {counts}, expected {expected}")
+        with tempfile.TemporaryDirectory() as tmp:
+            with metrics.trace(tmp):
+                call()
+                torch.cuda.synchronize()
+            (name,) = os.listdir(tmp)
+            with open(os.path.join(tmp, name)) as f:
+                events = json.load(f)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        if not kernels:
+            fail(f"bench: metrics.trace wrote {len(events)} events and no CUDA kernel")
+        log(f"metrics.trace of one rung-2 call: {len(events)} events, {len(kernels)} CUDA "
+            f"kernels, {sum(e.get('dur', 0) for e in kernels) / 1000:.2f} device ms")
+        replay = graphs.graphed(call, graphs.Recorder(dev))
+        before = wrapper_launches()
+        got = replay()
+        torch.cuda.synchronize()
+        if wrapper_launches() != before:
+            fail("bench rung 2: the graph replay launched a kernel wrapper")
+        for name, g, e in (("tokens", got.tokens, eager.tokens),
+                           ("lengths", got.lengths, eager.lengths)):
+            if not torch.equal(g, e):
+                rows = int((g != e).reshape(b, -1).any(1).sum())
+                fail(f"bench rung 2: graph replay's {name} differ from eager on {rows} rows")
+        stops = torch.as_tensor(bm.committed_lengths(b), device=dev)
+        stopped = bm.ocr_fn(serving, bm.BUDGET300, 8, stops)(sp, px)
+        free = bm.ocr_fn(serving, bm.BUDGET300, 8)(sp, px)
+        want_len = torch.minimum(stops, free.lengths)
+        if not torch.equal(stopped.lengths, want_len):
+            rows = int((stopped.lengths != want_len).sum())
+            fail(f"bench budget 300: {rows} rows' lengths are not min(stop, unstopped length)")
+        live = torch.arange(bm.BUDGET300, device=dev)[None, :] < stopped.lengths[:, None]
+        if bool(((stopped.tokens != free.tokens) & live).any()):
+            fail("bench budget 300: tokens differ from the unstopped decode within the length")
+    log(f"bench programs, B={b}: rung 2 launches {counts}, its graph replay bit-equal to eager; "
+        f"budget 300 lengths min(stop, unstopped) (mean {float(stopped.lengths.float().mean()):.2f}, "
+        f"unstopped mean {float(free.lengths.float().mean()):.2f}), tokens equal within each "
+        f"length; {time.time() - t0:.1f} s")
+
+
 def phase(label: str) -> None:
     """The seconds since the last phase mark (where the run's time goes)."""
     now = time.time()
@@ -6566,6 +6728,11 @@ def run_engines(results: dict) -> dict:
     torch.cuda.empty_cache()
     run_tensor_parallel()
     phase("tensor parallelism")
+
+    # -- the throughput bench as a user runs it; its programs: A, B, C -------------------
+    torch.cuda.empty_cache()
+    run_benchmark()
+    phase("benchmark")
     return rates
 
 

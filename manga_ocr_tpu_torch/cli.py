@@ -3,6 +3,7 @@
 Usage:
     python -m manga_ocr_tpu_torch.cli --checkpoint DIR ocr IMAGE [IMAGE...]
     python -m manga_ocr_tpu_torch.cli process FOLDER --out DIR
+    python -m manga_ocr_tpu_torch.cli bench                       # throughput (JSON)
 
 ``ocr`` reads each image as one crop, runs them all through one
 ``TorchMangaOcrEngine.ocr_page`` and prints ``path<TAB>text`` per crop.
@@ -18,9 +19,9 @@ and the U-Net detector's batches over N devices (the visible CUDA devices,
 or, under ``--device cpu``, an N-way virtual CPU mesh); ``--wire
 {gray,packed}`` picks the engine's host -> device crop format and
 ``--no-coalesce`` sends and reads back a multi-bucket page bucket by bucket
-(``TorchMangaOcrEngine``'s ``wire`` and ``coalesce``).  The JAX command
-line's ``bench`` subcommand is not ported: the command line rejects it.
-Like JAX's, it has no ``--no-aot``: ``ocr`` and ``process`` dispatch
+(``TorchMangaOcrEngine``'s ``wire`` and ``coalesce``).  ``bench`` runs
+``manga_ocr_tpu_torch.benchmark.main`` on ``--device`` (the other engine
+options do not apply to it).  Like JAX's, the command line has no ``--no-aot``: ``ocr`` and ``process`` dispatch
 eagerly, and only ``serve.py`` turns the engine's CUDA graphs on.
 """
 
@@ -277,6 +278,13 @@ def cmd_process(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    from manga_ocr_tpu_torch import benchmark
+
+    benchmark.main(device=args.device)
+    return 0
+
+
 def add_engine_options(p: argparse.ArgumentParser) -> None:
     """The engine's options, shared with ``serve.py``."""
     p.add_argument("--checkpoint", default="", help="HF checkpoint dir for the OCR model")
@@ -356,6 +364,9 @@ def main(argv=None) -> int:
     )
     p_proc.add_argument("--format", default="PNG")
     p_proc.set_defaults(fn=cmd_process)
+
+    p_bench = sub.add_parser("bench", help="throughput benchmark on this card")
+    p_bench.set_defaults(fn=cmd_bench)
     args = p.parse_args(argv)
     return args.fn(args)
 

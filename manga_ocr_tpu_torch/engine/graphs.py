@@ -40,6 +40,10 @@ capture.  Capture runs with ``capture_error_mode="thread_local"``: a shape
 first reached from ``ocr_pages``' lookahead thread is captured there while
 the caller waits on ``HostCopy`` events.  A capture or a replay that fails
 raises; nothing falls back to the eager dispatch.
+
+The capture stream and the pool are a ``Recorder``'s, which ``graphed``
+also takes: the benchmark (``manga_ocr_tpu_torch/benchmark.py``) records
+its model-only call, over pixels that stay put, as one graph the same way.
 """
 
 from __future__ import annotations
@@ -60,6 +64,54 @@ class Capture:
         self.seconds = 0.0  # host seconds of the eager pass and the capture
 
 
+class Recorder:
+    """One capture stream and one graph memory pool on ``device``, made at
+    the first ``record``: every graph recorded through it shares them."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._stream = None
+        self._pool = None
+
+    def record(self, program, *inputs):
+        """The eager pass of ``program(*inputs)`` on the capture stream, then
+        its capture -> (graph, the static output the graph writes)."""
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+        current = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(current)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(self._stream):
+            program(*inputs)
+        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
+                              capture_error_mode="thread_local"):
+            out = program(*inputs)
+        current.wait_stream(self._stream)
+        return graph, out
+
+
+def _fresh(out):
+    """A copy of a static output (a tensor, or a tuple of them) that later
+    replays do not overwrite."""
+    if isinstance(out, torch.Tensor):
+        return out.clone()
+    return type(out)(*(t.clone() for t in out))
+
+
+def graphed(program, recorder: Recorder):
+    """``program()``, which reads only tensors that outlive it, recorded once
+    through ``recorder`` -> a call that replays the graph on the current
+    stream and returns a fresh copy of its output."""
+    graph, out = recorder.record(program)
+
+    def call():
+        graph.replay()
+        return _fresh(out)
+
+    return call
+
+
 class BucketGraphs:
     """The captures of one ``program(crops, ext) -> [n, 1 + L] int32`` (the
     engine's bucket program) on ``device``, by (bucket_hw, n), in capture
@@ -72,8 +124,7 @@ class BucketGraphs:
         self.device = device
         self._lock = lock
         self.captures: dict[tuple[tuple[int, int], int], Capture] = {}
-        self._stream = None
-        self._pool = None
+        self._recorder = Recorder(device)
 
     def capture(self, program, bucket_hw: tuple[int, int], n: int) -> Capture:
         """The shape's capture, made now if it is not made yet."""
@@ -109,19 +160,7 @@ class BucketGraphs:
     def _record(self, cap: Capture, program) -> None:
         """The eager pass of ``program`` on the capture stream, then its
         capture."""
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
-            self._pool = torch.cuda.graph_pool_handle()
-        current = torch.cuda.current_stream(self.device)
-        self._stream.wait_stream(current)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(self._stream):
-            program(cap.crops, cap.ext)
-        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
-                              capture_error_mode="thread_local"):
-            out = program(cap.crops, cap.ext)
-        current.wait_stream(self._stream)
-        cap.graph, cap.out = graph, out
+        cap.graph, cap.out = self._recorder.record(program, cap.crops, cap.ext)
 
     def _replay(self, cap: Capture) -> None:
         """The program on ``cap``'s static inputs into its static output:

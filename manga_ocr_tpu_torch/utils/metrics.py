@@ -1,17 +1,22 @@
-"""Stage timing and counters of the engine and server (the port's own copy of
-what it uses from ``manga_ocr_tpu/utils/metrics.py``).
+"""Stage timing, counters, traces and FLOP accounting (the port's own copy of
+``manga_ocr_tpu/utils/metrics.py``).
 
 - ``StageTimer``: per-stage wall time (``engine.ocr_page``'s ``timer``,
   the server's request stages);
 - ``ThroughputCounter``: a sliding-window items/s rate (crops served);
+- ``trace``: a ``torch.profiler`` trace of a block, written as one Chrome
+  trace (JAX's wraps ``jax.profiler``);
 - ``EventCounter``: named event counts (dispatch shapes outside the warmed
-  set).
+  set);
+- the model's matmul FLOPs a crop and ``mfu`` against the H100's peaks (the
+  benchmark's utilisation fields; JAX's are against a TPU v5e's).
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import os
 import threading
 import time
 from collections import defaultdict
@@ -89,6 +94,25 @@ class ThroughputCounter:
             return items / span
 
 
+@contextlib.contextmanager
+def trace(logdir: str) -> Iterator[None]:
+    """Capture a trace: ``with metrics.trace('/tmp/trace'): ...`` writes one
+    Chrome trace (``trace_<pid>_<ms>.json``, readable in Perfetto or
+    chrome://tracing) into ``logdir``: CPU activity, and CUDA activity
+    where a card is present."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(
+        os.path.join(logdir, f"trace_{os.getpid()}_{int(time.time() * 1000)}.json"))
+
+
 class EventCounter:
     """Named event counts."""
 
@@ -111,6 +135,64 @@ class EventCounter:
     def reset(self) -> None:
         with self._lock:
             self._counts.clear()
+
+
+# ---------------------------------------------------------------------------
+# Model FLOPs accounting + MFU
+# ---------------------------------------------------------------------------
+
+# NVIDIA H100 SXM dense tensor-core peaks (published): 989 TFLOP/s bf16,
+# 1,979 TOP/s int8.
+H100_PEAK_BF16 = 989e12
+H100_PEAK_INT8 = 1979e12
+
+
+def encoder_flops_per_crop(cfg) -> float:
+    """Matmul FLOPs of one encoder forward for ONE crop (2*M*N*K
+    convention).  ``cfg``: EncoderConfig."""
+    s, d, i = cfg.seq_len, cfg.hidden_size, cfg.intermediate_size
+    p = cfg.patch_size
+    patch = 2 * cfg.num_patches * (p * p * cfg.num_channels) * d
+    per_layer = (
+        4 * 2 * s * d * d  # q/k/v/o projections
+        + 2 * 2 * s * s * d  # QK^T and AV (summed over heads: H * 2*2*s*s*dh)
+        + 2 * 2 * s * d * i  # fc1 + fc2
+    )
+    return float(patch + cfg.num_layers * per_layer)
+
+
+def decode_flops_per_crop(cfg, decode_steps: int, enc_seq_len: int) -> float:
+    """Matmul FLOPs of cross-KV precompute + ``decode_steps`` greedy steps
+    for ONE crop.  ``cfg``: DecoderConfig."""
+    d, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    s = enc_seq_len
+    cross_kv = cfg.num_layers * 2 * 2 * s * d * d  # k & v projections
+    # per step, per layer: self q/k/v/o + self-attn (~T*d, T<=steps) +
+    # cross q/o + cross-attn over s + mlp
+    per_step_layer = (
+        4 * 2 * d * d
+        + 2 * 2 * decode_steps * d  # self-attn (upper bound: full cache)
+        + 2 * 2 * d * d  # cross q/o
+        + 2 * 2 * s * d  # cross scores + context
+        + 2 * 2 * d * i  # mlp
+    )
+    head = 2 * d * d + 2 * d * v  # transform + vocab projection
+    return float(cross_kv + decode_steps * (cfg.num_layers * per_step_layer + head))
+
+
+def model_flops_per_crop(cfg, decode_steps: int) -> float:
+    """Total matmul FLOPs for one crop through encode + greedy decode.
+    ``cfg``: MangaOCRConfig."""
+    return encoder_flops_per_crop(cfg.encoder) + decode_flops_per_crop(
+        cfg.decoder, decode_steps, cfg.encoder.seq_len
+    )
+
+
+def mfu(crops_per_s: float, flops_per_crop: float, peak_flops: float = H100_PEAK_BF16) -> float:
+    """Model FLOPs utilization: achieved model FLOP/s over hardware peak."""
+    if peak_flops <= 0:
+        return 0.0
+    return crops_per_s * flops_per_crop / peak_flops
 
 
 GLOBAL_TIMER = StageTimer()

@@ -2,8 +2,9 @@
 and ``eval`` on an HF checkpoint directory, against the JAX package's: ``ocr``
 prints JAX ``cli.main``'s lines for the same arguments (a tiny HF directory,
 weights std 0.1, the int8 serving engine in f32), a missing image exits 1,
-the option and the subcommand of unported features (``bench``,
-``--no-aot``) exit 2, ``--wire packed`` and ``--no-coalesce`` reach the
+the unported option ``--no-aot`` exits 2, ``bench`` reaches
+``benchmark.main`` with ``--device`` (and raises without CUDA under
+``--device cuda``), ``--wire packed`` and ``--no-coalesce`` reach the
 engine and print the gray wire's lines (``--wire packed --mesh-data 2``
 fails with JAX's message), ``--mesh-data 2`` under ``--device
 cpu`` prints the lines of one device (a 2-way virtual CPU mesh, also in
@@ -74,14 +75,33 @@ def test_ocr_missing_image_exits_1(hf_dir, tmp_path, capsys):
 
 
 @pytest.mark.parametrize(
-    "argv", [["--no-aot", "ocr", "x.png"], ["bench"], []],
-    ids=["no_aot", "bench", "no_command"],
+    "argv", [["--no-aot", "ocr", "x.png"], []],
+    ids=["no_aot", "no_command"],
 )
 def test_unported_options_and_subcommands_exit_2(argv, capsys):
     with pytest.raises(SystemExit) as e:
         tcli.main(argv)
     assert e.value.code == 2
     assert "usage:" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv, device", [(["bench"], "cuda"),
+                                          (["--device", "cpu", "bench"], "cpu"),
+                                          (["--device", "cuda:0", "bench"], "cuda:0")],
+                         ids=["default", "cpu", "cuda0"])
+def test_bench_reaches_benchmark_main_with_the_device(argv, device, monkeypatch):
+    from manga_ocr_tpu_torch import benchmark
+
+    calls = []
+    monkeypatch.setattr(benchmark, "main", lambda **kw: calls.append(kw))
+    assert tcli.main(argv) == 0
+    assert calls == [{"device": device}]
+
+
+def test_bench_on_cuda_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is unavailable"):
+        tcli.main(["--device", "cuda", "bench"])
 
 
 @pytest.mark.parametrize(

@@ -744,6 +744,37 @@ def test_aot_engine_replays_one_graph_a_shape_bit_equal_to_eager(device, quantiz
                     assert np.array_equal(x, z) and np.array_equal(y, z)
 
 
+def test_bench_rung2_graph_replay_is_bit_equal_to_eager_and_phase_a_runs(device):
+    """The bench's rung-2 call (``benchmark.ocr_fn`` on the serving config)
+    recorded by ``engine.graphs.graphed``: every replay's rows equal the
+    eager call's bit for bit and launch no wrapper; phase A at the tiny
+    widths emits a positive scored line."""
+    import functools
+
+    from manga_ocr_tpu_torch import benchmark as bm
+    from manga_ocr_tpu_torch.engine import graphs
+    from manga_ocr_tpu_torch.models.params import init_params_numpy
+    from manga_ocr_tpu_torch.ops.decode_loop import greedy_decode_loop
+
+    cfg = MangaOCRConfig.tiny(vocab_size=512)
+    host = init_params_numpy(cfg, 0, std=0.1)
+    sp = bm._serving_params(host, device)
+    _, serving = bm.rung_configs(cfg)
+    with torch.inference_mode():
+        px = bm._pixels(8, cfg.encoder.image_size, device)
+        call = functools.partial(bm.ocr_fn(serving), sp, px)
+        eager = call()
+        replay = graphs.graphed(call, graphs.Recorder(device))
+        before = greedy_decode_loop.launches
+        outs = [replay() for _ in range(3)]
+        assert greedy_decode_loop.launches == before
+    for o in outs:
+        assert torch.equal(o.tokens, eager.tokens) and torch.equal(o.lengths, eager.lengths)
+    lines = []
+    bm.run_model_only(host, cfg, batch_sizes=(8,), iters=2, device=device, emit=lines.append)
+    assert lines and lines[-1]["value"] > 0
+
+
 def test_aot_engine_serves_the_step_by_step_decode_eagerly(device):
     """``serving_kernels=False`` with ``aot=True`` on one card: the
     step-by-step decode reads its "done" flags on the host, so the engine

@@ -97,7 +97,7 @@ def test_engine_server_and_chip_smoke_import_neither():
         import manga_ocr_tpu_torch.eval, manga_ocr_tpu_torch.models.checkpoint
         import manga_ocr_tpu_torch.compat, manga_ocr_tpu_torch.cli
         import manga_ocr_tpu_torch.models.convert, manga_ocr_tpu_torch.models.safetensors_io
-        import manga_ocr_tpu_torch.train
+        import manga_ocr_tpu_torch.train, manga_ocr_tpu_torch.benchmark
         from manga_ocr_tpu_torch.core import files
         from manga_ocr_tpu_torch.ops import image, preprocess
         from manga_ocr_tpu_torch.parallel import batching, mesh, multihost
